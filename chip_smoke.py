@@ -1,30 +1,54 @@
 #!/usr/bin/env python3
 """Smoke run of manipulapy_tpu_torch on one CUDA card.
 
-Drives the port's main path, the exact-dynamics rollout behind
-``trajectory.forward_dynamics_trajectory``, at the full width of the JAX
-package's benchmark (UR5, B=131072, N=50, dt=0.01, float32), through the
-hand-written CUDA rollout kernel built from ``manipulapy_tpu_torch/csrc``
-with nvcc for sm_90a. Phases, one line each:
+Drives the port's two main paths at full width through hand-written CUDA
+kernels built from ``manipulapy_tpu_torch/csrc`` with nvcc for sm_90a:
+
+* the exact-dynamics rollout (K1, step program K0 inlined) behind
+  ``trajectory.forward_dynamics_trajectory``, at the JAX package's
+  benchmark shape: UR5, B=131072, N=50, dt=0.01, float32;
+* the batched fused tracking MPC (K2-K5) behind
+  ``mpc.fused_batch.build_batch_tracking_mpc(...).solve`` and
+  ``batch_mpc_step``, at the width the JAX package times: Panda, B=1024
+  per-scenario goals, H=50, dt=0.01, 4 iterations, 6 line-search alphas.
+
+Phases, one line each (or one line per case):
 
 1. device: the card, its power limit, CUDA, matmul precision "highest";
-2. build: the rollout kernel for UR5 (intRes 1 and 3) and Panda, with
-   build seconds, registers and spill bytes;
-3. kernel vs its plain PyTorch version, both on the card, in float32;
-4. the main path at full width, served by the kernel, checked against the
-   plain version on its first 4096 rows;
+2. build: every kernel at once, one nvcc per translation unit, all started
+   together (the rollout for UR5 with intRes 1 and 3 and for Panda; K2-K5
+   for Panda and UR5), with build seconds, registers and spill bytes;
+3. rollout: kernel vs its plain PyTorch version on the card;
+4. rollout main path at full width, checked against the plain version on
+   its first 4096 rows (launch count read just after it);
 5. the pipeline quintic trajectory -> inverse dynamics -> rollout;
-6. time of the kernel and of the plain version (CUDA events, 2 warm-ups,
-   median of 5).
+6. rollout time, kernel vs plain version (CUDA events);
+7. MPC parity: each of K2-K5 against its plain version on the card, fed
+   from a nominal trajectory (K2 and K3) and from K3's gains (K4 and K5),
+   at Panda B=257 H=8 (not a multiple of the block, so the ``b < B`` guard
+   is exercised; random torques) and at the main path's shapes, B=1024
+   H=50 (the solver's own controls); max |d| per output within 1e-5 of
+   that output's largest magnitude;
+8. MPC main path: one solve and 3 rounds of ``batch_mpc_step`` with goals
+   passed at run time, launch counts read just after (4/4/4/5 per solve),
+   finite outputs, costs below the zero-control rollout's, |u| <= u_lim;
+   then the whole solve against the plain solver on the card at Panda
+   B=64 H=10 with 2 iterations;
+9. MPC time: the plain versions at full width and the plain solver at
+   B=64; then each stage's kernel and one solve (CUDA events, median) at
+   B=1024, 4096 and 16384.
 
-Any failure raises, so the script exits nonzero before its last line. It
-needs one card and imports no JAX. Run from the repository root:
+Then one JSON line of every kernel, the card's name and power limit, and
+the result line. Any failure raises, so the script exits nonzero before its
+last line. It needs one card and imports no JAX. Run from the repository
+root:
 
     python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -36,6 +60,8 @@ import torch
 
 from manipulapy_tpu_torch import trajectory
 from manipulapy_tpu_torch.models import catalog
+from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
+from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_rollout import CudaRollout, build_cuda_rollout
 from manipulapy_tpu_torch.ops.fd_step import build_rollout
 
@@ -43,8 +69,30 @@ from manipulapy_tpu_torch.ops.fd_step import build_rollout
 # ddq reaches ~1e3 on the wrist joints, so each quantity has its own scale.
 TOL = {"q": 1e-4, "dq": 1e-3, "ddq": 2e-1}
 B_FULL, N_FULL, DT = 131072, 50, 0.01
-KERNEL_SOURCE = "manipulapy_tpu_torch/csrc/rollout.cuh"
-REPLACES = "manipulapy_tpu/ops/pallas_rollout.py:219"
+# The MPC kernels against their plain versions: the same emitted operations
+# with --fmad=false, so 0 is expected; the gate is 1e-5 of each output's
+# largest magnitude.
+MPC_RTOL = 1e-5
+B_MPC, H_MPC, ITERS, ALPHAS = 1024, 50, 4, 6
+B_MPC_WIDE = (4096, 16384)  # more widths for the solve's and stages' times
+B_PARITY, H_PARITY = 257, 8  # kernel vs plain version, off the block size
+B_SMALL, H_SMALL = 64, 10  # the whole solve vs the plain solver
+ROLLOUT_CASES = (("ur5", 1, 4097, 50), ("ur5_intres3", 3, 1000, 8), ("panda", 1, 2048, 20))
+ROWS_CHECKED, B_PIPELINE = 4096, 1024
+DEV = "cuda"
+# The least time: bytes over the HBM3 rate, and emitted f32 operations over
+# one non-FMA instruction per lane per clock (67 TFLOP/s counts an FMA as
+# two operations; the kernels are built with --fmad=false).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 33.5e12
+ROLLOUT_SOURCE = "manipulapy_tpu_torch/csrc/rollout.cuh"
+MPC_SOURCE = "manipulapy_tpu_torch/csrc/mpc_batch.cuh"
+MPC_KERNELS = {  # stage: (id and name, the TPU kernel's pallas_call)
+    "linearize": ("K2 linearize (forward mode over K0)", "manipulapy_tpu/mpc/fused_batch.py:249"),
+    "backward": ("K3 Riccati backward", "manipulapy_tpu/mpc/fused_batch.py:372"),
+    "linesearch_costs": ("K4 line-search costs (K0 inlined)", "manipulapy_tpu/mpc/fused_batch.py:453"),
+    "replay": ("K5 replay (K0 inlined)", "manipulapy_tpu/mpc/fused_batch.py:507"),
+}
 
 
 def phase(name: str, **fields) -> None:
@@ -62,7 +110,7 @@ def card_line() -> str:
 def inputs(gen: torch.Generator, B: int, N: int, n: int):
     """q0 in [-1, 1], dq0 in [-0.5, 0.5], tau in [-10, 10] (the JAX
     package's bench.py distributions), float32 on the card."""
-    u = lambda *shape: torch.rand(shape, generator=gen, device="cuda", dtype=torch.float32)
+    u = lambda *shape: torch.rand(shape, generator=gen, device=DEV, dtype=torch.float32)
     return u(B, n) * 2 - 1, u(B, n) - 0.5, u(B, N, n) * 20 - 10
 
 
@@ -92,6 +140,133 @@ def time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float):
+    """(least time in ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def build_all(rollouts: dict, mpc_kernels: dict) -> dict:
+    """Start every build at once; each MPC kernel set starts its three
+    units in parallel itself."""
+    jobs = {**{("rollout", k): e.build for k, e in rollouts.items()},
+            **{("mpc", k): m.build for k, m in mpc_kernels.items()}}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {key: pool.submit(fn) for key, fn in jobs.items()}
+        built = {key: f.result() for key, f in futures.items()}
+    return built, time.perf_counter() - t0
+
+
+def ptxas_lines(log: str) -> str:
+    return " | ".join(ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln)
+
+
+# ---------------------------------------------------------------------------
+# MPC helpers
+# ---------------------------------------------------------------------------
+
+
+def panda_problem(gen: torch.Generator, model, B: int):
+    """Initial states at rest inside the joint limits and per-scenario goals
+    within 0.3 rad of them, on the card: x0 (B, 2n), goals (B, n)."""
+    lo, hi = model.joint_lower, model.joint_upper
+    u = lambda *shape: torch.rand(shape, generator=gen, device=DEV, dtype=torch.float32) * 2 - 1
+    q0 = (lo + hi) / 2 + u(B, model.num_joints) * 0.5 * (hi - lo) / 2
+    goals = torch.clamp(q0 + u(B, model.num_joints) * 0.3, lo, hi)
+    return torch.cat([q0, torch.zeros_like(q0)], dim=1), goals
+
+
+def timed(fn):
+    """(result, CUDA-event ms) of one call."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def compare(stage: str, got, ref, label: str) -> dict:
+    errs = {}
+    for name, g, r in zip(("0", "1", "2"), got, ref):
+        if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(r).all())):
+            raise AssertionError(f"{label} {stage}[{name}]: non-finite values")
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        if not err <= MPC_RTOL * scale:
+            raise AssertionError(f"{label} {stage}[{name}]: max |d| = {err} exceeds {MPC_RTOL} x {scale}")
+        errs[name] = err
+    return errs
+
+
+def mpc_stage_parity(K: BatchMPCKernels, x0, goals, us, label: str, time_plain: bool, check: bool = True):
+    """Feed every stage, kernel and plain version alike, from a nominal
+    trajectory (the torques ``us`` (H, n, B) from ``x0`` (B, 2n), rolled
+    by K5 with zero gains) and K3's gains. Returns per stage the max |d|,
+    the stage's inputs (for timing the kernels) and, if asked, the plain
+    version's CUDA-event ms at these shapes. ``check=False`` runs the
+    kernels alone, for their inputs."""
+    n, nx = K.n, K.nx
+    H, B = us.shape[0], us.shape[2]
+    P = K.plain()
+    x0_t, goal_t = x0.T.contiguous(), goals.T.contiguous()
+    reg = torch.full((B,), 1e-6, device=DEV)
+    alphas = 0.5 ** torch.arange(ALPHAS, device=DEV, dtype=torch.float32)
+    alpha = alphas[torch.arange(B, device=DEV) % ALPHAS].contiguous()
+    f32 = dict(dtype=torch.float32, device=DEV)
+    init = (x0_t, torch.zeros((H, nx, B), **f32), us, torch.zeros((H, n, 1 + nx, B), **f32), goal_t, torch.zeros((B,), **f32))
+
+    errs, plain_ms = {}, {}
+
+    def both(stage, args):
+        got = getattr(K, stage)(*args)
+        if not check:
+            return got if isinstance(got, tuple) else (got,)
+        ref, ms = timed(lambda: getattr(P, stage)(*args))
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        e = compare(stage, got, ref, label)
+        errs[stage] = max(errs.get(stage, 0.0), *e.values())
+        if time_plain:
+            _, ms2 = timed(lambda: getattr(P, stage)(*args))
+            plain_ms[stage] = min(ms, ms2)
+        return got
+
+    xs0 = both("replay", init)[0]
+    sd_x = torch.cat([x0_t[None], xs0[:-1]]).contiguous()
+    AB = both("linearize", (sd_x, us))[0]
+    bwd_args = (AB, sd_x, us, xs0[-1].contiguous(), goal_t, reg)
+    kK = both("backward", bwd_args)[0]
+    ls_args = (x0_t, sd_x, us, kK, goal_t, alphas)
+    both("linesearch_costs", ls_args)
+    rep_args = (x0_t, sd_x, us, kK, goal_t, alpha)
+    both("replay", rep_args)
+    stage_args = {"linearize": (sd_x, us), "backward": bwd_args, "linesearch_costs": ls_args, "replay": rep_args}
+    return errs, stage_args, plain_ms
+
+
+def stage_bytes_ops(K: BatchMPCKernels, B: int, H: int, A: int) -> dict:
+    """Per stage, the bytes each call must move (inputs read once, outputs
+    written once, f32) and the emitted operations it runs."""
+    n, nx, m, kk = K.n, K.nx, K.m, K.n * (1 + K.nx)
+    s = K.statements
+    f = 4
+    return {
+        "linearize": ((H * nx * B + H * n * B + H * nx * m * B) * f, s["linearize"] * B * m * H),
+        "backward": (
+            (H * nx * m * B + H * nx * B + H * n * B + nx * B + n * B + B + H * kk * B) * f,
+            s["backward"] * B * H + s["value_terminal"] * B,
+        ),
+        "linesearch_costs": (
+            (nx * B + H * (nx + n) * B + H * kk * B + n * B + A + A * B) * f,
+            (s["linesearch_costs"] * H + s["cost_terminal"]) * B * A,
+        ),
+        "replay": (
+            (nx * B + H * (nx + n) * B + H * kk * B + n * B + B + H * (nx + n) * B + B) * f,
+            (s["replay"] * H + s["cost_terminal"]) * B,
+        ),
+    }
+
+
 def main() -> int:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -104,28 +279,41 @@ def main() -> int:
         raise AssertionError(f"float32 matmul precision is {precision!r}, not 'highest'")
     phase("device", card=repr(card), torch=torch.__version__, cuda=torch.version.cuda,
           count=torch.cuda.device_count(), matmul_precision=precision)
-    gen = torch.Generator("cuda").manual_seed(0)
+    gen = torch.Generator(DEV).manual_seed(0)
 
-    # 2. Build.
-    ur5 = catalog.ur5(dtype=torch.float32, device="cuda")
-    panda = catalog.panda(dtype=torch.float32, device="cuda")
+    # 2. Build, everything at once.
+    ur5 = catalog.ur5(dtype=torch.float32)
+    panda = catalog.panda(dtype=torch.float32)
+    if ur5.device.type != DEV or panda.device.type != DEV:
+        raise AssertionError("the catalog did not build on the card by default")
     engines = {
         "ur5": build_cuda_rollout(ur5, dt=DT, intRes=1),
         "ur5_intres3": build_cuda_rollout(ur5, dt=DT, intRes=3),
         "panda": build_cuda_rollout(panda, dt=DT, intRes=1),
     }
+    mpc_panda = build_batch_tracking_mpc(panda, np.zeros(7), B_MPC, H_MPC, DT, iterations=ITERS)
+    mpc_kernels = {"panda": mpc_panda.kernels, "ur5": build_batch_tracking_mpc(ur5, np.zeros(6), 1, H_MPC, DT).kernels}
+    built, build_wall = build_all(engines, mpc_kernels)
     attrs = {}
     for name, eng in engines.items():
-        built = eng.build()
+        b = built["rollout", name]
         attrs[name] = eng.kernel_attributes()
-        ptxas = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
-        phase("build", robot=name, seconds=f"{built.compile_seconds:.2f}", **attrs[name],
-              ptxas=repr(" | ".join(ptxas)))
+        phase("build", kernel="K1 rollout", robot=name, seconds=f"{b.compile_seconds:.2f}", **attrs[name],
+              ptxas=repr(ptxas_lines(b.log)))
+    mpc_attrs = {}
+    for robot, K in mpc_kernels.items():
+        mpc_attrs[robot] = K.kernel_attributes()
+        for unit, b in built["mpc", robot].items():
+            phase("build", kernel=f"mpc unit {unit}", robot=robot, seconds=f"{b.compile_seconds:.2f}",
+                  ptxas=repr(ptxas_lines(b.log)))
+        for stage, a in mpc_attrs[robot].items():
+            phase("build", kernel=MPC_KERNELS[stage][0], robot=robot, statements=K.statements[stage], **a)
+    phase("build", wall_seconds=f"{build_wall:.2f}", units=len(engines) + sum(len(b) for k, b in built.items() if k[0] == "mpc"))
 
-    # 3. Kernel vs plain version, both on the card.
+    # 3. Rollout kernel vs plain version, both on the card.
     worst = {"q": 0.0, "dq": 0.0, "ddq": 0.0}
-    cases = (("ur5", ur5, 1, 4097, 50), ("ur5_intres3", ur5, 3, 1000, 8), ("panda", panda, 1, 2048, 20))
-    for name, model, int_res, B, N in cases:
+    for name, int_res, B, N in ROLLOUT_CASES:
+        model = panda if name == "panda" else ur5
         q0, dq0, tau = inputs(gen, B, N, model.num_joints)
         got = engines[name](q0, dq0, tau)
         ref = build_rollout(model, dt=DT, intRes=int_res)(q0, dq0, tau)
@@ -136,29 +324,30 @@ def main() -> int:
         phase("parity", robot=name, B=B, N=N, intRes=int_res,
               **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()})
 
-    # 4. The main path at full width, through the public entry point.
+    # 4. The rollout main path at full width, through the public entry point.
     q0, dq0, tau = inputs(gen, B_FULL, N_FULL, 6)
     CudaRollout.reset_launch_count()
     t0 = time.perf_counter()
     qs, dqs, ddqs = trajectory.forward_dynamics_trajectory(ur5, q0, dq0, tau, dt=DT)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if CudaRollout.launch_count != 1:
-        raise AssertionError(f"the kernel did not serve the main path ({CudaRollout.launch_count} launches)")
+    rollout_launches = CudaRollout.launch_count
+    if rollout_launches != 1:
+        raise AssertionError(f"the kernel did not serve the main path ({rollout_launches} launches)")
     for name, x in (("q", qs), ("dq", dqs), ("ddq", ddqs)):
         if tuple(x.shape) != (B_FULL, N_FULL, 6) or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"main path {name}: shape {tuple(x.shape)} or non-finite values")
-    rows = 4096
+    rows = ROWS_CHECKED
     ref = build_rollout(ur5, dt=DT)(q0[:rows], dq0[:rows], tau[:rows])
     errs = max_errors((qs[:rows], dqs[:rows], ddqs[:rows]), ref)
     check_close("main path", errs)
     worst = {k: max(worst[k], errs[k]) for k in worst}
-    phase("main_path", B=B_FULL, N=N_FULL, wall_s=f"{wall:.4f}", kernel_launches=CudaRollout.launch_count,
+    phase("main_path", B=B_FULL, N=N_FULL, wall_s=f"{wall:.4f}", kernel_launches=rollout_launches,
           **{f"max_abs_err_{k}_first{rows}": f"{v:.3e}" for k, v in errs.items()})
 
     # 5. Pipeline: quintic trajectory -> inverse dynamics -> rollout.
-    start = (torch.rand((1024, 6), generator=gen, device="cuda") * 2 - 1) * 0.5
-    goal = start + (torch.rand((1024, 6), generator=gen, device="cuda") * 2 - 1) * 0.25
+    start = (torch.rand((B_PIPELINE, 6), generator=gen, device=DEV) * 2 - 1) * 0.5
+    goal = start + (torch.rand((B_PIPELINE, 6), generator=gen, device=DEV) * 2 - 1) * 0.25
     plan = trajectory.joint_trajectory(ur5, start, goal, Tf=(N_FULL - 1) * DT, N=N_FULL)
     torques = trajectory.inverse_dynamics_trajectory(ur5, plan.position, plan.velocity, plan.acceleration)
     sim_q, _, _ = trajectory.forward_dynamics_trajectory(
@@ -168,12 +357,12 @@ def main() -> int:
     track = float((sim_q - plan.position).abs().max())
     if not np.isfinite(track):
         raise AssertionError(f"pipeline tracking error is {track}")
-    launches = CudaRollout.launch_count
-    if launches < 2:
-        raise AssertionError(f"the kernel did not serve the pipeline's rollout ({launches} launches)")
-    phase("pipeline", B=1024, N=N_FULL, max_abs_tracking_error_rad=f"{track:.4e}", kernel_launches=launches)
+    if CudaRollout.launch_count < 2:
+        raise AssertionError(f"the kernel did not serve the pipeline's rollout ({CudaRollout.launch_count} launches)")
+    phase("pipeline", B=B_PIPELINE, N=N_FULL, max_abs_tracking_error_rad=f"{track:.4e}",
+          kernel_launches=CudaRollout.launch_count)
 
-    # 6. Time: kernel vs plain version at the main path's shape.
+    # 6. Rollout time: kernel vs plain version at the main path's shape.
     kernel = engines["ur5"]
     plain = build_rollout(ur5, dt=DT)
     plain_ms = time_ms(lambda: plain(q0, dq0, tau))
@@ -185,22 +374,144 @@ def main() -> int:
     phase("time", card=repr(card), B=B_FULL, N=N_FULL,
           kernel_ms=f"{kernel_ms:.4f},{kernel_ms_2:.4f}", plain_ms=f"{plain_ms:.2f},{plain_ms_2:.2f}",
           kernel_steps_per_s=f"{steps / (k_ms * 1e-3):.4e}", plain_steps_per_s=f"{steps / (p_ms * 1e-3):.4e}")
-
-    record = {
-        "name": "rollout (K1, step program K0 inlined)",
+    n6 = 6
+    k1_bound, k1_by = bound((2 * B_FULL * n6 + B_FULL * N_FULL * n6 + 3 * B_FULL * N_FULL * n6) * 4,
+                            kernel.statements * B_FULL * N_FULL)
+    records = [{
+        "name": "K1 rollout (step program K0 inlined)",
         "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
+        "source": ROLLOUT_SOURCE,
+        "replaces": "manipulapy_tpu/ops/pallas_rollout.py:219",
+        "launches": rollout_launches,
         "max_abs_err": max(worst.values()),
         "max_abs_err_per_output": worst,
         "tolerance": TOL,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
         "num_regs": attrs["ur5"]["num_regs"],
         "local_bytes": attrs["ur5"]["local_bytes"],
-    }
-    print(json.dumps({"kernels": [record]}))
+    }]
+
+    # 7. MPC kernels vs their plain versions on the card.
+    K = mpc_panda.kernels
+    mpc_err = dict.fromkeys(MPC_KERNELS, 0.0)
+    # Off the block size: random torques within 30% of the limits. At full
+    # width, 50 such steps leave some scenarios non-finite (open loop, the
+    # wrist's small inertias), so the nominal there is the solver's own
+    # answer from rest, the trajectory its last iteration linearises.
+    u_lim = torch.tensor(K.P.u_lim, device=DEV)
+    x0_s, goals_s = panda_problem(gen, panda, B_PARITY)
+    us_s = (torch.rand((H_PARITY, 7, B_PARITY), generator=gen, device=DEV) * 2 - 1) * 0.3 * u_lim[:, None]
+    x0_f, goals_f = panda_problem(gen, panda, B_MPC)
+    us_f = mpc_panda.solve(x0_f, torch.zeros((B_MPC, H_MPC, 7), device=DEV), goals_f)[0]
+    cases = (("random torques", x0_s, goals_s, us_s.contiguous(), False),
+             ("solver's controls", x0_f, goals_f, us_f.permute(1, 2, 0).contiguous(), True))
+    for nominal, x0_c, goals_c, us_c, full in cases:
+        B, H = us_c.shape[2], us_c.shape[0]
+        errs, stage_args, stage_plain_ms = mpc_stage_parity(K, x0_c, goals_c, us_c, f"panda B={B} H={H}", full)
+        mpc_err = {k: max(mpc_err[k], errs[k]) for k in mpc_err}
+        phase("mpc_parity", robot="panda", B=B, H=H, nominal=repr(nominal),
+              **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()})
+
+    # 8. The MPC main path at full width, through the public entry points.
+    x0, goals = panda_problem(gen, panda, B_MPC)
+    mpc = build_batch_tracking_mpc(panda, goals, B_MPC, H_MPC, DT, iterations=ITERS)
+    u_lim = torch.tensor(K.P.u_lim, device=DEV)
+    us_warm = torch.zeros((B_MPC, H_MPC, 7), device=DEV)
+    f32 = dict(dtype=torch.float32, device=DEV)
+    cost_zero = mpc.replay(
+        x0.T.contiguous(), torch.zeros((H_MPC, 14, B_MPC), **f32), torch.zeros((H_MPC, 7, B_MPC), **f32),
+        torch.zeros((H_MPC, 7, 15, B_MPC), **f32), goals.T.contiguous(), torch.zeros((B_MPC,), **f32),
+    )[2]
+    BatchMPCKernels.reset_launch_count()
+    t0 = time.perf_counter()
+    us, xs, cost = mpc.solve(x0, us_warm)
+    torch.cuda.synchronize()
+    solve_wall = time.perf_counter() - t0
+    per_solve = dict(BatchMPCKernels.launch_count)
+    if per_solve != {"linearize": ITERS, "backward": ITERS, "linesearch_costs": ITERS, "replay": ITERS + 1}:
+        raise AssertionError(f"launches per solve {per_solve}, expected {ITERS}/{ITERS}/{ITERS}/{ITERS + 1}")
+
+    def check_solution(label, us, xs, cost):
+        if tuple(us.shape) != (B_MPC, H_MPC, 7) or tuple(xs.shape) != (B_MPC, H_MPC + 1, 14):
+            raise AssertionError(f"{label}: shapes {tuple(us.shape)}, {tuple(xs.shape)}")
+        for name, v in (("us", us), ("xs", xs), ("cost", cost)):
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{label}: non-finite {name}")
+        if not bool((us.abs() <= u_lim).all()):
+            raise AssertionError(f"{label}: a control exceeds its torque limit")
+
+    check_solution("solve", us, xs, cost)
+    if not (bool((cost <= cost_zero).all()) and float(cost.mean()) < float(cost_zero.mean())):
+        raise AssertionError(f"solve: mean cost {float(cost.mean())} not below the zero-control {float(cost_zero.mean())}")
+    x, us_warm = xs[:, 1].contiguous(), torch.cat([us[:, 1:], us[:, -1:]], dim=1)
+    round_costs = []
+    for r in range(3):
+        _, goals_r = panda_problem(gen, panda, B_MPC)
+        u_first, us_warm, (us_r, xs_r, cost_r) = batch_mpc_step(mpc, x, us_warm, goals_r)
+        check_solution(f"round {r}", us_r, xs_r, cost_r)
+        x = xs_r[:, 1].contiguous()
+        round_costs.append(float(cost_r.mean()))
+    torch.cuda.synchronize()
+    mpc_launches = dict(BatchMPCKernels.launch_count)
+    if mpc_launches != {k: 4 * v for k, v in per_solve.items()}:
+        raise AssertionError(f"launches over 4 solves {mpc_launches}")
+    phase("mpc_main_path", robot="panda", B=B_MPC, H=H_MPC, iterations=ITERS, solve_wall_s=f"{solve_wall:.4f}",
+          launches_per_solve=json.dumps(per_solve).replace(" ", ""), launches_4_solves=json.dumps(mpc_launches).replace(" ", ""),
+          mean_cost=f"{float(cost.mean()):.6e}", mean_zero_control_cost=f"{float(cost_zero.mean()):.6e}",
+          round_mean_costs=",".join(f"{c:.6e}" for c in round_costs))
+
+    # The whole solve against the plain solver on the card, at a size the
+    # plain version affords (it is host-bound).
+    Bs, Hs = B_SMALL, H_SMALL
+    small = build_batch_tracking_mpc(panda, goals[:Bs], Bs, Hs, DT, iterations=2)
+    xs0_small = x0[:Bs].contiguous()
+    (us_k, xs_k, c_k), small_kernel_ms = timed(lambda: small.solve(xs0_small, torch.zeros((Bs, Hs, 7), **f32)))
+    (us_p, xs_p, c_p), small_plain_ms = timed(lambda: small.solve_plain(xs0_small, torch.zeros((Bs, Hs, 7), **f32)))
+    d_cost = float(((c_k - c_p).abs() / c_p.abs()).max())
+    d_x = float((xs_k[:, -1] - xs_p[:, -1]).abs().max())
+    d_u = float((us_k - us_p).abs().max())
+    if not (d_cost <= 1e-5 and d_x <= 5e-4 and d_u <= 5e-3):
+        raise AssertionError(f"solve vs plain solver: cost rel {d_cost}, final state {d_x}, controls {d_u}")
+    phase("mpc_solve_vs_plain", robot="panda", B=Bs, H=Hs, iterations=2, cost_rel_err=f"{d_cost:.3e}",
+          final_state_err=f"{d_x:.3e}", controls_err=f"{d_u:.3e}")
+
+    # 9. MPC time: each stage and the whole solve, per width.
+    phase("mpc_time_plain", card=repr(card), robot="panda", B=B_MPC, H=H_MPC,
+          **{f"{s}_plain_ms": f"{v:.2f}" for s, v in stage_plain_ms.items()},
+          **{f"plain_solve_ms_B{Bs}_H{Hs}": f"{small_plain_ms:.1f}", f"kernel_solve_ms_B{Bs}_H{Hs}": f"{small_kernel_ms:.4f}"})
+    for B in (B_MPC,) + B_MPC_WIDE:
+        if B == B_MPC:
+            handle, x0_b, args = mpc, x0, stage_args
+        else:
+            x0_b, goals_b = panda_problem(gen, panda, B)
+            handle = build_batch_tracking_mpc(panda, goals_b, B, H_MPC, DT, iterations=ITERS)
+            us_b = handle.solve(x0_b, torch.zeros((B, H_MPC, 7), **f32))[0].permute(1, 2, 0).contiguous()
+            args = mpc_stage_parity(K, x0_b, goals_b, us_b, f"panda B={B}", False, check=False)[1]
+        ms = {s: time_ms(lambda s=s: getattr(K, s)(*args[s])) for s in MPC_KERNELS}
+        solve = time_ms(lambda: handle.solve(x0_b, torch.zeros((B, H_MPC, 7), **f32)))
+        kernel_sum = sum(ms[s] * per_solve[s] for s in MPC_KERNELS)
+        if B == B_MPC:
+            stage_ms = ms
+        phase("mpc_time", card=repr(card), robot="panda", B=B, H=H_MPC, iterations=ITERS,
+              **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()}, solve_ms=f"{solve:.4f}",
+              solves_per_s=f"{B / (solve * 1e-3):.4e}", kernels_ms_per_solve=f"{kernel_sum:.4f}",
+              kernel_share=f"{kernel_sum / solve:.4f}")
+
+    bo = stage_bytes_ops(K, B_MPC, H_MPC, ALPHAS)
+    for stage, (name, replaces) in MPC_KERNELS.items():
+        b_ms, b_by = bound(*bo[stage])
+        a = mpc_attrs["panda"][stage]
+        records.append({
+            "name": name, "route": "cuda", "source": MPC_SOURCE, "replaces": replaces,
+            "launches": mpc_launches[stage], "max_abs_err": mpc_err[stage], "tolerance": f"{MPC_RTOL} x max|plain|",
+            "ms": stage_ms[stage], "plain_ms": stage_plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "num_regs": a["num_regs"], "local_bytes": a["local_bytes"],
+        })
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -12,7 +12,12 @@ Idiom:
   tensors, with an explicit ``.to(device, dtype)``;
 * ``nn.Module`` rollout engines (``ops/fd_step.py::build_rollout``, the
   plain PyTorch version, and ``ops/cuda_rollout.py``, the hand-written
-  CUDA kernel for Hopper), chosen per call by ``ops/dispatch.py``.
+  CUDA kernel for Hopper), chosen per call by ``ops/dispatch.py``;
+* the batched fused MPC solver (``mpc/fused_batch.py``) over four
+  hand-written CUDA kernels (``ops/cuda_mpc_batch.py``), each with its
+  plain PyTorch version, and the generic iLQR (``mpc/ilqr.py``);
+* models and entry points on the CUDA card unless the caller names the
+  CPU.
 
 Importing the package flips no global state. In particular TF32 stays
 off: ``torch.get_float32_matmul_precision()`` keeps its default
@@ -36,6 +41,7 @@ _SUBMODULES = (
     "dynamics",
     "trajectory",
     "ops",
+    "mpc",
 )
 
 _LAZY_ATTRS = {

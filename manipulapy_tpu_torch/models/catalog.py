@@ -5,7 +5,8 @@ NumPy copies of the factories in ``manipulapy_tpu/models/catalog.py``
 same public kinematic and inertial specifications with the same f64
 arithmetic, so every field equals the JAX catalog's host arrays. The
 URDF-backed and DH-generated catalogs of the JAX package wait for the port
-of ``urdf/``.
+of ``urdf/``. Every factory builds on the CUDA card unless ``device`` names
+another device (``device="cpu"``).
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 Counterpart of ``manipulapy_tpu/models/robot.py``. Every kinematics and
 dynamics routine of the port is a plain function ``f(model, q, ...)`` over
 a :class:`RobotModel`, whose nine fields are tensors on one device in one
-dtype. Screw axes are row-major ``(n, 6)``.
+dtype. Screw axes are row-major ``(n, 6)``. The factories here build on the
+CUDA card unless ``device`` names another device.
 
 The f64 NumPy source arrays of every model built here are kept in a host
 registry with a sha256 digest, keyed by the model object and evicted when
@@ -155,6 +156,9 @@ def _adjoint_np(T: np.ndarray) -> np.ndarray:
 
 
 def _model_from_f64(arrays: dict, dtype, device) -> RobotModel:
+    # Models live on the card unless the caller names another device; on a
+    # host without one, this raises CUDA's own error.
+    device = torch.device("cuda") if device is None else torch.device(device)
     fields = {
         name: torch.from_numpy(np.array(arrays[name], dtype=np.float64)).to(
             device=device, dtype=dtype

@@ -10,11 +10,26 @@ of the exact dynamics is a Python list of *values*, and a value is one of:
 * a :class:`CVar`, a symbolic f32 name in an :class:`Emitter`: each
   operation appends one SSA statement ``const float tK = a OP b;``, so
   running the same emitter on CVars gives the straight-line C source of
-  the CUDA kernel's device function.
+  the CUDA kernel's device function;
+* a :class:`Dual`, a primal value and its tangent (forward mode), each
+  itself a float, a tensor or a CVar. Over tensors the tangent carries a
+  leading seed axis (m, ...), so one pass gives every column of a
+  Jacobian; over CVars it is one scalar per thread, and each operation
+  emits the primal statement and then the tangent statements. A tangent
+  that is the constant 0 folds away, as the primal's zeros do, and a Dual
+  whose tangent folds to 0 becomes its primal.
 
 The arithmetic helpers below fold constants exactly as the JAX package's
 do. ``sqrt``, ``sin``, ``cos``, ``clip`` and ``recip`` are the only places
-where the kind of value shows.
+where the kind of value shows. The tangent rules are those of
+``jax.linearize`` over the JAX emitter: ``sin' = cos``, ``cos' = -sin``,
+``sqrt' = 0.5 / sqrt``, ``(1/d)' = -1/d^2`` and, for a clamp, the tangent
+is kept inside the bounds, halved exactly at a bound and 0 outside
+(``jnp.clip`` is ``maximum`` then ``minimum``, whose JVPs split ties
+evenly). The tensor clamp is ``torch.maximum`` then ``torch.minimum``,
+whose derivatives split ties the same way (``torch.clamp``'s is 1 at a
+bound), so autograd of the tensor emitter is a cross-check of these
+rules; the plain version of a linearization is the Dual emitter.
 
 Emission rules for C (each keeps the C program equal to the twin):
 
@@ -22,7 +37,7 @@ Emission rules for C (each keeps the C program equal to the twin):
   suffix, as JAX rounds a weak-typed Python float against an f32 array; a
   bare double literal would promote the arithmetic to f64;
 * a clamp is ``x < lo ? lo : (x > hi ? hi : x)``, which keeps a NaN (as
-  ``torch.clamp`` does) where ``fminf``/``fmaxf`` would drop it; an
+  ``torch.maximum``/``torch.minimum`` do) where ``fminf``/``fmaxf`` would drop it; an
   infinite bound is left out, which gives the same result;
 * maths functions are ``sinf``, ``cosf`` and ``sqrtf``, never the fast
   intrinsics.
@@ -41,6 +56,7 @@ import torch
 
 __all__ = [
     "CVar",
+    "Dual",
     "Emitter",
     "c_literal",
     "is_const",
@@ -64,6 +80,9 @@ __all__ = [
     "ad_apply",
     "ad_T_apply",
     "from_numpy",
+    "primal",
+    "tangent",
+    "c_function",
 ]
 
 
@@ -108,6 +127,8 @@ class CVar:
         self.name = name
 
     def _bin(self, op: str, a, b) -> "CVar":
+        if isinstance(a, Dual) or isinstance(b, Dual):
+            return NotImplemented  # the Dual's own operator takes over
         return self.em.var(f"{self.em.ref(a)} {op} {self.em.ref(b)}")
 
     def __add__(self, o):
@@ -132,11 +153,63 @@ class CVar:
         return self.em.var(f"-{self.name}")
 
 
-Value = Union[float, torch.Tensor, CVar]
+class Dual:
+    """A primal value and its tangent; arithmetic on it follows the
+    forward-mode rules. Build one with :func:`dual`."""
+
+    __slots__ = ("p", "t")
+
+    def __init__(self, p, t):
+        self.p = p
+        self.t = t
+
+    def __add__(self, o):
+        return add(self, o)
+
+    def __radd__(self, o):
+        return add(o, self)
+
+    def __sub__(self, o):
+        return sub(self, o)
+
+    def __rsub__(self, o):
+        return sub(o, self)
+
+    def __mul__(self, o):
+        return mul(self, o)
+
+    def __rmul__(self, o):
+        return mul(o, self)
+
+    def __neg__(self):
+        return neg(self)
+
+
+Value = Union[float, torch.Tensor, CVar, Dual]
 
 
 def is_const(x: Value) -> bool:
     return isinstance(x, (int, float))
+
+
+def dual(p: Value, t: Value) -> Value:
+    """``Dual(p, t)``, or ``p`` itself when the tangent is the constant 0."""
+    if is_const(t) and t == 0.0:
+        return p
+    return Dual(p, t)
+
+
+def primal(x: Value) -> Value:
+    return x.p if isinstance(x, Dual) else x
+
+
+def tangent(x: Value) -> Value:
+    """The tangent of a value; any value that is not a Dual has tangent 0."""
+    return x.t if isinstance(x, Dual) else 0.0
+
+
+def _duals(a: Value, b: Value) -> bool:
+    return isinstance(a, Dual) or isinstance(b, Dual)
 
 
 def add(a: Value, b: Value) -> Value:
@@ -144,6 +217,8 @@ def add(a: Value, b: Value) -> Value:
         return b
     if is_const(b) and b == 0.0:
         return a
+    if _duals(a, b):
+        return dual(add(primal(a), primal(b)), add(tangent(a), tangent(b)))
     return a + b
 
 
@@ -154,10 +229,14 @@ def sub(a: Value, b: Value) -> Value:
         return a - b
     if is_const(a) and a == 0.0:
         return neg(b)
+    if _duals(a, b):
+        return dual(sub(primal(a), primal(b)), sub(tangent(a), tangent(b)))
     return a - b
 
 
 def neg(a: Value) -> Value:
+    if isinstance(a, Dual):
+        return dual(neg(a.p), neg(a.t))
     return -a
 
 
@@ -176,6 +255,9 @@ def mul(a: Value, b: Value) -> Value:
             return a
         if b == -1.0:
             return neg(a)
+    if _duals(a, b):
+        ap, bp = primal(a), primal(b)
+        return dual(mul(ap, bp), add(mul(tangent(a), bp), mul(ap, tangent(b))))
     return a * b
 
 
@@ -188,27 +270,67 @@ def _unary(x: Value, const_fn, c_name: str, torch_fn) -> Value:
 
 
 def sqrt(x: Value) -> Value:
+    if isinstance(x, Dual):
+        p = sqrt(x.p)
+        return dual(p, mul(x.t, mul(0.5, recip(p))))
     return _unary(x, np.sqrt, "sqrtf", torch.sqrt)
 
 
 def sin(x: Value) -> Value:
+    if isinstance(x, Dual):
+        return dual(sin(x.p), mul(x.t, cos(x.p)))
     return _unary(x, np.sin, "sinf", torch.sin)
 
 
 def cos(x: Value) -> Value:
+    if isinstance(x, Dual):
+        return dual(cos(x.p), mul(x.t, neg(sin(x.p))))
     return _unary(x, np.cos, "cosf", torch.cos)
 
 
 def recip(x: Value) -> Value:
     """``1 / x`` (a true division, as ``1.0 / d`` in the JAX emitter)."""
+    if isinstance(x, Dual):
+        r = recip(x.p)
+        return dual(r, neg(mul(x.t, mul(r, r))))
     if isinstance(x, CVar):
         return x.em.var(f"{c_literal(1.0)} / {x.name}")
     return 1.0 / x
 
 
+def _clip_tangent(p: Value, t: Value, lo: float, hi: float) -> Value:
+    """The tangent of ``clip(p)``: ``t`` strictly inside the finite bounds,
+    ``0.5 t`` at a bound, 0 outside (and 0 for a NaN primal), the JVP of
+    ``jnp.clip``."""
+    if is_const(t) or is_const(p):
+        if is_const(t) and t == 0.0:
+            return 0.0
+        if is_const(p):
+            w = 1.0 if lo < p < hi else (0.5 if p in (lo, hi) else 0.0)
+            return mul(t, w)
+    bounds = [(op, b) for op, b in ((">", lo), ("<", hi)) if math.isfinite(b)]
+    if isinstance(p, CVar):
+        em = p.em
+        if not bounds:
+            return t
+        inside = " && ".join(f"{p.name} {op} {c_literal(b)}" for op, b in bounds)
+        at = " || ".join(f"{p.name} == {c_literal(b)}" for _, b in bounds)
+        half = f"{em.ref(t)} * {c_literal(0.5)}"
+        return em.var(f"({inside}) ? {em.ref(t)} : (({at}) ? {half} : {c_literal(0.0)})")
+    inside = torch.ones_like(p, dtype=torch.bool)
+    at = torch.zeros_like(p, dtype=torch.bool)
+    for op, b in bounds:
+        inside = inside & ((p > b) if op == ">" else (p < b))
+        at = at | (p == b)
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    return torch.where(inside, t, torch.where(at, t * 0.5, zero))
+
+
 def clip(x: Value, lo: float, hi: float) -> Value:
     """Clamp to ``[lo, hi]`` (Python-float bounds, either may be infinite);
     NaN stays NaN on every backend."""
+    if isinstance(x, Dual):
+        return dual(clip(x.p, lo, hi), _clip_tangent(x.p, x.t, lo, hi))
     if is_const(x):
         return float(np.clip(x, lo, hi))
     if isinstance(x, CVar):
@@ -218,7 +340,14 @@ def clip(x: Value, lo: float, hi: float) -> Value:
         if math.isfinite(lo):
             expr = f"({x.name} < {c_literal(lo)} ? {c_literal(lo)} : {expr})"
         return x.em.var(expr)
-    return torch.clamp(x, lo, hi)
+    # maximum, then minimum, as jnp.clip: their derivatives split a tie
+    # evenly, so autograd of the tensor emitter follows JAX's clamp rule
+    # (torch.clamp's derivative is 1 at a bound). Both keep NaN.
+    if math.isfinite(lo):
+        x = torch.maximum(x, x.new_tensor(lo))
+    if math.isfinite(hi):
+        x = torch.minimum(x, x.new_tensor(hi))
+    return x
 
 
 def dot(u: Sequence[Value], v: Sequence[Value]) -> Value:
@@ -292,6 +421,45 @@ def ad_T_apply(V: Sequence[Value], F: Sequence[Value]) -> List[Value]:
     m, f = F[:3], F[3:]
     top = [neg(add(a, b)) for a, b in zip(cross(w, m), cross(v, f))]
     return top + [neg(x) for x in cross(w, f)]
+
+
+def c_function(name: str, arrays_in, scalars_in, arrays_out, body, preamble=()):
+    """The C source of ``static __device__ __forceinline__ void name(...)``
+    that runs ``body`` once over CVars.
+
+    ``arrays_in``: ``(name, size)`` of the ``const float`` array inputs;
+    ``scalars_in``: names of the ``float`` scalar inputs; ``arrays_out``:
+    ``(name, size)`` of the output arrays. ``preamble``: ``(decl, names)``
+    pairs, a C parameter declaration and the CVars it defines through
+    ``lines``, a function ``em -> (lines, {name: CVar})``. ``body`` takes
+    the inputs as keyword arguments (lists of CVars for arrays, CVars for
+    scalars, and the preamble's values) and returns one list of values per
+    output array. Returns ``(source, statement count)``."""
+    em = Emitter()
+    kwargs = {a: [CVar(em, f"{a}_{i}") for i in range(size)] for a, size in arrays_in}
+    kwargs.update({sc: CVar(em, sc) for sc in scalars_in})
+    params = [f"const float {a}[{size}]" for a, size in arrays_in]
+    params += [f"float {sc}" for sc in scalars_in]
+    head = [f"const float {a}_{i} = {a}[{i}];" for a, size in arrays_in for i in range(size)]
+    for decl, make in preamble:
+        params.append(decl)
+        lines, values = make(em)
+        head += lines
+        kwargs.update(values)
+    params += [f"float {a}[{size}]" for a, size in arrays_out]
+    outs = body(**kwargs)
+    stores = []
+    for (a, size), vals in zip(arrays_out, outs):
+        if len(vals) != size:
+            raise ValueError(f"{name}: output {a} has {len(vals)} values, not {size}")
+        stores += [f"{a}[{i}] = {em.ref(v)};" for i, v in enumerate(vals)]
+    text = "\n".join("  " + line for line in head + em.lines + stores)
+    source = (
+        f"static __device__ __forceinline__ void {name}(\n    "
+        + ",\n    ".join(params)
+        + f") {{\n{text}\n}}\n"
+    )
+    return source, len(em.lines)
 
 
 def from_numpy(arr) -> list:

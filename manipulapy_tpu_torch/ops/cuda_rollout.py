@@ -41,6 +41,11 @@ BLOCK = 128  # threads per block
 
 def rollout_source(model: RobotModel, dt: float, intRes: int, g=DEFAULT_G) -> str:
     """The full CUDA translation unit of the rollout kernel for this robot."""
+    return _rollout_source(model, dt, intRes, g)[0]
+
+
+def _rollout_source(model: RobotModel, dt: float, intRes: int, g=DEFAULT_G):
+    """``(source, statements of one step)``."""
     n, step_src, ops = build_fd_step_source(
         model, float(dt) / intRes, g=g, clip_limits=True, clip_velocity=True
     )
@@ -51,7 +56,7 @@ def rollout_source(model: RobotModel, dt: float, intRes: int, g=DEFAULT_G) -> st
         f"g {tuple(float(x) for x in g)!r}, {ops} step statements.\n"
         f"#define MPT_NJ {n}\n#define MPT_INT_RES {int(intRes)}\n#define MPT_BLOCK {BLOCK}\n"
     )
-    return header + "#include <math.h>\n" + step_src + "\n" + TEMPLATE.read_text()
+    return header + "#include <math.h>\n" + step_src + "\n" + TEMPLATE.read_text(), ops
 
 
 class CudaRollout(nn.Module):
@@ -65,7 +70,7 @@ class CudaRollout(nn.Module):
         if intRes < 1:
             raise ValueError("intRes must be >= 1")
         self.n = model.num_joints
-        self.source = rollout_source(model, dt, intRes, g)
+        self.source, self.statements = _rollout_source(model, dt, intRes, g)  # per step
         self.plain = build_rollout(model, dt=dt, intRes=intRes, g=g)
         self.launches = 0
         self._built = None

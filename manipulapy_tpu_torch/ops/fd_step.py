@@ -35,6 +35,8 @@ __all__ = [
     "build_fd_step",
     "build_fd_step_planes",
     "build_fd_step_source",
+    "build_fd_step_jvp_planes",
+    "build_fd_step_jvp_source",
     "build_bias_mass_fn",
     "build_rollout",
     "Rollout",
@@ -337,6 +339,71 @@ def build_fd_step_source(
         f"{body}\n}}\n"
     )
     return n, source, len(em.lines)
+
+
+def build_fd_step_jvp_planes(
+    model: RobotModel,
+    dt: float,
+    g=DEFAULT_G,
+    clip_limits: bool = True,
+    clip_velocity: bool = False,
+):
+    """Forward mode over the step program (the MPC linearization):
+    ``step_jvp(x_vals, u_vals, x_tans, u_tans) -> (x_next, x_next_tans)``
+    over value lists, ``x = [q; dq]`` (2n values) and ``u = tau`` (n). Each
+    input is paired with its tangent as a :class:`~.cgen.Dual`, so the
+    step's arithmetic is the one of :func:`build_fd_step_planes` and the
+    tangent rules are those of ``jax.linearize`` (``ops/cgen.py``). An
+    output whose tangent folded away has tangent 0.0."""
+    n, step_planes = build_fd_step_planes(
+        model, dt, g=g, clip_limits=clip_limits, clip_velocity=clip_velocity
+    )
+
+    def step_jvp(x_vals, u_vals, x_tans, u_tans):
+        x = [cg.dual(p, t) for p, t in zip(x_vals, x_tans)]
+        u = [cg.dual(p, t) for p, t in zip(u_vals, u_tans)]
+        q_new, dq_new, _ = step_planes(x[:n], x[n:], u)
+        out = list(q_new) + list(dq_new)
+        return [cg.primal(v) for v in out], [cg.tangent(v) for v in out]
+
+    return n, step_jvp
+
+
+def build_fd_step_jvp_source(
+    model: RobotModel,
+    dt: float,
+    g=DEFAULT_G,
+    clip_limits: bool = True,
+    clip_velocity: bool = False,
+):
+    """C source of ``__device__ void fd_step_jvp(const float x[2n], const
+    float u[n], int k, float x_next[2n], float col[2n])``: one step and
+    column k of its Jacobian, ``col[i] = d x_next_i / d [x; u]_k``. The
+    seed index is a run-time argument (the input tangents are ``k == i ?
+    1 : 0``), so one function serves all 3n seeds: m specialised copies
+    would multiply a body of ~10^4 statements by 3n. The same emitter as
+    the plain linearization (``ops/cuda_mpc_batch.py``), run on CVars. Returns ``(n, source,
+    statement count)``."""
+    n, step_jvp = build_fd_step_jvp_planes(
+        model, dt, g=g, clip_limits=clip_limits, clip_velocity=clip_velocity
+    )
+    nx, m = 2 * n, 3 * n
+
+    def seeds(em):
+        lines = [
+            f"const float s_{i} = (k == {i}) ? {cg.c_literal(1.0)} : {cg.c_literal(0.0)};"
+            for i in range(m)
+        ]
+        return lines, {"s": [cg.CVar(em, f"s_{i}") for i in range(m)]}
+
+    def body(x, u, s):
+        return step_jvp(x, u, s[:nx], s[nx:])
+
+    source, ops = cg.c_function(
+        "fd_step_jvp", [("x", nx), ("u", n)], [], [("x_next", nx), ("col", nx)], body,
+        preamble=[("int k", seeds)],
+    )
+    return n, source, ops
 
 
 class Rollout(nn.Module):

@@ -1,11 +1,16 @@
-"""The CUDA rollout kernel on a card, against its plain PyTorch version.
+"""The CUDA kernels on a card, against their plain PyTorch versions: the
+rollout (K1) and the batched fused MPC (K2-K5).
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU. The module imports no JAX, so it also runs on a machine without JAX:
 
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: 1e-4 on q, 1e-3 on dq and 2e-1 on ddq (float32).
+Tolerances: 1e-4 on q, 1e-3 on dq and 2e-1 on ddq (float32) for the
+rollout; 1e-5 of each output's largest magnitude for K2-K5 (the same
+emitted operations with --fmad=false, so 0 is expected); the JAX test's
+bars (cost rtol 1e-5, final state atol 5e-4, controls atol 5e-3) for the
+whole MPC solve against the plain solver.
 """
 
 import numpy as np
@@ -14,6 +19,8 @@ import torch
 
 from manipulapy_tpu_torch import trajectory
 from manipulapy_tpu_torch.models import catalog
+from manipulapy_tpu_torch.mpc.fused_batch import build_batch_tracking_mpc
+from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_rollout import CudaRollout, build_cuda_rollout
 from manipulapy_tpu_torch.ops.fd_step import build_rollout
 
@@ -86,3 +93,95 @@ def test_kernel_rejects_float64_on_card(cuda_device):
 def test_kernel_reports_registers(cuda_device):
     attrs = build_cuda_rollout(catalog.ur5(device=cuda_device)).kernel_attributes()
     assert 0 < attrs["num_regs"] <= 255 and attrs["max_threads"] >= 128
+
+
+# ---------------------------------------------------------------------------
+# The batched fused MPC kernels (K2-K5)
+# ---------------------------------------------------------------------------
+
+MPC_RTOL = 1e-5
+
+
+def _mpc_problem(model, B, H, device, seed=0):
+    """x0 (B, 2n) at rest inside the limits, goals (B, n) near them, and
+    torques (H, n, B) within 30% of the limits, from numpy."""
+    n = model.num_joints
+    rng = np.random.default_rng(seed)
+    lo, hi = model.joint_lower.cpu().double().numpy(), model.joint_upper.cpu().double().numpy()
+    q0 = (lo + hi) / 2 + rng.uniform(-0.5, 0.5, (B, n)) * (hi - lo) / 2
+    goals = np.clip(q0 + rng.uniform(-0.3, 0.3, (B, n)), lo, hi)
+    u_lim = model.torque_limit.cpu().double().numpy()
+    us = rng.uniform(-0.3, 0.3, (H, n, B)) * u_lim[None, :, None]
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(device).contiguous()
+    return f32(np.concatenate([q0, np.zeros_like(q0)], axis=1)), f32(goals), f32(us)
+
+
+def _close_to_scale(got, ref):
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())
+    assert float((got - ref).abs().max()) <= MPC_RTOL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("robot", ["panda", "ur5"])
+def test_mpc_kernels_match_plain_versions(cuda_device, robot):
+    """B=257 (not a multiple of the block), H=8; K2 and K3 fed from a real
+    nominal trajectory, K4 and K5 from K3's gains."""
+    model = catalog.get_robot(robot, device=cuda_device)
+    n, nx, B, H = model.num_joints, 2 * model.num_joints, 257, 8
+    x0, goals, us = _mpc_problem(model, B, H, cuda_device)
+    K = build_batch_tracking_mpc(model, goals, B, H, 0.01).kernels
+    P = K.plain()
+    x0_t, goal_t = x0.T.contiguous(), goals.T.contiguous()
+    zeros = lambda *s: torch.zeros(s, device=cuda_device)
+    before = dict(BatchMPCKernels.launch_count)
+    init = (x0_t, zeros(H, nx, B), us, zeros(H, n, 1 + nx, B), goal_t, zeros(B))
+    xs0 = K.replay(*init)
+    for g, r in zip(xs0, P.replay(*init)):
+        _close_to_scale(g, r)
+    sd_x = torch.cat([x0_t[None], xs0[0][:-1]]).contiguous()
+    AB = K.linearize(sd_x, us)
+    _close_to_scale(AB, P.linearize(sd_x, us))
+    args = (AB, sd_x, us, xs0[0][-1].contiguous(), goal_t, torch.full((B,), 1e-6, device=cuda_device))
+    kK = K.backward(*args)
+    _close_to_scale(kK, P.backward(*args))
+    alphas = 0.5 ** torch.arange(6, device=cuda_device, dtype=torch.float32)
+    args = (x0_t, sd_x, us, kK, goal_t, alphas)
+    _close_to_scale(K.linesearch_costs(*args), P.linesearch_costs(*args))
+    args = (x0_t, sd_x, us, kK, goal_t, alphas[torch.arange(B, device=cuda_device) % 6].contiguous())
+    for g, r in zip(K.replay(*args), P.replay(*args)):
+        _close_to_scale(g, r)
+    torch.cuda.synchronize()
+    after = BatchMPCKernels.launch_count
+    assert {k: after[k] - before[k] for k in after} == {
+        "linearize": 1, "backward": 1, "linesearch_costs": 1, "replay": 2
+    }
+
+
+def test_mpc_solve_runs_on_the_kernels(cuda_device):
+    model = catalog.panda(device=cuda_device)
+    B, H = 64, 10
+    x0, goals, _ = _mpc_problem(model, B, H, cuda_device, seed=1)
+    mpc = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2)
+    us0 = torch.zeros((B, H, 7), device=cuda_device)
+    BatchMPCKernels.reset_launch_count()
+    us, xs, cost = mpc.solve(x0, us0)
+    torch.cuda.synchronize()
+    assert BatchMPCKernels.launch_count == {"linearize": 2, "backward": 2, "linesearch_costs": 2, "replay": 3}
+    us_p, xs_p, cost_p = mpc.solve_plain(x0, us0)
+    assert us.shape == (B, H, 7) and xs.shape == (B, H + 1, 14) and cost.shape == (B,)
+    assert float(((cost - cost_p).abs() / cost_p.abs()).max()) <= 1e-5
+    assert float((xs[:, -1] - xs_p[:, -1]).abs().max()) <= 5e-4
+    assert float((us - us_p).abs().max()) <= 5e-3
+    assert bool((us.abs() <= model.torque_limit).all())
+
+
+def test_mpc_kernels_reject_float64_and_mixed_devices(cuda_device):
+    model = catalog.two_link_planar(device=cuda_device)
+    K = build_batch_tracking_mpc(model, [0.1, 0.2], 3, 2, 0.01).kernels
+    xs, us = torch.zeros((2, 4, 3), device=cuda_device), torch.zeros((2, 2, 3), device=cuda_device)
+    with pytest.raises(TypeError):
+        K.linearize(xs.double(), us.double())
+    with pytest.raises(ValueError):
+        K.linearize(xs, us.cpu())
+    with pytest.raises(ValueError):
+        K.linearize(xs, us[:, :1])
+    assert K.linearize(xs, us).shape == (2, 4, 6, 3)

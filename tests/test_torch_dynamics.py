@@ -24,6 +24,8 @@ from manipulapy_tpu_torch.core import time_scaling as tts
 from manipulapy_tpu_torch.models import from_host_arrays
 from manipulapy_tpu_torch.ops import smallinalg
 
+CPU = torch.device("cpu")
+
 TOL = dict(rtol=1e-9, atol=1e-9)
 
 
@@ -127,7 +129,7 @@ _MAKERS = {
 def case(request):
     """Both models, a batch of inputs, and every JAX reference output."""
     jm = _MAKERS[request.param]()
-    tm = from_host_arrays(jax_host_arrays(jm), dtype=torch.float64)
+    tm = from_host_arrays(jax_host_arrays(jm), dtype=torch.float64, device=CPU)
     n = tm.num_joints
     rng = np.random.default_rng(7)
     B = 9

@@ -30,6 +30,7 @@ from manipulapy_tpu_torch.models import from_host_arrays
 from manipulapy_tpu_torch.ops import cgen as cg
 from manipulapy_tpu_torch.ops import fd_step as tfd
 
+CPU = torch.device("cpu")
 F64_TOL = (1e-9, 1e-9, 1e-7)
 F32_TOL = (1e-4, 1e-3, 2e-1)
 
@@ -42,7 +43,7 @@ def models():
     out = {}
     for name, make in _MAKERS.items():
         jm = make(dtype=jnp.float64)
-        out[name] = (jm, from_host_arrays(jax_host_arrays(jm), dtype=torch.float64))
+        out[name] = (jm, from_host_arrays(jax_host_arrays(jm), dtype=torch.float64, device=CPU))
     return out
 
 

@@ -26,18 +26,19 @@ from manipulapy_tpu_torch.models import (
     make_robot_model,
 )
 
+CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CATALOG = {
-    "ur5": (lambda: jax_catalog.ur5(dtype=jnp.float64), lambda: catalog.ur5(dtype=torch.float64)),
-    "panda": (lambda: jax_catalog.panda(dtype=jnp.float64), lambda: catalog.panda(dtype=torch.float64)),
+    "ur5": (lambda: jax_catalog.ur5(dtype=jnp.float64), lambda: catalog.ur5(dtype=torch.float64, device=CPU)),
+    "panda": (lambda: jax_catalog.panda(dtype=jnp.float64), lambda: catalog.panda(dtype=torch.float64, device=CPU)),
     "two_link_planar": (
         lambda: jax_catalog.two_link_planar(dtype=jnp.float64),
-        lambda: catalog.two_link_planar(dtype=torch.float64),
+        lambda: catalog.two_link_planar(dtype=torch.float64, device=CPU),
     ),
     "serial_chain_3": (
         lambda: jax_catalog.serial_chain(3, dtype=jnp.float64),
-        lambda: catalog.serial_chain(3, dtype=torch.float64),
+        lambda: catalog.serial_chain(3, dtype=torch.float64, device=CPU),
     ),
 }
 
@@ -46,7 +47,7 @@ CATALOG = {
 def test_catalog_fields_equal_jax(name):
     make_jax, make_port = CATALOG[name]
     jax_model = make_jax()
-    reference = from_host_arrays(jax_host_arrays(jax_model), dtype=torch.float64)
+    reference = from_host_arrays(jax_host_arrays(jax_model), dtype=torch.float64, device=CPU)
     port = make_port()
     for key in HOST_ARRAY_KEYS:
         a, b = getattr(port, key), getattr(reference, key)
@@ -60,7 +61,7 @@ def test_digest_agrees_with_jax(name):
     make_jax, make_port = CATALOG[name]
     digest = jax_host_arrays(make_jax())["digest"]
     assert host_arrays(make_port())["digest"] == digest
-    assert host_arrays(from_host_arrays(jax_host_arrays(make_jax())))["digest"] == digest
+    assert host_arrays(from_host_arrays(jax_host_arrays(make_jax()), device=CPU))["digest"] == digest
 
 
 def test_import_never_loads_jax():
@@ -71,8 +72,11 @@ def test_import_never_loads_jax():
         "from manipulapy_tpu_torch.core import lie, time_scaling\n"
         "from manipulapy_tpu_torch.models import robot, catalog\n"
         "from manipulapy_tpu_torch.ops import cgen, fd_step, smallinalg, dispatch, cuda_rollout, _build\n"
+        "from manipulapy_tpu_torch.ops import cuda_mpc_batch\n"
+        "from manipulapy_tpu_torch import mpc\n"
+        "from manipulapy_tpu_torch.mpc import costs, ilqr, fused_batch\n"
         "import torch\n"
-        "catalog.ur5()\n"
+        "catalog.ur5(device='cpu')\n"
         "assert torch.get_float32_matmul_precision() == 'highest'\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "assert 'manipulapy_tpu' not in sys.modules\n"
@@ -88,16 +92,36 @@ def test_import_never_loads_jax():
 
 def test_from_host_arrays_dtype_and_missing_keys():
     host = jax_host_arrays(jax_catalog.ur5(dtype=jnp.float64))
-    model = from_host_arrays(host, dtype=torch.float32)
+    model = from_host_arrays(host, dtype=torch.float32, device=CPU)
     assert model.dtype == torch.float32 and model.num_joints == 6
-    assert model.device == torch.device("cpu")
+    assert model.device == CPU
     partial = {k: v for k, v in host.items() if k != "inertias"}
     with pytest.raises(KeyError):
         from_host_arrays(partial)
 
 
+def test_factories_default_to_the_card():
+    """With no device named, every factory builds on ``cuda``; a host
+    without a card raises CUDA's own error rather than falling back."""
+    host = jax_host_arrays(jax_catalog.ur5(dtype=jnp.float64))
+    factories = (
+        catalog.ur5,
+        lambda: catalog.get_robot("panda"),
+        lambda: from_host_arrays(host),
+        lambda: make_robot_model(np.eye(4), np.eye(6)[:2]),
+    )
+    for make in factories:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                make()
+    assert catalog.ur5(device="cpu").device == CPU
+    assert catalog.ur5(device="cpu").to(dtype=torch.float64).device == CPU
+
+
 def test_to_keeps_host_arrays_and_digest():
-    model = catalog.ur5(dtype=torch.float64)
+    model = catalog.ur5(dtype=torch.float64, device=CPU)
     moved = model.to(dtype=torch.float32)
     assert moved.dtype == torch.float32
     assert host_arrays(moved)["digest"] == host_arrays(model)["digest"]
@@ -105,7 +129,7 @@ def test_to_keeps_host_arrays_and_digest():
 
 
 def test_replace_derivative_misses_registry():
-    model = catalog.ur5(dtype=torch.float64)
+    model = catalog.ur5(dtype=torch.float64, device=CPU)
     tighter = dataclasses.replace(model, joint_lower=model.joint_lower * 0.5)
     assert host_arrays(tighter) is None
 
@@ -113,7 +137,7 @@ def test_replace_derivative_misses_registry():
 def test_registry_evicts_with_model():
     from manipulapy_tpu_torch.models import robot
 
-    model = catalog.panda()
+    model = catalog.panda(device=CPU)
     key = id(model)
     assert key in robot._HOST_ARRAYS
     del model
@@ -123,7 +147,7 @@ def test_registry_evicts_with_model():
 
 def test_registry_copies_are_immutable():
     S = np.eye(6)[:2].copy()
-    model = make_robot_model(np.eye(4), S, dtype=torch.float64)
+    model = make_robot_model(np.eye(4), S, dtype=torch.float64, device=CPU)
     S[0, 0] = 5.0
     host = host_arrays(model)
     assert host["screws_space"][0, 0] == 1.0
@@ -133,17 +157,17 @@ def test_registry_copies_are_immutable():
 
 def test_make_robot_model_layout_and_defaults():
     S = np.array([[0, 0, 1, 0, 0, 0], [0, 1, 0, 0, 0, 0.3]], dtype=float)
-    rows = make_robot_model(np.eye(4), S, dtype=torch.float64)
-    cols = make_robot_model(np.eye(4), S.T, layout="cols", dtype=torch.float64)
+    rows = make_robot_model(np.eye(4), S, dtype=torch.float64, device=CPU)
+    cols = make_robot_model(np.eye(4), S.T, layout="cols", dtype=torch.float64, device=CPU)
     assert torch.equal(rows.screws_space, cols.screws_space)
     assert torch.equal(rows.inertias, torch.eye(6, dtype=torch.float64).expand(2, 6, 6))
     assert torch.isinf(rows.joint_lower).all() and torch.isinf(rows.velocity_limit).all()
     with pytest.raises(ValueError):
-        make_robot_model(np.eye(4), S.T, dtype=torch.float64)
+        make_robot_model(np.eye(4), S.T, dtype=torch.float64, device=CPU)
 
 
 def test_get_robot_and_list():
     assert catalog.list_robots() == ["panda", "two_link_planar", "ur5"]
-    assert catalog.get_robot("UR5").num_joints == 6
+    assert catalog.get_robot("UR5", device=CPU).num_joints == 6
     with pytest.raises(KeyError):
         catalog.get_robot("no_such_robot")

@@ -33,6 +33,7 @@ from manipulapy_tpu_torch.ops import _build, dispatch
 from manipulapy_tpu_torch.ops import fd_step as tfd
 from manipulapy_tpu_torch.ops.cuda_rollout import CudaRollout, build_cuda_rollout, rollout_source
 
+CPU = torch.device("cpu")
 F64_TOL = (1e-9, 1e-9, 1e-7)
 F32_TOL = (1e-4, 1e-3, 2e-1)
 B, N = 67, 6
@@ -41,7 +42,7 @@ B, N = 67, 6
 @pytest.fixture(scope="module")
 def ur5_pair():
     jm = jax_catalog.ur5(dtype=jnp.float64)
-    return jm, from_host_arrays(jax_host_arrays(jm), dtype=torch.float64)
+    return jm, from_host_arrays(jax_host_arrays(jm), dtype=torch.float64, device=CPU)
 
 
 def _inputs(n, dtype, batch=(B,), steps=N, seed=0):
@@ -173,12 +174,12 @@ def test_rollout_kind_rule():
     assert dispatch.rollout_kind(cuda, torch.float32, False) == "torch"
     assert dispatch.rollout_kind(cpu, torch.float32, True) == "torch"
     with pytest.raises(ValueError):
-        dispatch.rollout_engine(catalog.ur5(), 0.01, 1, (0.0, 0.0, -9.81), kind="pallas")
+        dispatch.rollout_engine(catalog.ur5(device=CPU), 0.01, 1, (0.0, 0.0, -9.81), kind="pallas")
 
 
 def test_engine_cache_keys_on_digest():
-    a = catalog.ur5()
-    b = catalog.ur5()
+    a = catalog.ur5(device=CPU)
+    b = catalog.ur5(device=CPU)
     x = [torch.from_numpy(v) for v in _inputs(6, np.float32, batch=(2,), steps=2)]
     key_args = dict(dt=0.01, intRes=1, g=(0.0, 0.0, -9.81), device=torch.device("cpu"),
                     dtype=torch.float32, batched_2d=True)
@@ -201,16 +202,16 @@ def test_cuda_rollout_on_cpu_tensors_runs_plain_version(ur5_pair, jax_rollouts):
 
 
 def test_cuda_rollout_refuses_non_cuda_non_cpu_inputs():
-    engine = build_cuda_rollout(catalog.ur5())
+    engine = build_cuda_rollout(catalog.ur5(device=CPU))
     x = [torch.empty(s, device="meta") for s in ((4, 6), (4, 6), (4, 3, 6))]
     with pytest.raises(ValueError):
         engine(*x)
     with pytest.raises(ValueError):
-        build_cuda_rollout(catalog.ur5(), intRes=0)
+        build_cuda_rollout(catalog.ur5(device=CPU), intRes=0)
 
 
 def test_cuda_rollout_checks_inputs():
-    engine = build_cuda_rollout(catalog.ur5())
+    engine = build_cuda_rollout(catalog.ur5(device=CPU))
     good = [torch.zeros(s) for s in ((4, 6), (4, 6), (4, 3, 6))]
     cases = [
         ((torch.zeros(4, 5), good[1], good[2]), ValueError),
