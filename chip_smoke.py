@@ -246,12 +246,16 @@ def mpc_stage_parity(K: BatchMPCKernels, x0, goals, us, label: str, time_plain: 
 
 def stage_bytes_ops(K: BatchMPCKernels, B: int, H: int, A: int) -> dict:
     """Per stage, the bytes each call must move (inputs read once, outputs
-    written once, f32) and the emitted operations it runs."""
+    written once, f32) and the emitted operations its function needs: K2's
+    primal step once per (scenario, step), its tangent once per seed."""
     n, nx, m, kk = K.n, K.nx, K.m, K.n * (1 + K.nx)
     s = K.statements
     f = 4
     return {
-        "linearize": ((H * nx * B + H * n * B + H * nx * m * B) * f, s["linearize"] * B * m * H),
+        "linearize": (
+            (H * nx * B + H * n * B + H * nx * m * B) * f,
+            (s["step"] + m * (s["linearize"] - s["step"])) * B * H,
+        ),
         "backward": (
             (H * nx * m * B + H * nx * B + H * n * B + nx * B + n * B + B + H * kk * B) * f,
             s["backward"] * B * H + s["value_terminal"] * B,

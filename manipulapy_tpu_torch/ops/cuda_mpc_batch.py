@@ -38,6 +38,7 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -306,6 +307,12 @@ class BatchMPCKernels:
         P, n, nx = self.P, self.n, self.nx
         kkn, vn = n * (1 + nx), (nx + 1) * nx
         _, lin_src, self.statements["linearize"] = build_fd_step_jvp_source(model, dt, g=g)
+        # The primal step alone: the part of the linearization that all m
+        # seeds share.
+        _, self.statements["step"] = cg.c_function(
+            "fd_step", [("q", n), ("dq", n), ("tau", n)], [], [("q_next", n), ("dq_next", n)],
+            lambda q, dq, tau: P.step(q, dq, tau)[:2],
+        )
         term_src, term_ops = cg.c_function(
             "riccati_terminal", [("x_last", nx), ("goal", n)], [], [("V", vn)],
             lambda x_last, goal: [riccati_terminal(P, x_last, goal)],
@@ -423,8 +430,8 @@ class BatchMPCKernels:
         if xs.dim() != 3:
             raise ValueError(f"xs must be (H, nx, B), got {tuple(xs.shape)}")
         H, B = xs.shape[0], xs.shape[2]
-        if B >= 2**31 or H > 65535:
-            raise ValueError("B must fit in a 32-bit int and H in 65535")
+        if not (1 <= B < 2**31 and 1 <= H <= 65535):
+            raise ValueError(f"B must be in [1, 2**31) and H in [1, 65535], got B={B}, H={H}")
         return H, B
 
     # -- K2 ----------------------------------------------------------------
@@ -484,16 +491,19 @@ class BatchMPCKernels:
         H, B = self._dims(sd_x)
         n, nx = self.n, self.nx
         A = alphas.shape[0] if alphas.dim() == 1 else -1
+        if A == 0 or A > 65535:
+            raise ValueError(f"linesearch_costs takes 1 to 65535 alphas, got {A}")
         tensors = {"x0": x0, "sd_x": sd_x, "sd_u": sd_u, "kK": kK, "goal": goal, "alphas": alphas}
         shapes = {"x0": (nx, B), "sd_x": (H, nx, B), "sd_u": (H, n, B),
                   "kK": (H, n, 1 + nx, B), "goal": (n, B), "alphas": (A,)}
         if not self._route("linesearch_costs", tensors, shapes):
-            return self._rollout_plain(x0, sd_x, sd_u, kK, goal, alphas[:, None])[2]
-        if A > 65535:
-            raise ValueError("at most 65535 alphas")
+            return self.linesearch_costs_plain(x0, sd_x, sd_u, kK, goal, alphas)
         costs = torch.empty((A, B), dtype=x0.dtype, device=x0.device)
         self._launch("linesearch_costs", x0.device, x0, sd_x, sd_u, kK, goal, alphas, costs, B, H, A)
         return costs
+
+    def linesearch_costs_plain(self, x0, sd_x, sd_u, kK, goal, alphas) -> torch.Tensor:
+        return self.replay_plain(x0, sd_x, sd_u, kK, goal, alphas[:, None])[2]
 
     # -- K5 ----------------------------------------------------------------
     def replay(self, x0, sd_x, sd_u, kK, goal, alpha):
@@ -505,17 +515,17 @@ class BatchMPCKernels:
         shapes = {"x0": (nx, B), "sd_x": (H, nx, B), "sd_u": (H, n, B),
                   "kK": (H, n, 1 + nx, B), "goal": (n, B), "alpha": (B,)}
         if not self._route("replay", tensors, shapes):
-            return self._rollout_plain(x0, sd_x, sd_u, kK, goal, alpha)
+            return self.replay_plain(x0, sd_x, sd_u, kK, goal, alpha)
         xs = torch.empty((H, nx, B), dtype=x0.dtype, device=x0.device)
         us = torch.empty((H, n, B), dtype=x0.dtype, device=x0.device)
         cost = torch.empty((B,), dtype=x0.dtype, device=x0.device)
         self._launch("replay", x0.device, x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H)
         return xs, us, cost
 
-    def _rollout_plain(self, x0, sd_x, sd_u, kK, goal, alpha):
-        """The plain versions of K4 (alpha (A, 1): every alpha for every
-        scenario) and K5 (alpha (B,)). Returns (xs, us, cost) with a leading
-        alpha axis for K4."""
+    def replay_plain(self, x0, sd_x, sd_u, kK, goal, alpha):
+        """The plain version of K5 (alpha (B,)), and of K4 with alpha (A, 1),
+        every alpha for every scenario: (xs, us, cost), with a leading alpha
+        axis for K4."""
         n, nx = self.n, self.nx
         H = sd_x.shape[0]
         lead = torch.broadcast_shapes(alpha.shape, x0.shape[1:])
@@ -533,35 +543,9 @@ class BatchMPCKernels:
             xs_rows.append(_stack(x, like))
             us_rows.append(_stack(u, like))
         cost = cg.add(acc, terminal_cost(self.P, x, g))
-        xs = torch.stack(xs_rows) if H else like.new_empty((0, nx) + tuple(lead))
-        us = torch.stack(us_rows) if H else like.new_empty((0, n) + tuple(lead))
-        return xs, us, _full(cost, like)
+        return torch.stack(xs_rows), torch.stack(us_rows), _full(cost, like)
 
-    # -- the plain versions as a stage set ---------------------------------
-    def plain(self) -> "PlainStages":
+    def plain(self) -> SimpleNamespace:
         """The four stages through their plain versions on any device (the
         reference the kernels are held against)."""
-        return PlainStages(self)
-
-
-class PlainStages:
-    """``linearize``/``backward``/``linesearch_costs``/``replay`` of a
-    :class:`BatchMPCKernels` through the plain PyTorch versions, on
-    whatever device the tensors lie."""
-
-    kind = "torch"
-
-    def __init__(self, kernels: BatchMPCKernels):
-        self.k = kernels
-
-    def linearize(self, xs, us):
-        return self.k.linearize_plain(xs, us)
-
-    def backward(self, AB, xs, us, x_last, goal, reg):
-        return self.k.backward_plain(AB, xs, us, x_last, goal, reg)
-
-    def linesearch_costs(self, x0, sd_x, sd_u, kK, goal, alphas):
-        return self.k._rollout_plain(x0, sd_x, sd_u, kK, goal, alphas[:, None])[2]
-
-    def replay(self, x0, sd_x, sd_u, kK, goal, alpha):
-        return self.k._rollout_plain(x0, sd_x, sd_u, kK, goal, alpha)
+        return SimpleNamespace(**{stage: getattr(self, f"{stage}_plain") for stage in STAGES})

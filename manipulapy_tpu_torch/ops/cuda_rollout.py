@@ -39,13 +39,9 @@ TEMPLATE = Path(__file__).resolve().parents[1] / "csrc" / "rollout.cuh"
 BLOCK = 128  # threads per block
 
 
-def rollout_source(model: RobotModel, dt: float, intRes: int, g=DEFAULT_G) -> str:
-    """The full CUDA translation unit of the rollout kernel for this robot."""
-    return _rollout_source(model, dt, intRes, g)[0]
-
-
-def _rollout_source(model: RobotModel, dt: float, intRes: int, g=DEFAULT_G):
-    """``(source, statements of one step)``."""
+def rollout_source(model: RobotModel, dt: float, intRes: int, g=DEFAULT_G):
+    """The full CUDA translation unit of the rollout kernel for this robot,
+    and the statement count of one step: ``(source, statements)``."""
     n, step_src, ops = build_fd_step_source(
         model, float(dt) / intRes, g=g, clip_limits=True, clip_velocity=True
     )
@@ -70,7 +66,7 @@ class CudaRollout(nn.Module):
         if intRes < 1:
             raise ValueError("intRes must be >= 1")
         self.n = model.num_joints
-        self.source, self.statements = _rollout_source(model, dt, intRes, g)  # per step
+        self.source, self.statements = rollout_source(model, dt, intRes, g)  # per step
         self.plain = build_rollout(model, dt=dt, intRes=intRes, g=g)
         self.launches = 0
         self._built = None

@@ -38,7 +38,7 @@ from manipulapy_tpu_torch.models import from_host_arrays
 from manipulapy_tpu_torch.mpc import ILQRParams, ilqr, make_step_fn, make_tracking_costs
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops import fd_step as tfd
-from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
+from manipulapy_tpu_torch.ops.cuda_mpc_batch import STAGES, BatchMPCKernels
 
 CPU = torch.device("cpu")
 STAGE_RTOL = 2e-4  # of each output's largest magnitude
@@ -481,3 +481,49 @@ def test_solver_checks_its_inputs(planar32):
     meta = [torch.empty(s, device="meta") for s in ((H, 4, B), (H, 2, B))]
     with pytest.raises(ValueError):  # neither the CPU nor one CUDA device
         k.linearize(*meta)
+
+
+def _stage_inputs(B, H, A):
+    """Zero inputs of every stage for the two-link arm (n=2, nx=4, m=6)."""
+    z = torch.zeros
+    return {
+        "linearize": (z(H, 4, B), z(H, 2, B)),
+        "backward": (z(H, 4, 6, B), z(H, 4, B), z(H, 2, B), z(4, B), z(2, B), z(B)),
+        "linesearch_costs": (z(4, B), z(H, 4, B), z(H, 2, B), z(H, 2, 5, B), z(2, B), z(A)),
+        "replay": (z(4, B), z(H, 4, B), z(H, 2, B), z(H, 2, 5, B), z(2, B), z(B)),
+    }
+
+
+_EMPTY = [(s, 0, 3, 2) for s in STAGES] + [(s, 2, 0, 2) for s in STAGES] + [("linesearch_costs", 2, 3, 0)]
+
+
+@pytest.mark.parametrize("stage, B, H, A", _EMPTY)
+def test_stages_reject_empty_work(planar32, stage, B, H, A):
+    """No stage takes an empty batch, horizon or alpha set, so a launch
+    count only moves when a kernel runs."""
+    k = BatchMPCKernels(planar32, 0.02, u_lim=[5.0, 5.0])
+    with pytest.raises(ValueError):
+        getattr(k, stage)(*_stage_inputs(B, H, A)[stage])
+
+
+def test_plain_stages_are_the_cpu_stages(planar32):
+    k = BatchMPCKernels(planar32, 0.02, u_lim=[5.0, 5.0])
+    plain = k.plain()
+    rng = np.random.default_rng(4)
+    for stage, args in _stage_inputs(3, 2, 2).items():
+        args = [torch.from_numpy(rng.uniform(0.1, 0.5, a.shape).astype(np.float32)) for a in args]
+        assert getattr(plain, stage) == getattr(k, f"{stage}_plain")
+        got, ref = getattr(k, stage)(*args), getattr(plain, stage)(*args)
+        for g, r in zip(got if isinstance(got, tuple) else (got,), ref if isinstance(ref, tuple) else (ref,)):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("robot", sorted(_ARMS))
+def test_step_statements_are_the_shared_primal(arms, robot):
+    """K2's bound counts the primal step once per (scenario, step):
+    ``statements["step"]`` is the emitted step without its tangent."""
+    tm = arms[robot, torch.float32][1]
+    k = BatchMPCKernels(tm, 0.01, u_lim=[10.0] * tm.num_joints)
+    _, _, primal = tfd.build_fd_step_source(tm, 0.01, clip_limits=True, clip_velocity=False)
+    assert k.statements["step"] == primal
+    assert primal < k.statements["linearize"] < 4 * primal

@@ -228,7 +228,7 @@ def test_cuda_rollout_checks_inputs():
 
 def test_rollout_source_assembles_template(ur5_pair):
     _, tm = ur5_pair
-    src = rollout_source(tm, 0.01, 3)
+    src = rollout_source(tm, 0.01, 3)[0]
     assert "#define MPT_NJ 6" in src and "#define MPT_INT_RES 3" in src
     assert "static __device__ __forceinline__ void fd_step(" in src
     assert 'extern "C" int launch(' in src and "mpt_rollout_kernel<<<" in src
