@@ -10,14 +10,20 @@ kernels built from ``manipulapy_tpu_torch/csrc`` with nvcc for sm_90a:
 * the batched fused tracking MPC (K2-K5) behind
   ``mpc.fused_batch.build_batch_tracking_mpc(...).solve`` and
   ``batch_mpc_step``, at the width the JAX package times: Panda, B=1024
-  per-scenario goals, H=50, dt=0.01, 4 iterations, 6 line-search alphas.
+  per-scenario goals, H=50, dt=0.01, 4 iterations, 6 line-search alphas;
+* the single-problem fused tracking MPC (K6-K8) behind
+  ``mpc.fused.build_tracking_mpc(...).solve``, at the shape the JAX
+  package's benchmark times (``mpc_panda_H50_fused_single``): Panda, H=50,
+  dt=0.01, 4 iterations, 6 alphas, one solve and 20 receding-horizon
+  rounds.
 
 Phases, one line each (or one line per case):
 
 1. device: the card, its power limit, CUDA, matmul precision "highest";
 2. build: every kernel at once, one nvcc per translation unit, all started
    together (the rollout for UR5 with intRes 1 and 3 and for Panda; K2-K5
-   for Panda and UR5), with build seconds, registers and spill bytes;
+   for Panda and UR5; K6-K8 for Panda), with build seconds, registers and
+   spill bytes;
 3. rollout: kernel vs its plain PyTorch version on the card;
 4. rollout main path at full width, checked against the plain version on
    its first 4096 rows (launch count read just after it);
@@ -36,7 +42,24 @@ Phases, one line each (or one line per case):
    B=64 H=10 with 2 iterations;
 9. MPC time: the plain versions at full width and the plain solver at
    B=64; then each stage's kernel and one solve (CUDA events, median) at
-   B=1024, 4096 and 16384.
+   B=1024, 4096 and 16384;
+10. single-problem parity: each of K6-K8 against its plain version on the
+    card at Panda H=50 (the solver's own controls) and H=37 (random torques
+    within 30% of the limits; K6's H*m threads end mid-block), max |d| per
+    output within 1e-5 of that output's largest magnitude;
+11. single-problem main path: one solve from rest at the middle of the
+    joint limits towards the benchmark's goal, then 20 receding-horizon
+    rounds (x <- xs[1], the warm start shifted by one), the goal
+    re-targeted at run time in round 10; launch counts read just after
+    (4/4/5 per solve), finite outputs, |u| <= u_lim, the cost below the
+    zero-control cost, the distance to each goal shrinking; then the whole
+    solve against the plain solver on the card at H=10, 2 iterations;
+12. single-problem time: each kernel at H=50 (device time per launch, over
+    20 back-to-back launches), one solve at 4 and at 2 iterations, one
+    receding round, and the glue (the solve minus its kernels' sum),
+    CUDA-event medians; then a ``torch.profiler`` trace of 3 solves: each
+    kernel's device time per solve, the glue's, and the device's busy
+    share.
 
 Then one JSON line of every kernel, the card's name and power limit, and
 the result line. Any failure raises, so the script exits nonzero before its
@@ -60,8 +83,10 @@ import torch
 
 from manipulapy_tpu_torch import trajectory
 from manipulapy_tpu_torch.models import catalog
+from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
+from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
 from manipulapy_tpu_torch.ops.cuda_rollout import CudaRollout, build_cuda_rollout
 from manipulapy_tpu_torch.ops.fd_step import build_rollout
 
@@ -77,6 +102,11 @@ B_MPC, H_MPC, ITERS, ALPHAS = 1024, 50, 4, 6
 B_MPC_WIDE = (4096, 16384)  # more widths for the solve's and stages' times
 B_PARITY, H_PARITY = 257, 8  # kernel vs plain version, off the block size
 B_SMALL, H_SMALL = 64, 10  # the whole solve vs the plain solver
+# The single-problem solver: the JAX benchmark's goal, then another for the
+# rounds after the re-target; the parity horizons and the small solve's.
+Q_GOAL7 = (0.3, -0.4, 0.2, -1.6, 0.1, 1.4, 0.4)
+Q_GOAL7_B = (-0.3, 0.2, -0.2, -2.0, -0.1, 1.8, -0.4)
+H_ODD, ODD_SEED, ROUNDS, RETARGET = 37, 2, 20, 10
 ROLLOUT_CASES = (("ur5", 1, 4097, 50), ("ur5_intres3", 3, 1000, 8), ("panda", 1, 2048, 20))
 ROWS_CHECKED, B_PIPELINE = 4096, 1024
 DEV = "cuda"
@@ -92,6 +122,12 @@ MPC_KERNELS = {  # stage: (id and name, the TPU kernel's pallas_call)
     "backward": ("K3 Riccati backward", "manipulapy_tpu/mpc/fused_batch.py:372"),
     "linesearch_costs": ("K4 line-search costs (K0 inlined)", "manipulapy_tpu/mpc/fused_batch.py:453"),
     "replay": ("K5 replay (K0 inlined)", "manipulapy_tpu/mpc/fused_batch.py:507"),
+}
+SINGLE_SOURCE = "manipulapy_tpu_torch/csrc/mpc_single.cuh"
+SINGLE_KERNELS = {  # stage: (id and name, the TPU kernel's pallas_call, the CUDA kernel's name)
+    "linearize": ("K6 single-problem linearize (forward mode over K0)", "manipulapy_tpu/mpc/fused.py:213", "mps_lin_kernel"),
+    "backward": ("K7 single-problem Riccati backward (Gauss-Jordan)", "manipulapy_tpu/mpc/fused.py:303", "mps_bwd_kernel"),
+    "forward": ("K8 single-problem line-search forward (K0 inlined)", "manipulapy_tpu/mpc/fused.py:375", "mps_fwd_kernel"),
 }
 
 
@@ -140,6 +176,41 @@ def time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def per_call_ms(fn, calls: int = 20) -> float:
+    """A launch's device time: the median over ``time_ms`` of ``calls``
+    back-to-back calls, divided by their count, so the host's time per call
+    hides behind the device's."""
+    return time_ms(lambda: [fn() for _ in range(calls)]) / calls
+
+
+def device_profile(fn, reps: int = 3) -> dict:
+    """``torch.profiler`` over ``reps`` calls of ``fn``: per kernel name the
+    device ms per call, the device's busy share of the traced span, its busy
+    ms and its launches per call. Empty when the trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name)
+        for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    if not spans:
+        return {}
+    by_name, busy, open_s, open_e = {}, 0.0, spans[0][0], spans[0][1]
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / reps / 1e3
+        if start > open_e:
+            busy, open_s = busy + open_e - open_s, start
+        open_e = max(open_e, end)
+    busy += open_e - open_s
+    return {"by_name": by_name, "busy_share": busy / (open_e - spans[0][0]), "busy_ms": busy / reps / 1e3,
+            "launches": len(spans) / reps}
+
+
 def bound(nbytes: float, ops: float):
     """(least time in ms, what bounds it)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
@@ -147,8 +218,8 @@ def bound(nbytes: float, ops: float):
 
 
 def build_all(rollouts: dict, mpc_kernels: dict) -> dict:
-    """Start every build at once; each MPC kernel set starts its three
-    units in parallel itself."""
+    """Start every build at once; each MPC kernel set (K2-K5 or K6-K8)
+    starts its three units in parallel itself."""
     jobs = {**{("rollout", k): e.build for k, e in rollouts.items()},
             **{("mpc", k): m.build for k, m in mpc_kernels.items()}}
     t0 = time.perf_counter()
@@ -199,6 +270,24 @@ def compare(stage: str, got, ref, label: str) -> dict:
     return errs
 
 
+def stage_vs_plain(K, stage: str, args, label: str, errs, plain_ms: dict, plain_calls: int):
+    """Run one stage's kernel and, unless ``errs`` is None, its plain
+    version on the same inputs: record the max |d| in ``errs`` and, for
+    ``plain_calls`` of 1 or 2, the plain version's CUDA-event ms (the least
+    of that many calls) in ``plain_ms``. Returns the kernel's outputs."""
+    got = getattr(K, stage)(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    if errs is None:
+        return got
+    plain = getattr(K.plain(), stage)
+    ref, ms = timed(lambda: plain(*args))
+    e = compare(stage, got, ref if isinstance(ref, tuple) else (ref,), label)
+    errs[stage] = max(errs.get(stage, 0.0), *e.values())
+    if plain_calls:
+        plain_ms[stage] = min([ms] + [timed(lambda: plain(*args))[1] for _ in range(plain_calls - 1)])
+    return got
+
+
 def mpc_stage_parity(K: BatchMPCKernels, x0, goals, us, label: str, time_plain: bool, check: bool = True):
     """Feed every stage, kernel and plain version alike, from a nominal
     trajectory (the torques ``us`` (H, n, B) from ``x0`` (B, 2n), rolled
@@ -208,7 +297,6 @@ def mpc_stage_parity(K: BatchMPCKernels, x0, goals, us, label: str, time_plain: 
     kernels alone, for their inputs."""
     n, nx = K.n, K.nx
     H, B = us.shape[0], us.shape[2]
-    P = K.plain()
     x0_t, goal_t = x0.T.contiguous(), goals.T.contiguous()
     reg = torch.full((B,), 1e-6, device=DEV)
     alphas = 0.5 ** torch.arange(ALPHAS, device=DEV, dtype=torch.float32)
@@ -216,20 +304,10 @@ def mpc_stage_parity(K: BatchMPCKernels, x0, goals, us, label: str, time_plain: 
     f32 = dict(dtype=torch.float32, device=DEV)
     init = (x0_t, torch.zeros((H, nx, B), **f32), us, torch.zeros((H, n, 1 + nx, B), **f32), goal_t, torch.zeros((B,), **f32))
 
-    errs, plain_ms = {}, {}
+    errs, plain_ms = ({} if check else None), {}
 
     def both(stage, args):
-        got = getattr(K, stage)(*args)
-        if not check:
-            return got if isinstance(got, tuple) else (got,)
-        ref, ms = timed(lambda: getattr(P, stage)(*args))
-        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
-        e = compare(stage, got, ref, label)
-        errs[stage] = max(errs.get(stage, 0.0), *e.values())
-        if time_plain:
-            _, ms2 = timed(lambda: getattr(P, stage)(*args))
-            plain_ms[stage] = min(ms, ms2)
-        return got
+        return stage_vs_plain(K, stage, args, label, errs, plain_ms, 2 if time_plain else 0)
 
     xs0 = both("replay", init)[0]
     sd_x = torch.cat([x0_t[None], xs0[:-1]]).contiguous()
@@ -271,6 +349,199 @@ def stage_bytes_ops(K: BatchMPCKernels, B: int, H: int, A: int) -> dict:
     }
 
 
+def mid_rest(model) -> torch.Tensor:
+    """At rest at the middle of each joint's limits, (2n,) on the card (the
+    zero pose lies outside the catalog Panda's joint-4 limit)."""
+    q = (model.joint_lower + model.joint_upper) / 2
+    return torch.cat([q, torch.zeros_like(q)]).contiguous()
+
+
+def random_single_problem(model, H: int, seed: int):
+    """x0 (2n,) at rest inside the limits, a goal (n,) near it and torques
+    (H, n) within 30% of the limits, from numpy (so a CPU run of the plain
+    versions shows these inputs stay finite)."""
+    n = model.num_joints
+    rng = np.random.default_rng(seed)
+    lo, hi = model.joint_lower.cpu().double().numpy(), model.joint_upper.cpu().double().numpy()
+    q0 = (lo + hi) / 2 + rng.uniform(-0.5, 0.5, n) * (hi - lo) / 2
+    goal = np.clip(q0 + rng.uniform(-0.3, 0.3, n), lo, hi)
+    us = rng.uniform(-0.3, 0.3, (H, n)) * model.torque_limit.cpu().double().numpy()
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(DEV).contiguous()
+    return f32(np.concatenate([q0, np.zeros(n)])), f32(goal), f32(us)
+
+
+def terminal_value(S: SingleMPCKernels, x_last, goal) -> torch.Tensor:
+    """K7's input Vterm (nx+1, nx): diag(2 wT), then 2 wT (x_T - goal)."""
+    two_wT = torch.tensor([2.0 * w for w in S.P.wT], dtype=torch.float32, device=DEV)
+    Vx = two_wT * (x_last - torch.cat([goal, torch.zeros_like(goal)]))
+    return torch.cat([torch.diag(two_wT), Vx[None]]).contiguous()
+
+
+def single_stage_parity(S: SingleMPCKernels, x0, goal, us, label: str, plain_calls: int):
+    """K6-K8 against their plain versions, fed from the open loop of ``us``
+    (H, n) from ``x0`` (K8 with one alpha of 0 and zero gains) and K7's
+    gains. Returns per stage the max |d|, the stage's inputs and the plain
+    versions' ms (for ``plain_calls`` > 0)."""
+    n, nx, H = S.n, S.nx, us.shape[0]
+    f32 = dict(dtype=torch.float32, device=DEV)
+    errs, plain_ms = {}, {}
+    both = lambda stage, args: stage_vs_plain(S, stage, args, label, errs, plain_ms, plain_calls)
+    init = (x0, torch.zeros((H, nx), **f32), us, torch.zeros((H, n, 1 + nx), **f32), goal, torch.zeros((1,), **f32))
+    xs0 = both("forward", init)[0][0]
+    sd_x = torch.cat([x0[None], xs0[:-1]]).contiguous()
+    AB = both("linearize", (sd_x, us))[0]
+    bwd_args = (AB, sd_x, us, goal, terminal_value(S, xs0[-1], goal), torch.tensor(1e-6, **f32))
+    kK = both("backward", bwd_args)[0]
+    fwd_args = (x0, sd_x, us, kK, goal, 0.5 ** torch.arange(ALPHAS, **f32))
+    both("forward", fwd_args)
+    return errs, {"linearize": (sd_x, us), "backward": bwd_args, "forward": fwd_args}, plain_ms
+
+
+def single_bytes_ops(S: SingleMPCKernels, H: int, A: int) -> dict:
+    """Per stage, the bytes each call must move (inputs read once, outputs
+    written once, f32) and the emitted operations its function needs: K6's
+    primal step once per step, its tangent once per seed; K7's step H
+    times; K8's step A*H times and its terminal cost A times."""
+    n, nx, m, kk = S.n, S.nx, S.m, S.n * (1 + S.nx)
+    s = S.statements
+    f = 4
+    return {
+        "linearize": ((H * nx + H * n + H * nx * m) * f, (s["step"] + m * (s["linearize"] - s["step"])) * H),
+        "backward": ((H * nx * m + H * nx + H * n + n + (nx + 1) * nx + 1 + H * kk) * f, s["backward"] * H),
+        "forward": (
+            (nx + H * (nx + n) + H * kk + n + A + A * H * (nx + n) + A) * f,
+            (s["forward"] * H + s["cost_terminal"]) * A,
+        ),
+    }
+
+
+def single_path(panda, single, attrs: dict, card: str) -> list:
+    """Phases 10-12, the single-problem solver; returns its kernels'
+    records."""
+    S = single.kernels
+    H, f32 = H_MPC, dict(dtype=torch.float32, device=DEV)
+    u_lim = torch.tensor(S.P.u_lim, **f32)
+    goal_a, goal_b = torch.tensor(Q_GOAL7, **f32), torch.tensor(Q_GOAL7_B, **f32)
+    x0 = mid_rest(panda)
+
+    # 10. K6-K8 vs their plain versions: at H=50 on the solver's own
+    # controls (plain versions timed there, once), at the odd horizon on
+    # random torques.
+    us_nom = single.solve(x0, torch.zeros((H, 7), **f32))[0].contiguous()
+    x0_r, goal_r, us_r = random_single_problem(panda, H_ODD, ODD_SEED)
+    err = dict.fromkeys(SINGLE_KERNELS, 0.0)
+    for nominal, x0_c, goal_c, us_c, calls in (
+        ("solver's controls", x0, goal_a, us_nom, 1), ("random torques", x0_r, goal_r, us_r, 0)
+    ):
+        errs, args, ms = single_stage_parity(S, x0_c, goal_c, us_c, f"panda single H={us_c.shape[0]}", calls)
+        err = {k: max(err[k], errs[k]) for k in err}
+        if calls:
+            stage_args, plain_ms = args, ms
+        phase("single_parity", robot="panda", H=us_c.shape[0], nominal=repr(nominal),
+              **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()})
+
+    # 11. The main path: one solve, then ROUNDS receding-horizon rounds.
+    cost_zero = single.forward(x0, torch.zeros((H, 14), **f32), torch.zeros((H, 7), **f32),
+                               torch.zeros((H, 7, 15), **f32), goal_a, torch.zeros((1,), **f32))[2][0]
+
+    def check(label, us, xs, cost):
+        if tuple(us.shape) != (H, 7) or tuple(xs.shape) != (H + 1, 14) or tuple(cost.shape) != ():
+            raise AssertionError(f"{label}: shapes {tuple(us.shape)}, {tuple(xs.shape)}, {tuple(cost.shape)}")
+        for name, v in (("us", us), ("xs", xs), ("cost", cost)):
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{label}: non-finite {name}")
+        if not bool((us.abs() <= u_lim).all()):
+            raise AssertionError(f"{label}: a control exceeds its torque limit")
+
+    launches_at = lambda iters: {"linearize": iters, "backward": iters, "forward": iters + 1}
+    SingleMPCKernels.reset_launch_count()
+    t0 = time.perf_counter()
+    us, xs, cost = single.solve(x0, torch.zeros((H, 7), **f32))
+    torch.cuda.synchronize()
+    solve_wall = time.perf_counter() - t0
+    per_solve = dict(SingleMPCKernels.launch_count)
+    if per_solve != launches_at(ITERS):
+        raise AssertionError(f"launches per solve {per_solve}, expected {ITERS}/{ITERS}/{ITERS + 1}")
+    check("solve", us, xs, cost)
+    if not float(cost) < float(cost_zero):
+        raise AssertionError(f"solve: cost {float(cost)} not below the zero-control {float(cost_zero)}")
+    dist = lambda x, goal: float((x[:7] - goal).norm())
+    x, us_warm = xs[1], torch.cat([us[1:], us[-1:]])
+    d_start, dists = dist(x0, goal_a), []
+    for r in range(ROUNDS):
+        goal = goal_a if r < RETARGET else goal_b
+        us_r, xs_r, cost_r = single.solve(x, us_warm, None if r < RETARGET else goal_b)
+        check(f"round {r}", us_r, xs_r, cost_r)
+        if r == RETARGET:
+            d_retarget = dist(x, goal_b)
+        x, us_warm = xs_r[1], torch.cat([us_r[1:], us_r[-1:]])
+        dists.append(dist(x, goal))
+    torch.cuda.synchronize()
+    launches = dict(SingleMPCKernels.launch_count)
+    if launches != {k: (ROUNDS + 1) * v for k, v in per_solve.items()}:
+        raise AssertionError(f"launches over {ROUNDS + 1} solves {launches}")
+    if not (dists[RETARGET - 1] < d_start and dists[-1] < d_retarget):
+        raise AssertionError(f"distance to the goal did not shrink: {d_start} -> {dists[RETARGET - 1]}, "
+                             f"then {d_retarget} -> {dists[-1]}")
+    phase("single_main_path", robot="panda", H=H, iterations=ITERS, alphas=ALPHAS, solve_wall_s=f"{solve_wall:.4f}",
+          launches_per_solve=json.dumps(per_solve).replace(" ", ""), launches_run=json.dumps(launches).replace(" ", ""),
+          cost=f"{float(cost):.6e}", zero_control_cost=f"{float(cost_zero):.6e}",
+          goal_distance=f"{d_start:.4f}->{dists[RETARGET - 1]:.4f},retarget:{d_retarget:.4f}->{dists[-1]:.4f}")
+
+    # The whole solve against the plain solver on the card.
+    small = build_tracking_mpc(panda, Q_GOAL7, H_SMALL, DT, iterations=2, line_search_steps=ALPHAS)
+    us_k, xs_k, c_k = small.solve(x0, torch.zeros((H_SMALL, 7), **f32))
+    (us_p, xs_p, c_p), small_plain_ms = timed(lambda: small.solve_plain(x0, torch.zeros((H_SMALL, 7), **f32)))
+    d_cost = float((c_k - c_p).abs() / c_p.abs())
+    d_x, d_u = float((xs_k[-1] - xs_p[-1]).abs().max()), float((us_k - us_p).abs().max())
+    if not (d_cost <= 1e-5 and d_x <= 5e-4 and d_u <= 5e-3):
+        raise AssertionError(f"single solve vs plain solver: cost rel {d_cost}, final state {d_x}, controls {d_u}")
+    phase("single_solve_vs_plain", robot="panda", H=H_SMALL, iterations=2, cost_rel_err=f"{d_cost:.3e}",
+          final_state_err=f"{d_x:.3e}", controls_err=f"{d_u:.3e}", plain_solve_ms=f"{small_plain_ms:.1f}")
+
+    # 12. Time: each kernel (device time per launch), a solve at 4 and 2
+    # iterations, one round; then a device trace of the solve.
+    ms = {s: per_call_ms(lambda s=s: getattr(S, s)(*stage_args[s])) for s in SINGLE_KERNELS}
+    zeros_us = torch.zeros((H, 7), **f32)
+    solve_ms = time_ms(lambda: single.solve(x0, zeros_us))
+    warm2 = build_tracking_mpc(panda, Q_GOAL7, H, DT, iterations=2, line_search_steps=ALPHAS)
+    solve2_ms = time_ms(lambda: warm2.solve(x0, zeros_us))
+
+    def round_():
+        us_r, xs_r, _ = single.solve(x, us_warm)
+        return xs_r[1], torch.cat([us_r[1:], us_r[-1:]])
+
+    round_ms = time_ms(round_)
+    kernel_sum = sum(ms[s] * k for s, k in launches_at(ITERS).items())
+    kernel_sum2 = sum(ms[s] * k for s, k in launches_at(2).items())
+    phase("single_time", card=repr(card), robot="panda", H=H, **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()},
+          solve_ms=f"{solve_ms:.4f}", kernels_ms_per_solve=f"{kernel_sum:.4f}", glue_ms=f"{solve_ms - kernel_sum:.4f}",
+          kernel_share=f"{kernel_sum / solve_ms:.4f}", solve_2it_ms=f"{solve2_ms:.4f}",
+          glue_2it_ms=f"{solve2_ms - kernel_sum2:.4f}", kernel_share_2it=f"{kernel_sum2 / solve2_ms:.4f}",
+          round_ms=f"{round_ms:.4f}", **{f"{s}_plain_ms": f"{v:.2f}" for s, v in plain_ms.items()})
+    trace = device_profile(lambda: single.solve(x0, zeros_us))
+    if trace:
+        ours = {s: sum(v for k, v in trace["by_name"].items() if k.startswith(name[2])) for s, name in SINGLE_KERNELS.items()}
+        phase("single_trace", robot="panda", H=H, iterations=ITERS, **{f"{k}_device_ms_per_solve": f"{v:.4f}" for k, v in ours.items()},
+              glue_device_ms_per_solve=f"{trace['busy_ms'] - sum(ours.values()):.4f}",
+              device_busy_ms_per_solve=f"{trace['busy_ms']:.4f}", device_busy_share=f"{trace['busy_share']:.4f}",
+              device_launches_per_solve=f"{trace['launches']:.1f}")
+    else:
+        phase("single_trace", device_time="not measured (the profiler saw no device activity)")
+
+    bo = single_bytes_ops(S, H, ALPHAS)
+    records = []
+    for stage, (name, replaces, _) in SINGLE_KERNELS.items():
+        b_ms, b_by = bound(*bo[stage])
+        records.append({
+            "name": name, "route": "cuda", "source": SINGLE_SOURCE, "replaces": replaces,
+            "launches": launches[stage], "max_abs_err": err[stage], "tolerance": f"{MPC_RTOL} x max|plain|",
+            "ms": ms[stage], "plain_ms": plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "num_regs": attrs[stage]["num_regs"], "local_bytes": attrs[stage]["local_bytes"],
+        })
+    return records
+
+
 def main() -> int:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -296,7 +567,9 @@ def main() -> int:
         "panda": build_cuda_rollout(panda, dt=DT, intRes=1),
     }
     mpc_panda = build_batch_tracking_mpc(panda, np.zeros(7), B_MPC, H_MPC, DT, iterations=ITERS)
-    mpc_kernels = {"panda": mpc_panda.kernels, "ur5": build_batch_tracking_mpc(ur5, np.zeros(6), 1, H_MPC, DT).kernels}
+    single = build_tracking_mpc(panda, Q_GOAL7, H_MPC, DT, iterations=ITERS, line_search_steps=ALPHAS)
+    mpc_kernels = {"panda": mpc_panda.kernels, "ur5": build_batch_tracking_mpc(ur5, np.zeros(6), 1, H_MPC, DT).kernels,
+                   "panda single": single.kernels}
     built, build_wall = build_all(engines, mpc_kernels)
     attrs = {}
     for name, eng in engines.items():
@@ -310,8 +583,9 @@ def main() -> int:
         for unit, b in built["mpc", robot].items():
             phase("build", kernel=f"mpc unit {unit}", robot=robot, seconds=f"{b.compile_seconds:.2f}",
                   ptxas=repr(ptxas_lines(b.log)))
+        names = SINGLE_KERNELS if isinstance(K, SingleMPCKernels) else MPC_KERNELS
         for stage, a in mpc_attrs[robot].items():
-            phase("build", kernel=MPC_KERNELS[stage][0], robot=robot, statements=K.statements[stage], **a)
+            phase("build", kernel=names[stage][0], robot=robot, statements=K.statements[stage], **a)
     phase("build", wall_seconds=f"{build_wall:.2f}", units=len(engines) + sum(len(b) for k, b in built.items() if k[0] == "mpc"))
 
     # 3. Rollout kernel vs plain version, both on the card.
@@ -515,6 +789,8 @@ def main() -> int:
             "ms": stage_ms[stage], "plain_ms": stage_plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "num_regs": a["num_regs"], "local_bytes": a["local_bytes"],
         })
+
+    records += single_path(panda, single, mpc_attrs["panda single"], card)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

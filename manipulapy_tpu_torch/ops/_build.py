@@ -6,10 +6,15 @@ Builds go to ``build/manipulapy_tpu_torch/<sha256 of source and flags>/``
 beside the package, are written atomically (a temporary file, then
 ``os.replace``) and are reused by content. A missing ``nvcc`` or a failed
 build raises: nothing falls back to a plain version.
+
+:class:`KernelSet` is what the MPC kernel sets share: their units built
+in parallel, the checks that route a call to its kernel or its plain
+version, the launch on PyTorch's current stream and the launch counts.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -18,8 +23,11 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict, Tuple
 
-__all__ = ["NVCC_FLAGS", "BuiltLibrary", "build_library", "nvcc_path"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "BuiltLibrary", "KernelSet", "build_library", "nvcc_path"]
 
 # --fmad=false: no multiply-add contraction, so every emitted operation
 # rounds once, as each eager op of the plain PyTorch version does. With
@@ -105,3 +113,96 @@ def build_library(source: str, name: str) -> BuiltLibrary:
     built = BuiltLibrary(ctypes.CDLL(str(so_path)), so_path, seconds, log)
     _LOADED[digest] = built
     return built
+
+
+class KernelSet:
+    """The stages of one set of kernels, built from several translation
+    units, each stage a ``launch_<stage>`` and an ``attributes_<stage>``
+    C entry point of its unit.
+
+    A subclass sets ``UNITS`` (unit: its stages), ``ARGTYPES`` (stage: the
+    ctypes of its launch's arguments, the stream last), ``LIB_PREFIX`` and
+    its own ``launch_count`` dict (launches of every instance, per stage),
+    and fills ``self.sources`` (unit: CUDA source)."""
+
+    UNITS: Dict[str, Tuple[str, ...]] = {}
+    ARGTYPES: Dict[str, list] = {}
+    LIB_PREFIX = ""
+    launch_count: Dict[str, int] = {}
+    sources: Dict[str, str]
+    _libs = None
+
+    @classmethod
+    def reset_launch_count(cls) -> None:
+        cls.launch_count = dict.fromkeys(cls.launch_count, 0)
+
+    def build(self) -> Dict[str, BuiltLibrary]:
+        """Compile the translation units in parallel, one nvcc each (once
+        per source), and load them; returns ``{unit: BuiltLibrary}``."""
+        if self._libs is None:
+            with concurrent.futures.ThreadPoolExecutor(len(self.UNITS)) as pool:
+                futures = {
+                    unit: pool.submit(build_library, self.sources[unit], f"{self.LIB_PREFIX}_{unit}")
+                    for unit in self.UNITS
+                }
+                built = {unit: f.result() for unit, f in futures.items()}
+            for unit, stages in self.UNITS.items():
+                lib = built[unit].lib
+                for stage in stages:
+                    launch = getattr(lib, f"launch_{stage}")
+                    launch.argtypes = self.ARGTYPES[stage]
+                    launch.restype = ctypes.c_int
+                    attrs = getattr(lib, f"attributes_{stage}")
+                    attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+                    attrs.restype = ctypes.c_int
+            self._libs = built
+        return self._libs
+
+    def _lib(self, stage: str) -> ctypes.CDLL:
+        libs = self.build()
+        return next(libs[u].lib for u, stages in self.UNITS.items() if stage in stages)
+
+    def kernel_attributes(self) -> Dict[str, dict]:
+        """Per stage: registers per thread, spill (local) bytes per thread
+        and the largest block size, from ``cudaFuncGetAttributes``."""
+        out = {}
+        for stages in self.UNITS.values():
+            for stage in stages:
+                regs, local, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+                err = getattr(self._lib(stage), f"attributes_{stage}")(
+                    ctypes.byref(regs), ctypes.byref(local), ctypes.byref(threads)
+                )
+                if err:
+                    raise RuntimeError(f"cudaFuncGetAttributes({stage}) failed with CUDA error {err}")
+                out[stage] = {"num_regs": regs.value, "local_bytes": local.value, "max_threads": threads.value}
+        return out
+
+    def _route(self, stage: str, tensors: Dict[str, "torch.Tensor"], shapes: Dict[str, tuple]) -> bool:
+        """True when the stage runs its kernel, False for the plain version
+        (all tensors on the CPU). Raises on anything the kernel does not
+        take."""
+        for name, x in tensors.items():
+            if tuple(x.shape) != shapes[name]:
+                raise ValueError(f"{stage}: {name} must be {shapes[name]}, got {tuple(x.shape)}")
+        devices = {x.device for x in tensors.values()}
+        if all(d.type == "cpu" for d in devices):
+            return False
+        if len(devices) != 1 or next(iter(devices)).type != "cuda":
+            raise ValueError(f"{stage}: inputs must all lie on one CUDA device, got {sorted(map(str, devices))}")
+        for name, x in tensors.items():
+            if x.dtype != torch.float32:
+                raise TypeError(f"the {stage} kernel takes float32; {name} is {x.dtype}")
+            if not x.is_contiguous():
+                raise ValueError(f"{stage}: {name} must be contiguous")
+            if x.requires_grad:
+                raise ValueError(f"the {stage} kernel has no backward; detach {name}")
+        return True
+
+    def _launch(self, stage: str, device, *args) -> None:
+        fn = getattr(self._lib(stage), f"launch_{stage}")
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
+        if err:
+            raise RuntimeError(f"{stage} kernel launch failed with CUDA error {err}")
+        type(self).launch_count[stage] += 1

@@ -35,17 +35,15 @@ float32, contiguous, one device, the shapes above. Each launch adds one to
 
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Dict, List, Sequence
 
-import numpy as np
 import torch
 
 from . import cgen as cg
-from ._build import build_library
+from ._build import KernelSet
 from .fd_step import (
     DEFAULT_G,
     _full,
@@ -56,6 +54,7 @@ from .fd_step import (
 from ..models.robot import RobotModel, host_arrays
 
 __all__ = [
+    "MPCKernelSet",
     "BatchMPCKernels",
     "STAGES",
     "BLOCK",
@@ -270,11 +269,20 @@ def _stack(vals, like: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return torch.stack([_full(v, like) for v in vals], dim=dim)
 
 
-class BatchMPCKernels:
-    """K2-K5 for one (robot, dt, g, cost weights, torque limits)."""
+class MPCKernelSet(KernelSet):
+    """What the batched (K2-K5) and single-problem (K6-K8) kernel sets
+    share, for one (robot, dt, g, cost weights, torque limits): the folded
+    costs ``P``, the sources (per unit a header, the unit's emitted device
+    functions and the template), the statement counts, the plain
+    linearization (K2's and K6's) and :meth:`plain`.
 
-    kind = "cuda"
-    launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
+    A subclass sets ``STAGES``, ``TEMPLATE`` and ``DEFINES`` (extra
+    ``#define``s of its units) besides :class:`KernelSet`'s attributes, and
+    gives ``_bodies(model, dt, g) -> {unit: emitted source}``."""
+
+    STAGES: tuple = ()
+    TEMPLATE: Path
+    DEFINES: Dict[str, int] = {}
 
     def __init__(
         self,
@@ -295,24 +303,63 @@ class BatchMPCKernels:
             raise ValueError(f"u_lim must have {n} entries, got {len(P.u_lim)}")
         _, self._step_jvp = build_fd_step_jvp_planes(model, float(dt), g=g)
         self.statements: Dict[str, int] = {}
-        self.sources = self._sources(model, float(dt), g, (w_q, w_dq, w_u, w_terminal))
-        self._libs = None
+        host = host_arrays(model)
+        digest = host["digest"] if host is not None else "unregistered model"
+        weights = tuple(float(w) for w in (w_q, w_dq, w_u, w_terminal))
+        template = self.TEMPLATE.read_text()
+        defines = "".join(f"#define {k} {v}\n" for k, v in {"MPT_NJ": n, **self.DEFINES}.items())
+        self.sources = {
+            unit: (
+                f"// Generated: robot {digest}, dt {float(dt)!r}, g {g!r}, weights (w_q, w_dq, "
+                f"w_u, w_terminal) {weights!r}, u_lim {tuple(P.u_lim)!r}, unit {unit}.\n"
+                f"{defines}#define MPT_UNIT_{unit.upper()} 1\n#include <math.h>\n{body}\n{template}"
+            )
+            for unit, body in self._bodies(model, float(dt), g).items()
+        }
 
-    @classmethod
-    def reset_launch_count(cls) -> None:
-        cls.launch_count = dict.fromkeys(STAGES, 0)
-
-    # -- sources and build -------------------------------------------------
-    def _sources(self, model, dt, g, weights) -> Dict[str, str]:
-        P, n, nx = self.P, self.n, self.nx
-        kkn, vn = n * (1 + nx), (nx + 1) * nx
-        _, lin_src, self.statements["linearize"] = build_fd_step_jvp_source(model, dt, g=g)
-        # The primal step alone: the part of the linearization that all m
-        # seeds share.
+    def _linearize_body(self, model, dt, g) -> str:
+        """The linearization's device function (``fd_step_jvp``), counting
+        its statements and, as ``"step"``, those of the primal step alone:
+        the part that all m seeds share."""
+        n, P = self.n, self.P
+        _, src, self.statements["linearize"] = build_fd_step_jvp_source(model, dt, g=g)
         _, self.statements["step"] = cg.c_function(
             "fd_step", [("q", n), ("dq", n), ("tau", n)], [], [("q_next", n), ("dq_next", n)],
             lambda q, dq, tau: P.step(q, dq, tau)[:2],
         )
+        return src
+
+    def linearize_plain(self, xs: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+        """The plain linearization: xs (H, nx, ...), us (H, n, ...) -> AB
+        (H, nx, m, ...), all m tangent seeds in one pass."""
+        n, nx, m = self.n, self.nx, self.m
+        rest = tuple(xs.shape[2:])
+        eye = torch.eye(m, dtype=xs.dtype, device=xs.device).reshape((m, m) + (1,) * (1 + len(rest)))
+        _, tans = self._step_jvp(
+            [xs[:, i] for i in range(nx)], [us[:, j] for j in range(n)],
+            [eye[i] for i in range(nx)], [eye[nx + j] for j in range(n)],
+        )
+        AB = _stack(tans, xs[:, 0].expand((m, xs.shape[0]) + rest), dim=1)  # (m, nx, H, ...)
+        return AB.permute(2, 1, 0, *range(3, AB.dim())).contiguous()
+
+    def plain(self) -> SimpleNamespace:
+        """The stages through their plain versions on any device (the
+        reference the kernels are held against)."""
+        return SimpleNamespace(**{stage: getattr(self, f"{stage}_plain") for stage in self.STAGES})
+
+
+class BatchMPCKernels(MPCKernelSet):
+    """K2-K5 for one (robot, dt, g, cost weights, torque limits)."""
+
+    kind = "cuda"
+    STAGES, UNITS, ARGTYPES, LIB_PREFIX = STAGES, UNITS, _ARGTYPES, "mpc_batch"
+    TEMPLATE, DEFINES = TEMPLATE, {"MPT_BLOCK": BLOCK}
+    launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
+
+    def _bodies(self, model, dt, g) -> Dict[str, str]:
+        P, n, nx = self.P, self.n, self.nx
+        kkn, vn = n * (1 + nx), (nx + 1) * nx
+        lin_src = self._linearize_body(model, dt, g)
         term_src, term_ops = cg.c_function(
             "riccati_terminal", [("x_last", nx), ("goal", n)], [], [("V", vn)],
             lambda x_last, goal: [riccati_terminal(P, x_last, goal)],
@@ -339,92 +386,9 @@ class BatchMPCKernels:
         )
         self.statements["linesearch_costs"] = self.statements["replay"] = fwd_ops
         self.statements["cost_terminal"] = cost_ops
-        host = host_arrays(model)
-        digest = host["digest"] if host is not None else "unregistered model"
-        bodies = {"lin": lin_src, "bwd": term_src + step_src, "fwd": fwd_src + cost_src}
-        template = TEMPLATE.read_text()
-        out = {}
-        for unit, body in bodies.items():
-            header = (
-                f"// Generated: robot {digest}, dt {dt!r}, g {g!r}, weights (w_q, w_dq, "
-                f"w_u, w_terminal) {tuple(float(w) for w in weights)!r}, u_lim "
-                f"{tuple(P.u_lim)!r}, unit {unit}.\n"
-                f"#define MPT_NJ {n}\n#define MPT_BLOCK {BLOCK}\n#define MPT_UNIT_{unit.upper()} 1\n"
-            )
-            out[unit] = header + "#include <math.h>\n" + body + "\n" + template
-        return out
+        return {"lin": lin_src, "bwd": term_src + step_src, "fwd": fwd_src + cost_src}
 
-    def build(self) -> Dict[str, object]:
-        """Compile the three translation units in parallel (once per
-        source) and load them; returns ``{unit: BuiltLibrary}``."""
-        if self._libs is None:
-            with concurrent.futures.ThreadPoolExecutor(len(UNITS)) as pool:
-                futures = {
-                    unit: pool.submit(build_library, self.sources[unit], f"mpc_batch_{unit}")
-                    for unit in UNITS
-                }
-                built = {unit: f.result() for unit, f in futures.items()}
-            for unit, stages in UNITS.items():
-                lib = built[unit].lib
-                for stage in stages:
-                    launch = getattr(lib, f"launch_{stage}")
-                    launch.argtypes = _ARGTYPES[stage]
-                    launch.restype = ctypes.c_int
-                    attrs = getattr(lib, f"attributes_{stage}")
-                    attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
-                    attrs.restype = ctypes.c_int
-            self._libs = built
-        return self._libs
-
-    def _lib(self, stage: str):
-        libs = self.build()
-        return next(libs[u].lib for u, stages in UNITS.items() if stage in stages)
-
-    def kernel_attributes(self) -> Dict[str, dict]:
-        """Per stage: registers per thread, spill (local) bytes per thread
-        and the largest block size, from ``cudaFuncGetAttributes``."""
-        out = {}
-        for stage in STAGES:
-            regs, local, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-            err = getattr(self._lib(stage), f"attributes_{stage}")(
-                ctypes.byref(regs), ctypes.byref(local), ctypes.byref(threads)
-            )
-            if err:
-                raise RuntimeError(f"cudaFuncGetAttributes({stage}) failed with CUDA error {err}")
-            out[stage] = {"num_regs": regs.value, "local_bytes": local.value, "max_threads": threads.value}
-        return out
-
-    # -- checks and launch -------------------------------------------------
-    def _route(self, stage: str, tensors: Dict[str, torch.Tensor], shapes: Dict[str, tuple]) -> bool:
-        """True when the stage runs its kernel, False for the plain version
-        (all tensors on the CPU). Raises on anything the kernel does not
-        take."""
-        for name, x in tensors.items():
-            if tuple(x.shape) != shapes[name]:
-                raise ValueError(f"{stage}: {name} must be {shapes[name]}, got {tuple(x.shape)}")
-        devices = {x.device for x in tensors.values()}
-        if all(d.type == "cpu" for d in devices):
-            return False
-        if len(devices) != 1 or next(iter(devices)).type != "cuda":
-            raise ValueError(f"{stage}: inputs must all lie on one CUDA device, got {sorted(map(str, devices))}")
-        for name, x in tensors.items():
-            if x.dtype != torch.float32:
-                raise TypeError(f"the {stage} kernel takes float32; {name} is {x.dtype}")
-            if not x.is_contiguous():
-                raise ValueError(f"{stage}: {name} must be contiguous")
-            if x.requires_grad:
-                raise ValueError(f"the {stage} kernel has no backward; detach {name}")
-        return True
-
-    def _launch(self, stage: str, device, *args) -> None:
-        fn = getattr(self._lib(stage), f"launch_{stage}")
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
-        if err:
-            raise RuntimeError(f"{stage} kernel launch failed with CUDA error {err}")
-        BatchMPCKernels.launch_count[stage] += 1
-
+    # -- checks -----------------------------------------------------------
     @staticmethod
     def _dims(xs: torch.Tensor):
         if xs.dim() != 3:
@@ -444,17 +408,6 @@ class BatchMPCKernels:
         AB = torch.empty((H, nx, m, B), dtype=xs.dtype, device=xs.device)
         self._launch("linearize", xs.device, xs, us, AB, B, H)
         return AB
-
-    def linearize_plain(self, xs: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
-        n, nx, m = self.n, self.nx, self.m
-        H, B = xs.shape[0], xs.shape[2]
-        eye = torch.eye(m, dtype=xs.dtype, device=xs.device).reshape(m, m, 1, 1)
-        _, tans = self._step_jvp(
-            [xs[:, i] for i in range(nx)], [us[:, j] for j in range(n)],
-            [eye[i] for i in range(nx)], [eye[nx + j] for j in range(n)],
-        )
-        AB = _stack(tans, xs[:, 0].expand(m, H, B), dim=1)  # (m, nx, H, B)
-        return AB.permute(2, 1, 0, 3).contiguous()
 
     # -- K3 ----------------------------------------------------------------
     def backward(self, AB, xs, us, x_last, goal, reg) -> torch.Tensor:
@@ -544,8 +497,3 @@ class BatchMPCKernels:
             us_rows.append(_stack(u, like))
         cost = cg.add(acc, terminal_cost(self.P, x, g))
         return torch.stack(xs_rows), torch.stack(us_rows), _full(cost, like)
-
-    def plain(self) -> SimpleNamespace:
-        """The four stages through their plain versions on any device (the
-        reference the kernels are held against)."""
-        return SimpleNamespace(**{stage: getattr(self, f"{stage}_plain") for stage in STAGES})

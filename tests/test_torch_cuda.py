@@ -1,5 +1,6 @@
 """The CUDA kernels on a card, against their plain PyTorch versions: the
-rollout (K1) and the batched fused MPC (K2-K5).
+rollout (K1), the batched fused MPC (K2-K5) and the single-problem fused
+MPC (K6-K8).
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU. The module imports no JAX, so it also runs on a machine without JAX:
@@ -7,10 +8,10 @@ GPU. The module imports no JAX, so it also runs on a machine without JAX:
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: 1e-4 on q, 1e-3 on dq and 2e-1 on ddq (float32) for the
-rollout; 1e-5 of each output's largest magnitude for K2-K5 (the same
+rollout; 1e-5 of each output's largest magnitude for K2-K8 (the same
 emitted operations with --fmad=false, so 0 is expected); the JAX test's
 bars (cost rtol 1e-5, final state atol 5e-4, controls atol 5e-3) for the
-whole MPC solve against the plain solver.
+whole MPC solves against the plain solvers.
 """
 
 import numpy as np
@@ -19,8 +20,10 @@ import torch
 
 from manipulapy_tpu_torch import trajectory
 from manipulapy_tpu_torch.models import catalog
+from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
+from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
 from manipulapy_tpu_torch.ops.cuda_rollout import CudaRollout, build_cuda_rollout
 from manipulapy_tpu_torch.ops.fd_step import build_rollout
 
@@ -185,3 +188,76 @@ def test_mpc_kernels_reject_float64_and_mixed_devices(cuda_device):
     with pytest.raises(ValueError):
         K.linearize(xs, us[:, :1])
     assert K.linearize(xs, us).shape == (2, 4, 6, 3)
+
+
+# ---------------------------------------------------------------------------
+# The single-problem fused MPC kernels (K6-K8)
+# ---------------------------------------------------------------------------
+
+
+def test_single_mpc_kernels_match_plain_versions(cuda_device):
+    """Panda, H=37 (K6's H*m threads end mid-block), random torques within
+    30% of the limits; K6 and K7 fed from their open-loop rollout, K8 from
+    K7's gains."""
+    model = catalog.panda(device=cuda_device)
+    n, nx, H = 7, 14, 37
+    x0, goals, us = _mpc_problem(model, 1, H, cuda_device, seed=2)
+    x0, goal, us = x0[0].contiguous(), goals[0].contiguous(), us[..., 0].contiguous()
+    mpc = build_tracking_mpc(model, goal, H, 0.01)
+    K, P = mpc.kernels, mpc.kernels.plain()
+    zeros = lambda *s: torch.zeros(s, device=cuda_device)
+    before = dict(SingleMPCKernels.launch_count)
+    init = (x0, zeros(H, nx), us, zeros(H, n, 1 + nx), goal, zeros(1))
+    xs0 = K.forward(*init)
+    for g, r in zip(xs0, P.forward(*init)):
+        _close_to_scale(g, r)
+    sd_x = torch.cat([x0[None], xs0[0][0, :-1]]).contiguous()
+    AB = K.linearize(sd_x, us)
+    _close_to_scale(AB, P.linearize(sd_x, us))
+    two_wT = torch.tensor([200.0] * n + [20.0] * n, device=cuda_device)
+    Vx = two_wT * (xs0[0][0, -1] - torch.cat([goal, zeros(n)]))
+    args = (AB, sd_x, us, goal, torch.cat([torch.diag(two_wT), Vx[None]]).contiguous(),
+            torch.tensor(1e-6, device=cuda_device))
+    kK = K.backward(*args)
+    _close_to_scale(kK, P.backward(*args))
+    args = (x0, sd_x, us, kK, goal, 0.5 ** torch.arange(6, device=cuda_device, dtype=torch.float32))
+    for g, r in zip(K.forward(*args), P.forward(*args)):
+        _close_to_scale(g, r)
+    torch.cuda.synchronize()
+    after = SingleMPCKernels.launch_count
+    assert {k: after[k] - before[k] for k in after} == {"linearize": 1, "backward": 1, "forward": 2}
+
+
+def test_single_solve_runs_on_the_kernels(cuda_device):
+    model = catalog.panda(device=cuda_device)
+    H = 10
+    x0, goals, _ = _mpc_problem(model, 1, H, cuda_device, seed=3)
+    mpc = build_tracking_mpc(model, goals[0], H, 0.01, iterations=2)
+    x0, us0 = x0[0].contiguous(), torch.zeros((H, 7), device=cuda_device)
+    SingleMPCKernels.reset_launch_count()
+    us, xs, cost = mpc.solve(x0, us0)
+    torch.cuda.synchronize()
+    assert SingleMPCKernels.launch_count == {"linearize": 2, "backward": 2, "forward": 3}
+    us_p, xs_p, cost_p = mpc.solve_plain(x0, us0)
+    assert us.shape == (H, 7) and xs.shape == (H + 1, 14) and cost.shape == ()
+    assert float((cost - cost_p).abs() / cost_p.abs()) <= 1e-5
+    assert float((xs[-1] - xs_p[-1]).abs().max()) <= 5e-4
+    assert float((us - us_p).abs().max()) <= 5e-3
+    assert bool((us.abs() <= model.torque_limit).all())
+
+
+def test_single_mpc_kernels_reject_float64_and_mixed_devices(cuda_device):
+    model = catalog.two_link_planar(device=cuda_device)
+    mpc = build_tracking_mpc(model, [0.1, 0.2], 3, 0.01)
+    K = mpc.kernels
+    xs, us = torch.zeros((3, 4), device=cuda_device), torch.zeros((3, 2), device=cuda_device)
+    with pytest.raises(TypeError):
+        K.linearize(xs.double(), us.double())
+    with pytest.raises(ValueError):
+        K.linearize(xs, us.cpu())
+    with pytest.raises(ValueError):
+        K.linearize(xs, us[:, :1])
+    with pytest.raises(TypeError):
+        mpc.forward(xs[0].double(), xs.double(), us.double(), torch.zeros((3, 2, 5), device=cuda_device).double(),
+                    us[0].double(), torch.ones(1, device=cuda_device).double())
+    assert K.linearize(xs, us).shape == (3, 4, 6)

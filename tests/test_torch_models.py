@@ -72,9 +72,9 @@ def test_import_never_loads_jax():
         "from manipulapy_tpu_torch.core import lie, time_scaling\n"
         "from manipulapy_tpu_torch.models import robot, catalog\n"
         "from manipulapy_tpu_torch.ops import cgen, fd_step, smallinalg, dispatch, cuda_rollout, _build\n"
-        "from manipulapy_tpu_torch.ops import cuda_mpc_batch\n"
+        "from manipulapy_tpu_torch.ops import cuda_mpc_batch, cuda_mpc_single\n"
         "from manipulapy_tpu_torch import mpc\n"
-        "from manipulapy_tpu_torch.mpc import costs, ilqr, fused_batch\n"
+        "from manipulapy_tpu_torch.mpc import costs, ilqr, fused_batch, fused\n"
         "import torch\n"
         "catalog.ur5(device='cpu')\n"
         "assert torch.get_float32_matmul_precision() == 'highest'\n"
