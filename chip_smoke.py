@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of manipulapy_tpu_torch on one CUDA card.
 
-Drives the port's two main paths at full width through hand-written CUDA
+Drives the port's main paths at full width through hand-written CUDA
 kernels built from ``manipulapy_tpu_torch/csrc`` with nvcc for sm_90a:
 
 * the exact-dynamics rollout (K1, step program K0 inlined) behind
@@ -15,15 +15,25 @@ kernels built from ``manipulapy_tpu_torch/csrc`` with nvcc for sm_90a:
   ``mpc.fused.build_tracking_mpc(...).solve``, at the shape the JAX
   package's benchmark times (``mpc_panda_H50_fused_single``): Panda, H=50,
   dt=0.01, 4 iterations, 6 alphas, one solve and 20 receding-horizon
-  rounds.
+  rounds;
+* the planning path (K9, K10, and K1 again) behind
+  ``planner.create_planner`` and the public functions: UR5, B=1024
+  start/goal pairs, quintic plans of N=1000 waypoints over Tf=2 s
+  (``batch_joint_trajectory``), the link positions of every waypoint (6.1 M
+  points) in a Cartesian potential field of 32 obstacle points
+  (``cartesian_potential_field``), the plans' exact inverse dynamics and
+  their rollout at dt = Tf / (N - 1); then one plan with the
+  collision-avoidance pass, one Cartesian trajectory, the singularity
+  measure along the plans and 200 periods of computed-torque control.
 
 Phases, one line each (or one line per case):
 
 1. device: the card, its power limit, CUDA, matmul precision "highest";
 2. build: every kernel at once, one nvcc per translation unit, all started
-   together (the rollout for UR5 with intRes 1 and 3 and for Panda; K2-K5
-   for Panda and UR5; K6-K8 for Panda), with build seconds, registers and
-   spill bytes;
+   together (the rollout for UR5 with intRes 1 and 3, at the planning
+   path's dt, and for Panda; K2-K5 for Panda and UR5; K6-K8 for Panda; the
+   static unit of K9 and K10), with build seconds, registers and spill
+   bytes;
 3. rollout: kernel vs its plain PyTorch version on the card;
 4. rollout main path at full width, checked against the plain version on
    its first 4096 rows (launch count read just after it);
@@ -59,7 +69,24 @@ Phases, one line each (or one line per case):
     receding round, and the glue (the solve minus its kernels' sum),
     CUDA-event medians; then a ``torch.profiler`` trace of 3 solves: each
     kernel's device time per solve, the glue's, and the device's busy
-    share.
+    share;
+13. ``elementwise_build``: the static unit's nvcc seconds, registers and
+    spills;
+14. ``traj_parity``: K9 against its plain version for the cubic, quintic
+    and linear methods at (B, N, J) = (3, 300, 6), (1024, 4096, 6) and
+    (2, 101, 3); max |d| within 2e-6 / 2e-5 / 2e-4 on pos / vel / acc;
+15. ``potential_parity``: K10 against its plain version at P=400 O=5,
+    P=262144 O=32, no obstacle at all, and with one point on an obstacle;
+    rtol 1e-4, atol 1e-5 on U and 1e-4 on its gradient;
+16. ``plan_path``: the planning path, launch counts read just after its
+    open-loop part (K9, K10 and K1 once each) and at its end; finite
+    outputs, positions inside the joint limits, the plans' boundary
+    conditions, the avoided plan clear of the cloud it would have hit;
+17. ``plan_time``: CUDA-event medians of K9 and K10 at the path's shapes and
+    at two more each, beside their device times in a ``torch.profiler``
+    trace, their bounds, their plain versions and the tensor formulations
+    they replace; and of K1 at the path's two shapes (the plans' rollout,
+    one control period).
 
 Then one JSON line of every kernel, the card's name and power limit, and
 the result line. Any failure raises, so the script exits nonzero before its
@@ -81,13 +108,15 @@ import time
 import numpy as np
 import torch
 
-from manipulapy_tpu_torch import trajectory
+from manipulapy_tpu_torch import control, create_planner, potential_field, singularity, trajectory
+from manipulapy_tpu_torch.kinematics import forward_kinematics
 from manipulapy_tpu_torch.models import catalog
 from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
 from manipulapy_tpu_torch.ops.cuda_rollout import CudaRollout, build_cuda_rollout
+from manipulapy_tpu_torch.ops import elementwise as ew
 from manipulapy_tpu_torch.ops.fd_step import build_rollout
 
 # Per-output float32 tolerances (tests/test_pallas.py of the JAX package):
@@ -129,6 +158,26 @@ SINGLE_KERNELS = {  # stage: (id and name, the TPU kernel's pallas_call, the CUD
     "backward": ("K7 single-problem Riccati backward (Gauss-Jordan)", "manipulapy_tpu/mpc/fused.py:303", "mps_bwd_kernel"),
     "forward": ("K8 single-problem line-search forward (K0 inlined)", "manipulapy_tpu/mpc/fused.py:375", "mps_fwd_kernel"),
 }
+# The planning path: widths, tolerances (those of the JAX package's kernel
+# tests) and the shapes timed besides the path's own.
+B_PLAN, N_PLAN, TF_PLAN, O_PLAN, D0_PLAN = 1024, 1000, 2.0, 32, 0.5
+DT_PLAN = TF_PLAN / (N_PLAN - 1)
+TRAJ_ATOL = {"pos": 2e-6, "vel": 2e-5, "acc": 2e-4}
+TRAJ_PARITY = ((3, 300, 6, 2.0), (1024, 4096, 6, 2.0), (2, 101, 3, 1.0))  # B, N, J, Tf
+TRAJ_TIMED = ((256, 1000, 6), (1024, 4096, 6))
+POT_RTOL, POT_ATOL = 1e-4, {"U": 1e-5, "grad": 1e-4}
+POT_PARITY = ((400, 5, 0.6), (262144, 32, 0.5), (1031, 0, 0.5))  # P, O, d0
+POT_TIMED = (16384, 262144)
+# The avoidance pass: descend until every waypoint is AVOID_MARGIN clear. Its
+# pull toward the goal (1e-3 |q - goal|^2) holds the last few mm back, hence
+# the slack in the gate.
+AVOID_MARGIN, AVOID_SLACK, AVOID_STEPS, AVOID_STEP_SIZE = 0.05, 0.01, 100, 0.5
+CTRL_STEPS, CTRL_KP, CTRL_KD = 200, 100.0, 20.0
+# Operations per output element (K9, by method) and per point and obstacle
+# (K10), counted from csrc/elementwise.cuh.
+TRAJ_OPS = {3: 23, 5: 30, 1: 8}
+POT_OPS_POINT, POT_OPS_OBSTACLE = 9, 28
+ELEMENTWISE_SOURCE = "manipulapy_tpu_torch/csrc/elementwise.cuh"
 
 
 def phase(name: str, **fields) -> None:
@@ -217,11 +266,12 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def build_all(rollouts: dict, mpc_kernels: dict) -> dict:
+def build_all(rollouts: dict, mpc_kernels: dict, planning: ew.ElementwiseKernels) -> dict:
     """Start every build at once; each MPC kernel set (K2-K5 or K6-K8)
     starts its three units in parallel itself."""
     jobs = {**{("rollout", k): e.build for k, e in rollouts.items()},
-            **{("mpc", k): m.build for k, m in mpc_kernels.items()}}
+            **{("mpc", k): m.build for k, m in mpc_kernels.items()},
+            ("planning", "elementwise"): planning.build}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {key: pool.submit(fn) for key, fn in jobs.items()}
@@ -307,7 +357,7 @@ def mpc_stage_parity(K: BatchMPCKernels, x0, goals, us, label: str, time_plain: 
     errs, plain_ms = ({} if check else None), {}
 
     def both(stage, args):
-        return stage_vs_plain(K, stage, args, label, errs, plain_ms, 2 if time_plain else 0)
+        return stage_vs_plain(K, stage, args, label, errs, plain_ms, 1 if time_plain else 0)
 
     xs0 = both("replay", init)[0]
     sd_x = torch.cat([x0_t[None], xs0[:-1]]).contiguous()
@@ -541,6 +591,263 @@ def single_path(panda, single, attrs: dict, card: str) -> list:
         })
     return records
 
+# ---------------------------------------------------------------------------
+# The planning path (K9, K10, K1)
+# ---------------------------------------------------------------------------
+
+
+def traj_bound(B: int, N: int, J: int, method: int = 5):
+    """K9: both endpoints read once, three (B, N, J) outputs written once."""
+    return bound((2 * B * J + 3 * B * N * J) * 4, TRAJ_OPS[method] * B * N * J)
+
+
+def potential_bound(P: int, O: int):
+    """K10: points, goal and obstacles read once, U and its gradient written
+    once (28 bytes per point)."""
+    return bound((3 * P + 3 + 3 * O + P + 3 * P) * 4, (POT_OPS_POINT + POT_OPS_OBSTACLE * O) * P)
+
+
+def planning_parity(gen: torch.Generator) -> dict:
+    """Phases 14 and 15: K9 and K10 against their plain versions on the card.
+    Returns the largest |d| per kernel."""
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=DEV, dtype=torch.float32) * 2 - 1
+    worst = {"trajectory": 0.0, "potential": 0.0}
+    for B, N, J, Tf in TRAJ_PARITY:
+        start, end = rand(B, J), rand(B, J)
+        for method in (3, 5, 1):
+            got = ew.trajectory_kernel(start, end, Tf, N, method)
+            ref = ew.trajectory_plain(start, end, Tf, N, method)
+            torch.cuda.synchronize()
+            errs = {k: float((g - r).abs().max()) for k, g, r in zip(TRAJ_ATOL, got, ref)}
+            for k, tol in TRAJ_ATOL.items():
+                if not errs[k] <= tol:  # also fails on NaN
+                    raise AssertionError(f"K9 B={B} N={N} J={J} method={method}: max |d{k}| = {errs[k]} exceeds {tol}")
+            worst["trajectory"] = max(worst["trajectory"], *errs.values())
+            phase("traj_parity", B=B, N=N, J=J, Tf=Tf, method=method, **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()})
+    cases = [(P, O, d0, False) for P, O, d0 in POT_PARITY] + [(POT_PARITY[0] + (True,))]
+    for P, O, d0, overlap in cases:
+        pts, goal, obstacles = rand(P, 3), rand(3), rand(O, 3)
+        if overlap:
+            pts[P // 2] = obstacles[O - 1]
+        got = ew.cartesian_potential_kernel(pts, goal, obstacles, d0)
+        ref = ew.cartesian_potential_plain(pts, goal, obstacles, d0)
+        torch.cuda.synchronize()
+        errs = {}
+        for (k, atol), g, r in zip(POT_ATOL.items(), got, ref):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"K10 P={P} O={O}: non-finite {k}")
+            if not bool(((g - r).abs() <= atol + POT_RTOL * r.abs()).all()):
+                raise AssertionError(f"K10 P={P} O={O} {k}: max |d| = {float((g - r).abs().max())} over rtol {POT_RTOL}, atol {atol}")
+            errs[k] = float((g - r).abs().max())
+        if overlap and not float(got[0][P // 2]) > 1e17:
+            raise AssertionError("K10: the point on an obstacle did not get the overlap potential")
+        worst["potential"] = max(worst["potential"], *errs.values())
+        phase("potential_parity", P=P, O=O, d0=d0, point_on_obstacle=overlap,
+              **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()})
+    return worst
+
+
+def planning_path(ur5, gen: torch.Generator):
+    """Phase 16. Returns the launches of K9, K10 and K1 over the path, and
+    the inputs of K9 and K10 on it (for their timing)."""
+    f32 = dict(dtype=torch.float32, device=DEV)
+    rand = lambda *shape: torch.rand(shape, generator=gen, **f32) * 2 - 1
+    lo, hi = ur5.joint_lower, ur5.joint_upper
+    start = rand(B_PLAN, 6)
+    goal = torch.clamp(start + rand(B_PLAN, 6) * 0.8, lo, hi)
+    # 30 obstacle points around the arm, and 2 in the way of the single plan
+    # below (beside two link centres at its middle configuration).
+    q_a = torch.tensor([0.0, -1.0, 1.2, 0.0, 0.5, 0.0], **f32)
+    q_b = torch.tensor([1.2, -0.6, 0.8, 0.3, 0.2, 0.4], **f32)
+    mid = potential_field.link_positions(ur5, 0.5 * (q_a + q_b))
+    in_the_way = mid[[3, 5]] + torch.tensor([[0.02, 0.0, 0.03], [0.0, 0.03, -0.02]], **f32)
+    cloud = torch.cat([rand(O_PLAN - 2, 3) * 0.8, in_the_way]).contiguous()
+    field_goal = torch.tensor([0.4, 0.1, 0.3], **f32)
+    planner = create_planner(ur5, obstacle_points=cloud)
+
+    ew.ElementwiseKernels.reset_launch_count()
+    CudaRollout.reset_launch_count()
+    stage_ms = {}
+    with torch.no_grad():
+        plan, stage_ms["batch_joint_trajectory"] = timed(lambda: planner.batch_joint_trajectory(start, goal, TF_PLAN, N_PLAN))
+        points, stage_ms["link_positions"] = timed(lambda: potential_field.link_positions(ur5, plan.position))
+        (U, grad), stage_ms["cartesian_potential_field"] = timed(
+            lambda: potential_field.cartesian_potential_field(points, field_goal, cloud, D0_PLAN))
+        tau, stage_ms["inverse_dynamics_trajectory"] = timed(lambda: planner.inverse_dynamics_trajectory(*plan))
+        (sim_q, sim_dq, _), stage_ms["forward_dynamics_trajectory"] = timed(
+            lambda: planner.forward_dynamics_trajectory(plan.position[:, 0], plan.velocity[:, 0], tau, dt=DT_PLAN))
+    torch.cuda.synchronize()
+    open_loop = {**ew.ElementwiseKernels.launch_count, "rollout": CudaRollout.launch_count}
+    if open_loop != {"trajectory": 1, "potential": 1, "rollout": 1}:
+        raise AssertionError(f"the open-loop planning path launched {open_loop}, expected one launch per kernel")
+    shapes = {"position": (plan.position, (B_PLAN, N_PLAN, 6)), "velocity": (plan.velocity, (B_PLAN, N_PLAN, 6)),
+              "acceleration": (plan.acceleration, (B_PLAN, N_PLAN, 6)), "points": (points, (B_PLAN, N_PLAN, 6, 3)),
+              "U": (U, (B_PLAN, N_PLAN, 6)), "grad": (grad, (B_PLAN, N_PLAN, 6, 3)), "tau": (tau, (B_PLAN, N_PLAN, 6)),
+              "sim_q": (sim_q, (B_PLAN, N_PLAN, 6)), "sim_dq": (sim_dq, (B_PLAN, N_PLAN, 6))}
+    for name, (x, shape) in shapes.items():
+        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"plan_path {name}: shape {tuple(x.shape)} or non-finite values")
+    for name, x in (("plan", plan.position), ("rollout", sim_q)):
+        if not bool(((x >= lo) & (x <= hi)).all()):
+            raise AssertionError(f"plan_path: a {name} position lies outside the joint limits")
+    ends = {"start": float((plan.position[:, 0] - start).abs().max()), "goal": float((plan.position[:, -1] - goal).abs().max()),
+            "vel": float(plan.velocity[:, (0, -1)].abs().max())}
+    if not (ends["start"] <= 1e-6 and ends["goal"] <= 1e-6 and ends["vel"] <= 1e-5):
+        raise AssertionError(f"plan_path: boundary conditions of the plans off by {ends}")
+    if not bool((tau.abs() <= ur5.torque_limit).all()):
+        raise AssertionError("plan_path: a torque exceeds its limit")
+    if not bool((U >= 0).all()):
+        raise AssertionError("plan_path: a negative potential")
+    open_loop_err = float((sim_q - plan.position).abs().max())
+
+    # One plan with the avoidance pass, against the cloud its straight line hits.
+    kw = dict(avoidance_steps=AVOID_STEPS, avoidance_step_size=AVOID_STEP_SIZE, clearance_margin=AVOID_MARGIN)
+    straight = planner.joint_trajectory(q_a, q_b, TF_PLAN, N_PLAN)
+    avoided = planner.joint_trajectory(q_a, q_b, TF_PLAN, N_PLAN, avoid_collisions=True, **kw)
+    clear = lambda q: float(potential_field.obstacle_clearance(ur5, q, planner.spheres, cloud).min())
+    before, after = clear(straight.position), clear(avoided.position)
+    if not (before < 0.0 and after >= AVOID_MARGIN - AVOID_SLACK and bool(torch.isfinite(avoided.position).all())):
+        raise AssertionError(f"avoidance: min clearance {before} -> {after}, wanted < 0 -> >= {AVOID_MARGIN - AVOID_SLACK}")
+    if not bool(((avoided.position >= lo) & (avoided.position <= hi)).all()):
+        raise AssertionError("avoidance: a waypoint lies outside the joint limits")
+    colliding, self_clear = planner.check_self_collision(q_a)
+
+    # One Cartesian trajectory between the poses of that plan's ends.
+    X_a, X_b = forward_kinematics(ur5, q_a), forward_kinematics(ur5, q_b)
+    poses, lin_vel, _ = planner.cartesian_trajectory(X_a, X_b, TF_PLAN, N_PLAN)
+    cart = max(float((poses[0] - X_a).abs().max()), float((poses[-1] - X_b).abs().max()))
+    if tuple(poses.shape) != (N_PLAN, 4, 4) or not cart <= 1e-5 or not bool(torch.isfinite(lin_vel).all()):
+        raise AssertionError(f"cartesian_trajectory: shape {tuple(poses.shape)}, ends off by {cart}")
+
+    # The singularity measure along every plan.
+    with torch.no_grad():
+        sigma, sigma_ms = timed(lambda: singularity.singularity_measure(ur5, plan.position))
+    if tuple(sigma.shape) != (B_PLAN, N_PLAN) or not bool(torch.isfinite(sigma).all()) or not bool((sigma >= 0).all()):
+        raise AssertionError("singularity_measure: wrong shape, negative or non-finite values")
+
+    # Closed loop: computed-torque control tracks the plans' first waypoints,
+    # each period one step of the exact dynamics through the rollout kernel.
+    q, dq = plan.position[:, 0].contiguous(), plan.velocity[:, 0].contiguous()
+    state = control.ControlState(torch.zeros((B_PLAN, 6), **f32))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(CTRL_STEPS):
+            u, state = control.computed_torque_control(
+                ur5, plan.position[:, t], plan.velocity[:, t], plan.acceleration[:, t], q, dq, None, DT_PLAN,
+                CTRL_KP, 0.0, CTRL_KD, state)
+            _, _, u = control.enforce_limits(ur5, q, dq, u)
+            qs, dqs, _ = trajectory.forward_dynamics_trajectory(ur5, q, dq, u[:, None, :].expand(-1, 2, -1).contiguous(), dt=DT_PLAN)
+            q, dq = qs[:, 1].contiguous(), dqs[:, 1].contiguous()
+    torch.cuda.synchronize()
+    ctrl_wall = time.perf_counter() - t0
+    closed_loop_err = float((q - plan.position[:, CTRL_STEPS]).abs().max())
+    if not np.isfinite(closed_loop_err):
+        raise AssertionError("closed loop: non-finite state")
+    launches = {**ew.ElementwiseKernels.launch_count, "rollout": CudaRollout.launch_count}
+    if launches != {"trajectory": 3, "potential": 1, "rollout": 1 + CTRL_STEPS}:
+        raise AssertionError(f"the planning path launched {launches}")
+    stats = planner.get_performance_stats()
+    phase("plan_path", robot="ur5", B=B_PLAN, N=N_PLAN, Tf=TF_PLAN, O=O_PLAN, d0=D0_PLAN, points=points.shape[0] * N_PLAN * 6,
+          launches_open_loop=json.dumps(open_loop).replace(" ", ""), launches=json.dumps(launches).replace(" ", ""),
+          **{f"{k}_ms": f"{v:.3f}" for k, v in stage_ms.items()}, singularity_measure_ms=f"{sigma_ms:.3f}",
+          boundary_err=json.dumps({k: float(f"{v:.3e}") for k, v in ends.items()}).replace(" ", ""),
+          open_loop_tracking_err_rad=f"{open_loop_err:.4e}", closed_loop_tracking_err_rad=f"{closed_loop_err:.4e}",
+          control_periods=CTRL_STEPS, control_wall_s=f"{ctrl_wall:.3f}", min_clearance=f"{before:.4f}->{after:.4f}",
+          self_collision=f"{colliding},{self_clear:.4f}", cartesian_ends_err=f"{cart:.3e}",
+          sigma_min=f"{float(sigma.min()):.4e}", near_singular_waypoints=int((sigma < 1e-2).sum()))
+    phase("plan_path_stats", calls=stats["calls"], total_s=f"{stats['total_time']:.4f}", first_calls_s=f"{stats['compile_time']:.4f}",
+          avg_later_call_s=f"{stats['avg_steady_time']:.4f}",
+          per_op=json.dumps({k: [v["calls"], round(v["time"], 4)] for k, v in stats["per_op"].items()}).replace(" ", ""))
+    inputs_on_path = {"trajectory": (start, goal), "potential": (points.reshape(-1, 3).contiguous(), field_goal, cloud),
+                      "rollout": (plan.position[:, 0].contiguous(), plan.velocity[:, 0].contiguous(), tau.contiguous())}
+    return launches, inputs_on_path
+
+
+def planning_time(ur5, gen: torch.Generator, inputs_on_path: dict, card: str):
+    """Phase 17. Returns per kernel its ms, its plain version's and the
+    replaced tensor formulation's, at the path's shapes. Every time is a
+    CUDA-event median per call over back-to-back calls, so for the short
+    kernels it is the larger of the device's time and the host's time to
+    launch one call; ``device_ms`` is the kernel's own time in a
+    ``torch.profiler`` trace of 5 launches."""
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=DEV, dtype=torch.float32) * 2 - 1
+
+    def device_ms(fn, kernel_name: str):
+        trace = device_profile(fn, reps=5)
+        found = [v for k, v in trace.get("by_name", {}).items() if kernel_name in k]
+        return sum(found) if found else None  # None: the profiler saw no device activity
+
+    fmt = lambda v, digits=4: "not measured" if v is None else f"{v:.{digits}f}"
+    rate = lambda count, ms, spec: "not measured" if ms is None else format(count / (ms * 1e-3), spec)
+
+    out = {}
+    start, goal = inputs_on_path["trajectory"]
+    traj_cases = [("path", start, goal, N_PLAN)] + [(f"B{B}_N{N}", rand(B, J), rand(B, J), N) for B, N, J in TRAJ_TIMED]
+    for label, a, b, N in traj_cases:
+        with torch.no_grad():
+            k_ms = per_call_ms(lambda: ew.trajectory_kernel(a, b, TF_PLAN, N, 5))
+            d_ms = device_ms(lambda: ew.trajectory_kernel(a, b, TF_PLAN, N, 5), "mpt_traj_kernel")
+            p_ms = per_call_ms(lambda: ew.trajectory_plain(a, b, TF_PLAN, N, 5), calls=5)
+            g_ms = per_call_ms(lambda: trajectory._joint_trajectory_generic(ur5, a, b, TF_PLAN, N, 5, True), calls=5)
+            e_ms = per_call_ms(lambda: trajectory.joint_trajectory(ur5, a, b, TF_PLAN, N), calls=5)
+        b_ms, b_by = traj_bound(a.shape[0], N, a.shape[1])
+        if label == "path":
+            out["trajectory"] = dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, generic_ms=g_ms, bound_ms=b_ms, bound_by=b_by)
+        phase("plan_time", card=repr(card), kernel="K9", shape=f"{a.shape[0]}x{N}x{a.shape[1]}", on_path=label == "path",
+              kernel_ms=f"{k_ms:.4f}", device_ms=fmt(d_ms), bound_ms=f"{b_ms:.4f}", bound_by=b_by, plain_ms=f"{p_ms:.4f}",
+              tensor_formulation_with_clip_ms=f"{g_ms:.4f}", entry_point_with_clip_ms=f"{e_ms:.4f}",
+              written_GBps_device=rate(3 * a.shape[0] * N * a.shape[1] * 4 / 1e9, d_ms, ".1f"))
+    pts, field_goal, cloud = inputs_on_path["potential"]
+    pot_cases = [("path", pts)] + [(f"P{P}", rand(P, 3)) for P in POT_TIMED]
+    for label, x in pot_cases:
+        P = x.shape[0]
+        with torch.no_grad():
+            k_ms = per_call_ms(lambda: ew.cartesian_potential_kernel(x, field_goal, cloud, D0_PLAN), calls=20 if P < 10**6 else 5)
+            d_ms = device_ms(lambda: ew.cartesian_potential_kernel(x, field_goal, cloud, D0_PLAN), "mpt_potential_kernel")
+            p_ms = time_ms(lambda: ew.cartesian_potential_plain(x, field_goal, cloud, D0_PLAN), warmup=1, reps=3)
+            g_ms = time_ms(lambda: potential_field._cartesian_potential_field_generic(x, field_goal, cloud, D0_PLAN), warmup=1, reps=3)
+        b_ms, b_by = potential_bound(P, O_PLAN)
+        if label == "path":
+            out["potential"] = dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, generic_ms=g_ms, bound_ms=b_ms, bound_by=b_by)
+        phase("plan_time", card=repr(card), kernel="K10", P=P, O=O_PLAN, on_path=label == "path", kernel_ms=f"{k_ms:.4f}",
+              device_ms=fmt(d_ms), bound_ms=f"{b_ms:.4f}", bound_by=b_by, plain_ms=f"{p_ms:.3f}",
+              tensor_formulation_ms=f"{g_ms:.3f}", point_obstacle_pairs_per_s_device=rate(P * O_PLAN, d_ms, ".4e"))
+    # K1 at the path's two shapes: the plans' rollout, and one control period.
+    q0, dq0, tau = inputs_on_path["rollout"]
+    statements = build_cuda_rollout(ur5, dt=DT_PLAN).statements
+    one_step = tau[:, :2].contiguous()
+    for label, taus, ms in (
+        ("plans", tau, time_ms(lambda: trajectory.forward_dynamics_trajectory(ur5, q0, dq0, tau, dt=DT_PLAN))),
+        ("control_period", one_step, per_call_ms(lambda: trajectory.forward_dynamics_trajectory(ur5, q0, dq0, one_step, dt=DT_PLAN))),
+    ):
+        B, N = taus.shape[0], taus.shape[1]
+        b_ms, b_by = bound((2 * B * 6 + 4 * B * N * 6) * 4, statements * B * N)
+        phase("plan_time", card=repr(card), kernel="K1", shape=f"{B}x{N}x6", use=label, kernel_ms=f"{ms:.4f}",
+              bound_ms=f"{b_ms:.4f}", bound_by=b_by, us_per_step=f"{ms * 1e3 / N:.2f}")
+    return out
+
+
+def planning(ur5, card: str, attrs: dict) -> list:
+    """Phases 14-17; returns the records of K9 and K10."""
+    gen = torch.Generator(DEV).manual_seed(0)
+    worst = planning_parity(gen)
+    launches, inputs_on_path = planning_path(ur5, gen)
+    times = planning_time(ur5, gen, inputs_on_path, card)
+    names = {
+        "trajectory": ("K9 joint trajectory (time scaling x joint delta)", "manipulapy_tpu/ops/pallas_kernels.py:122",
+                       f"atol {TRAJ_ATOL}"),
+        "potential": ("K10 Cartesian potential field and gradient", "manipulapy_tpu/ops/pallas_kernels.py:211",
+                      f"rtol {POT_RTOL}, atol {POT_ATOL}"),
+    }
+    return [{
+        "name": name, "route": "cuda", "source": ELEMENTWISE_SOURCE, "replaces": replaces, "launches": launches[stage],
+        "max_abs_err": worst[stage], "tolerance": tolerance, "ms": times[stage]["ms"], "plain_ms": times[stage]["plain_ms"],
+        "bound_ms": times[stage]["bound_ms"], "bound_by": times[stage]["bound_by"], "library_ms": None,
+        "device_ms": times[stage]["device_ms"], "tensor_formulation_ms": times[stage]["generic_ms"],
+        "num_regs": attrs[stage]["num_regs"],
+        "local_bytes": attrs[stage]["local_bytes"],
+    } for stage, (name, replaces, tolerance) in names.items()]
+
 
 def main() -> int:
     # 1. Device.
@@ -565,12 +872,13 @@ def main() -> int:
         "ur5": build_cuda_rollout(ur5, dt=DT, intRes=1),
         "ur5_intres3": build_cuda_rollout(ur5, dt=DT, intRes=3),
         "panda": build_cuda_rollout(panda, dt=DT, intRes=1),
+        "ur5_plan": build_cuda_rollout(ur5, dt=DT_PLAN, intRes=1),  # what the planning path's rollout builds
     }
     mpc_panda = build_batch_tracking_mpc(panda, np.zeros(7), B_MPC, H_MPC, DT, iterations=ITERS)
     single = build_tracking_mpc(panda, Q_GOAL7, H_MPC, DT, iterations=ITERS, line_search_steps=ALPHAS)
     mpc_kernels = {"panda": mpc_panda.kernels, "ur5": build_batch_tracking_mpc(ur5, np.zeros(6), 1, H_MPC, DT).kernels,
                    "panda single": single.kernels}
-    built, build_wall = build_all(engines, mpc_kernels)
+    built, build_wall = build_all(engines, mpc_kernels, ew.kernels())
     attrs = {}
     for name, eng in engines.items():
         b = built["rollout", name]
@@ -586,7 +894,12 @@ def main() -> int:
         names = SINGLE_KERNELS if isinstance(K, SingleMPCKernels) else MPC_KERNELS
         for stage, a in mpc_attrs[robot].items():
             phase("build", kernel=names[stage][0], robot=robot, statements=K.statements[stage], **a)
-    phase("build", wall_seconds=f"{build_wall:.2f}", units=len(engines) + sum(len(b) for k, b in built.items() if k[0] == "mpc"))
+    # 13. The static unit of K9 and K10.
+    ew_attrs = ew.kernels().kernel_attributes()
+    for unit, b in built["planning", "elementwise"].items():
+        phase("elementwise_build", unit=unit, seconds=f"{b.compile_seconds:.2f}", ptxas=repr(ptxas_lines(b.log)),
+              **{f"{stage}_{k}": v for stage, a in ew_attrs.items() for k, v in a.items()})
+    phase("build", wall_seconds=f"{build_wall:.2f}", units=len(engines) + 1 + sum(len(b) for k, b in built.items() if k[0] == "mpc"))
 
     # 3. Rollout kernel vs plain version, both on the card.
     worst = {"q": 0.0, "dq": 0.0, "ddq": 0.0}
@@ -791,6 +1104,7 @@ def main() -> int:
         })
 
     records += single_path(panda, single, mpc_attrs["panda single"], card)
+    records += planning(ur5, card, ew_attrs)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -13,6 +13,11 @@ Idiom:
 * ``nn.Module`` rollout engines (``ops/fd_step.py::build_rollout``, the
   plain PyTorch version, and ``ops/cuda_rollout.py``, the hand-written
   CUDA kernel for Hopper), chosen per call by ``ops/dispatch.py``;
+* the planning path: ``trajectory.joint_trajectory`` and
+  ``potential_field.cartesian_potential_field`` over two more hand-written
+  CUDA kernels (``ops/elementwise.py``), the stateful
+  ``planner.TrajectoryPlanner``, the controllers of ``control`` and the
+  checks of ``singularity``;
 * the batched fused MPC solver (``mpc/fused_batch.py``) over four
   hand-written CUDA kernels (``ops/cuda_mpc_batch.py``), each with its
   plain PyTorch version, and the generic iLQR (``mpc/ilqr.py``);
@@ -40,6 +45,10 @@ _SUBMODULES = (
     "kinematics",
     "dynamics",
     "trajectory",
+    "potential_field",
+    "planner",
+    "control",
+    "singularity",
     "ops",
     "mpc",
 )
@@ -48,6 +57,8 @@ _LAZY_ATTRS = {
     "RobotModel": ("models", "RobotModel"),
     "make_robot_model": ("models", "make_robot_model"),
     "from_host_arrays": ("models", "from_host_arrays"),
+    "TrajectoryPlanner": ("planner", "TrajectoryPlanner"),
+    "create_planner": ("planner", "create_planner"),
 }
 
 

@@ -29,6 +29,9 @@ __all__ = [
     "trans_inv",
     "trans_to_rp",
     "rp_to_trans",
+    "rpy_to_rotation",
+    "rotation_to_rpy",
+    "quat_to_rotation",
 ]
 
 # Small-angle threshold below which Taylor expansions replace the closed
@@ -222,3 +225,52 @@ def rp_to_trans(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     top = torch.cat([R, p[..., None]], dim=-1)
     bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype, device=R.device)
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
+
+
+def rpy_to_rotation(rpy: torch.Tensor) -> torch.Tensor:
+    """URDF fixed-axis roll/pitch/yaw -> rotation matrix ``Rz(y) Ry(p) Rx(r)``."""
+    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack(
+        [
+            torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1),
+            torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1),
+            torch.stack([-sp, cp * sr, cp * cr], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def rotation_to_rpy(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> URDF roll/pitch/yaw (ZYX Euler). At gimbal lock
+    (``|pitch| ~ pi/2``) yaw is folded into roll and reported as 0."""
+    sp = -R[..., 2, 0]
+    cp = torch.sqrt(torch.clamp(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2, min=1e-24))
+    pitch = torch.atan2(sp, cp)
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    locked = cp < 1e-6
+    roll = torch.where(locked, torch.atan2(-R[..., 1, 2], R[..., 1, 1]), roll)
+    yaw = torch.where(locked, torch.zeros_like(yaw), yaw)
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def quat_to_rotation(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion ``[x, y, z, w]`` (normalized here) -> rotation matrix; the
+    zero quaternion gives the identity."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = torch.where(n > 1e-12, 2.0 / n, torch.zeros_like(n))
+    xx, yy, zz = x * x * s, y * y * s, z * z * s
+    xy, xz, yz = x * y * s, x * z * s, y * z * s
+    wx, wy, wz = w * x * s, w * y * s, w * z * s
+    return torch.stack(
+        [
+            torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+            torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+            torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+        ],
+        dim=-2,
+    )

@@ -20,6 +20,10 @@ __all__ = [
     "com_transforms",
     "jacobian",
     "jacobian_body",
+    "end_effector_velocity",
+    "end_effector_pose",
+    "joint_velocity",
+    "clip_to_limits",
 ]
 
 
@@ -89,3 +93,29 @@ def jacobian(model: RobotModel, q: torch.Tensor, frame: str = "space") -> torch.
 
 def jacobian_body(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
     return jacobian(model, q, frame="body")
+
+
+def end_effector_velocity(
+    model: RobotModel, q: torch.Tensor, dq: torch.Tensor, frame: str = "space"
+) -> torch.Tensor:
+    """End-effector twist ``V = J(q) dq``: (..., n) -> (..., 6)."""
+    return _matvec(jacobian(model, q, frame), dq)
+
+
+def end_effector_pose(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
+    """End-effector position, (..., 3)."""
+    return forward_kinematics(model, q)[..., :3, 3]
+
+
+def joint_velocity(
+    model: RobotModel, q: torch.Tensor, V_desired: torch.Tensor, frame: str = "space"
+) -> torch.Tensor:
+    """Least-squares joint rates for a desired end-effector twist,
+    ``dq = J^+ V`` (pseudo-inverse by SVD)."""
+    return _matvec(torch.linalg.pinv(jacobian(model, q, frame)), V_desired)
+
+
+def clip_to_limits(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
+    """Clamp a configuration to the joint limits. ``maximum`` then
+    ``minimum``, so the derivative on a limit is 0.5, as ``jnp.clip``'s."""
+    return torch.minimum(torch.maximum(q, model.joint_lower), model.joint_upper)

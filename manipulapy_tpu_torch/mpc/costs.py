@@ -1,11 +1,12 @@
 """Cost library for the MPC solvers.
 
 Counterpart of ``manipulapy_tpu/mpc/costs.py``: joint-space quadratic
-tracking, a task-space pose cost through the SE(3) log, and the
-(running, terminal) pair of the tracking solvers. Every cost is a plain
-function of one state ``x = [q; dq]`` (2n,), one control ``u`` (n,) and the
-time index ``t``, differentiable with ``torch.func``. The obstacle cost
-waits for the port of ``potential_field.py``.
+tracking, a task-space pose cost through the SE(3) log, a hinge-squared
+obstacle cost over link spheres (``potential_field.obstacle_clearance``),
+and the (running, terminal) pair of the tracking solvers, whose
+``extra_cost`` hook takes the obstacle cost. Every cost is a plain function
+of one state ``x = [q; dq]`` (2n,), one control ``u`` (n,) and the time
+index ``t``, differentiable with ``torch.func``.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import torch
 from ..core import lie
 from ..kinematics import forward_kinematics
 from ..models.robot import RobotModel
+from ..potential_field import LinkSpheres, obstacle_clearance
 
-__all__ = ["quadratic_tracking_cost", "pose_tracking_cost", "make_tracking_costs"]
+__all__ = ["quadratic_tracking_cost", "pose_tracking_cost", "obstacle_cost", "make_tracking_costs"]
 
 
 def quadratic_tracking_cost(x_ref: torch.Tensor, w_q: float = 1.0, w_dq: float = 0.1, w_u: float = 1e-4):
@@ -56,6 +58,24 @@ def pose_tracking_cost(
             + w_dq * torch.sum(x[n:] ** 2)
             + w_u * torch.sum(u**2)
         )
+
+    return cost
+
+
+def obstacle_cost(
+    model: RobotModel,
+    spheres: LinkSpheres,
+    obstacle_points: torch.Tensor,
+    weight: float = 100.0,
+    margin: float = 0.05,
+):
+    """Hinge-squared clearance penalty of the link spheres against (O, 3)
+    obstacle points: ``weight * sum_k min(clearance_k - margin, 0)^2``."""
+
+    def cost(x, u, t):
+        clear = obstacle_clearance(model, x[: model.num_joints], spheres, obstacle_points)
+        viol = torch.minimum(clear - margin, torch.zeros_like(clear))
+        return weight * torch.sum(viol * viol)
 
     return cost
 

@@ -2,8 +2,15 @@
 
 Counterpart of ``manipulapy_tpu/trajectory.py``:
 
-* :func:`joint_trajectory`: polynomial point-to-point joint trajectories,
-  positions clipped to the joint limits;
+* :func:`joint_trajectory` and :func:`batch_joint_trajectory`: polynomial
+  point-to-point joint trajectories, positions clipped to the joint limits.
+  A float32 call on a CUDA device (``Tf > 0``, ``N > 1``, no input
+  requiring grad) goes to the hand-written kernel K9
+  (``ops/elementwise.py``), then clamps the positions in place; every other
+  call (CPU, float64, autograd, degenerate ``Tf`` or ``N``) takes the
+  tensor formulation over ``core.time_scaling.scaling_profile``;
+* :func:`cartesian_trajectory`: straight-line Cartesian trajectories with
+  the orientation on the SO(3) geodesic;
 * :func:`inverse_dynamics_trajectory`: exact inverse dynamics at every
   waypoint in one batched call, torques clamped to the limits;
 * :func:`forward_dynamics_trajectory`: the rollout. Calls with the default
@@ -21,14 +28,18 @@ from typing import NamedTuple
 
 import torch
 
+from .core import lie
 from .core.time_scaling import scaling_profile
 from .dynamics import forward_dynamics_fast, inverse_dynamics, rnea
 from .models.robot import RobotModel, host_arrays
+from .ops import dispatch
 from .ops.fd_step import DEFAULT_G
 
 __all__ = [
     "Trajectory",
     "joint_trajectory",
+    "batch_joint_trajectory",
+    "cartesian_trajectory",
     "inverse_dynamics_trajectory",
     "forward_dynamics_trajectory",
 ]
@@ -53,7 +64,31 @@ def joint_trajectory(
 ) -> Trajectory:
     """``pos = start + s (end - start)``, ``vel = s_dot delta``, ``acc =
     s_ddot delta`` over N waypoints; positions clipped to the joint limits.
-    (..., J) endpoints give (..., N, J) trajectories."""
+    (..., J) endpoints give (..., N, J) trajectories. ``Tf`` is a number or
+    a 0-dim tensor (read once, at the call, when the kernel serves it)."""
+    tensors = [theta_start, theta_end] + ([Tf] if isinstance(Tf, torch.Tensor) else [])
+    if clip_to_limits:
+        tensors += [model.joint_lower, model.joint_upper]
+    needs_grad = any(x.requires_grad for x in tensors)
+    kind = dispatch.elementwise_kind(theta_start.device, theta_start.dtype, needs_grad)
+    Tf_read = float(Tf) if kind == "cuda" and N > 1 else 0.0
+    if Tf_read > 0.0:
+        from .ops.elementwise import trajectory_kernel
+
+        start, end = torch.broadcast_tensors(theta_start, theta_end)
+        batch, J = start.shape[:-1], start.shape[-1]
+        pos, vel, acc = trajectory_kernel(
+            start.reshape(-1, J).contiguous(), end.reshape(-1, J).contiguous(), Tf_read, N, method
+        )
+        if clip_to_limits:
+            torch.clamp(pos, model.joint_lower, model.joint_upper, out=pos)  # in place: pos is ours
+        return Trajectory(*(x.reshape(batch + (N, J)) for x in (pos, vel, acc)))
+    return _joint_trajectory_generic(model, theta_start, theta_end, Tf, N, method, clip_to_limits)
+
+
+def _joint_trajectory_generic(model, theta_start, theta_end, Tf, N, method, clip_to_limits) -> Trajectory:
+    """The tensor formulation: any dtype and device, autograd, degenerate
+    ``Tf <= 0`` or ``N <= 1`` (zero profiles)."""
     s, s_dot, s_ddot = scaling_profile(
         Tf, N, method, dtype=theta_start.dtype, device=theta_start.device
     )
@@ -64,6 +99,39 @@ def joint_trajectory(
     if clip_to_limits:
         pos = torch.clamp(pos, model.joint_lower, model.joint_upper)
     return Trajectory(pos, vel, acc)
+
+
+def batch_joint_trajectory(
+    model: RobotModel,
+    theta_start: torch.Tensor,
+    theta_end: torch.Tensor,
+    Tf,
+    N: int,
+    method: int = 5,
+    clip_to_limits: bool = True,
+) -> Trajectory:
+    """(B, J) start/end pairs -> a (B, N, J) batch; :func:`joint_trajectory`
+    under the reference's name for the batched call."""
+    return joint_trajectory(model, theta_start, theta_end, Tf, N, method, clip_to_limits)
+
+
+def cartesian_trajectory(X_start: torch.Tensor, X_end: torch.Tensor, Tf, N: int, method: int = 5):
+    """Straight-line Cartesian trajectory with SO(3) orientation blending:
+    positions interpolate linearly under the time scaling, orientations
+    follow the geodesic ``R(s) = R_s exp(log(R_s^T R_e) s)``.
+
+    (..., 4, 4) poses give ``(poses (..., N, 4, 4), velocity (..., N, 3),
+    acceleration (..., N, 3))``, the last two the linear profiles."""
+    s, s_dot, s_ddot = scaling_profile(Tf, N, method, dtype=X_start.dtype, device=X_start.device)
+    R_s, p_s = lie.trans_to_rp(X_start)
+    R_e, p_e = lie.trans_to_rp(X_end)
+    dp = (p_e - p_s)[..., None, :]
+    pos = p_s[..., None, :] + s[:, None] * dp
+    vel = s_dot[:, None] * dp
+    acc = s_ddot[:, None] * dp
+    log_rel = lie.so3_log(R_s.mT @ R_e)  # (..., 3) rotation vector
+    R_steps = R_s[..., None, :, :] @ lie.so3_exp(s[:, None] * log_rel[..., None, :])
+    return lie.rp_to_trans(R_steps, pos), vel, acc
 
 
 def inverse_dynamics_trajectory(
@@ -95,8 +163,6 @@ def _rollout_engine_for(model, dt, intRes, g, device, dtype, batched_2d):
     """The cached rollout engine for a concrete call. Keyed by the model's
     host-array digest (``id(model)`` for unregistered models), so a rebuilt
     but identical model reuses the compiled kernel."""
-    from .ops import dispatch
-
     kind = dispatch.rollout_kind(device, dtype, batched_2d)
     host = host_arrays(model)
     model_key = host["digest"] if host is not None else id(model)

@@ -1,6 +1,6 @@
 """The CUDA kernels on a card, against their plain PyTorch versions: the
-rollout (K1), the batched fused MPC (K2-K5) and the single-problem fused
-MPC (K6-K8).
+rollout (K1), the batched fused MPC (K2-K5), the single-problem fused MPC
+(K6-K8) and the planning path's elementwise kernels (K9, K10).
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU. The module imports no JAX, so it also runs on a machine without JAX:
@@ -11,20 +11,23 @@ Tolerances: 1e-4 on q, 1e-3 on dq and 2e-1 on ddq (float32) for the
 rollout; 1e-5 of each output's largest magnitude for K2-K8 (the same
 emitted operations with --fmad=false, so 0 is expected); the JAX test's
 bars (cost rtol 1e-5, final state atol 5e-4, controls atol 5e-3) for the
-whole MPC solves against the plain solvers.
+whole MPC solves against the plain solvers; for K9 2e-6 / 2e-5 / 2e-4 on pos
+/ vel / acc and for K10 rtol 1e-4 with atol 1e-5 on U and 1e-4 on its
+gradient, the JAX kernel tests' bars (0 is expected here too).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from manipulapy_tpu_torch import trajectory
+from manipulapy_tpu_torch import create_planner, potential_field, trajectory
 from manipulapy_tpu_torch.models import catalog
 from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
 from manipulapy_tpu_torch.ops.cuda_rollout import CudaRollout, build_cuda_rollout
+from manipulapy_tpu_torch.ops import elementwise as ew
 from manipulapy_tpu_torch.ops.fd_step import build_rollout
 
 pytestmark = pytest.mark.cuda
@@ -261,3 +264,105 @@ def test_single_mpc_kernels_reject_float64_and_mixed_devices(cuda_device):
         mpc.forward(xs[0].double(), xs.double(), us.double(), torch.zeros((3, 2, 5), device=cuda_device).double(),
                     us[0].double(), torch.ones(1, device=cuda_device).double())
     assert K.linearize(xs, us).shape == (3, 4, 6)
+
+
+# ---------------------------------------------------------------------------
+# The planning path's elementwise kernels (K9, K10)
+# ---------------------------------------------------------------------------
+
+TRAJ_ATOL = (2e-6, 2e-5, 2e-4)  # pos, vel, acc
+
+
+def _launches():
+    return dict(ew.ElementwiseKernels.launch_count)
+
+
+@pytest.mark.parametrize("method", [3, 5, 1])
+@pytest.mark.parametrize("B,N,J,Tf", [(3, 300, 6, 2.0), (2, 101, 3, 1.0), (257, 129, 7, 0.37)])
+def test_trajectory_kernel_matches_plain_version(cuda_device, method, B, N, J, Tf):
+    rng = np.random.default_rng(B)
+    start, end = (torch.from_numpy(rng.uniform(-1, 1, (B, J)).astype(np.float32)).to(cuda_device) for _ in range(2))
+    before = _launches()
+    got = ew.trajectory_kernel(start, end, Tf, N, method)
+    torch.cuda.synchronize()
+    assert _launches() == {**before, "trajectory": before["trajectory"] + 1}
+    ref = ew.trajectory_plain(start, end, Tf, N, method)
+    for g, r, atol in zip(got, ref, TRAJ_ATOL):
+        assert g.shape == (B, N, J) and bool(torch.isfinite(g).all())
+        assert float((g - r).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("P,O,d0", [(400, 5, 0.6), (1031, 0, 0.5), (5000, 32, 0.5), (300, 2500, 0.3)])
+def test_potential_kernel_matches_plain_version(cuda_device, P, O, d0):
+    """O=2500 takes three tiles of the staged obstacles; one point lies on an
+    obstacle."""
+    rng = np.random.default_rng(P)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    pts, goal, obstacles = f32(rng.uniform(-1, 1, (P, 3))), f32(rng.uniform(-1, 1, 3)), f32(rng.uniform(-1, 1, (O, 3)))
+    if O:
+        pts[1] = obstacles[O - 1]
+    before = _launches()
+    U, grad = ew.cartesian_potential_kernel(pts, goal, obstacles, d0)
+    torch.cuda.synchronize()
+    assert _launches() == {**before, "potential": before["potential"] + 1}
+    U_ref, grad_ref = ew.cartesian_potential_plain(pts, goal, obstacles, d0)
+    assert U.shape == (P,) and grad.shape == (P, 3)
+    assert bool(torch.isfinite(U).all()) and bool(torch.isfinite(grad).all())
+    torch.testing.assert_close(U, U_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(grad, grad_ref, rtol=1e-4, atol=1e-4)
+
+
+def test_planning_entry_points_use_the_kernels(cuda_device):
+    model = catalog.ur5(device=cuda_device)
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    start, goal = f32(rng.uniform(-1, 1, (33, 6))), f32(rng.uniform(-8, 8, (33, 6)))
+    before = _launches()
+    plan = trajectory.batch_joint_trajectory(model, start, goal, 2.0, 50)
+    assert plan.position.shape == (33, 50, 6)
+    assert bool((plan.position <= model.joint_upper).all() and (plan.position >= model.joint_lower).all())
+    one = trajectory.joint_trajectory(model, start[0], goal, 2.0, 50, clip_to_limits=False)  # broadcast start
+    assert one.velocity.shape == (33, 50, 6) and bool((one.position.abs() > 6.3).any())
+    points = potential_field.link_positions(model, plan.position)
+    U, grad = potential_field.cartesian_potential_field(points, f32(np.array([0.4, 0.1, 0.3])), f32(rng.uniform(-0.5, 0.5, (7, 3))))
+    torch.cuda.synchronize()
+    assert U.shape == (33, 50, 6) and grad.shape == (33, 50, 6, 3)
+    assert _launches() == {"trajectory": before["trajectory"] + 2, "potential": before["potential"] + 1}
+    # Degenerate, float64 and autograd calls take the tensor formulation.
+    trajectory.joint_trajectory(model, start, goal, 0.0, 50)
+    trajectory.joint_trajectory(model, start, goal, 2.0, 1)
+    trajectory.joint_trajectory(model.to(dtype=torch.float64), start.double(), goal.double(), 2.0, 50)
+    trajectory.joint_trajectory(model, start, goal.clone().requires_grad_(True), 2.0, 50)
+    potential_field.cartesian_potential_field(points.clone().requires_grad_(True), torch.zeros(3, device=cuda_device), points[0, 0])
+    assert _launches() == {"trajectory": before["trajectory"] + 2, "potential": before["potential"] + 1}
+
+
+def test_planner_runs_on_the_card(cuda_device):
+    model = catalog.ur5(device=cuda_device)
+    q0, q1 = np.zeros(6), np.array([0.5, -0.4, 0.4, 0.0, 0.0, 0.0])
+    cloud = potential_field.link_positions(model, torch.tensor(0.5 * q1, dtype=torch.float32, device=cuda_device))[3:4]
+    planner = create_planner(model, obstacle_points=cloud.cpu().numpy(), sphere_radius=0.05)
+    before = _launches()["trajectory"]
+    plan = planner.joint_trajectory(q0, q1, 1.0, 20, avoid_collisions=True, avoidance_steps=10)
+    assert plan.position.device.type == "cuda" and plan.position.shape == (20, 6)
+    assert _launches()["trajectory"] == before + 1
+    assert "collision_avoidance" in planner.performance_stats["per_op"]
+
+
+def test_elementwise_kernels_reject_float64_and_mixed_devices(cuda_device):
+    start = torch.zeros((4, 6), device=cuda_device)
+    with pytest.raises(TypeError):
+        ew.trajectory_kernel(start.double(), start.double(), 1.0, 10)
+    with pytest.raises(ValueError):
+        ew.trajectory_kernel(start, start.cpu(), 1.0, 10)
+    with pytest.raises(ValueError):
+        ew.trajectory_kernel(start.T, start.T, 1.0, 10)  # not contiguous
+    with pytest.raises(ValueError):
+        ew.trajectory_kernel(start.requires_grad_(True), start, 1.0, 10)
+    pts = torch.zeros((5, 3), device=cuda_device)
+    with pytest.raises(TypeError):
+        ew.cartesian_potential_kernel(pts.double(), pts[0].double(), pts.double())
+    with pytest.raises(ValueError):
+        ew.cartesian_potential_kernel(pts, pts[0].cpu(), pts)
+    attrs = ew.kernels().kernel_attributes()
+    assert set(attrs) == {"trajectory", "potential"} and all(0 < a["num_regs"] <= 255 for a in attrs.values())

@@ -75,6 +75,9 @@ def test_import_never_loads_jax():
         "from manipulapy_tpu_torch.ops import cuda_mpc_batch, cuda_mpc_single\n"
         "from manipulapy_tpu_torch import mpc\n"
         "from manipulapy_tpu_torch.mpc import costs, ilqr, fused_batch, fused\n"
+        "from manipulapy_tpu_torch.ops import elementwise\n"
+        "from manipulapy_tpu_torch import potential_field, planner, control, singularity\n"
+        "assert m.create_planner is planner.create_planner and m.TrajectoryPlanner is planner.TrajectoryPlanner\n"
         "import torch\n"
         "catalog.ur5(device='cpu')\n"
         "assert torch.get_float32_matmul_precision() == 'highest'\n"
