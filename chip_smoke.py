@@ -86,7 +86,14 @@ Phases, one line each (or one line per case):
     at two more each, beside their device times in a ``torch.profiler``
     trace, their bounds, their plain versions and the tensor formulations
     they replace; and of K1 at the path's two shapes (the plans' rollout,
-    one control period).
+    one control period);
+18. ``plan_path_parity``: K9, K10 and K1 (the unit built for the plans'
+    dt) against their plain versions on the very tensors the path gave
+    them: the 1024 start/goal pairs, the 6.144 M points and 32 obstacles,
+    the plans' torques (the rollout's first 250 steps of 1000) and the
+    last control period; then one more ``traj_parity`` line, the quintic
+    at 174763 x 4096 x 6 (past 2**32 elements; its first and last 64
+    rows).
 
 Then one JSON line of every kernel, the card's name and power limit, and
 the result line. Any failure raises, so the script exits nonzero before its
@@ -138,6 +145,7 @@ Q_GOAL7_B = (-0.3, 0.2, -0.2, -2.0, -0.1, 1.8, -0.4)
 H_ODD, ODD_SEED, ROUNDS, RETARGET = 37, 2, 20, 10
 ROLLOUT_CASES = (("ur5", 1, 4097, 50), ("ur5_intres3", 3, 1000, 8), ("panda", 1, 2048, 20))
 ROWS_CHECKED, B_PIPELINE = 4096, 1024
+STEPS_CHECKED = 250  # of the plans' rollout: its plain version takes 70 ms of host time a step
 DEV = "cuda"
 # The least time: bytes over the HBM3 rate, and emitted f32 operations over
 # one non-FMA instruction per lane per clock (67 TFLOP/s counts an FMA as
@@ -165,6 +173,9 @@ DT_PLAN = TF_PLAN / (N_PLAN - 1)
 TRAJ_ATOL = {"pos": 2e-6, "vel": 2e-5, "acc": 2e-4}
 TRAJ_PARITY = ((3, 300, 6, 2.0), (1024, 4096, 6, 2.0), (2, 101, 3, 1.0))  # B, N, J, Tf
 TRAJ_TIMED = ((256, 1000, 6), (1024, 4096, 6))
+# B * N * J just past 2**32 elements (51.5 GB of outputs): the last
+# TRAJ_WIDE_ROWS scenarios lie at flat indices that need more than 32 bits.
+TRAJ_WIDE, TRAJ_WIDE_ROWS = (174763, 4096, 6, 2.0), 64
 POT_RTOL, POT_ATOL = 1e-4, {"U": 1e-5, "grad": 1e-4}
 POT_PARITY = ((400, 5, 0.6), (262144, 32, 0.5), (1031, 0, 0.5))  # P, O, d0
 POT_TIMED = (16384, 262144)
@@ -607,6 +618,33 @@ def potential_bound(P: int, O: int):
     return bound((3 * P + 3 + 3 * O + P + 3 * P) * 4, (POT_OPS_POINT + POT_OPS_OBSTACLE * O) * P)
 
 
+def traj_errors(label: str, got, ref) -> dict:
+    """Max |d| of K9's outputs against the plain version's, gated at
+    TRAJ_ATOL."""
+    errs = {k: float((g - r).abs().max()) for k, g, r in zip(TRAJ_ATOL, got, ref)}
+    for k, tol in TRAJ_ATOL.items():
+        if not errs[k] <= tol:  # also fails on NaN
+            raise AssertionError(f"K9 {label}: max |d{k}| = {errs[k]} exceeds {tol}")
+    return errs
+
+
+def potential_errors(label: str, got, ref) -> dict:
+    """Max |d| of K10's outputs against the plain version's, gated at
+    POT_RTOL and POT_ATOL."""
+    errs = {}
+    for (k, atol), g, r in zip(POT_ATOL.items(), got, ref):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"K10 {label}: non-finite {k}")
+        if not bool(((g - r).abs() <= atol + POT_RTOL * r.abs()).all()):
+            raise AssertionError(f"K10 {label} {k}: max |d| = {float((g - r).abs().max())} over rtol {POT_RTOL}, atol {atol}")
+        errs[k] = float((g - r).abs().max())
+    return errs
+
+
+def fmt_errs(errs: dict) -> dict:
+    return {f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()}
+
+
 def planning_parity(gen: torch.Generator) -> dict:
     """Phases 14 and 15: K9 and K10 against their plain versions on the card.
     Returns the largest |d| per kernel."""
@@ -618,12 +656,9 @@ def planning_parity(gen: torch.Generator) -> dict:
             got = ew.trajectory_kernel(start, end, Tf, N, method)
             ref = ew.trajectory_plain(start, end, Tf, N, method)
             torch.cuda.synchronize()
-            errs = {k: float((g - r).abs().max()) for k, g, r in zip(TRAJ_ATOL, got, ref)}
-            for k, tol in TRAJ_ATOL.items():
-                if not errs[k] <= tol:  # also fails on NaN
-                    raise AssertionError(f"K9 B={B} N={N} J={J} method={method}: max |d{k}| = {errs[k]} exceeds {tol}")
+            errs = traj_errors(f"B={B} N={N} J={J} method={method}", got, ref)
             worst["trajectory"] = max(worst["trajectory"], *errs.values())
-            phase("traj_parity", B=B, N=N, J=J, Tf=Tf, method=method, **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()})
+            phase("traj_parity", B=B, N=N, J=J, Tf=Tf, method=method, **fmt_errs(errs))
     cases = [(P, O, d0, False) for P, O, d0 in POT_PARITY] + [(POT_PARITY[0] + (True,))]
     for P, O, d0, overlap in cases:
         pts, goal, obstacles = rand(P, 3), rand(3), rand(O, 3)
@@ -632,19 +667,33 @@ def planning_parity(gen: torch.Generator) -> dict:
         got = ew.cartesian_potential_kernel(pts, goal, obstacles, d0)
         ref = ew.cartesian_potential_plain(pts, goal, obstacles, d0)
         torch.cuda.synchronize()
-        errs = {}
-        for (k, atol), g, r in zip(POT_ATOL.items(), got, ref):
-            if not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"K10 P={P} O={O}: non-finite {k}")
-            if not bool(((g - r).abs() <= atol + POT_RTOL * r.abs()).all()):
-                raise AssertionError(f"K10 P={P} O={O} {k}: max |d| = {float((g - r).abs().max())} over rtol {POT_RTOL}, atol {atol}")
-            errs[k] = float((g - r).abs().max())
+        errs = potential_errors(f"P={P} O={O}", got, ref)
         if overlap and not float(got[0][P // 2]) > 1e17:
             raise AssertionError("K10: the point on an obstacle did not get the overlap potential")
         worst["potential"] = max(worst["potential"], *errs.values())
-        phase("potential_parity", P=P, O=O, d0=d0, point_on_obstacle=overlap,
-              **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()})
+        phase("potential_parity", P=P, O=O, d0=d0, point_on_obstacle=overlap, **fmt_errs(errs))
     return worst
+
+
+def traj_wide_parity() -> float:
+    """K9 past 32-bit flat indices: the first and the last rows against the
+    plain version of those rows (the whole plain version would not fit the
+    card beside the kernel's 51.5 GB). Returns the largest |d|."""
+    B, N, J, Tf = TRAJ_WIDE
+    torch.cuda.empty_cache()
+    gen = torch.Generator(DEV).manual_seed(1)
+    start, end = (torch.rand((B, J), generator=gen, device=DEV) * 2 - 1 for _ in range(2))
+    got = ew.trajectory_kernel(start, end, Tf, N, 5)
+    errs = dict.fromkeys(TRAJ_ATOL, 0.0)
+    for rows in (slice(0, TRAJ_WIDE_ROWS), slice(B - TRAJ_WIDE_ROWS, B)):
+        ref = ew.trajectory_plain(start[rows], end[rows], Tf, N, 5)
+        e = traj_errors(f"B={B} N={N} J={J} rows {rows.start}:{rows.stop}", [g[rows] for g in got], ref)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+    phase("traj_parity", B=B, N=N, J=J, Tf=Tf, method=5, elements=B * N * J, rows_checked=f"first and last {TRAJ_WIDE_ROWS}",
+          first_flat_index_of_last_rows=(B - TRAJ_WIDE_ROWS) * N * J, **fmt_errs(errs))
+    del got, ref
+    torch.cuda.empty_cache()
+    return max(errs.values())
 
 
 def planning_path(ur5, gen: torch.Generator):
@@ -694,8 +743,7 @@ def planning_path(ur5, gen: torch.Generator):
             "vel": float(plan.velocity[:, (0, -1)].abs().max())}
     if not (ends["start"] <= 1e-6 and ends["goal"] <= 1e-6 and ends["vel"] <= 1e-5):
         raise AssertionError(f"plan_path: boundary conditions of the plans off by {ends}")
-    if not bool((tau.abs() <= ur5.torque_limit).all()):
-        raise AssertionError("plan_path: a torque exceeds its limit")
+    saturated = float((tau.abs() >= ur5.torque_limit).float().mean())  # inverse dynamics clamps to the limits
     if not bool((U >= 0).all()):
         raise AssertionError("plan_path: a negative potential")
     open_loop_err = float((sim_q - plan.position).abs().max())
@@ -736,7 +784,8 @@ def planning_path(ur5, gen: torch.Generator):
                 ur5, plan.position[:, t], plan.velocity[:, t], plan.acceleration[:, t], q, dq, None, DT_PLAN,
                 CTRL_KP, 0.0, CTRL_KD, state)
             _, _, u = control.enforce_limits(ur5, q, dq, u)
-            qs, dqs, _ = trajectory.forward_dynamics_trajectory(ur5, q, dq, u[:, None, :].expand(-1, 2, -1).contiguous(), dt=DT_PLAN)
+            period = (q, dq, u[:, None, :].expand(-1, 2, -1).contiguous())
+            qs, dqs, _ = trajectory.forward_dynamics_trajectory(ur5, *period, dt=DT_PLAN)
             q, dq = qs[:, 1].contiguous(), dqs[:, 1].contiguous()
     torch.cuda.synchronize()
     ctrl_wall = time.perf_counter() - t0
@@ -751,7 +800,7 @@ def planning_path(ur5, gen: torch.Generator):
           launches_open_loop=json.dumps(open_loop).replace(" ", ""), launches=json.dumps(launches).replace(" ", ""),
           **{f"{k}_ms": f"{v:.3f}" for k, v in stage_ms.items()}, singularity_measure_ms=f"{sigma_ms:.3f}",
           boundary_err=json.dumps({k: float(f"{v:.3e}") for k, v in ends.items()}).replace(" ", ""),
-          open_loop_tracking_err_rad=f"{open_loop_err:.4e}", closed_loop_tracking_err_rad=f"{closed_loop_err:.4e}",
+          saturated_torque_share=f"{saturated:.4e}", open_loop_tracking_err_rad=f"{open_loop_err:.4e}", closed_loop_tracking_err_rad=f"{closed_loop_err:.4e}",
           control_periods=CTRL_STEPS, control_wall_s=f"{ctrl_wall:.3f}", min_clearance=f"{before:.4f}->{after:.4f}",
           self_collision=f"{colliding},{self_clear:.4f}", cartesian_ends_err=f"{cart:.3e}",
           sigma_min=f"{float(sigma.min()):.4e}", near_singular_waypoints=int((sigma < 1e-2).sum()))
@@ -759,8 +808,47 @@ def planning_path(ur5, gen: torch.Generator):
           avg_later_call_s=f"{stats['avg_steady_time']:.4f}",
           per_op=json.dumps({k: [v["calls"], round(v["time"], 4)] for k, v in stats["per_op"].items()}).replace(" ", ""))
     inputs_on_path = {"trajectory": (start, goal), "potential": (points.reshape(-1, 3).contiguous(), field_goal, cloud),
-                      "rollout": (plan.position[:, 0].contiguous(), plan.velocity[:, 0].contiguous(), tau.contiguous())}
+                      "rollout": (plan.position[:, 0].contiguous(), plan.velocity[:, 0].contiguous(), tau.contiguous()),
+                      "control_period": period}
     return launches, inputs_on_path
+
+
+def planning_path_parity(ur5, inputs_on_path: dict) -> dict:
+    """Each kernel of the planning path against its plain version on the
+    tensors the path gave it: K9 on the B_PLAN start/goal pairs, K10 on the
+    link points of every waypoint, K1 (the unit built for dt = DT_PLAN) on
+    the plans' torques (all N_PLAN steps through the kernel, its first
+    STEPS_CHECKED held against the plain version of those steps: a rollout
+    is causal) and on the last control period's. Made after the path's
+    launch counts were read. Returns the largest |d| per kernel."""
+    worst = {}
+    with torch.no_grad():
+        start, goal = inputs_on_path["trajectory"]
+        got = ew.trajectory_kernel(start, goal, TF_PLAN, N_PLAN, 5)
+        ref = ew.trajectory_plain(start, goal, TF_PLAN, N_PLAN, 5)
+        errs = traj_errors("on the path's inputs", got, ref)
+        worst["trajectory"] = max(errs.values())
+        phase("plan_path_parity", kernel="K9", shape=f"{B_PLAN}x{N_PLAN}x6", **fmt_errs(errs))
+        pts, field_goal, cloud = inputs_on_path["potential"]
+        got = ew.cartesian_potential_kernel(pts, field_goal, cloud, D0_PLAN)
+        ref = ew.cartesian_potential_plain(pts, field_goal, cloud, D0_PLAN)
+        errs = potential_errors("on the path's inputs", got, ref)
+        worst["potential"] = max(errs.values())
+        phase("plan_path_parity", kernel="K10", P=pts.shape[0], O=cloud.shape[0], **fmt_errs(errs))
+        del got, ref
+        plain = build_rollout(ur5, dt=DT_PLAN)
+        worst["rollout"] = dict.fromkeys(TOL, 0.0)
+        for use in ("rollout", "control_period"):
+            q0, dq0, taus = inputs_on_path[use]
+            steps = min(taus.shape[1], STEPS_CHECKED)
+            got = trajectory.forward_dynamics_trajectory(ur5, q0, dq0, taus, dt=DT_PLAN)
+            ref, plain_ms = timed(lambda: plain(q0, dq0, taus[:, :steps].contiguous()))
+            errs = max_errors([g[:, :steps] for g in got], ref)
+            check_close(f"K1 on the planning path ({use})", errs)
+            worst["rollout"] = {k: max(worst["rollout"][k], errs[k]) for k in TOL}
+            phase("plan_path_parity", kernel="K1", use=use, shape="x".join(map(str, taus.shape)), dt=f"{DT_PLAN:.6f}",
+                  steps_checked=steps, plain_ms=f"{plain_ms:.1f}", **fmt_errs(errs))
+    return worst
 
 
 def planning_time(ur5, gen: torch.Generator, inputs_on_path: dict, card: str):
@@ -827,12 +915,20 @@ def planning_time(ur5, gen: torch.Generator, inputs_on_path: dict, card: str):
     return out
 
 
-def planning(ur5, card: str, attrs: dict) -> list:
-    """Phases 14-17; returns the records of K9 and K10."""
+def planning(ur5, card: str, attrs: dict, k1_record: dict) -> list:
+    """Phases 14-18; returns the records of K9 and K10, and adds the planning
+    path's launches and errors of K1 to its record."""
     gen = torch.Generator(DEV).manual_seed(0)
     worst = planning_parity(gen)
     launches, inputs_on_path = planning_path(ur5, gen)
     times = planning_time(ur5, gen, inputs_on_path, card)
+    # After the timings: the plain rollout is a hundred thousand launches.
+    on_path = planning_path_parity(ur5, inputs_on_path)
+    worst = {stage: max(worst[stage], on_path[stage]) for stage in worst}
+    worst["trajectory"] = max(worst["trajectory"], traj_wide_parity())
+    per_output = {k: max(k1_record["max_abs_err_per_output"][k], on_path["rollout"][k]) for k in TOL}
+    k1_record.update(max_abs_err=max(per_output.values()), max_abs_err_per_output=per_output,
+                     launches_planning_path=launches["rollout"])
     names = {
         "trajectory": ("K9 joint trajectory (time scaling x joint delta)", "manipulapy_tpu/ops/pallas_kernels.py:122",
                        f"atol {TRAJ_ATOL}"),
@@ -1104,7 +1200,7 @@ def main() -> int:
         })
 
     records += single_path(panda, single, mpc_attrs["panda single"], card)
-    records += planning(ur5, card, ew_attrs)
+    records += planning(ur5, card, ew_attrs, records[0])
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -219,24 +219,31 @@ def enforce_limits(model: RobotModel, thetalist, dthetalist, tau):
     return q, dq, t
 
 
-def ziegler_nichols_tuning(Ku, Tu, kind: str = "PID"):
+def ziegler_nichols_tuning(Ku, Tu, kind: str = "PID", device=None):
     """Ziegler-Nichols gains from the ultimate gain and period: P -> 0.5 Ku;
     PI -> (0.45 Ku, 1.2 Ku / Tu); PID -> (0.6 Ku, 2 Kp / Tu, 0.125 Kp Tu).
-    Returns (Kp, Ki, Kd). ``Tu`` must be positive and finite for PI and PID:
-    ``Tu == 0`` is :func:`find_ultimate_gain_and_period`'s signal that it
-    found no sustained oscillation."""
-    Ku = torch.as_tensor(Ku)
+    Returns (Kp, Ki, Kd) on ``device``; by default that of ``Ku`` or ``Tu``
+    when one is a tensor, else the card. ``Tu`` must be positive and finite
+    for PI and PID: ``Tu == 0`` is :func:`find_ultimate_gain_and_period`'s
+    signal that it found no sustained oscillation. A tensor ``Tu`` is
+    checked where it lies and read back once, as one flag."""
+    if device is None:
+        device = next((v.device for v in (Ku, Tu) if isinstance(v, torch.Tensor)), "cuda")
+    Ku = torch.as_tensor(Ku, device=device)
     kind = kind.upper()
     if kind == "P":
         return 0.5 * Ku, torch.zeros_like(Ku), torch.zeros_like(Ku)
-    Tu_host = torch.as_tensor(Tu, dtype=torch.float64).cpu()
-    if not bool(torch.isfinite(Tu_host).all()) or bool((Tu_host <= 0).any()):
+    if isinstance(Tu, torch.Tensor):
+        bad = bool((~torch.isfinite(Tu) | (Tu <= 0)).any())
+    else:
+        bad = not (0.0 < float(Tu) < float("inf"))  # also rejects NaN
+    if bad:
         raise ValueError(
             f"Tu (ultimate period) must be positive and finite, got Tu={Tu!r}. "
             "Tu == 0 typically indicates find_ultimate_gain_and_period found "
             "no sustained oscillation; check your gain sweep."
         )
-    Tu = torch.as_tensor(Tu, device=Ku.device)
+    Tu = torch.as_tensor(Tu, device=device)
     if kind == "PI":
         return 0.45 * Ku, 1.2 * Ku / Tu, torch.zeros_like(Ku)
     if kind == "PID":
@@ -245,10 +252,10 @@ def ziegler_nichols_tuning(Ku, Tu, kind: str = "PID"):
     raise ValueError(f"Unknown controller kind {kind!r}; must be 'P', 'PI' or 'PID'")
 
 
-def tune_controller(Ku, Tu, kind: str = "PID", n: Optional[int] = None):
+def tune_controller(Ku, Tu, kind: str = "PID", n: Optional[int] = None, device=None):
     """:func:`ziegler_nichols_tuning`, logged, and broadcast to (n,) gains
     when ``n`` is given."""
-    Kp, Ki, Kd = ziegler_nichols_tuning(Ku, Tu, kind)
+    Kp, Ki, Kd = ziegler_nichols_tuning(Ku, Tu, kind, device)
     if n is not None:
         Kp, Ki, Kd = (torch.broadcast_to(k, (n,)) for k in (Kp, Ki, Kd))
     logger.info("Tuned Z-N (%s) gains\n  Kp=%s\n  Ki=%s\n  Kd=%s", kind, Kp, Ki, Kd)

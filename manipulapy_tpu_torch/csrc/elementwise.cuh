@@ -17,8 +17,8 @@
 //   grid-stride loop, so the three stores of a warp are 128 contiguous bytes
 //   each and no relayout follows (the TPU kernel put time on its 128 lanes
 //   and paid a (B, J, N) -> (B, N, J) transpose outside). The method is a
-//   template argument. The index is 32-bit when B*N*J fits and 64-bit
-//   otherwise (a 64-bit division costs several times a 32-bit one).
+//   template argument. The index is 64-bit, so any B*N*J that fits the
+//   card's memory is served by the one kernel.
 //   Bound: bytes. 12 bytes written per element against ~20 operations; the
 //   endpoints (B*J*8 bytes) are read through the cache.
 //
@@ -89,30 +89,31 @@ static __device__ __forceinline__ void traj_element(
 
 // Element i of the (B, N, J) outputs: j = i % J, t = (i / J) % N,
 // b = i / (N * J).
-template <int METHOD, typename index_t>
+typedef unsigned long long mpt_index;
+template <int METHOD>
 static __device__ __forceinline__ void traj_at(
     const float* __restrict__ start, const float* __restrict__ end,
     float* __restrict__ pos, float* __restrict__ vel, float* __restrict__ acc,
-    index_t i, index_t N, index_t J, float n1, float inv_tf) {
-  const index_t row = i / J;
-  const index_t j = i - row * J;
-  const index_t b = row / N;
-  const index_t t = row - b * N;
-  const index_t e = b * J + j;
+    mpt_index i, mpt_index N, mpt_index J, float n1, float inv_tf) {
+  const mpt_index row = i / J;
+  const mpt_index j = i - row * J;
+  const mpt_index b = row / N;
+  const mpt_index t = row - b * N;
+  const mpt_index e = b * J + j;
   traj_element<METHOD>(start[e], end[e], (float)t, n1, inv_tf, pos + i, vel + i, acc + i);
 }
 
 #ifdef __CUDACC__
-template <int METHOD, typename index_t>
+template <int METHOD>
 __global__ void __launch_bounds__(MPT_EW_BLOCK) mpt_traj_kernel(
     const float* __restrict__ start, const float* __restrict__ end,
     float* __restrict__ pos, float* __restrict__ vel, float* __restrict__ acc,
-    index_t total, index_t N, index_t J, float Tf) {
+    mpt_index total, mpt_index N, mpt_index J, float Tf) {
   const float n1 = (float)(N - 1);
   const float inv_tf = 1.0f / Tf;
-  const index_t stride = (index_t)gridDim.x * blockDim.x;
-  for (index_t i = (index_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride)
-    traj_at<METHOD, index_t>(start, end, pos, vel, acc, i, N, J, n1, inv_tf);
+  const mpt_index stride = (mpt_index)gridDim.x * blockDim.x;
+  for (mpt_index i = (mpt_index)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride)
+    traj_at<METHOD>(start, end, pos, vel, acc, i, N, J, n1, inv_tf);
 }
 
 template <int METHOD>
@@ -128,26 +129,19 @@ static int launch_traj(const float* start, const float* end, float* pos,
   long long blocks = (total + MPT_EW_BLOCK - 1) / MPT_EW_BLOCK;
   const long long cap = (long long)sms * MPT_TRAJ_WAVES;
   if (blocks > cap) blocks = cap;
-  // The 32-bit loop's `i += stride` must not wrap: total + stride < 2^32.
-  if (total + cap * MPT_EW_BLOCK < 4294967296LL) {
-    mpt_traj_kernel<METHOD, unsigned int><<<(unsigned int)blocks, MPT_EW_BLOCK, 0, stream>>>(
-        start, end, pos, vel, acc, (unsigned int)total, (unsigned int)N, (unsigned int)J, Tf);
-  } else {
-    mpt_traj_kernel<METHOD, unsigned long long><<<(unsigned int)blocks, MPT_EW_BLOCK, 0, stream>>>(
-        start, end, pos, vel, acc, (unsigned long long)total, (unsigned long long)N,
-        (unsigned long long)J, Tf);
-  }
+  mpt_traj_kernel<METHOD><<<(unsigned int)blocks, MPT_EW_BLOCK, 0, stream>>>(
+      start, end, pos, vel, acc, (mpt_index)total, (mpt_index)N, (mpt_index)J, Tf);
   return (int)cudaGetLastError();
 }
 
 // start, end: (B, J); pos, vel, acc: (B, N, J); all f32, contiguous, on the
-// current device. Tf > 0 and N > 1 (the wrapper checks). Launches on `stream`
-// and returns cudaGetLastError().
+// current device. Tf > 0, N > 1 and B, J >= 1 (the wrapper checks, and
+// answers empty work itself). Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int launch_trajectory(const float* start, const float* end,
                                  float* pos, float* vel, float* acc,
                                  long long B, long long N, long long J,
                                  float Tf, int method, void* stream) {
-  if (B <= 0 || N <= 0 || J <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (method == 3) return launch_traj<3>(start, end, pos, vel, acc, B, N, J, Tf, s);
   if (method == 5) return launch_traj<5>(start, end, pos, vel, acc, B, N, J, Tf, s);
@@ -203,13 +197,13 @@ __global__ void __launch_bounds__(MPT_EW_BLOCK) mpt_potential_kernel(
     const float* __restrict__ obstacles, float* __restrict__ U,
     float* __restrict__ grad, int P, int O, float d0, float inv_d0) {
   extern __shared__ float obs_s[];
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = p < P;
+  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = p < (size_t)P;
   float px = 0.0f, py = 0.0f, pz = 0.0f, u = 0.0f, gx = 0.0f, gy = 0.0f, gz = 0.0f;
   if (live) {
-    px = points[(size_t)p * 3 + 0];
-    py = points[(size_t)p * 3 + 1];
-    pz = points[(size_t)p * 3 + 2];
+    px = points[p * 3 + 0];
+    py = points[p * 3 + 1];
+    pz = points[p * 3 + 2];
     potential_init(px, py, pz, goal, &u, &gx, &gy, &gz);
   }
   // Every thread of the block stages and waits, also the ones past P.
@@ -223,21 +217,20 @@ __global__ void __launch_bounds__(MPT_EW_BLOCK) mpt_potential_kernel(
   }
   if (live) {
     U[p] = u;
-    grad[(size_t)p * 3 + 0] = gx;
-    grad[(size_t)p * 3 + 1] = gy;
-    grad[(size_t)p * 3 + 2] = gz;
+    grad[p * 3 + 0] = gx;
+    grad[p * 3 + 1] = gy;
+    grad[p * 3 + 2] = gz;
   }
 }
 
 // points (P, 3), goal (3), obstacles (O, 3) -> U (P), grad (P, 3); all f32,
-// contiguous, on the current device; O may be 0. inv_d0 is 1 / d0 as the
-// caller rounded it. Launches on `stream` and returns cudaGetLastError().
+// contiguous, on the current device; P >= 1 (the wrapper answers P = 0
+// itself), O may be 0. inv_d0 is 1 / d0 as the caller rounded it. Launches on `stream` and returns cudaGetLastError().
 extern "C" int launch_potential(const float* points, const float* goal,
                                 const float* obstacles, float* U, float* grad,
                                 int P, int O, float d0, float inv_d0,
                                 void* stream) {
-  if (P <= 0) return 0;
-  const unsigned int blocks = (unsigned int)((P + MPT_EW_BLOCK - 1) / MPT_EW_BLOCK);
+  const unsigned int blocks = (unsigned int)(((long long)P + MPT_EW_BLOCK - 1) / MPT_EW_BLOCK);
   const int tile = O < MPT_OBS_TILE ? O : MPT_OBS_TILE;
   const size_t shared = (size_t)tile * 3 * sizeof(float);
   mpt_potential_kernel<<<blocks, MPT_EW_BLOCK, shared, (cudaStream_t)stream>>>(
@@ -257,9 +250,9 @@ static int kernel_attributes(const void* kernel, int* num_regs, int* local_bytes
   *max_threads = a.maxThreadsPerBlock;
   return 0;
 }
-// K9's are those of the quintic 32-bit instance, the default method's.
+// K9's are those of the quintic instance, the default method's.
 extern "C" int attributes_trajectory(int* num_regs, int* local_bytes, int* max_threads) {
-  return kernel_attributes((const void*)mpt_traj_kernel<5, unsigned int>, num_regs,
+  return kernel_attributes((const void*)mpt_traj_kernel<5>, num_regs,
                            local_bytes, max_threads);
 }
 extern "C" int attributes_potential(int* num_regs, int* local_bytes, int* max_threads) {

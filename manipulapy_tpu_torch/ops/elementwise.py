@@ -143,6 +143,8 @@ def trajectory_kernel(theta_start: torch.Tensor, theta_end: torch.Tensor, Tf, N:
     pos, vel, acc = (
         torch.empty((B, N, J), dtype=theta_start.dtype, device=theta_start.device) for _ in range(3)
     )
+    if B == 0 or J == 0:  # nothing to compute: no launch, no count
+        return pos, vel, acc
     K._launch("trajectory", theta_start.device, theta_start, theta_end, pos, vel, acc, B, N, J, Tf, int(method))
     return pos, vel, acc
 
@@ -202,5 +204,7 @@ def cartesian_potential_kernel(
         return cartesian_potential_plain(positions, goal, obstacles, d0)
     U = torch.empty((P,), dtype=positions.dtype, device=positions.device)
     grad = torch.empty((P, 3), dtype=positions.dtype, device=positions.device)
+    if P == 0:  # nothing to compute: no launch, no count
+        return U, grad
     K._launch("potential", positions.device, positions, goal, obstacles, U, grad, P, O, d0, 1.0 / d0)
     return U, grad

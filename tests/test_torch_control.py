@@ -209,7 +209,7 @@ def test_ziegler_nichols_matches_jax(kind):
     Ku, Tu = np.array([10.0, 4.0]), np.array([2.0, 0.5])
     for g, r in zip(tc.ziegler_nichols_tuning(T(Ku), T(Tu), kind), jc.ziegler_nichols_tuning(J(Ku), J(Tu), kind)):
         close(g.numpy(), r, 1e-12)
-    for g, r in zip(tc.tune_controller(10.0, 2.0, kind, n=6), jc.tune_controller(10.0, 2.0, kind, n=6)):
+    for g, r in zip(tc.tune_controller(10.0, 2.0, kind, n=6, device="cpu"), jc.tune_controller(10.0, 2.0, kind, n=6)):
         assert g.shape == (6,)
         close(g.numpy(), np.asarray(r, np.float64), 1e-6)
 
@@ -218,12 +218,12 @@ def test_ziegler_nichols_matches_jax(kind):
 def test_ziegler_nichols_rejects_bad_period(Tu):
     for kind in ("PI", "PID"):
         with pytest.raises(ValueError, match="no sustained oscillation"):
-            tc.ziegler_nichols_tuning(10.0, Tu, kind)
+            tc.ziegler_nichols_tuning(10.0, Tu, kind, device="cpu")
         with pytest.raises(ValueError):
             jc.ziegler_nichols_tuning(10.0, Tu, kind)
-    assert float(tc.ziegler_nichols_tuning(10.0, Tu, "P")[0]) == 5.0  # P needs no period
+    assert float(tc.ziegler_nichols_tuning(10.0, Tu, "P", device="cpu")[0]) == 5.0  # P needs no period
     with pytest.raises(ValueError, match="Unknown controller kind"):
-        tc.ziegler_nichols_tuning(10.0, 1.0, "PD")
+        tc.ziegler_nichols_tuning(10.0, 1.0, "PD", device="cpu")
 
 
 @pytest.mark.parametrize(

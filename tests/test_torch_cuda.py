@@ -312,6 +312,35 @@ def test_potential_kernel_matches_plain_version(cuda_device, P, O, d0):
     torch.testing.assert_close(grad, grad_ref, rtol=1e-4, atol=1e-4)
 
 
+def test_trajectory_kernel_past_32_bit_indices(cuda_device):
+    """B * N * J just above 2**32 elements (51.5 GB of outputs): the rows
+    whose flat indices need more than 32 bits, and the first ones, against
+    the plain version of those rows."""
+    B, N, J, rows = 174763, 4096, 6, 64
+    assert B * N * J > 2**32 and (B - rows) * N * J < 2**32
+    if torch.cuda.mem_get_info(cuda_device)[0] < 56 * 2**30:
+        pytest.skip("needs 56 GiB of free device memory")
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    start, end = (torch.rand((B, J), generator=gen, device=cuda_device) * 2 - 1 for _ in range(2))
+    got = ew.trajectory_kernel(start, end, 2.0, N, 5)
+    for rows_of in (slice(0, rows), slice(B - rows, B)):
+        ref = ew.trajectory_plain(start[rows_of], end[rows_of], 2.0, N, 5)
+        for g, r, atol in zip(got, ref, TRAJ_ATOL):
+            assert float((g[rows_of] - r).abs().max()) <= atol
+    del got
+    torch.cuda.empty_cache()
+
+
+def test_elementwise_kernels_count_no_launch_for_empty_work(cuda_device):
+    before = _launches()
+    pos, vel, acc = ew.trajectory_kernel(*(torch.zeros((0, 6), device=cuda_device),) * 2, 1.0, 10)
+    assert pos.shape == vel.shape == acc.shape == (0, 10, 6)
+    assert ew.trajectory_kernel(*(torch.zeros((4, 0), device=cuda_device),) * 2, 1.0, 10)[0].shape == (4, 10, 0)
+    U, grad = ew.cartesian_potential_kernel(*(torch.zeros(s, device=cuda_device) for s in ((0, 3), (3,), (5, 3))))
+    assert U.shape == (0,) and grad.shape == (0, 3) and U.device.type == "cuda"
+    assert _launches() == before
+
+
 def test_planning_entry_points_use_the_kernels(cuda_device):
     model = catalog.ur5(device=cuda_device)
     rng = np.random.default_rng(0)

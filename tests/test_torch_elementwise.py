@@ -160,6 +160,15 @@ def test_potential_wrapper_on_cpu_is_the_plain_version():
         ew.cartesian_potential_kernel(pts, goal, obstacles, 0.0)
 
 
+def test_wrappers_answer_empty_work():
+    """No scenario, no joint or no point: outputs of the right shape."""
+    f32 = lambda *shape: torch.zeros(shape, dtype=torch.float32)
+    assert [tuple(x.shape) for x in ew.trajectory_kernel(f32(0, 6), f32(0, 6), 1.0, 10)] == [(0, 10, 6)] * 3
+    assert [tuple(x.shape) for x in ew.trajectory_kernel(f32(4, 0), f32(4, 0), 1.0, 10)] == [(4, 10, 0)] * 3
+    U, grad = ew.cartesian_potential_kernel(f32(0, 3), f32(3), f32(5, 3))
+    assert tuple(U.shape) == (0,) and tuple(grad.shape) == (0, 3)
+
+
 # -- routing -------------------------------------------------------------------
 
 
@@ -184,10 +193,7 @@ static void traj_all(const float* start, const float* end, float* pos, float* ve
   const float n1 = (float)(N - 1);
   const float inv_tf = 1.0f / Tf;
   for (unsigned long long i = 0; i < total; ++i) {{
-    if (i % 2)  // both index widths
-      traj_at<METHOD, unsigned long long>(start, end, pos, vel, acc, i, N, J, n1, inv_tf);
-    else
-      traj_at<METHOD, unsigned int>(start, end, pos, vel, acc, (unsigned int)i, (unsigned int)N, (unsigned int)J, n1, inv_tf);
+    traj_at<METHOD>(start, end, pos, vel, acc, i, N, J, n1, inv_tf);
   }}
 }}
 extern "C" void host_trajectory(const float* start, const float* end, float* pos, float* vel, float* acc,
