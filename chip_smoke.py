@@ -32,8 +32,9 @@ Phases, one line each (or one line per case):
 2. build: every kernel at once, one nvcc per translation unit, all started
    together (the rollout for UR5 with intRes 1 and 3, at the planning
    path's dt, and for Panda; K2-K5 for Panda and UR5; K6-K8 for Panda; the
-   static unit of K9 and K10), with build seconds, registers and spill
-   bytes;
+   static unit of K9 and K10), with build seconds, registers, spill
+   bytes and static shared bytes per block (K3, one warp per scenario, keeps
+   its state there);
 3. rollout: kernel vs its plain PyTorch version on the card;
 4. rollout main path at full width, checked against the plain version on
    its first 4096 rows (launch count read just after it);
@@ -43,8 +44,9 @@ Phases, one line each (or one line per case):
    from a nominal trajectory (K2 and K3) and from K3's gains (K4 and K5),
    at Panda B=257 H=8 (not a multiple of the block, so the ``b < B`` guard
    is exercised; random torques) and at the main path's shapes, B=1024
-   H=50 (the solver's own controls); max |d| per output within 1e-5 of
-   that output's largest magnitude;
+   H=50 (the solver's own controls), there also with a Levenberg-heavy
+   ``reg`` of 10; max |d| per output within 1e-5 of that output's largest
+   magnitude;
 8. MPC main path: one solve and 3 rounds of ``batch_mpc_step`` with goals
    passed at run time, launch counts read just after (4/4/4/5 per solve),
    finite outputs, costs below the zero-control rollout's, |u| <= u_lim;
@@ -137,6 +139,7 @@ MPC_RTOL = 1e-5
 B_MPC, H_MPC, ITERS, ALPHAS = 1024, 50, 4, 6
 B_MPC_WIDE = (4096, 16384)  # more widths for the solve's and stages' times
 B_PARITY, H_PARITY = 257, 8  # kernel vs plain version, off the block size
+REG_HEAVY = 10.0  # a Levenberg-heavy parity case at full width
 B_SMALL, H_SMALL = 64, 10  # the whole solve vs the plain solver
 # The single-problem solver: the JAX benchmark's goal, then another for the
 # rounds after the re-target; the parity horizons and the small solve's.
@@ -349,17 +352,18 @@ def stage_vs_plain(K, stage: str, args, label: str, errs, plain_ms: dict, plain_
     return got
 
 
-def mpc_stage_parity(K: BatchMPCKernels, x0, goals, us, label: str, time_plain: bool, check: bool = True):
+def mpc_stage_parity(K: BatchMPCKernels, x0, goals, us, label: str, time_plain: bool, check: bool = True,
+                     reg: float = 1e-6):
     """Feed every stage, kernel and plain version alike, from a nominal
     trajectory (the torques ``us`` (H, n, B) from ``x0`` (B, 2n), rolled
-    by K5 with zero gains) and K3's gains. Returns per stage the max |d|,
-    the stage's inputs (for timing the kernels) and, if asked, the plain
-    version's CUDA-event ms at these shapes. ``check=False`` runs the
-    kernels alone, for their inputs."""
+    by K5 with zero gains) and K3's gains under the Levenberg term ``reg``.
+    Returns per stage the max |d|, the stage's inputs (for timing the
+    kernels) and, if asked, the plain version's CUDA-event ms at these
+    shapes. ``check=False`` runs the kernels alone, for their inputs."""
     n, nx = K.n, K.nx
     H, B = us.shape[0], us.shape[2]
     x0_t, goal_t = x0.T.contiguous(), goals.T.contiguous()
-    reg = torch.full((B,), 1e-6, device=DEV)
+    reg = torch.full((B,), reg, device=DEV)
     alphas = 0.5 ** torch.arange(ALPHAS, device=DEV, dtype=torch.float32)
     alpha = alphas[torch.arange(B, device=DEV) % ALPHAS].contiguous()
     f32 = dict(dtype=torch.float32, device=DEV)
@@ -1094,13 +1098,18 @@ def main() -> int:
     us_s = (torch.rand((H_PARITY, 7, B_PARITY), generator=gen, device=DEV) * 2 - 1) * 0.3 * u_lim[:, None]
     x0_f, goals_f = panda_problem(gen, panda, B_MPC)
     us_f = mpc_panda.solve(x0_f, torch.zeros((B_MPC, H_MPC, 7), device=DEV), goals_f)[0]
-    cases = (("random torques", x0_s, goals_s, us_s.contiguous(), False),
-             ("solver's controls", x0_f, goals_f, us_f.permute(1, 2, 0).contiguous(), True))
-    for nominal, x0_c, goals_c, us_c, full in cases:
+    # The last case is Levenberg-heavy: reg = 10 dominates Quu's diagonal.
+    us_f = us_f.permute(1, 2, 0).contiguous()
+    cases = (("random torques", x0_s, goals_s, us_s.contiguous(), False, 1e-6),
+             ("solver's controls", x0_f, goals_f, us_f, True, 1e-6),
+             ("solver's controls", x0_f, goals_f, us_f, False, REG_HEAVY))
+    for nominal, x0_c, goals_c, us_c, full, reg in cases:
         B, H = us_c.shape[2], us_c.shape[0]
-        errs, stage_args, stage_plain_ms = mpc_stage_parity(K, x0_c, goals_c, us_c, f"panda B={B} H={H}", full)
+        errs, args, plain_ms = mpc_stage_parity(K, x0_c, goals_c, us_c, f"panda B={B} H={H} reg={reg}", full, reg=reg)
+        if full:
+            stage_args, stage_plain_ms = args, plain_ms
         mpc_err = {k: max(mpc_err[k], errs[k]) for k in mpc_err}
-        phase("mpc_parity", robot="panda", B=B, H=H, nominal=repr(nominal),
+        phase("mpc_parity", robot="panda", B=B, H=H, reg=reg, nominal=repr(nominal),
               **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()})
 
     # 8. The MPC main path at full width, through the public entry points.
@@ -1183,10 +1192,15 @@ def main() -> int:
         kernel_sum = sum(ms[s] * per_solve[s] for s in MPC_KERNELS)
         if B == B_MPC:
             stage_ms = ms
+        # K3's achieved rates: the bytes it must move (AB, xs, us read once,
+        # kK written once) and its emitted operations, over its time.
+        k3_bytes, k3_ops = stage_bytes_ops(K, B, H_MPC, ALPHAS)["backward"]
         phase("mpc_time", card=repr(card), robot="panda", B=B, H=H_MPC, iterations=ITERS,
               **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()}, solve_ms=f"{solve:.4f}",
               solves_per_s=f"{B / (solve * 1e-3):.4e}", kernels_ms_per_solve=f"{kernel_sum:.4f}",
-              kernel_share=f"{kernel_sum / solve:.4f}")
+              kernel_share=f"{kernel_sum / solve:.4f}",
+              backward_GBps=f"{k3_bytes / (ms['backward'] * 1e6):.1f}",
+              backward_Gops_per_s=f"{k3_ops / (ms['backward'] * 1e6):.1f}")
 
     bo = stage_bytes_ops(K, B_MPC, H_MPC, ALPHAS)
     for stage, (name, replaces) in MPC_KERNELS.items():
@@ -1197,6 +1211,7 @@ def main() -> int:
             "launches": mpc_launches[stage], "max_abs_err": mpc_err[stage], "tolerance": f"{MPC_RTOL} x max|plain|",
             "ms": stage_ms[stage], "plain_ms": stage_plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "num_regs": a["num_regs"], "local_bytes": a["local_bytes"],
+            "smem_bytes": a["smem_bytes"],
         })
 
     records += single_path(panda, single, mpc_attrs["panda single"], card)

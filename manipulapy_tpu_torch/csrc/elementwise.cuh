@@ -238,25 +238,29 @@ extern "C" int launch_potential(const float* points, const float* goal,
   return (int)cudaGetLastError();
 }
 
-// Registers per thread, local (spill) bytes per thread and the largest block
-// a kernel can launch with, as the runtime reports them.
+// Registers per thread, local (spill) bytes per thread, the largest block a
+// kernel can launch with and its static shared bytes per block, as the
+// runtime reports them.
 static int kernel_attributes(const void* kernel, int* num_regs, int* local_bytes,
-                             int* max_threads) {
+                             int* max_threads, int* smem_bytes) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return (int)err;
   *num_regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
   *max_threads = a.maxThreadsPerBlock;
+  *smem_bytes = (int)a.sharedSizeBytes;
   return 0;
 }
 // K9's are those of the quintic instance, the default method's.
-extern "C" int attributes_trajectory(int* num_regs, int* local_bytes, int* max_threads) {
-  return kernel_attributes((const void*)mpt_traj_kernel<5>, num_regs,
-                           local_bytes, max_threads);
+extern "C" int attributes_trajectory(int* num_regs, int* local_bytes, int* max_threads,
+                                     int* smem_bytes) {
+  return kernel_attributes((const void*)mpt_traj_kernel<5>, num_regs, local_bytes,
+                           max_threads, smem_bytes);
 }
-extern "C" int attributes_potential(int* num_regs, int* local_bytes, int* max_threads) {
+extern "C" int attributes_potential(int* num_regs, int* local_bytes, int* max_threads,
+                                    int* smem_bytes) {
   return kernel_attributes((const void*)mpt_potential_kernel, num_regs, local_bytes,
-                           max_threads);
+                           max_threads, smem_bytes);
 }
 #endif  // __CUDACC__

@@ -62,13 +62,15 @@
 
 #ifdef __CUDACC__
 #define MPT_ATTRIBUTES(NAME, KERNEL)                                          \
-  extern "C" int NAME(int* num_regs, int* local_bytes, int* max_threads) {  \
+  extern "C" int NAME(int* num_regs, int* local_bytes, int* max_threads,   \
+                      int* smem_bytes) {                                    \
     cudaFuncAttributes a;                                                   \
     const cudaError_t err = cudaFuncGetAttributes(&a, KERNEL);              \
     if (err != cudaSuccess) return (int)err;                                \
     *num_regs = a.numRegs;                                                  \
     *local_bytes = (int)a.localSizeBytes;                                   \
     *max_threads = a.maxThreadsPerBlock;                                    \
+    *smem_bytes = (int)a.sharedSizeBytes;                                   \
     return 0;                                                               \
   }
 #endif

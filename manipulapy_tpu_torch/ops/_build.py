@@ -153,7 +153,7 @@ class KernelSet:
                     launch.argtypes = self.ARGTYPES[stage]
                     launch.restype = ctypes.c_int
                     attrs = getattr(lib, f"attributes_{stage}")
-                    attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+                    attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
                     attrs.restype = ctypes.c_int
             self._libs = built
         return self._libs
@@ -163,18 +163,18 @@ class KernelSet:
         return next(libs[u].lib for u, stages in self.UNITS.items() if stage in stages)
 
     def kernel_attributes(self) -> Dict[str, dict]:
-        """Per stage: registers per thread, spill (local) bytes per thread
-        and the largest block size, from ``cudaFuncGetAttributes``."""
+        """Per stage: registers per thread, spill (local) bytes per thread,
+        the largest block size and the static shared bytes per block, from
+        ``cudaFuncGetAttributes``."""
+        keys = ("num_regs", "local_bytes", "max_threads", "smem_bytes")
         out = {}
         for stages in self.UNITS.values():
             for stage in stages:
-                regs, local, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-                err = getattr(self._lib(stage), f"attributes_{stage}")(
-                    ctypes.byref(regs), ctypes.byref(local), ctypes.byref(threads)
-                )
+                values = [ctypes.c_int() for _ in keys]
+                err = getattr(self._lib(stage), f"attributes_{stage}")(*map(ctypes.byref, values))
                 if err:
                     raise RuntimeError(f"cudaFuncGetAttributes({stage}) failed with CUDA error {err}")
-                out[stage] = {"num_regs": regs.value, "local_bytes": local.value, "max_threads": threads.value}
+                out[stage] = {k: v.value for k, v in zip(keys, values)}
         return out
 
     def _route(self, stage: str, tensors: Dict[str, "torch.Tensor"], shapes: Dict[str, tuple]) -> bool:

@@ -20,7 +20,10 @@ Each kernel's arithmetic is one Python function over cgen values
 for K2). Run on tensors it is the plain PyTorch version; run on CVars it
 is the kernel's device function (template ``csrc/mpc_batch.cuh``), built
 with ``--fmad=false``, so the two agree bitwise. The order of every sum
-is the JAX kernels'.
+is the JAX kernels'. K3 is the exception: one warp per scenario runs
+:func:`riccati_step`'s sums as phases over its lanes, written by hand in
+the template in the same order; the emitted step
+(``riccati_step_source``) is the host tests' reference for them.
 
 Layout: scenario-minor, ``xs (H, nx, B)``, ``us (H, n, B)``, ``AB (H, nx,
 m, B)``, ``kK (H, n, 1+nx, B)`` (``[..., j, 0, :]`` = k_j, ``[..., j, 1+i,
@@ -369,8 +372,17 @@ class BatchMPCKernels(MPCKernelSet):
             ["reg"], [("kk", kkn), ("V_next", vn)],
             lambda ab, x, u, goal, V, reg: riccati_step(P, ab, x, u, goal, V, reg),
         )
+        # K3's phases (csrc/mpc_batch.cuh) do riccati_step's operations, so
+        # its emitted body stays out of the unit: it is the host harness's
+        # reference and its statements K3's operation count.
+        self.riccati_step_source = step_src
         self.statements["backward"] = step_ops
         self.statements["value_terminal"] = term_ops
+        bwd_weights = (
+            f"static __device__ const float MPT_BWD_2WX[{nx}] = "
+            f"{{{', '.join(cg.c_literal(2.0 * w) for w in P.w_x)}}};\n"
+            f"#define MPT_BWD_2WU {cg.c_literal(2.0 * P.w_u)}\n"
+        )
 
         def fwd_body(x, sdx, sdu, kk, goal, alpha):
             u, c, x_next = fwd_step(P, x, sdx, sdu, kk, goal, alpha)
@@ -386,7 +398,7 @@ class BatchMPCKernels(MPCKernelSet):
         )
         self.statements["linesearch_costs"] = self.statements["replay"] = fwd_ops
         self.statements["cost_terminal"] = cost_ops
-        return {"lin": lin_src, "bwd": term_src + step_src, "fwd": fwd_src + cost_src}
+        return {"lin": lin_src, "bwd": bwd_weights + term_src, "fwd": fwd_src + cost_src}
 
     # -- checks -----------------------------------------------------------
     @staticmethod

@@ -9,7 +9,8 @@ GPU. The module imports no JAX, so it also runs on a machine without JAX:
 
 Tolerances: 1e-4 on q, 1e-3 on dq and 2e-1 on ddq (float32) for the
 rollout; 1e-5 of each output's largest magnitude for K2-K8 (the same
-emitted operations with --fmad=false, so 0 is expected); the JAX test's
+operations in the same order with --fmad=false, so 0 is expected; K3's
+own tests alone: ``-k backward_kernel``); the JAX test's
 bars (cost rtol 1e-5, final state atol 5e-4, controls atol 5e-3) for the
 whole MPC solves against the plain solvers; for K9 2e-6 / 2e-5 / 2e-4 on pos
 / vel / acc and for K10 rtol 1e-4 with atol 1e-5 on U and 1e-4 on its
@@ -160,6 +161,70 @@ def test_mpc_kernels_match_plain_versions(cuda_device, robot):
     assert {k: after[k] - before[k] for k in after} == {
         "linearize": 1, "backward": 1, "linesearch_costs": 1, "replay": 2
     }
+
+
+@pytest.fixture(scope="module")
+def panda_bwd_nominal():
+    """K3's inputs at Panda B=1024, H=50 from the solver's own controls (50
+    open-loop steps of random torques leave some scenarios non-finite), the
+    Levenberg term cycling through 1e-6, 1e-3 and 10 over the scenarios."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc); this host has none")
+    dev = torch.device("cuda")
+    model = catalog.panda(device=dev)
+    B, H, n = 1024, 50, 7
+    x0, goals, _ = _mpc_problem(model, B, H, dev, seed=5)
+    mpc = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2)
+    us = mpc.solve(x0, torch.zeros((B, H, n), device=dev))[0].permute(1, 2, 0).contiguous()
+    K = mpc.kernels
+    zeros = lambda *s: torch.zeros(s, device=dev)
+    x0_t, goal_t = x0.T.contiguous(), goals.T.contiguous()
+    xs = K.replay(x0_t, zeros(H, 2 * n, B), us, zeros(H, n, 1 + 2 * n, B), goal_t, zeros(B))[0]
+    sd_x = torch.cat([x0_t[None], xs[:-1]]).contiguous()
+    reg = torch.tensor([1e-6, 1e-3, 10.0], device=dev)[torch.arange(B, device=dev) % 3].contiguous()
+    return K, (K.linearize(sd_x, us), sd_x, us, xs, goal_t, reg)
+
+
+def _bwd_args(nominal, B, H):
+    """The first B scenarios and H steps, x_last the state after step H."""
+    AB, sd_x, us, xs, goal, reg = nominal
+    c = lambda x: x[..., :B].contiguous()
+    return c(AB[:H]), c(sd_x[:H]), c(us[:H]), c(xs[H - 1]), c(goal), c(reg)
+
+
+@pytest.mark.parametrize("H", [1, 50])
+@pytest.mark.parametrize("B", [1, 3, 257, 1024])
+def test_backward_kernel_matches_plain_version(cuda_device, panda_bwd_nominal, B, H):
+    """K3, one warp per scenario, against its plain version: the same
+    operations in the same order, so max |d| = 0 is expected; the gate is
+    1e-5 of the largest |plain|. One launch per call."""
+    K, nominal = panda_bwd_nominal
+    args = _bwd_args(nominal, B, H)
+    before = BatchMPCKernels.launch_count["backward"]
+    kK = K.backward(*args)
+    torch.cuda.synchronize()
+    assert BatchMPCKernels.launch_count["backward"] == before + 1
+    ref = K.backward_plain(*args)
+    assert kK.shape == (H, 7, 15, B)
+    _close_to_scale(kK, ref)
+
+
+def test_backward_kernel_keeps_a_nan_scenario_to_itself(cuda_device, panda_bwd_nominal):
+    """Scenario 5's Jacobians all NaN: its gains go NaN, the other 256 stay
+    bit for bit those of the clean run (warps share a block, not a storage
+    region). K3 keeps its state in shared memory: no local (stack) bytes."""
+    K, nominal = panda_bwd_nominal
+    args = _bwd_args(nominal, 257, 8)
+    clean = K.backward(*args)
+    AB = args[0].clone()
+    AB[..., 5] = float("nan")
+    dirty = K.backward(AB, *args[1:])
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(dirty[..., 5]).all())
+    others = torch.arange(257, device=cuda_device) != 5
+    assert torch.equal(dirty[..., others].view(torch.int32), clean[..., others].view(torch.int32))
+    attrs = K.kernel_attributes()["backward"]
+    assert attrs["local_bytes"] == 0 and 0 < attrs["num_regs"] <= 255 and attrs["smem_bytes"] > 0
 
 
 def test_mpc_solve_runs_on_the_kernels(cuda_device):

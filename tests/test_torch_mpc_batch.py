@@ -15,7 +15,10 @@
   5e-4, controls atol 5e-3, ``tests/test_mpc.py``).
 * The emitted kernel bodies (``csrc/mpc_batch.cuh`` with the generated
   device functions), compiled with the host g++ behind a ``__device__``
-  shim, against the plain versions.
+  shim, against the plain versions; K3's warp phases run lane by lane
+  (``MPT_HOST_TEAM``) bitwise against the emitted one-thread
+  ``riccati_step`` sweep on the two-link arm, UR5 and Panda, and a NaN
+  scenario kept to itself.
 * The solver's behaviour: run-time goals, torque limits, the NaN guard,
   ``batch_mpc_step`` and the checks on its inputs.
 """
@@ -23,6 +26,7 @@
 import ctypes
 import shutil
 import subprocess
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +38,7 @@ from manipulapy_tpu.models import catalog as jax_catalog
 from manipulapy_tpu.models.robot import host_arrays as jax_host_arrays
 from manipulapy_tpu.mpc.fused_batch import build_batch_tracking_mpc as jax_build_batch
 from manipulapy_tpu.ops import fd_step as jfd
+from manipulapy_tpu_torch.models import catalog as port_catalog
 from manipulapy_tpu_torch.models import from_host_arrays
 from manipulapy_tpu_torch.mpc import ILQRParams, ilqr, make_step_fn, make_tracking_costs
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
@@ -293,13 +298,17 @@ def test_solve_matches_generic_ilqr_per_scenario(planar):
 _HARNESS = """\
 #define __device__
 #define __forceinline__ inline
+#define MPT_HOST_TEAM 1
 {src}
 extern "C" void run(const float** in, float** out, int B, int H, int A) {{
 #if defined(MPT_UNIT_LIN)
   for (int t = 0; t < H; ++t) for (int k = 0; k < MPT_M; ++k) for (int b = 0; b < B; ++b)
     lin_thread(in[0], in[1], out[0], B, b, k, t);
 #elif defined(MPT_UNIT_BWD)
-  for (int b = 0; b < B; ++b) bwd_thread(in[0], in[1], in[2], in[3], in[4], in[5], out[0], B, H, b);
+  // K3: one warp's storage, a host array; under MPT_HOST_TEAM each phase of
+  // the sweep runs lanes 0..31 in turn before the next phase begins.
+  mpt_bwd_team team;
+  for (int b = 0; b < B; ++b) bwd_sweep(0, &team, in[0], in[1], in[2], in[3], in[4], in[5], out[0], B, H, b);
 #else
   for (int a = 0; a < A; ++a) for (int b = 0; b < B; ++b)
     cost_thread(in[0], in[1], in[2], in[3], in[4], in[5], out[0], B, H, b, a);
@@ -366,6 +375,125 @@ def test_emitted_kernel_bodies_match_plain_versions(planar, tmp_path):
         for g, r in zip(got[unit], refs[unit]):
             _close_to_scale(g.numpy(), r.numpy(), 1e-5)
     assert float(got["fwd"][2].abs()[:, 0].max()) <= 4.0 and float(got["fwd"][2].abs()[:, 1].max()) <= 3.0
+
+
+# K3's phases, lane by lane, against the emitted one-thread sweep. Both are
+# compiled by g++ with the same flags and both take sqrtf and the IEEE
+# division, so they must agree bit for bit.
+
+_BWD_REFERENCE = """
+{step}
+extern "C" void run_ref(const float** in, float** out, int B, int H, int A) {{
+  const float *AB = in[0], *xs = in[1], *us = in[2], *x_last = in[3], *goal = in[4], *reg = in[5];
+  for (int b = 0; b < B; ++b) {{
+    float g[MPT_NJ], xl[MPT_NX], V[MPT_VN], V_next[MPT_VN], ab[MPT_AB], x[MPT_NX], u[MPT_NJ], kk[MPT_KKN];
+    for (int j = 0; j < MPT_NJ; ++j) g[j] = MPT_AT(goal, j, b, B);
+    for (int i = 0; i < MPT_NX; ++i) xl[i] = MPT_AT(x_last, i, b, B);
+    riccati_terminal(xl, g, V);
+    for (int t = H - 1; t >= 0; --t) {{
+      for (int e = 0; e < MPT_AB; ++e) ab[e] = MPT_AT(AB, (size_t)t * MPT_AB + e, b, B);
+      for (int i = 0; i < MPT_NX; ++i) x[i] = MPT_AT(xs, t * MPT_NX + i, b, B);
+      for (int j = 0; j < MPT_NJ; ++j) u[j] = MPT_AT(us, t * MPT_NJ + j, b, B);
+      riccati_step(ab, x, u, g, V, reg[b], kk, V_next);
+      for (int e = 0; e < MPT_KKN; ++e) MPT_AT(out[0], (size_t)t * MPT_KKN + e, b, B) = kk[e];
+      for (int e = 0; e < MPT_VN; ++e) V[e] = V_next[e];
+    }}
+  }}
+}}
+"""
+TEAM_ROBOTS = ("two_link_planar", "ur5", "panda")  # n = 2 leaves most lanes idle
+TEAM_B, TEAM_H = 5, 8
+TEAM_SHAPES = [(3, 1), (3, 8), (5, 1), (5, 8)]  # (B, H): never a whole block of 4 warps
+TEAM_REGS = [1e-6, 1e-3, 10.0]
+
+
+@pytest.fixture(scope="module")
+def team_units(tmp_path_factory):
+    """Per robot, on first use: the K3 unit with the emitted one-thread
+    sweep beside it, compiled by g++ at -O0 (the emitted step is 26k
+    statements for Panda: 2 s at -O0, 12 s at -O1), and a nominal of
+    TEAM_H steps under random torques from rest inside the joint limits,
+    with its Jacobians (the plain K5 and K2)."""
+    if shutil.which("g++") is None:
+        pytest.skip("the host has no g++ to compile the emitted C")
+    units = {}
+
+    def get(robot):
+        if robot not in units:
+            model = port_catalog.get_robot(robot, device="cpu")
+            n = model.num_joints
+            k = BatchMPCKernels(model, 0.01, u_lim=[10.0] * n)
+            tmp = tmp_path_factory.mktemp(robot)
+            cpp, so = tmp / "bwd.cpp", tmp / "bwd.so"
+            cpp.write_text(_HARNESS.format(src=k.sources["bwd"]) + _BWD_REFERENCE.format(step=k.riccati_step_source))
+            subprocess.run(["g++", "-O0", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(so), str(cpp)],
+                           check=True, timeout=300)
+            lib = ctypes.CDLL(str(so))
+            for fn in (lib.run, lib.run_ref):
+                fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_int] * 3
+            rng = np.random.default_rng(7)
+            lo, hi = model.joint_lower.double().numpy(), model.joint_upper.double().numpy()
+            lo, hi = np.maximum(lo, -np.pi), np.minimum(hi, np.pi)
+            q0 = (lo + hi) / 2 + rng.uniform(-0.5, 0.5, (TEAM_B, n)) * (hi - lo) / 2
+            x0 = torch.from_numpy(np.concatenate([q0, np.zeros_like(q0)], 1).T.astype(np.float32)).contiguous()
+            us = torch.from_numpy(rng.uniform(-3.0, 3.0, (TEAM_H, n, TEAM_B)).astype(np.float32))
+            goal = torch.from_numpy(rng.uniform(-1.0, 1.0, (n, TEAM_B)).astype(np.float32))
+            xs, _, _ = k.replay(x0, torch.zeros(TEAM_H, 2 * n, TEAM_B), us, torch.zeros(TEAM_H, n, 1 + 2 * n, TEAM_B),
+                                goal, torch.zeros(TEAM_B))
+            sd_x = torch.cat([x0[None], xs[:-1]])
+            units[robot] = SimpleNamespace(k=k, lib=lib, AB=k.linearize(sd_x, us), sd_x=sd_x, us=us, xs=xs, goal=goal)
+        return units[robot]
+
+    return get
+
+
+def _team_inputs(u, B, H, reg):
+    """The first B scenarios and H steps of a unit's nominal, with x_last the
+    state after step H."""
+    c = lambda x: x[..., :B].contiguous()
+    return [c(u.AB[:H]), c(u.sd_x[:H]), c(u.us[:H]), c(u.xs[H - 1]), c(u.goal), torch.full((B,), reg)]
+
+
+def _team_and_reference(u, ins, B, H):
+    n = u.k.n
+    outs = [torch.full((H, n, 1 + 2 * n, B), 7.0) for _ in range(2)]
+    _call(u.lib, ins, outs[:1], B, H)
+    u.lib.run_ref((ctypes.c_void_p * 6)(*[t.data_ptr() for t in ins]), (ctypes.c_void_p * 1)(outs[1].data_ptr()), B, H, 0)
+    return outs
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("reg", TEAM_REGS)
+@pytest.mark.parametrize("B, H", TEAM_SHAPES)
+@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+def test_bwd_team_phases_match_emitted_step_bitwise(team_units, robot, B, H, reg):
+    u = team_units(robot)
+    team, ref = _team_and_reference(u, _team_inputs(u, B, H, reg), B, H)
+    assert bool(torch.isfinite(ref).all())
+    assert torch.equal(_bits(team), _bits(ref))
+
+
+@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+def test_bwd_team_keeps_a_nan_scenario_to_itself(team_units, robot):
+    """Scenario 1's Jacobians all NaN: its gains go NaN, every other
+    scenario's stay bit for bit those of the clean run (one warp's storage is
+    reused from scenario to scenario here); the clean run also holds the
+    plain version to 1e-5 of scale."""
+    u = team_units(robot)
+    B, H = TEAM_B, TEAM_H
+    clean = _team_inputs(u, B, H, 1e-3)
+    dirty = [x.clone() for x in clean]
+    dirty[0][..., 1] = float("nan")
+    team_clean, _ = _team_and_reference(u, clean, B, H)
+    team, ref = _team_and_reference(u, dirty, B, H)
+    assert torch.equal(_bits(team), _bits(ref))
+    assert bool(torch.isnan(team[..., 1]).all())
+    others = [0, 2, 3, 4]
+    assert torch.equal(_bits(team[..., others]), _bits(team_clean[..., others]))
+    _close_to_scale(team_clean.numpy(), u.k.backward_plain(*clean).numpy(), 1e-5)
 
 
 # ---------------------------------------------------------------------------
