@@ -33,8 +33,8 @@ Phases, one line each (or one line per case):
    together (the rollout for UR5 with intRes 1 and 3, at the planning
    path's dt, and for Panda; K2-K5 for Panda and UR5; K6-K8 for Panda; the
    static unit of K9 and K10), with build seconds, registers, spill
-   bytes and static shared bytes per block (K3, one warp per scenario, keeps
-   its state there);
+   bytes and static shared bytes per block (K3, one warp per scenario, and
+   K7, one block, keep their state there; K7 must have no local bytes);
 3. rollout: kernel vs its plain PyTorch version on the card;
 4. rollout main path at full width, checked against the plain version on
    its first 4096 rows (launch count read just after it);
@@ -56,9 +56,11 @@ Phases, one line each (or one line per case):
    B=64; then each stage's kernel and one solve (CUDA events, median) at
    B=1024, 4096 and 16384;
 10. single-problem parity: each of K6-K8 against its plain version on the
-    card at Panda H=50 (the solver's own controls) and H=37 (random torques
-    within 30% of the limits; K6's H*m threads end mid-block), max |d| per
-    output within 1e-5 of that output's largest magnitude;
+    card at Panda H=50 (the solver's own controls), H=37 (random torques
+    within 30% of the limits; K6's H*m threads end mid-block) and H=50
+    again with a Levenberg-heavy reg of 10, max |d| per output within 1e-5
+    of that output's largest magnitude, and 0 for K7 (one block of threads
+    whose phases do the plain version's operations in its order);
 11. single-problem main path: one solve from rest at the middle of the
     joint limits towards the benchmark's goal, then 20 receding-horizon
     rounds (x <- xs[1], the warm start shifted by one), the goal
@@ -71,7 +73,8 @@ Phases, one line each (or one line per case):
     receding round, and the glue (the solve minus its kernels' sum),
     CUDA-event medians; then a ``torch.profiler`` trace of 3 solves: each
     kernel's device time per solve, the glue's, and the device's busy
-    share;
+    share. K6-K8's records carry, beside the throughput bound, an estimate
+    of their dependent chains' least time (``chain_bound_ms``);
 13. ``elementwise_build``: the static unit's nvcc seconds, registers and
     spills;
 14. ``traj_parity``: K9 against its plain version for the cubic, quintic
@@ -155,6 +158,9 @@ DEV = "cuda"
 # two operations; the kernels are built with --fmad=false).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 33.5e12
+# A dependent f32 operation's latency in cycles, for the estimate of a
+# single-problem kernel's least time along its longest chain of statements.
+CHAIN_CYCLES = 4
 ROLLOUT_SOURCE = "manipulapy_tpu_torch/csrc/rollout.cuh"
 MPC_SOURCE = "manipulapy_tpu_torch/csrc/mpc_batch.cuh"
 MPC_KERNELS = {  # stage: (id and name, the TPU kernel's pallas_call)
@@ -166,7 +172,7 @@ MPC_KERNELS = {  # stage: (id and name, the TPU kernel's pallas_call)
 SINGLE_SOURCE = "manipulapy_tpu_torch/csrc/mpc_single.cuh"
 SINGLE_KERNELS = {  # stage: (id and name, the TPU kernel's pallas_call, the CUDA kernel's name)
     "linearize": ("K6 single-problem linearize (forward mode over K0)", "manipulapy_tpu/mpc/fused.py:213", "mps_lin_kernel"),
-    "backward": ("K7 single-problem Riccati backward (Gauss-Jordan)", "manipulapy_tpu/mpc/fused.py:303", "mps_bwd_kernel"),
+    "backward": ("K7 single-problem Riccati backward (Gauss-Jordan)", "manipulapy_tpu/mpc/fused.py:303", "mps_bwd_block_kernel"),
     "forward": ("K8 single-problem line-search forward (K0 inlined)", "manipulapy_tpu/mpc/fused.py:375", "mps_fwd_kernel"),
 }
 # The planning path: widths, tolerances (those of the JAX package's kernel
@@ -198,9 +204,9 @@ def phase(name: str, **fields) -> None:
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
@@ -442,11 +448,12 @@ def terminal_value(S: SingleMPCKernels, x_last, goal) -> torch.Tensor:
     return torch.cat([torch.diag(two_wT), Vx[None]]).contiguous()
 
 
-def single_stage_parity(S: SingleMPCKernels, x0, goal, us, label: str, plain_calls: int):
+def single_stage_parity(S: SingleMPCKernels, x0, goal, us, label: str, plain_calls: int, reg: float = 1e-6):
     """K6-K8 against their plain versions, fed from the open loop of ``us``
     (H, n) from ``x0`` (K8 with one alpha of 0 and zero gains) and K7's
-    gains. Returns per stage the max |d|, the stage's inputs and the plain
-    versions' ms (for ``plain_calls`` > 0)."""
+    gains under the Levenberg term ``reg``. Returns per stage the max |d|,
+    the stage's inputs and the plain versions' ms (for ``plain_calls`` >
+    0)."""
     n, nx, H = S.n, S.nx, us.shape[0]
     f32 = dict(dtype=torch.float32, device=DEV)
     errs, plain_ms = {}, {}
@@ -455,7 +462,7 @@ def single_stage_parity(S: SingleMPCKernels, x0, goal, us, label: str, plain_cal
     xs0 = both("forward", init)[0][0]
     sd_x = torch.cat([x0[None], xs0[:-1]]).contiguous()
     AB = both("linearize", (sd_x, us))[0]
-    bwd_args = (AB, sd_x, us, goal, terminal_value(S, xs0[-1], goal), torch.tensor(1e-6, **f32))
+    bwd_args = (AB, sd_x, us, goal, terminal_value(S, xs0[-1], goal), torch.tensor(reg, **f32))
     kK = both("backward", bwd_args)[0]
     fwd_args = (x0, sd_x, us, kK, goal, 0.5 ** torch.arange(ALPHAS, **f32))
     both("forward", fwd_args)
@@ -480,6 +487,20 @@ def single_bytes_ops(S: SingleMPCKernels, H: int, A: int) -> dict:
     }
 
 
+def single_chain_ms(S: SingleMPCKernels, H: int) -> dict:
+    """Per stage, an estimate of the least time along its dependent
+    chains: the longest chain of the emitted step's statements
+    (``S.chains``, from cgen's SSA output), CHAIN_CYCLES cycles a link at
+    the card's largest SM clock. K6's H steps run side by side, one step a
+    thread; K7's H steps follow one another, and so do each alpha's H steps
+    of K8 before its terminal cost."""
+    mhz = float(card_line("clocks.max.sm").split()[0])
+    ms = lambda links: links * CHAIN_CYCLES / (mhz * 1e3)
+    c = S.chains
+    return {"linearize": ms(c["linearize"]), "backward": ms(H * c["backward"]),
+            "forward": ms(H * c["forward"] + c["cost_terminal"])}
+
+
 def single_path(panda, single, attrs: dict, card: str) -> list:
     """Phases 10-12, the single-problem solver; returns its kernels'
     records."""
@@ -491,18 +512,22 @@ def single_path(panda, single, attrs: dict, card: str) -> list:
 
     # 10. K6-K8 vs their plain versions: at H=50 on the solver's own
     # controls (plain versions timed there, once), at the odd horizon on
-    # random torques.
+    # random torques, and at H=50 with a Levenberg-heavy reg.
     us_nom = single.solve(x0, torch.zeros((H, 7), **f32))[0].contiguous()
     x0_r, goal_r, us_r = random_single_problem(panda, H_ODD, ODD_SEED)
     err = dict.fromkeys(SINGLE_KERNELS, 0.0)
-    for nominal, x0_c, goal_c, us_c, calls in (
-        ("solver's controls", x0, goal_a, us_nom, 1), ("random torques", x0_r, goal_r, us_r, 0)
+    for nominal, x0_c, goal_c, us_c, calls, reg in (
+        ("solver's controls", x0, goal_a, us_nom, 1, 1e-6), ("random torques", x0_r, goal_r, us_r, 0, 1e-6),
+        ("solver's controls", x0, goal_a, us_nom, 0, REG_HEAVY),
     ):
-        errs, args, ms = single_stage_parity(S, x0_c, goal_c, us_c, f"panda single H={us_c.shape[0]}", calls)
+        label = f"panda single H={us_c.shape[0]} reg={reg}"
+        errs, args, ms = single_stage_parity(S, x0_c, goal_c, us_c, label, calls, reg)
+        if errs["backward"] != 0.0:  # K7 does the plain version's operations in its order
+            raise AssertionError(f"{label} backward: max |d| = {errs['backward']}, not 0")
         err = {k: max(err[k], errs[k]) for k in err}
         if calls:
             stage_args, plain_ms = args, ms
-        phase("single_parity", robot="panda", H=us_c.shape[0], nominal=repr(nominal),
+        phase("single_parity", robot="panda", H=us_c.shape[0], reg=reg, nominal=repr(nominal),
               **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()})
 
     # 11. The main path: one solve, then ROUNDS receding-horizon rounds.
@@ -595,14 +620,22 @@ def single_path(panda, single, attrs: dict, card: str) -> list:
         phase("single_trace", device_time="not measured (the profiler saw no device activity)")
 
     bo = single_bytes_ops(S, H, ALPHAS)
+    chain = single_chain_ms(S, H)
+    phase("single_chain", robot="panda", H=H, clocks_max_sm=repr(card_line("clocks.max.sm")),
+          cycles_per_link=CHAIN_CYCLES, **{f"{s}_links": v for s, v in S.chains.items()},
+          **{f"{s}_chain_bound_ms": f"{v:.5f}" for s, v in chain.items()})
     records = []
     for stage, (name, replaces, _) in SINGLE_KERNELS.items():
         b_ms, b_by = bound(*bo[stage])
         records.append({
             "name": name, "route": "cuda", "source": SINGLE_SOURCE, "replaces": replaces,
-            "launches": launches[stage], "max_abs_err": err[stage], "tolerance": f"{MPC_RTOL} x max|plain|",
+            "launches": launches[stage], "max_abs_err": err[stage],
+            "tolerance": "0" if stage == "backward" else f"{MPC_RTOL} x max|plain|",
             "ms": ms[stage], "plain_ms": plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "num_regs": attrs[stage]["num_regs"], "local_bytes": attrs[stage]["local_bytes"],
+            "chain_bound_ms": chain[stage], "chain_bound": "estimate: longest chain of emitted statements x "
+            f"{CHAIN_CYCLES} cycles at clocks.max.sm", "library_ms": None,
+            "num_regs": attrs[stage]["num_regs"], "local_bytes": attrs[stage]["local_bytes"],
+            "smem_bytes": attrs[stage]["smem_bytes"],
         })
     return records
 
@@ -994,6 +1027,8 @@ def main() -> int:
         names = SINGLE_KERNELS if isinstance(K, SingleMPCKernels) else MPC_KERNELS
         for stage, a in mpc_attrs[robot].items():
             phase("build", kernel=names[stage][0], robot=robot, statements=K.statements[stage], **a)
+    if mpc_attrs["panda single"]["backward"]["local_bytes"] != 0:  # its state lives in shared memory
+        raise AssertionError(f"K7 uses local memory: {mpc_attrs['panda single']['backward']}")
     # 13. The static unit of K9 and K10.
     ew_attrs = ew.kernels().kernel_attributes()
     for unit, b in built["planning", "elementwise"].items():

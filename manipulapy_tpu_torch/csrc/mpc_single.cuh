@@ -8,11 +8,14 @@
 // This file is a template. ops/cuda_mpc_single.py writes one translation
 // unit per (robot, dt, g, cost weights, torque limits) and per unit, which
 // holds, in order:
-//   #define MPT_NJ <n> and one of MPT_UNIT_LIN, MPT_UNIT_BWD, MPT_UNIT_FWD;
-//   the unit's generated device functions, emitted from the same Python
-//   code over cgen values as the plain PyTorch versions:
+//   #define MPT_NJ <n>, MPT_BWD_THREADS <threads>, and one of MPT_UNIT_LIN,
+//     MPT_UNIT_BWD, MPT_UNIT_FWD;
+//   the unit's generated part, emitted from the same Python code over cgen
+//   values as the plain PyTorch versions:
 //     LIN: fd_step_jvp (ops/fd_step.py::build_fd_step_jvp_source);
-//     BWD: riccati_step_gj (the Gauss-Jordan Riccati step of fused.py);
+//     BWD: the folded weights MPT_BWD_2WX, MPT_BWD_2WU only: K7's phases
+//       do the operations of riccati_step_gj (the Gauss-Jordan Riccati step
+//       of fused.py), written by hand in the same order;
 //     FWD: mpc_fwd_step (K4's closed-loop step), mpc_terminal_fused;
 //   this file.
 // The three units build in parallel, one nvcc each.
@@ -23,7 +26,8 @@
 //   float), x0 (nx), alphas (A); K8 writes xs (A, H, nx), us (A, H, n) and
 //   costs (A). The TPU's 128-lane staging (timesteps or alphas on the lanes,
 //   packed AB / kK / V tiles) is gone, and so is its sequential grid axis:
-//   a loop inside one thread takes its place and that of the VMEM scratch.
+//   a loop inside the kernel takes its place, and registers or shared
+//   memory that of the VMEM scratch.
 //
 // Bound and design, per kernel (one problem, so none of them fills the card;
 // the path is bound by launch latency and by dependent chains):
@@ -31,19 +35,21 @@
 //       H=50), one warp per block so that they spread over H*m/32 SMs; each
 //       runs the step and its tangent for seed k and writes column k of AB
 //       at t. The same function as K2 at B=1, with its own entry point.
-//   K7: one thread runs the whole time-reversed sweep, the value function
-//       (nx+1)*nx in thread-local arrays, Quu solved by the pivot-free
-//       Gauss-Jordan of fused.py. H dependent steps of ~28k operations
-//       (Panda): latency-bound by construction, the solve's largest stage.
-//       A block-cooperative version is a later change.
+//   K7: one block of MPT_BWD_THREADS threads runs the whole time-reversed
+//       sweep; its state lives in shared memory and each step is 4 + n
+//       phases over the threads (see the K7 section), Quu solved by the
+//       pivot-free Gauss-Jordan of fused.py one pivot a phase. H dependent
+//       steps of ~30k operations (Panda) spread over the block: bound by
+//       the phases' dependent chains and barriers.
 //   K8: one thread per alpha, the closed-loop rollout with the step inlined,
 //       streaming out xs and us and writing the cost.
 // Every kernel is built with --fmad=false and the emitter's order of
 // operations, so each agrees bitwise with its plain PyTorch version.
 //
-// The per-thread bodies (`*_thread`) are plain functions: a host harness
-// compiles this file with `__device__` defined away and runs them in a loop
-// (tests/test_torch_mpc_single.py).
+// The per-thread bodies (`*_thread`) and K7's phases are plain functions: a
+// host harness compiles this file with `__device__` defined away (and
+// MPT_HOST_TEAM defined, so each of K7's phases runs threads 0..T-1 in turn)
+// and runs them in a loop (tests/test_torch_mpc_single.py).
 
 #include <stddef.h>
 #ifdef __CUDACC__
@@ -115,55 +121,353 @@ MPT_ATTRIBUTES(attributes_linearize, mps_lin_kernel)
 
 // ---------------------------------------------------------------- K7 -----
 #if defined(MPT_UNIT_BWD)
-static __device__ __forceinline__ void bwd_thread(
+// One block of MPT_BWD_THREADS threads runs the one problem's sweep,
+// t = H-1 ... 0. Its state (`mps_bwd_state`) lives in static shared memory,
+// none on the stack, and each Riccati step is a sequence of phases with
+// `__syncthreads()` between them:
+//   1. Qx = lx + Vx A, Qu = lu + Vx B, and VAB = Vxx [A | B] (one interval:
+//      both read V and [A | B] only);
+//   2. Qxx, Quu and Qux, each entry in full: Qxx[i][k] and Qxx[k][i] are
+//      different sums with different bits, and Vxx' reads both;
+//   3. Gauss-Jordan over the augmented rows [Quu | Qu | Qux], one phase per
+//      pivot p (`_gj_solve_rows`: only columns > p), reading one of two
+//      buffers and writing the other; the last pivot writes the gains
+//      k = -sol[:, 0], K = -sol[:, 1:] to shared memory and to kK[t];
+//   4. Quu k and K^T Quu;
+//   5. Vx' and the symmetrised Vxx' = 0.5 (full + full^T); step t-1's
+//      [A | B], x and u, loaded into registers while step t computed, go to
+//      shared memory here.
+// Every output entry of a phase belongs to one thread (round robin, e = tid,
+// tid + T, ...), which takes the entry's whole sum in `riccati_step_gj`'s
+// order (the first term, then left to right), so each entry gets the plain
+// version's IEEE operations and, with --fmad=false, its bits. Each thread of
+// a pivot forms 1 / aug[p][p] and the scaled pivot row entry it needs itself:
+// the same operations, so the same bits, and one barrier a pivot. The
+// generated part of the unit gives MPT_BWD_2WX (2 w_x, nx) and MPT_BWD_2WU
+// (2 w_u). Where a weight is exactly 0 the plain version folds its term away
+// and the kernel multiplies by 0; the two differ only for a non-finite input
+// or in the sign of a zero.
+//
+// Bound: one problem, so neither bytes nor operations come near the card's
+// rates; a step's time is its phases' dependent chains (14-term sums, one
+// reciprocal and a multiply-subtract per pivot) and 4 + n barriers. The
+// wrapper builds 256 threads a block: with 128, phases 1 and 2 take three
+// rounds instead of two, the kernel is slower, and ptxas keeps one register
+// on the stack around the division's slow-path call (PERF.md).
+#ifndef MPT_BWD_THREADS
+#error "MPT_BWD_THREADS must be defined before mpc_single.cuh"
+#endif
+#define MPT_T MPT_BWD_THREADS
+#define MPT_AB (MPT_NX * MPT_M)               // [A | B] of one step
+#define MPT_UPPER (MPT_NX * (MPT_NX + 1) / 2)  // upper triangle of nx x nx
+#define MPT_KKN (MPT_NJ * MPT_KK)             // gains of one step
+#define MPT_AUG (MPT_NJ + MPT_KK)             // augmented row: Quu, Qu, Qux
+#define MPT_STEP_IN (MPT_AB + MPT_NX + MPT_NJ)  // a step's inputs: [A | B], x, u
+#define MPT_ROUNDS(count) (((count) + MPT_T - 1) / MPT_T)
+#define MPT_PRE MPT_ROUNDS(MPT_STEP_IN)      // registers a thread prefetches into
+
+// The block's storage (Panda: 1709 floats, 6836 bytes). Row-major matrices.
+struct mps_bwd_state {
+  float V[MPT_VN];   // Vxx rows, then Vx: of step t+1, of step t after phase 5
+  float ab[MPT_AB];  // row i: A_t[i, :], then B_t[i, :]
+  float x[MPT_NX], u[MPT_NJ], g[MPT_NJ];
+  float Qx[MPT_NX], Qu[MPT_NJ];
+  float Qxx[MPT_NX * MPT_NX], Quu[MPT_NJ * MPT_NJ], Qux[MPT_NJ * MPT_NX];
+  float VAB[MPT_AB];                 // Vxx [A | B]: VA, then VB, per row
+  float aug[2][MPT_NJ * MPT_AUG];    // Gauss-Jordan, ping-pong
+  float kk[MPT_KKN];                 // k_j, then row j of K
+  float Quu_k[MPT_NJ], KtQuu[MPT_NX * MPT_NJ];
+  float reg;
+};
+
+// Entry e of the upper triangle, row by row: (i, k) with k >= i.
+static __device__ __forceinline__ void mps_upper(int e, int* i, int* k) {
+  int r = 0;
+  while (e >= MPT_NX - r) {
+    e -= MPT_NX - r;
+    ++r;
+  }
+  *i = r;
+  *k = r + e;
+}
+
+// Entry e of a step's inputs: [A | B] (row-major), then x, then u.
+static __device__ __forceinline__ float bwd_step_input(
     const float* __restrict__ AB, const float* __restrict__ xs,
-    const float* __restrict__ us, const float* __restrict__ goal,
-    const float* __restrict__ Vterm, const float* __restrict__ reg,
-    float* __restrict__ kK, int H) {
-  float g[MPT_NJ], V[MPT_VN], V_next[MPT_VN];
-  float ab[MPT_NX * MPT_M], x[MPT_NX], u[MPT_NJ], kk[MPT_NJ * MPT_KK];
+    const float* __restrict__ us, int t, int e) {
+  if (e < MPT_AB) return AB[(size_t)t * MPT_AB + e];
+  if (e < MPT_AB + MPT_NX) return xs[(size_t)t * MPT_NX + (e - MPT_AB)];
+  return us[(size_t)t * MPT_NJ + (e - MPT_AB - MPT_NX)];
+}
+
+static __device__ __forceinline__ void bwd_store_input(mps_bwd_state* s, int e, float v) {
+  if (e < MPT_AB) s->ab[e] = v;
+  else if (e < MPT_AB + MPT_NX) s->x[e - MPT_AB] = v;
+  else s->u[e - MPT_AB - MPT_NX] = v;
+}
+
+// The terminal value function, the goal, reg and step H-1's inputs.
+static __device__ __forceinline__ void bwd_start(
+    int tid, mps_bwd_state* s, const float* __restrict__ AB,
+    const float* __restrict__ xs, const float* __restrict__ us,
+    const float* __restrict__ goal, const float* __restrict__ Vterm,
+    const float* __restrict__ reg, int H) {
+  for (int e = tid; e < MPT_VN + MPT_NJ + 1 + MPT_STEP_IN; e += MPT_T) {
+    if (e < MPT_VN) s->V[e] = Vterm[e];
+    else if (e < MPT_VN + MPT_NJ) s->g[e - MPT_VN] = goal[e - MPT_VN];
+    else if (e == MPT_VN + MPT_NJ) s->reg = reg[0];
+    else {
+      const int f = e - (MPT_VN + MPT_NJ + 1);
+      bwd_store_input(s, f, bwd_step_input(AB, xs, us, H - 1, f));
+    }
+  }
+}
+
+// Step t's inputs into the thread's registers (issued a step ahead of use).
+static __device__ __forceinline__ void bwd_prefetch(
+    int tid, float* pre, const float* __restrict__ AB, const float* __restrict__ xs,
+    const float* __restrict__ us, int t) {
 #pragma unroll
-  for (int j = 0; j < MPT_NJ; ++j) g[j] = goal[j];
+  for (int r = 0; r < MPT_PRE; ++r) {
+    const int e = tid + r * MPT_T;
+    if (e < MPT_STEP_IN) pre[r] = bwd_step_input(AB, xs, us, t, e);
+  }
+}
+
+static __device__ __forceinline__ void bwd_commit(int tid, mps_bwd_state* s, const float* pre) {
 #pragma unroll
-  for (int e = 0; e < MPT_VN; ++e) V[e] = Vterm[e];
-  const float r = reg[0];
+  for (int r = 0; r < MPT_PRE; ++r) {
+    const int e = tid + r * MPT_T;
+    if (e < MPT_STEP_IN) bwd_store_input(s, e, pre[r]);
+  }
+}
+
+// Phase 1: entry e < m is column e of Vx [A | B], giving Qx or Qu (Qu also
+// into column n of the augmented rows); the rest is VAB, row k, column c.
+static __device__ __forceinline__ void bwd_gradients_products(int tid, mps_bwd_state* s) {
+  for (int e = tid; e < MPT_M + MPT_AB; e += MPT_T) {
+    const float* Vk;
+    int c;
+    if (e < MPT_M) {
+      Vk = s->V + MPT_NX * MPT_NX;
+      c = e;
+    } else {
+      const int f = e - MPT_M, k = f / MPT_M;
+      Vk = s->V + k * MPT_NX;
+      c = f - k * MPT_M;
+    }
+    float acc = Vk[0] * s->ab[c];
+#pragma unroll
+    for (int l = 1; l < MPT_NX; ++l) acc = acc + Vk[l] * s->ab[l * MPT_M + c];
+    if (e >= MPT_M) {
+      s->VAB[e - MPT_M] = acc;
+    } else if (e < MPT_NJ) {
+      s->Qx[e] = MPT_BWD_2WX[e] * (s->x[e] - s->g[e]) + acc;
+    } else if (e < MPT_NX) {
+      s->Qx[e] = MPT_BWD_2WX[e] * s->x[e] + acc;  // goal velocity 0
+    } else {
+      const int j = e - MPT_NX;
+      const float q = MPT_BWD_2WU * s->u[j] + acc;
+      s->Qu[j] = q;
+      s->aug[0][j * MPT_AUG + MPT_NJ] = q;
+    }
+  }
+}
+
+// Phase 2: Q[r][c] = sum_l [A | B][l][r] VAB[l][c] over all of Qxx (+ 2 w_x
+// on its diagonal), Quu (+ (2 w_u + reg) on its diagonal) and Qux; Quu and
+// Qux also into the augmented rows.
+static __device__ __forceinline__ void bwd_q_blocks(int tid, mps_bwd_state* s) {
+  const float diag_u = MPT_BWD_2WU + s->reg;
+  for (int e = tid; e < MPT_NX * MPT_NX + MPT_NJ * MPT_NJ + MPT_NJ * MPT_NX; e += MPT_T) {
+    int r, c;
+    if (e < MPT_NX * MPT_NX) {
+      r = e / MPT_NX;
+      c = e - r * MPT_NX;
+    } else if (e < MPT_NX * MPT_NX + MPT_NJ * MPT_NJ) {
+      const int f = e - MPT_NX * MPT_NX;
+      r = MPT_NX + f / MPT_NJ;
+      c = MPT_NX + f % MPT_NJ;
+    } else {
+      const int f = e - MPT_NX * MPT_NX - MPT_NJ * MPT_NJ;
+      r = MPT_NX + f / MPT_NX;
+      c = f % MPT_NX;
+    }
+    float acc = s->ab[r] * s->VAB[c];
+#pragma unroll
+    for (int l = 1; l < MPT_NX; ++l) acc = acc + s->ab[l * MPT_M + r] * s->VAB[l * MPT_M + c];
+    if (r < MPT_NX) {
+      if (r == c) acc = acc + MPT_BWD_2WX[r];
+      s->Qxx[e] = acc;
+    } else if (c >= MPT_NX) {
+      const int j = r - MPT_NX, j2 = c - MPT_NX;
+      if (j == j2) acc = acc + diag_u;
+      s->Quu[j * MPT_NJ + j2] = acc;
+      s->aug[0][j * MPT_AUG + j2] = acc;
+    } else {
+      const int j = r - MPT_NX;
+      s->Qux[j * MPT_NX + c] = acc;
+      s->aug[0][j * MPT_AUG + MPT_NJ + 1 + c] = acc;
+    }
+  }
+}
+
+// Phase 3, pivot p: columns c > p of every row from buffer p % 2 into the
+// other. Row p takes aug[p][c] / aug[p][p] (as aug[p][c] * (1 / aug[p][p])),
+// every other row aug[r][c] - aug[r][p] row_p[c]. No pivot is guarded, as in
+// `_gj_solve`. At the last pivot the columns left are the solution, entry e
+// is kk[e] (k_j, then row j of K) and the thread stores its negation.
+static __device__ __forceinline__ void bwd_gj_pivot(
+    int tid, mps_bwd_state* s, int p, float* __restrict__ kK, int t) {
+  const float* src = s->aug[p & 1];
+  float* dst = s->aug[(p + 1) & 1];
+  const int width = MPT_AUG - p - 1;
+  const float inv = 1.0f / src[p * MPT_AUG + p];
+  for (int e = tid; e < MPT_NJ * width; e += MPT_T) {
+    const int r = e / width, c = p + 1 + (e - r * width);
+    const float row_p = src[p * MPT_AUG + c] * inv;
+    const float v = r == p ? row_p : src[r * MPT_AUG + c] - src[r * MPT_AUG + p] * row_p;
+    if (p == MPT_NJ - 1) {
+      s->kk[e] = -v;
+      kK[(size_t)t * MPT_KKN + e] = -v;
+    } else {
+      dst[r * MPT_AUG + c] = v;
+    }
+  }
+}
+
+// Phase 4: Quu k, then K^T Quu.
+static __device__ __forceinline__ void bwd_gain_products(int tid, mps_bwd_state* s) {
+  const float* kk = s->kk;
+  for (int e = tid; e < MPT_NJ + MPT_NX * MPT_NJ; e += MPT_T) {
+    if (e < MPT_NJ) {
+      float acc = s->Quu[e * MPT_NJ] * kk[0];
+#pragma unroll
+      for (int j2 = 1; j2 < MPT_NJ; ++j2) acc = acc + s->Quu[e * MPT_NJ + j2] * kk[j2 * MPT_KK];
+      s->Quu_k[e] = acc;
+    } else {
+      const int f = e - MPT_NJ, i = f / MPT_NJ, j2 = f % MPT_NJ;
+      float acc = kk[1 + i] * s->Quu[j2];
+#pragma unroll
+      for (int j = 1; j < MPT_NJ; ++j) acc = acc + kk[j * MPT_KK + 1 + i] * s->Quu[j * MPT_NJ + j2];
+      s->KtQuu[i * MPT_NJ + j2] = acc;
+    }
+  }
+}
+
+// Entry (i, k) of Vxx' before symmetrisation:
+// ((Qxx[i][k] + (K^T Quu K)[i][k]) + (K^T Qux)[i][k]) + (Qux^T K)[i][k].
+static __device__ __forceinline__ float bwd_value_entry(const mps_bwd_state* s, int i, int k) {
+  const float* kk = s->kk;  // K[j][i] = kk[j * MPT_KK + 1 + i]
+  float a = s->KtQuu[i * MPT_NJ] * kk[1 + k];
+#pragma unroll
+  for (int j = 1; j < MPT_NJ; ++j) a = a + s->KtQuu[i * MPT_NJ + j] * kk[j * MPT_KK + 1 + k];
+  float b = kk[1 + i] * s->Qux[k];
+#pragma unroll
+  for (int j = 1; j < MPT_NJ; ++j) b = b + kk[j * MPT_KK + 1 + i] * s->Qux[j * MPT_NX + k];
+  float c = s->Qux[i] * kk[1 + k];
+#pragma unroll
+  for (int j = 1; j < MPT_NJ; ++j) c = c + s->Qux[j * MPT_NX + i] * kk[j * MPT_KK + 1 + k];
+  return ((s->Qxx[i * MPT_NX + k] + a) + b) + c;
+}
+
+// Phase 5: Vx' = (Qx + K^T (Quu k + Qu)) + Qux^T k, and the upper triangle of
+// Vxx' = 0.5 (full + full^T), mirrored, into V.
+static __device__ __forceinline__ void bwd_value_update(int tid, mps_bwd_state* s) {
+  const float* kk = s->kk;
+  for (int e = tid; e < MPT_NX + MPT_UPPER; e += MPT_T) {
+    if (e < MPT_NX) {
+      float a = (s->Quu_k[0] + s->Qu[0]) * kk[1 + e];
+#pragma unroll
+      for (int j = 1; j < MPT_NJ; ++j) a = a + (s->Quu_k[j] + s->Qu[j]) * kk[j * MPT_KK + 1 + e];
+      float b = kk[0] * s->Qux[e];
+#pragma unroll
+      for (int j = 1; j < MPT_NJ; ++j) b = b + kk[j * MPT_KK] * s->Qux[j * MPT_NX + e];
+      s->V[MPT_NX * MPT_NX + e] = (s->Qx[e] + a) + b;
+    } else {
+      int i, k;
+      mps_upper(e - MPT_NX, &i, &k);
+      const float ik = bwd_value_entry(s, i, k);
+      const float ki = i == k ? ik : bwd_value_entry(s, k, i);
+      const float v = 0.5f * (ik + ki);
+      s->V[i * MPT_NX + k] = v;
+      s->V[k * MPT_NX + i] = v;
+    }
+  }
+}
+
+// A phase: on the card the calling thread runs it and the block meets at
+// __syncthreads(); in the host harness (MPT_HOST_TEAM) threads 0..T-1 run it
+// one after the other before the next phase, each with its own registers.
+// MPT_EACH is a phase without the barrier.
+#if defined(MPT_HOST_TEAM)
+#define MPT_EACH(call)                                   \
+  do {                                                   \
+    for (int tid = 0; tid < MPT_T; ++tid) { call; }      \
+  } while (0)
+#define MPT_PHASE(call) MPT_EACH(call)
+#define MPT_PRE_OF(tid) pre[tid]
+#define MPT_PRE_DECL float pre[MPT_T][MPT_PRE]
+#else
+#define MPT_EACH(call)        \
+  do {                        \
+    const int tid = my_tid;   \
+    call;                     \
+  } while (0)
+#define MPT_PHASE(call) \
+  do {                  \
+    MPT_EACH(call);     \
+    __syncthreads();    \
+  } while (0)
+#define MPT_PRE_OF(tid) pre
+#define MPT_PRE_DECL float pre[MPT_PRE]
+#endif
+
+// The whole sweep, t = H-1 ... 0, by the block whose thread this is; no
+// thread leaves before the end.
+static __device__ __forceinline__ void bwd_sweep(
+    int my_tid, mps_bwd_state* s, const float* __restrict__ AB,
+    const float* __restrict__ xs, const float* __restrict__ us,
+    const float* __restrict__ goal, const float* __restrict__ Vterm,
+    const float* __restrict__ reg, float* __restrict__ kK, int H) {
+  MPT_PRE_DECL;
+  (void)my_tid;
+  MPT_PHASE(bwd_start(tid, s, AB, xs, us, goal, Vterm, reg, H));
   for (int t = H - 1; t >= 0; --t) {
-    const size_t ab_row = (size_t)t * (MPT_NX * MPT_M);
+    if (t > 0) MPT_EACH(bwd_prefetch(tid, MPT_PRE_OF(tid), AB, xs, us, t - 1));
+    MPT_PHASE(bwd_gradients_products(tid, s));
+    MPT_PHASE(bwd_q_blocks(tid, s));
 #pragma unroll
-    for (int e = 0; e < MPT_NX * MPT_M; ++e) ab[e] = AB[ab_row + e];
-#pragma unroll
-    for (int i = 0; i < MPT_NX; ++i) x[i] = xs[t * MPT_NX + i];
-#pragma unroll
-    for (int j = 0; j < MPT_NJ; ++j) u[j] = us[t * MPT_NJ + j];
-    riccati_step_gj(ab, x, u, g, V, r, kk, V_next);
-    const size_t kk_row = (size_t)t * (MPT_NJ * MPT_KK);
-#pragma unroll
-    for (int e = 0; e < MPT_NJ * MPT_KK; ++e) kK[kk_row + e] = kk[e];
-#pragma unroll
-    for (int e = 0; e < MPT_VN; ++e) V[e] = V_next[e];
+    for (int p = 0; p < MPT_NJ; ++p) MPT_PHASE(bwd_gj_pivot(tid, s, p, kK, t));
+    MPT_PHASE(bwd_gain_products(tid, s));
+    // [A | B], x and u are last read in phase 2: step t-1's may land now.
+    if (t > 0) MPT_EACH(bwd_commit(tid, s, MPT_PRE_OF(tid)));
+    MPT_PHASE(bwd_value_update(tid, s));
   }
 }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(1) mps_bwd_kernel(
+__global__ void __launch_bounds__(MPT_BWD_THREADS) mps_bwd_block_kernel(
     const float* __restrict__ AB, const float* __restrict__ xs,
     const float* __restrict__ us, const float* __restrict__ goal,
     const float* __restrict__ Vterm, const float* __restrict__ reg,
     float* __restrict__ kK, int H) {
-  bwd_thread(AB, xs, us, goal, Vterm, reg, kK, H);
+  __shared__ mps_bwd_state state;
+  bwd_sweep((int)threadIdx.x, &state, AB, xs, us, goal, Vterm, reg, kK, H);
 }
 
 // AB (H, nx, m), xs (H, nx), us (H, n), goal (n), Vterm (nx+1, nx),
-// reg (1) -> kK (H, n, 1+nx). One thread.
+// reg (1) -> kK (H, n, 1+nx). One block of MPT_BWD_THREADS threads.
 extern "C" int launch_backward(const float* AB, const float* xs,
                                const float* us, const float* goal,
                                const float* Vterm, const float* reg, float* kK,
                                int H, void* stream) {
   if (H <= 0) return 0;
-  mps_bwd_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(AB, xs, us, goal, Vterm, reg, kK, H);
+  mps_bwd_block_kernel<<<1, MPT_BWD_THREADS, 0, (cudaStream_t)stream>>>(
+      AB, xs, us, goal, Vterm, reg, kK, H);
   return (int)cudaGetLastError();
 }
-MPT_ATTRIBUTES(attributes_backward, mps_bwd_kernel)
+MPT_ATTRIBUTES(attributes_backward, mps_bwd_block_kernel)
 #endif
 #endif  // MPT_UNIT_BWD
 

@@ -49,6 +49,7 @@ Convention: matrices are row-major nested lists; twists are 6-lists
 from __future__ import annotations
 
 import math
+import re
 from typing import List, Sequence, Tuple, Union
 
 import numpy as np
@@ -83,6 +84,7 @@ __all__ = [
     "primal",
     "tangent",
     "c_function",
+    "chain_length",
 ]
 
 
@@ -468,3 +470,14 @@ def from_numpy(arr) -> list:
     if a.ndim == 1:
         return [float(x) for x in a]
     return [from_numpy(row) for row in a]
+
+
+def chain_length(source: str) -> int:
+    """The longest chain of dependent statements in an emitted body
+    (:func:`c_function`'s source): each ``const float tK = ...;`` is one
+    link after the longest chain among the statements it reads; inputs and
+    constants start no chain."""
+    depth = {}
+    for name, expr in re.findall(r"const float t(\d+) = ([^;]*);", source):
+        depth[name] = 1 + max((depth[d] for d in re.findall(r"\bt(\d+)\b", expr)), default=0)
+    return max(depth.values(), default=0)

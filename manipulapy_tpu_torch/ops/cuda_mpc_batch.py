@@ -63,6 +63,7 @@ __all__ = [
     "BLOCK",
     "riccati_terminal",
     "riccati_step",
+    "bwd_weights",
     "fwd_step",
     "terminal_cost",
 ]
@@ -268,6 +269,17 @@ def terminal_cost(P: Costs, x, goal):
     return c
 
 
+def bwd_weights(P: Costs) -> str:
+    """The folded weights of a Riccati step whose phases are written by
+    hand (K3, K7): ``MPT_BWD_2WX`` (2 w_x, nx) and ``MPT_BWD_2WU`` (2 w_u),
+    the f32 literals the emitter writes for them."""
+    return (
+        f"static __device__ const float MPT_BWD_2WX[{2 * P.n}] = "
+        f"{{{', '.join(cg.c_literal(2.0 * w) for w in P.w_x)}}};\n"
+        f"#define MPT_BWD_2WU {cg.c_literal(2.0 * P.w_u)}\n"
+    )
+
+
 def _stack(vals, like: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return torch.stack([_full(v, like) for v in vals], dim=dim)
 
@@ -378,11 +390,6 @@ class BatchMPCKernels(MPCKernelSet):
         self.riccati_step_source = step_src
         self.statements["backward"] = step_ops
         self.statements["value_terminal"] = term_ops
-        bwd_weights = (
-            f"static __device__ const float MPT_BWD_2WX[{nx}] = "
-            f"{{{', '.join(cg.c_literal(2.0 * w) for w in P.w_x)}}};\n"
-            f"#define MPT_BWD_2WU {cg.c_literal(2.0 * P.w_u)}\n"
-        )
 
         def fwd_body(x, sdx, sdu, kk, goal, alpha):
             u, c, x_next = fwd_step(P, x, sdx, sdu, kk, goal, alpha)
@@ -398,7 +405,7 @@ class BatchMPCKernels(MPCKernelSet):
         )
         self.statements["linesearch_costs"] = self.statements["replay"] = fwd_ops
         self.statements["cost_terminal"] = cost_ops
-        return {"lin": lin_src, "bwd": bwd_weights + term_src, "fwd": fwd_src + cost_src}
+        return {"lin": lin_src, "bwd": bwd_weights(P) + term_src, "fwd": fwd_src + cost_src}
 
     # -- checks -----------------------------------------------------------
     @staticmethod

@@ -8,7 +8,8 @@ Counterpart of the three ``pallas_call``s of ``manipulapy_tpu/mpc/fused.py``:
   over the m = 3n seeds: the function K2 computes, at one problem;
 * K7 ``backward`` (``bwd_kernel``): the time-reversed Riccati sweep of one
   problem from a given terminal value function, Quu solved by the
-  pivot-free Gauss-Jordan of ``_gj_solve``;
+  pivot-free Gauss-Jordan of ``_gj_solve``; one block of ``BWD_THREADS``
+  threads runs the sweep;
 * K8 ``forward`` (``fwd_kernel``): the closed-loop rollout of every
   line-search alpha, streaming out xs and us, with the running and
   terminal cost.
@@ -19,7 +20,10 @@ Each kernel's arithmetic is one Python function over cgen values
 :func:`terminal_cost_fused` for K8). Run on tensors it is the plain PyTorch
 version; run on CVars it is the kernel's device function (template
 ``csrc/mpc_single.cuh``), built with ``--fmad=false``, so the two agree
-bitwise. The order of every sum is the JAX kernels'.
+bitwise. The order of every sum is the JAX kernels'. K7 is the exception:
+one block of threads runs :func:`riccati_step_gj`'s sums as phases, written
+by hand in the template in the same order; the emitted step
+(``riccati_step_source``) is the host tests' reference for them.
 
 Layout: time-major, one problem. ``xs (H, nx)``, ``us (H, n)``, ``AB (H,
 nx, m)`` (row i: ``A[i, :]`` then ``B[i, :]``), ``kK (H, n, 1+nx)`` (``[t,
@@ -43,12 +47,13 @@ from typing import Dict, List
 import torch
 
 from . import cgen as cg
-from .cuda_mpc_batch import Costs, MPCKernelSet, _stack, _sum, fwd_step
+from .cuda_mpc_batch import Costs, MPCKernelSet, _stack, _sum, bwd_weights, fwd_step
 from .fd_step import _full
 
-__all__ = ["SingleMPCKernels", "STAGES", "riccati_step_gj", "terminal_cost_fused"]
+__all__ = ["SingleMPCKernels", "STAGES", "BWD_THREADS", "riccati_step_gj", "terminal_cost_fused"]
 
 TEMPLATE = Path(__file__).resolve().parents[1] / "csrc" / "mpc_single.cuh"
+BWD_THREADS = 256  # K7's block; chip_compare.py times 128 and 512 beside it (PERF.md)
 STAGES = ("linearize", "backward", "forward")
 UNITS = {"lin": ("linearize",), "bwd": ("backward",), "fwd": ("forward",)}
 _P = ctypes.c_void_p
@@ -185,14 +190,20 @@ class SingleMPCKernels(MPCKernelSet):
     """K6-K8 for one (robot, dt, g, cost weights, torque limits)."""
 
     STAGES, UNITS, ARGTYPES, LIB_PREFIX = STAGES, UNITS, _ARGTYPES, "mpc_single"
-    TEMPLATE = TEMPLATE
+    TEMPLATE, DEFINES = TEMPLATE, {"MPT_BWD_THREADS": BWD_THREADS}
     launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
 
     def _bodies(self, model, dt, g) -> Dict[str, str]:
+        """The units' generated parts; also ``riccati_step_source`` and,
+        per emitted body, ``chains``: its longest chain of dependent
+        statements (``cg.chain_length``)."""
         P, n, nx = self.P, self.n, self.nx
         kkn, vn = n * (1 + nx), (nx + 1) * nx
         lin_src = self._linearize_body(model, dt, g)
-        bwd_src, self.statements["backward"] = cg.c_function(
+        # K7's phases (csrc/mpc_single.cuh) do riccati_step_gj's operations,
+        # so its emitted body stays out of the unit: it is the host harness's
+        # reference and its statements K7's operation count.
+        self.riccati_step_source, self.statements["backward"] = cg.c_function(
             "riccati_step_gj", [("ab", nx * self.m), ("x", nx), ("u", n), ("goal", n), ("V", vn)],
             ["reg"], [("kk", kkn), ("V_next", vn)],
             lambda ab, x, u, goal, V, reg: riccati_step_gj(P, ab, x, u, goal, V, reg),
@@ -210,7 +221,12 @@ class SingleMPCKernels(MPCKernelSet):
             "mpc_terminal_fused", [("x", nx), ("goal", n)], [], [("c", 1)],
             lambda x, goal: [[terminal_cost_fused(P, x, goal)]],
         )
-        return {"lin": lin_src, "bwd": bwd_src, "fwd": fwd_src + cost_src}
+        self.chains = {
+            stage: cg.chain_length(src)
+            for stage, src in (("linearize", lin_src), ("backward", self.riccati_step_source),
+                               ("forward", fwd_src), ("cost_terminal", cost_src))
+        }
+        return {"lin": lin_src, "bwd": bwd_weights(P), "fwd": fwd_src + cost_src}
 
     # -- checks ------------------------------------------------------------
     @staticmethod

@@ -10,8 +10,9 @@ GPU. The module imports no JAX, so it also runs on a machine without JAX:
 Tolerances: 1e-4 on q, 1e-3 on dq and 2e-1 on ddq (float32) for the
 rollout; 1e-5 of each output's largest magnitude for K2-K8 (the same
 operations in the same order with --fmad=false, so 0 is expected; K3's
-own tests alone: ``-k backward_kernel``); the JAX test's
-bars (cost rtol 1e-5, final state atol 5e-4, controls atol 5e-3) for the
+own tests alone: ``-k "backward_kernel and not single"``; K7's, bit for
+bit: ``-k "single and backward"``); the JAX test's bars (cost rtol 1e-5,
+final state atol 5e-4, controls atol 5e-3) for the
 whole MPC solves against the plain solvers; for K9 2e-6 / 2e-5 / 2e-4 on pos
 / vel / acc and for K10 rtol 1e-4 with atol 1e-5 on U and 1e-4 on its
 gradient, the JAX kernel tests' bars (0 is expected here too).
@@ -294,6 +295,71 @@ def test_single_mpc_kernels_match_plain_versions(cuda_device):
     torch.cuda.synchronize()
     after = SingleMPCKernels.launch_count
     assert {k: after[k] - before[k] for k in after} == {"linearize": 1, "backward": 1, "forward": 2}
+
+
+@pytest.fixture(scope="module")
+def panda_single_nominal():
+    """K7's inputs at Panda H=128 from the solver's own controls (2
+    iterations from rest inside the limits), rolled open loop by K8 with
+    zero gains and linearized by K6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc); this host has none")
+    dev = torch.device("cuda")
+    model = catalog.panda(device=dev)
+    H, n = 128, 7
+    x0, goals, _ = _mpc_problem(model, 1, H, dev, seed=6)
+    x0, goal = x0[0].contiguous(), goals[0].contiguous()
+    mpc = build_tracking_mpc(model, goal, H, 0.01, iterations=2)
+    us = mpc.solve(x0, torch.zeros((H, n), device=dev))[0].contiguous()
+    K = mpc.kernels
+    zeros = lambda *s: torch.zeros(s, device=dev)
+    xs = K.forward(x0, zeros(H, 2 * n), us, zeros(H, n, 1 + 2 * n), goal, zeros(1))[0][0]
+    sd_x = torch.cat([x0[None], xs[:-1]]).contiguous()
+    return K, (K.linearize(sd_x, us), sd_x, us, xs, goal)
+
+
+def _single_bwd_args(K, nominal, H, reg):
+    """The first H steps, Vterm the terminal value function at the state
+    after step H: diag(2 wT), then 2 wT (x - goal)."""
+    AB, sd_x, us, xs, goal = nominal
+    two_wT = torch.tensor([2.0 * w for w in K.P.wT], device=goal.device)
+    Vx = two_wT * (xs[H - 1] - torch.cat([goal, torch.zeros_like(goal)]))
+    Vterm = torch.cat([torch.diag(two_wT), Vx[None]]).contiguous()
+    c = lambda x: x[:H].contiguous()
+    return c(AB), c(sd_x), c(us), goal, Vterm, torch.tensor(reg, device=goal.device)
+
+
+@pytest.mark.parametrize("H, reg", [(1, 1e-6), (37, 1e-3), (50, 10.0), (128, 1e-6)])
+def test_single_backward_kernel_matches_plain_version(cuda_device, panda_single_nominal, H, reg):
+    """K7, one block of threads, against its plain version: the same
+    operations in the same order, bit for bit. One launch per call."""
+    K, nominal = panda_single_nominal
+    args = _single_bwd_args(K, nominal, H, reg)
+    before = SingleMPCKernels.launch_count["backward"]
+    kK = K.backward(*args)
+    torch.cuda.synchronize()
+    assert SingleMPCKernels.launch_count["backward"] == before + 1
+    ref = K.backward_plain(*args)
+    assert kK.shape == (H, 7, 15) and bool(torch.isfinite(ref).all())
+    assert torch.equal(kK.view(torch.int32), ref.view(torch.int32))
+
+
+def test_single_backward_kernel_nan_step_leaves_later_steps_alone(cuda_device, panda_single_nominal):
+    """Every entry of AB at step 4 of 8 NaN: the gains of steps 0-4 go NaN
+    (the sweep runs backwards), those of steps 5-7 stay bit for bit those of
+    the clean run. K7 keeps its state in shared memory: no local (stack)
+    bytes."""
+    K, nominal = panda_single_nominal
+    args = _single_bwd_args(K, nominal, 8, 1e-3)
+    clean = K.backward(*args)
+    AB = args[0].clone()
+    AB[4] = float("nan")
+    dirty = K.backward(AB, *args[1:])
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(dirty[:5]).all())
+    assert torch.equal(dirty[5:].view(torch.int32), clean[5:].view(torch.int32))
+    attrs = K.kernel_attributes()["backward"]
+    assert attrs["local_bytes"] == 0 and 0 < attrs["num_regs"] <= 255 and attrs["smem_bytes"] > 0
 
 
 def test_single_solve_runs_on_the_kernels(cuda_device):

@@ -13,7 +13,10 @@ package's.
   its bars: cost rtol 1e-5, final state atol 5e-4, controls atol 5e-3.
 * The emitted kernel bodies (``csrc/mpc_single.cuh`` with the generated
   device functions), compiled with the host g++ behind a ``__device__``
-  shim, against the plain versions.
+  shim, against the plain versions; K7's block phases run thread by thread
+  (``MPT_HOST_TEAM``) bitwise against the emitted one-thread
+  ``riccati_step_gj`` sweep on the two-link arm, UR5 and Panda, and a NaN
+  step kept to the steps before it.
 * The solver's behaviour: the run-time goal, torque limits, the NaN guard,
   a receding-horizon loop, and the JAX package's limits (H <= 128, n <= 8).
 
@@ -24,6 +27,7 @@ the port-only checks.
 import ctypes
 import shutil
 import subprocess
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -318,12 +322,16 @@ def test_statements_count_the_shared_primal(arms):
 _HARNESS = """\
 #define __device__
 #define __forceinline__ inline
+#define MPT_HOST_TEAM 1
 {src}
 extern "C" void run(const float** in, float** out, int H, int A) {{
 #if defined(MPT_UNIT_LIN)
   for (int idx = 0; idx < H * MPT_M; ++idx) lin_thread(in[0], in[1], out[0], idx);
 #elif defined(MPT_UNIT_BWD)
-  bwd_thread(in[0], in[1], in[2], in[3], in[4], in[5], out[0], H);
+  // K7: the block's storage, a host array; under MPT_HOST_TEAM each phase of
+  // the sweep runs threads 0..T-1 in turn before the next phase begins.
+  static mps_bwd_state state;
+  bwd_sweep(0, &state, in[0], in[1], in[2], in[3], in[4], in[5], out[0], H);
 #else
   for (int a = 0; a < A; ++a)
     fwd_thread(in[0], in[1], in[2], in[3], in[4], in[5], out[0], out[1], out[2], H, a);
@@ -377,3 +385,125 @@ def test_emitted_kernel_bodies_match_plain_versions(two_link, tmp_path):
             _close_to_scale(g.numpy(), r.numpy(), 1e-5)
     us_fwd = got["fwd"][1]
     assert float(us_fwd[..., 0].abs().max()) <= 4.0 and float(us_fwd[..., 1].abs().max()) <= 3.0
+
+
+# K7's phases, thread by thread, against the emitted one-thread sweep. Both
+# are compiled by g++ with the same flags and both divide with the IEEE
+# division (K7 takes no square root), so they must agree bit for bit.
+
+_BWD_REFERENCE = """
+{step}
+extern "C" void run_ref(const float** in, float** out, int H, int A) {{
+  const float *AB = in[0], *xs = in[1], *us = in[2], *goal = in[3], *Vterm = in[4], *reg = in[5];
+  float g[MPT_NJ], V[MPT_VN], V_next[MPT_VN], ab[MPT_AB], x[MPT_NX], u[MPT_NJ], kk[MPT_KKN];
+  for (int j = 0; j < MPT_NJ; ++j) g[j] = goal[j];
+  for (int e = 0; e < MPT_VN; ++e) V[e] = Vterm[e];
+  for (int t = H - 1; t >= 0; --t) {{
+    for (int e = 0; e < MPT_AB; ++e) ab[e] = AB[(size_t)t * MPT_AB + e];
+    for (int i = 0; i < MPT_NX; ++i) x[i] = xs[t * MPT_NX + i];
+    for (int j = 0; j < MPT_NJ; ++j) u[j] = us[t * MPT_NJ + j];
+    riccati_step_gj(ab, x, u, g, V, reg[0], kk, V_next);
+    for (int e = 0; e < MPT_KKN; ++e) out[0][(size_t)t * MPT_KKN + e] = kk[e];
+    for (int e = 0; e < MPT_VN; ++e) V[e] = V_next[e];
+  }}
+}}
+"""
+TEAM_ROBOTS = ("two_link_planar", "ur5", "panda")  # n = 2 leaves most threads idle
+TEAM_H = 8
+TEAM_HS = [1, 8]
+TEAM_REGS = [1e-6, 1e-3, 10.0]
+NAN_STEP = 4
+
+
+@pytest.fixture(scope="module")
+def team_units(tmp_path_factory):
+    """Per robot, on first use: K7's unit with the emitted one-thread sweep
+    beside it, compiled by g++ at -O0 (the emitted Panda step is 30k
+    statements), and a nominal of TEAM_H steps under random torques from
+    rest inside the joint limits (the plain K8 with zero gains), its
+    Jacobians (the plain K6) and the terminal value function at the state
+    after the last step."""
+    if shutil.which("g++") is None:
+        pytest.skip("the host has no g++ to compile the emitted C")
+    units = {}
+
+    def get(robot):
+        if robot not in units:
+            model = catalog.get_robot(robot, device="cpu")
+            n = model.num_joints
+            k = SingleMPCKernels(model, 0.01, u_lim=[10.0] * n)
+            tmp = tmp_path_factory.mktemp(robot)
+            cpp, so = tmp / "bwd.cpp", tmp / "bwd.so"
+            cpp.write_text(_HARNESS.format(src=k.sources["bwd"]) + _BWD_REFERENCE.format(step=k.riccati_step_source))
+            subprocess.run(["g++", "-O0", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(so), str(cpp)],
+                           check=True, timeout=300)
+            lib = ctypes.CDLL(str(so))
+            for fn in (lib.run, lib.run_ref):
+                fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_int] * 2
+            rng = np.random.default_rng(7)
+            lo, hi = model.joint_lower.double().numpy(), model.joint_upper.double().numpy()
+            lo, hi = np.maximum(lo, -np.pi), np.minimum(hi, np.pi)
+            q0 = (lo + hi) / 2 + rng.uniform(-0.5, 0.5, n) * (hi - lo) / 2
+            x0 = torch.from_numpy(np.concatenate([q0, np.zeros(n)]).astype(np.float32))
+            us = torch.from_numpy(rng.uniform(-3.0, 3.0, (TEAM_H, n)).astype(np.float32))
+            goal = torch.from_numpy(rng.uniform(-1.0, 1.0, n).astype(np.float32))
+            xs = k.forward(x0, torch.zeros(TEAM_H, 2 * n), us, torch.zeros(TEAM_H, n, 1 + 2 * n), goal,
+                           torch.zeros(1))[0][0]
+            sd_x = torch.cat([x0[None], xs[:-1]])
+            units[robot] = SimpleNamespace(k=k, lib=lib, AB=k.linearize(sd_x, us), sd_x=sd_x, us=us, xs=xs, goal=goal)
+        return units[robot]
+
+    return get
+
+
+def _team_inputs(u, H, reg):
+    """The first H steps of a unit's nominal, with Vterm the terminal value
+    function (diag(2 wT), then 2 wT (x - goal)) at the state after step H."""
+    n = u.k.n
+    two_wT = torch.tensor([2.0 * w for w in u.k.P.wT])
+    Vx = two_wT * (u.xs[H - 1] - torch.cat([u.goal, torch.zeros(n)]))
+    Vterm = torch.cat([torch.diag(two_wT), Vx[None]])
+    c = lambda x: x.contiguous()
+    return [c(u.AB[:H]), c(u.sd_x[:H]), c(u.us[:H]), c(u.goal), c(Vterm), torch.tensor(reg)]
+
+
+def _team_and_reference(u, ins, H):
+    n = u.k.n
+    outs = [torch.full((H, n, 1 + 2 * n), 7.0) for _ in range(2)]
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    u.lib.run(ptrs(ins), ptrs(outs[:1]), H, 0)
+    u.lib.run_ref(ptrs(ins), ptrs(outs[1:]), H, 0)
+    return outs
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("reg", TEAM_REGS)
+@pytest.mark.parametrize("H", TEAM_HS)
+@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+def test_bwd_team_phases_match_emitted_step_bitwise(team_units, robot, H, reg):
+    u = team_units(robot)
+    team, ref = _team_and_reference(u, _team_inputs(u, H, reg), H)
+    assert bool(torch.isfinite(ref).all())
+    assert torch.equal(_bits(team), _bits(ref))
+
+
+@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+def test_bwd_team_nan_step_leaves_later_steps_alone(team_units, robot):
+    """Every entry of AB at step NAN_STEP of TEAM_H NaN: the gains of that
+    step and of every earlier one (the sweep runs backwards) go NaN, those of
+    the later steps stay bit for bit those of the clean run; the clean run
+    also holds the plain version to 1e-5 of scale."""
+    u = team_units(robot)
+    H = TEAM_H
+    clean = _team_inputs(u, H, 1e-3)
+    dirty = [x.clone() for x in clean]
+    dirty[0][NAN_STEP] = float("nan")
+    team_clean, _ = _team_and_reference(u, clean, H)
+    team, ref = _team_and_reference(u, dirty, H)
+    assert torch.equal(_bits(team), _bits(ref))
+    assert bool(torch.isnan(team[: NAN_STEP + 1]).all())
+    assert torch.equal(_bits(team[NAN_STEP + 1:]), _bits(team_clean[NAN_STEP + 1:]))
+    _close_to_scale(team_clean.numpy(), u.k.backward_plain(*clean).numpy(), 1e-5)
