@@ -6,11 +6,21 @@ Imports ``manipulapy_tpu_torch`` from ``--root`` (default: this file's
 directory), builds what it times there, and prints one JSON line: the card,
 then CUDA-event medians (5 timings after 2 warm-ups) of
 
-* the UR5 rollout, B=131072, N=50 (``trajectory.forward_dynamics_trajectory``);
+* the UR5 and the Panda rollout, B=131072, N=50
+  (``trajectory.forward_dynamics_trajectory``);
 * the open loop of ``chip_smoke.py``'s planning path, warmed: UR5, 1024
   quintic plans of 1000 waypoints (``create_planner(...).batch_joint_trajectory``)
   -> ``link_positions`` -> ``cartesian_potential_field`` against 32 points
   -> ``inverse_dynamics_trajectory`` -> ``forward_dynamics_trajectory``;
+* K1 per launch on that path's own tensors: the plans' rollout (B=1024,
+  N=1000) and one control period (their first 2 waypoints, 20 back-to-back
+  launches), through the public route and, where the tree builds K1 with
+  ``MPT_BLOCK``, through a unit built for each of 32, 64 and 128 threads a
+  block (``rollout_<shape>_ms_T<threads>``, the rollout shape too), each
+  held bitwise to the default's outputs; the control period also over 200
+  back-to-back calls (``rollout_control_ms_x200``) and, where the tree's
+  unit raises its shared-memory limit in ``prepare()``, over 200 calls
+  that each call it first (``..._prepare_each_call``), the two in turns;
 * the Panda batched solve (H=50, 4 iterations, 6 alphas) at B=1024, 4096 and
   16384, and each of K2-K5 on that solve's own nominal (the solver's
   controls, as ``chip_smoke.py`` feeds them);
@@ -104,6 +114,9 @@ def main() -> int:
 
     q0, dq0, tau = rand(131072, 6) * 2 - 1, rand(131072, 6) - 0.5, rand(131072, 50, 6) * 20 - 10
     out["rollout_ms"] = time_ms(lambda: trajectory.forward_dynamics_trajectory(ur5, q0, dq0, tau, dt=DT))
+    qp, dqp, taup = rand(131072, 7) * 2 - 1, rand(131072, 7) - 0.5, rand(131072, 50, 7) * 20 - 10
+    out["rollout_panda_ms"] = time_ms(lambda: trajectory.forward_dynamics_trajectory(panda, qp, dqp, taup, dt=DT))
+    del qp, dqp, taup
 
     start = rand(1024, 6) * 2 - 1
     goal = torch.clamp(start + (rand(1024, 6) * 2 - 1) * 0.8, ur5.joint_lower, ur5.joint_upper)
@@ -119,6 +132,40 @@ def main() -> int:
             return planner.forward_dynamics_trajectory(plan.position[:, 0], plan.velocity[:, 0], tau, dt=2.0 / 999)
 
     out["plan_path_ms"] = time_ms(plan_path)
+
+    from manipulapy_tpu_torch.ops import cuda_rollout
+
+    with torch.no_grad():
+        plan = planner.batch_joint_trajectory(start, goal, 2.0, 1000)
+        path_tau = planner.inverse_dynamics_trajectory(*plan).contiguous()
+    path_q0, path_dq0 = plan.position[:, 0].contiguous(), plan.velocity[:, 0].contiguous()
+    period_tau = path_tau[:, :2].contiguous()
+    rollout = lambda q, dq, t, dt: trajectory.forward_dynamics_trajectory(ur5, q, dq, t, dt=dt)
+    out["rollout_plan_ms"] = time_ms(lambda: rollout(path_q0, path_dq0, path_tau, 2.0 / 999))
+    out["rollout_control_ms"] = per_call_ms(lambda: rollout(path_q0, path_dq0, period_tau, 2.0 / 999))
+    period = lambda: rollout(path_q0, path_dq0, period_tau, 2.0 / 999)
+    lib = cuda_rollout.build_cuda_rollout(ur5, dt=2.0 / 999).build().lib  # the route's library
+    variants = {"rollout_control_ms_x200": period}
+    if hasattr(lib, "prepare"):
+        variants["rollout_control_ms_x200_prepare_each_call"] = lambda: (lib.prepare(), period())
+    times = {k: [] for k in variants}
+    for _ in range(5):
+        for k, fn in variants.items():
+            times[k].append(per_call_ms(fn, 200))
+    out.update({k: statistics.median(v) for k, v in times.items()})
+    shapes = {"rollout": (q0, dq0, tau, DT), "plan": (path_q0, path_dq0, path_tau, 2.0 / 999),
+              "control": (path_q0, path_dq0, period_tau, 2.0 / 999)}
+    define = f"#define MPT_BLOCK {getattr(cuda_rollout, 'BLOCK', None)}\n"
+    for threads in (32, 64, 128) if define in cuda_rollout.build_cuda_rollout(ur5).source else ():
+        for shape, (q, dq, t, dt) in shapes.items():
+            engine = cuda_rollout.build_cuda_rollout(ur5, dt=dt)  # the library is loaded once per source
+            ref = engine(q, dq, t)
+            engine.source = engine.source.replace(define, f"#define MPT_BLOCK {threads}\n")
+            engine._built = None
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(engine(q, dq, t), ref)):
+                raise AssertionError(f"K1 with {threads} threads a block differs from the default at {shape}")
+            run = lambda: engine(q, dq, t)
+            out[f"rollout_{shape}_ms_T{threads}"] = per_call_ms(run) if shape == "control" else time_ms(run)
 
     lo, hi = panda.joint_lower, panda.joint_upper
     for B in B_WIDTHS:

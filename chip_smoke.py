@@ -35,11 +35,16 @@ Phases, one line each (or one line per case):
    static unit of K9 and K10), with build seconds, registers, spill
    bytes and static shared bytes per block (K3, one warp per scenario, and
    K7, one block, keep their state there; K7 must have no local bytes);
+   K1 with its block and chunk, its tiles' dynamic shared bytes and the
+   blocks an SM holds with and without them (they must be equal, and local
+   bytes at most 32);
 3. rollout: kernel vs its plain PyTorch version on the card;
 4. rollout main path at full width, checked against the plain version on
    its first 4096 rows (launch count read just after it);
 5. the pipeline quintic trajectory -> inverse dynamics -> rollout;
-6. rollout time, kernel vs plain version (CUDA events);
+6. rollout time, kernel vs plain version (CUDA events), the DRAM rate the
+   kernel achieves (the bytes of its bound over its time) and its us a
+   waypoint;
 7. MPC parity: each of K2-K5 against its plain version on the card, fed
    from a nominal trajectory (K2 and K3) and from K3's gains (K4 and K5),
    at Panda B=257 H=8 (not a multiple of the block, so the ``b < B`` guard
@@ -91,7 +96,8 @@ Phases, one line each (or one line per case):
     at two more each, beside their device times in a ``torch.profiler``
     trace, their bounds, their plain versions and the tensor formulations
     they replace; and of K1 at the path's two shapes (the plans' rollout,
-    one control period);
+    one control period), with its us a waypoint and, beside its bound, an
+    estimate of its dependent chain's least time (``chain_bound_ms``);
 18. ``plan_path_parity``: K9, K10 and K1 (the unit built for the plans'
     dt) against their plain versions on the very tensors the path gave
     them: the 1024 start/goal pairs, the 6.144 M points and 32 obstacles,
@@ -127,7 +133,8 @@ from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
-from manipulapy_tpu_torch.ops.cuda_rollout import CudaRollout, build_cuda_rollout
+from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, CudaRollout, build_cuda_rollout
+from manipulapy_tpu_torch.ops import cgen
 from manipulapy_tpu_torch.ops import elementwise as ew
 from manipulapy_tpu_torch.ops.fd_step import build_rollout
 
@@ -938,17 +945,26 @@ def planning_time(ur5, gen: torch.Generator, inputs_on_path: dict, card: str):
               device_ms=fmt(d_ms), bound_ms=f"{b_ms:.4f}", bound_by=b_by, plain_ms=f"{p_ms:.3f}",
               tensor_formulation_ms=f"{g_ms:.3f}", point_obstacle_pairs_per_s_device=rate(P * O_PLAN, d_ms, ".4e"))
     # K1 at the path's two shapes: the plans' rollout, and one control period.
+    # Beside its bound, an estimate of its least time along the dependent
+    # chain: each scenario's N steps follow one another, the longest chain
+    # of a step's statements (cgen.chain_length) at CHAIN_CYCLES a link and
+    # the card's largest SM clock, as for K6-K8.
     q0, dq0, tau = inputs_on_path["rollout"]
-    statements = build_cuda_rollout(ur5, dt=DT_PLAN).statements
+    engine = build_cuda_rollout(ur5, dt=DT_PLAN)
+    chain = cgen.chain_length(engine.source)  # links of one step
+    mhz = float(card_line("clocks.max.sm").split()[0])
     one_step = tau[:, :2].contiguous()
     for label, taus, ms in (
         ("plans", tau, time_ms(lambda: trajectory.forward_dynamics_trajectory(ur5, q0, dq0, tau, dt=DT_PLAN))),
         ("control_period", one_step, per_call_ms(lambda: trajectory.forward_dynamics_trajectory(ur5, q0, dq0, one_step, dt=DT_PLAN))),
     ):
         B, N = taus.shape[0], taus.shape[1]
-        b_ms, b_by = bound((2 * B * 6 + 4 * B * N * 6) * 4, statements * B * N)
-        phase("plan_time", card=repr(card), kernel="K1", shape=f"{B}x{N}x6", use=label, kernel_ms=f"{ms:.4f}",
-              bound_ms=f"{b_ms:.4f}", bound_by=b_by, us_per_step=f"{ms * 1e3 / N:.2f}")
+        b_ms, b_by = bound((2 * B * 6 + 4 * B * N * 6) * 4, engine.statements * B * N)
+        chain_ms = chain * N * CHAIN_CYCLES / (mhz * 1e3)
+        out[f"rollout_{label}"] = dict(ms=ms, us_per_step=ms * 1e3 / N, bound_ms=b_ms, chain_bound_ms=chain_ms)
+        phase("plan_time", card=repr(card), kernel="K1", shape=f"{B}x{N}x6", use=label, block=BLOCK,
+              kernel_ms=f"{ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by, chain_links=chain * N,
+              chain_bound_ms=f"{chain_ms:.4f}", clocks_max_sm=f"{mhz:.0f}", us_per_step=f"{ms * 1e3 / N:.2f}")
     return out
 
 
@@ -964,8 +980,13 @@ def planning(ur5, card: str, attrs: dict, k1_record: dict) -> list:
     worst = {stage: max(worst[stage], on_path[stage]) for stage in worst}
     worst["trajectory"] = max(worst["trajectory"], traj_wide_parity())
     per_output = {k: max(k1_record["max_abs_err_per_output"][k], on_path["rollout"][k]) for k in TOL}
+    plans, period = times["rollout_plans"], times["rollout_control_period"]
     k1_record.update(max_abs_err=max(per_output.values()), max_abs_err_per_output=per_output,
-                     launches_planning_path=launches["rollout"])
+                     launches_planning_path=launches["rollout"], planning_ms=plans["ms"],
+                     planning_us_per_step=plans["us_per_step"], planning_bound_ms=plans["bound_ms"],
+                     planning_chain_bound_ms=plans["chain_bound_ms"], control_period_ms=period["ms"],
+                     chain_bound="estimate: longest chain of a step's emitted statements x N x "
+                                 f"{CHAIN_CYCLES} cycles at clocks.max.sm")
     names = {
         "trajectory": ("K9 joint trajectory (time scaling x joint delta)", "manipulapy_tpu/ops/pallas_kernels.py:122",
                        f"atol {TRAJ_ATOL}"),
@@ -1015,9 +1036,13 @@ def main() -> int:
     attrs = {}
     for name, eng in engines.items():
         b = built["rollout", name]
-        attrs[name] = eng.kernel_attributes()
-        phase("build", kernel="K1 rollout", robot=name, seconds=f"{b.compile_seconds:.2f}", **attrs[name],
-              ptxas=repr(ptxas_lines(b.log)))
+        a = attrs[name] = eng.kernel_attributes()
+        phase("build", kernel="K1 rollout", robot=name, block=BLOCK, chunk=CHUNK,
+              seconds=f"{b.compile_seconds:.2f}", **a, ptxas=repr(ptxas_lines(b.log)))
+        # The tiles live in dynamic shared memory and may cost no block an
+        # SM; no more local bytes than sinf/cosf's 32-byte frame.
+        if a["local_bytes"] > 32 or a["blocks_per_sm"] != a["blocks_per_sm_without_tiles"]:
+            raise AssertionError(f"K1 {name}: {a}")
     mpc_attrs = {}
     for robot, K in mpc_kernels.items():
         mpc_attrs[robot] = K.kernel_attributes()
@@ -1097,12 +1122,13 @@ def main() -> int:
     plain_ms_2 = time_ms(lambda: plain(q0, dq0, tau))
     k_ms, p_ms = min(kernel_ms, kernel_ms_2), min(plain_ms, plain_ms_2)
     steps = B_FULL * N_FULL
-    phase("time", card=repr(card), B=B_FULL, N=N_FULL,
-          kernel_ms=f"{kernel_ms:.4f},{kernel_ms_2:.4f}", plain_ms=f"{plain_ms:.2f},{plain_ms_2:.2f}",
-          kernel_steps_per_s=f"{steps / (k_ms * 1e-3):.4e}", plain_steps_per_s=f"{steps / (p_ms * 1e-3):.4e}")
     n6 = 6
-    k1_bound, k1_by = bound((2 * B_FULL * n6 + B_FULL * N_FULL * n6 + 3 * B_FULL * N_FULL * n6) * 4,
-                            kernel.statements * B_FULL * N_FULL)
+    k1_bytes = (2 * B_FULL * n6 + B_FULL * N_FULL * n6 + 3 * B_FULL * N_FULL * n6) * 4
+    k1_bound, k1_by = bound(k1_bytes, kernel.statements * B_FULL * N_FULL)
+    phase("time", card=repr(card), B=B_FULL, N=N_FULL, block=BLOCK, chunk=CHUNK,
+          kernel_ms=f"{kernel_ms:.4f},{kernel_ms_2:.4f}", plain_ms=f"{plain_ms:.2f},{plain_ms_2:.2f}",
+          kernel_steps_per_s=f"{steps / (k_ms * 1e-3):.4e}", plain_steps_per_s=f"{steps / (p_ms * 1e-3):.4e}",
+          dram_GBps=f"{k1_bytes / (k_ms * 1e6):.1f}", us_per_step=f"{k_ms * 1e3 / N_FULL:.3f}")
     records = [{
         "name": "K1 rollout (step program K0 inlined)",
         "route": "cuda",
@@ -1119,6 +1145,13 @@ def main() -> int:
         "library_ms": None,
         "num_regs": attrs["ur5"]["num_regs"],
         "local_bytes": attrs["ur5"]["local_bytes"],
+        "smem_bytes": attrs["ur5"]["smem_bytes"],
+        "dynamic_smem_bytes": attrs["ur5"]["dynamic_smem_bytes"],
+        "blocks_per_sm": attrs["ur5"]["blocks_per_sm"],
+        "block": BLOCK,
+        "chunk": CHUNK,
+        "dram_GBps": k1_bytes / (k_ms * 1e6),
+        "us_per_step": k_ms * 1e3 / N_FULL,
     }]
 
     # 7. MPC kernels vs their plain versions on the card.

@@ -11,8 +11,11 @@ geometry, ``dt / intRes``, g and the clip flags folded in as constants.
 Contract (that of ``pallas_rollout.py``): ``(q0, dq0, taumat) -> (qs, dqs,
 ddqs)`` with (B, n) initial states and (B, N, n) torques, outputs (B, N, n)
 where row t is the state at waypoint t and ``ddqs[t]`` the last-substep
-acceleration. There is no tile staging: the (8, 128) layout came from the
-TPU's vector registers.
+acceleration. The TPU's (8, 128) layout came from its vector registers and
+is gone; the kernel stages ``CHUNK`` waypoints of its block's rows through
+shared memory instead, so the public row-major layout reads and writes in
+whole sectors. A block has ``BLOCK`` threads, the fastest of 32, 64 and
+128 at both the rollout's and the planning path's shapes (PERF.md §6).
 
 On CPU tensors the module runs the plain version, and only because the
 tensors lie on the CPU. On CUDA tensors it launches the kernel or raises:
@@ -33,10 +36,11 @@ from ._build import build_library
 from .fd_step import DEFAULT_G, build_fd_step_source, build_rollout
 from ..models.robot import RobotModel, host_arrays
 
-__all__ = ["CudaRollout", "build_cuda_rollout", "rollout_source", "BLOCK"]
+__all__ = ["CudaRollout", "build_cuda_rollout", "rollout_source", "BLOCK", "CHUNK"]
 
 TEMPLATE = Path(__file__).resolve().parents[1] / "csrc" / "rollout.cuh"
-BLOCK = 128  # threads per block
+BLOCK = 128  # threads a block
+CHUNK = 3  # waypoints a block stages through shared memory at a time
 
 
 def rollout_source(model: RobotModel, dt: float, intRes: int, g=DEFAULT_G):
@@ -50,7 +54,8 @@ def rollout_source(model: RobotModel, dt: float, intRes: int, g=DEFAULT_G):
     header = (
         f"// Generated: robot {digest}, dt {float(dt)!r}, intRes {int(intRes)}, "
         f"g {tuple(float(x) for x in g)!r}, {ops} step statements.\n"
-        f"#define MPT_NJ {n}\n#define MPT_INT_RES {int(intRes)}\n#define MPT_BLOCK {BLOCK}\n"
+        f"#define MPT_NJ {n}\n#define MPT_INT_RES {int(intRes)}\n#define MPT_CHUNK {CHUNK}\n"
+        f"#define MPT_BLOCK {BLOCK}\n"
     )
     return header + "#include <math.h>\n" + step_src + "\n" + TEMPLATE.read_text(), ops
 
@@ -70,6 +75,7 @@ class CudaRollout(nn.Module):
         self.plain = build_rollout(model, dt=dt, intRes=intRes, g=g)
         self.launches = 0
         self._built = None
+        self._prepared = set()  # devices on which the kernel may take its tiles
 
     @classmethod
     def reset_launch_count(cls) -> None:
@@ -83,20 +89,27 @@ class CudaRollout(nn.Module):
             lib = built.lib
             lib.launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.launch.restype = ctypes.c_int
-            lib.kernel_attributes.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+            lib.prepare.argtypes = []
+            lib.prepare.restype = ctypes.c_int
+            lib.kernel_attributes.argtypes = [ctypes.POINTER(ctypes.c_int)]
             lib.kernel_attributes.restype = ctypes.c_int
             self._built = built
         return self._built
 
     def kernel_attributes(self) -> dict:
-        """Registers per thread, spill (local) bytes per thread and the
-        largest block size, from ``cudaFuncGetAttributes``."""
-        lib = self.build().lib
-        regs, local, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        err = lib.kernel_attributes(ctypes.byref(regs), ctypes.byref(local), ctypes.byref(threads))
+        """Registers per thread, spill (local) bytes per thread, the
+        largest block size, static and dynamic shared bytes a block
+        (``cudaFuncGetAttributes``), and the blocks an SM holds with the
+        tiles and without them
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), on the current
+        device."""
+        keys = ("num_regs", "local_bytes", "max_threads", "smem_bytes", "dynamic_smem_bytes",
+                "blocks_per_sm", "blocks_per_sm_without_tiles")
+        out = (ctypes.c_int * len(keys))()
+        err = self.build().lib.kernel_attributes(out)
         if err:
-            raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {err}")
-        return {"num_regs": regs.value, "local_bytes": local.value, "max_threads": threads.value}
+            raise RuntimeError(f"the rollout kernel's attributes failed with CUDA error {err}")
+        return dict(zip(keys, out))
 
     def _check(self, q0, dq0, taumat):
         n = self.n
@@ -132,6 +145,11 @@ class CudaRollout(nn.Module):
         dqs = torch.empty_like(taumat)
         ddqs = torch.empty_like(taumat)
         with torch.cuda.device(q0.device):
+            if q0.device.index not in self._prepared:
+                err = lib.prepare()
+                if err:
+                    raise RuntimeError(f"the rollout kernel's shared-memory limit failed with CUDA error {err}")
+                self._prepared.add(q0.device.index)
             stream = torch.cuda.current_stream(q0.device).cuda_stream
             err = lib.launch(
                 q0.data_ptr(), dq0.data_ptr(), taumat.data_ptr(),

@@ -8,7 +8,9 @@ GPU. The module imports no JAX, so it also runs on a machine without JAX:
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: 1e-4 on q, 1e-3 on dq and 2e-1 on ddq (float32) for the
-rollout; 1e-5 of each output's largest magnitude for K2-K8 (the same
+rollout, and max |d| = 0 for its staged kernel at B off the block and N
+around the chunk (``-k bitwise``); 1e-5 of each
+output's largest magnitude for K2-K8 (the same
 operations in the same order with --fmad=false, so 0 is expected; K3's
 own tests alone: ``-k "backward_kernel and not single"``; K7's, bit for
 bit: ``-k "single and backward"``); the JAX test's bars (cost rtol 1e-5,
@@ -28,7 +30,7 @@ from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
-from manipulapy_tpu_torch.ops.cuda_rollout import CudaRollout, build_cuda_rollout
+from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, CudaRollout, build_cuda_rollout
 from manipulapy_tpu_torch.ops import elementwise as ew
 from manipulapy_tpu_torch.ops.fd_step import build_rollout
 
@@ -101,6 +103,51 @@ def test_kernel_rejects_float64_on_card(cuda_device):
 def test_kernel_reports_registers(cuda_device):
     attrs = build_cuda_rollout(catalog.ur5(device=cuda_device)).kernel_attributes()
     assert 0 < attrs["num_regs"] <= 255 and attrs["max_threads"] >= 128
+
+
+def _assert_bitwise(got, ref, shape):
+    for a, b in zip(got, ref):
+        assert a.shape == shape
+        assert float((a - b).abs().max()) == 0.0  # also fails on NaN
+
+
+@pytest.mark.parametrize("N", [1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1])
+@pytest.mark.parametrize("B", [BLOCK - 1, 3 * BLOCK + 7])
+def test_kernel_is_bitwise_off_the_block_and_chunk(cuda_device, B, N):
+    """B off the block, N at and around the chunk's boundaries."""
+    model = catalog.ur5(device=cuda_device)
+    x = _inputs(6, B, N, cuda_device, seed=N)
+    engine = build_cuda_rollout(model)
+    got = engine(*x)
+    ref = build_rollout(model, dt=0.01)(*x)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref, (B, N, 6))
+    assert engine.launches == 1
+
+
+@pytest.mark.parametrize("robot,int_res", [("panda", 1), ("ur5", 3)])
+def test_kernel_is_bitwise_for_panda_and_substeps(cuda_device, robot, int_res):
+    model = catalog.get_robot(robot, device=cuda_device)
+    n, B, N = model.num_joints, 2 * BLOCK + 5, 2 * CHUNK + 3
+    x = _inputs(n, B, N, cuda_device, seed=int_res)
+    got = build_cuda_rollout(model, intRes=int_res)(*x)
+    ref = build_rollout(model, dt=0.01, intRes=int_res)(*x)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref, (B, N, n))
+
+
+@pytest.mark.parametrize("robot", ["ur5", "panda"])
+def test_kernel_reports_shared_bytes_and_keeps_its_occupancy(cuda_device, robot):
+    """The tiles in dynamic shared memory, none static; no more local
+    bytes than the 32 of sinf/cosf's reduction frame; and the tiles cost no
+    block an SM."""
+    model = catalog.get_robot(robot, device=cuda_device)
+    a = build_cuda_rollout(model).kernel_attributes()
+    # five tiles (tau twice, q, dq, ddq), a row of CHUNK * n floats made odd
+    assert a["dynamic_smem_bytes"] == 5 * BLOCK * ((CHUNK * model.num_joints) | 1) * 4
+    assert a["smem_bytes"] == 0 and a["local_bytes"] <= 32
+    assert a["max_threads"] == BLOCK
+    assert a["blocks_per_sm"] == a["blocks_per_sm_without_tiles"] >= 1
 
 
 # ---------------------------------------------------------------------------

@@ -11,12 +11,22 @@
 * Which engine serves a call: a CUDA float32 (B, n) call goes to the
   kernel and never to the plain version; CPU tensors go to the plain
   version.
+* The kernel's staged phases (``csrc/rollout.cuh``), compiled by the host
+  g++ with ``MPT_HOST_TEAM`` (each phase runs threads 0..T-1 in turn, the
+  shared tiles a host array filled with NaN at every block), bit for bit
+  against a one-thread-per-scenario loop over the same emitted ``fd_step``
+  in the same unit, for blocks of 32, 64 and 128 threads, at B and N
+  around the block and the chunk, intRes 3, Panda and a NaN scenario.
 
 The kernel itself runs on a card in ``tests/test_torch_cuda.py``.
 
 Tolerances: f64 within 1e-9 on states and 1e-7 on ddq; f32 1e-4 on q,
 1e-3 on dq and 2e-1 on ddq.
 """
+
+import ctypes
+import shutil
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +41,9 @@ from manipulapy_tpu_torch import trajectory as ttraj
 from manipulapy_tpu_torch.models import catalog, from_host_arrays
 from manipulapy_tpu_torch.ops import _build, dispatch
 from manipulapy_tpu_torch.ops import fd_step as tfd
-from manipulapy_tpu_torch.ops.cuda_rollout import CudaRollout, build_cuda_rollout, rollout_source
+from manipulapy_tpu_torch.ops.cuda_rollout import (
+    BLOCK, CHUNK, CudaRollout, build_cuda_rollout, rollout_source,
+)
 
 CPU = torch.device("cpu")
 F64_TOL = (1e-9, 1e-9, 1e-7)
@@ -231,6 +243,7 @@ def test_rollout_source_assembles_template(ur5_pair):
     src = rollout_source(tm, 0.01, 3)[0]
     assert "#define MPT_NJ 6" in src and "#define MPT_INT_RES 3" in src
     assert "static __device__ __forceinline__ void fd_step(" in src
+    assert f"#define MPT_CHUNK {CHUNK}" in src and f"#define MPT_BLOCK {BLOCK}" in src
     assert 'extern "C" int launch(' in src and "mpt_rollout_kernel<<<" in src
     assert src.index("void fd_step(") < src.index("mpt_rollout_kernel(")
 
@@ -242,3 +255,135 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_BUILD_ROOT", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_library("// empty\n", "nothing")
+
+
+# ---------------------------------------------------------------------------
+# The staged kernel's phases on the host
+# ---------------------------------------------------------------------------
+
+_TEAM_HARNESS = """\
+#define __device__
+#define __forceinline__ inline
+#define MPT_HOST_TEAM 1
+{src}
+#include <vector>
+// The kernel: every block's phases, threads 0..T-1 in turn; its tiles start
+// as NaN, so a read of a tile entry no phase wrote shows in the outputs.
+extern "C" int run_team(int T, const float* q0, const float* dq0, const float* tau,
+                        float* qs, float* dqs, float* ddqs, int B, int N) {{
+  std::vector<float> tiles(MPT_TILE_FLOATS(T));
+  for (int b0 = 0; b0 < B; b0 += T) {{
+    for (float& x : tiles) x = __builtin_nanf("");
+    switch (T) {{
+      case 32: rollout_block<32>(0, tiles.data(), q0, dq0, tau, qs, dqs, ddqs, b0, B, N); break;
+      case 64: rollout_block<64>(0, tiles.data(), q0, dq0, tau, qs, dqs, ddqs, b0, B, N); break;
+      case 128: rollout_block<128>(0, tiles.data(), q0, dq0, tau, qs, dqs, ddqs, b0, B, N); break;
+      default: return 1;
+    }}
+  }}
+  return 0;
+}}
+// The reference: one scenario at a time, in place, over the same fd_step.
+extern "C" void run_reference(const float* q0, const float* dq0, const float* tau,
+                              float* qs, float* dqs, float* ddqs, int B, int N) {{
+  for (int b = 0; b < B; ++b) {{
+    float q[MPT_NJ], dq[MPT_NJ], t[MPT_NJ], ddq[MPT_NJ];
+    for (int j = 0; j < MPT_NJ; ++j) {{ q[j] = q0[b * MPT_NJ + j]; dq[j] = dq0[b * MPT_NJ + j]; }}
+    for (int w = 0; w < N; ++w) {{
+      const size_t row = ((size_t)b * N + w) * MPT_NJ;
+      for (int j = 0; j < MPT_NJ; ++j) {{ qs[row + j] = q[j]; dqs[row + j] = dq[j]; t[j] = tau[row + j]; }}
+      for (int s = 0; s < MPT_INT_RES; ++s) fd_step(q, dq, t, ddq);
+      for (int j = 0; j < MPT_NJ; ++j) ddqs[row + j] = ddq[j];
+    }}
+  }}
+}}
+"""
+TEAM_BLOCKS = (32, 64, 128)  # rollout_block<T> instances the harness runs
+TEAM_UNITS = {"ur5": ("ur5", 1), "ur5_intres3": ("ur5", 3), "panda": ("panda", 1)}
+TEAM_BS = ["1", "T-1", "T+1", "300"]
+TEAM_NS = [1, CHUNK - 1, CHUNK, CHUNK + 1, 50]
+SENTINEL = np.float32(-7.25e33)  # in every output entry before a run
+
+
+@pytest.fixture(scope="module")
+def team_units(tmp_path_factory):
+    """Per unit, on first use: the rollout's translation unit (dt 0.01)
+    compiled by g++ -O1 with the host harness."""
+    if shutil.which("g++") is None:
+        pytest.skip("the host has no g++ to compile the kernel's phases")
+    libs, tmp = {}, tmp_path_factory.mktemp("rollout_team")
+
+    def get(unit):
+        if unit not in libs:
+            robot, int_res = TEAM_UNITS[unit]
+            src = rollout_source(catalog.get_robot(robot, device=CPU), 0.01, int_res)[0]
+            cpp, so = tmp / f"{unit}.cpp", tmp / f"{unit}.so"
+            cpp.write_text(_TEAM_HARNESS.format(src=src))
+            subprocess.run(["g++", "-O1", "-shared", "-fPIC", "-o", str(so), str(cpp)], check=True, timeout=300)
+            lib = ctypes.CDLL(str(so))
+            lib.run_team.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+            lib.run_team.restype = ctypes.c_int
+            lib.run_reference.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+            libs[unit] = lib
+        return libs[unit]
+
+    return get
+
+
+def _team_vs_reference(lib, n, T, B, N, seed=0, nan_row=None):
+    """Both runs on the same inputs; outputs get T guard rows past B that
+    no run may touch. Returns (team, reference) outputs, guards cut off."""
+    q0, dq0, tau = _inputs(n, np.float32, batch=(B,), steps=N, seed=seed)
+    if nan_row is not None:
+        q0[nan_row, 1] = np.nan
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    runs = []
+    for team in (True, False):
+        outs = [np.full((B + T, N, n), SENTINEL, np.float32) for _ in range(3)]
+        args = [ptr(q0), ptr(dq0), ptr(tau), *map(ptr, outs), B, N]
+        if team:
+            assert lib.run_team(T, *args) == 0
+        else:
+            lib.run_reference(*args)
+        for o in outs:
+            assert (o[B:] == SENTINEL).all(), "a write past the last scenario"
+            assert not (o[:B] == SENTINEL).any(), "an output entry left unwritten"
+        runs.append([o[:B] for o in outs])
+    return runs
+
+
+def _assert_same_bits(got, ref):
+    """Equal bit for bit; NaN matches NaN (the payload may differ)."""
+    for g, r in zip(got, ref):
+        nan = np.isnan(r)
+        assert np.array_equal(np.isnan(g), nan)
+        assert np.array_equal(g.view(np.uint32)[~nan], r.view(np.uint32)[~nan])
+
+
+@pytest.mark.parametrize("N", TEAM_NS)
+@pytest.mark.parametrize("B", TEAM_BS)
+@pytest.mark.parametrize("T", TEAM_BLOCKS)
+def test_staged_phases_match_one_thread_loop(team_units, T, B, N):
+    B = {"1": 1, "T-1": T - 1, "T+1": T + 1, "300": 300}[B]
+    team, ref = _team_vs_reference(team_units("ur5"), 6, T, B, N, seed=B + N)
+    _assert_same_bits(team, ref)
+    assert all(np.isfinite(x).all() for x in ref)
+
+
+@pytest.mark.parametrize("unit", ["ur5_intres3", "panda"])
+@pytest.mark.parametrize("T", TEAM_BLOCKS)
+def test_staged_phases_match_one_thread_loop_other_units(team_units, T, unit):
+    n = 7 if unit == "panda" else 6
+    team, ref = _team_vs_reference(team_units(unit), n, T, 2 * T + 5, 2 * CHUNK + 3, seed=T)
+    _assert_same_bits(team, ref)
+
+
+@pytest.mark.parametrize("T", TEAM_BLOCKS)
+def test_staged_phases_keep_a_nan_scenario_to_itself(team_units, T):
+    B, row = T + 9, T - 2
+    team, ref = _team_vs_reference(team_units("ur5"), 6, T, B, CHUNK + 2, seed=3, nan_row=row)
+    _assert_same_bits(team, ref)
+    qs, _, ddqs = team
+    assert np.isnan(qs[row, 1:]).all() and np.isnan(ddqs[row]).all()
+    others = np.concatenate([qs[:row], qs[row + 1:]])
+    assert np.isfinite(others).all()
