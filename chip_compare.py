@@ -23,7 +23,11 @@ then CUDA-event medians (5 timings after 2 warm-ups) of
   that each call it first (``..._prepare_each_call``), the two in turns;
 * the Panda batched solve (H=50, 4 iterations, 6 alphas) at B=1024, 4096 and
   16384, and each of K2-K5 on that solve's own nominal (the solver's
-  controls, as ``chip_smoke.py`` feeds them);
+  controls, as ``chip_smoke.py`` feeds them); K2's registers, local bytes
+  and nvcc seconds (0 when the library was already on disk); where the
+  tree builds K2 with ``LIN_SEEDS`` seeds a thread, also K2 built for each
+  other of ``LIN_VARIANTS`` (``linearize_ms_B<B>_G<seeds>``, its registers,
+  local bytes and nvcc seconds), held bitwise to the default's AB;
 * the Panda single-problem solve, H=50, 6 alphas, at 4 and at 2 iterations,
   the device's busy share over 3 solves at 4 (``torch.profiler``), and each
   of K6-K8 per launch (20 back-to-back launches) on that solve's own
@@ -50,6 +54,9 @@ import subprocess
 import sys
 
 B_WIDTHS, H, ITERS, ALPHAS, DT = (1024, 4096, 16384), 50, 4, 6, 0.01
+# K2's seeds a thread besides the unit's own, for Panda (m = 21): G = 21's
+# unit takes nvcc minutes (PERF.md section 6) and is left out.
+LIN_VARIANTS = (3, 7)
 Q_GOAL7 = (0.3, -0.4, 0.2, -1.6, 0.1, 1.4, 0.4)
 
 
@@ -186,6 +193,25 @@ def main() -> int:
                 "replay": (x0_t, sd_x, us, kK, goal_t, alphas[torch.arange(B, device="cuda") % ALPHAS].contiguous())}
         for stage, a in args.items():
             out[f"{stage}_ms_B{B}"] = time_ms(lambda: getattr(K, stage)(*a))
+        if B == B_WIDTHS[0]:
+            attrs = K.kernel_attributes()["linearize"]
+            out.update(linearize_num_regs=attrs["num_regs"], linearize_local_bytes=attrs["local_bytes"],
+                       linearize_nvcc_s=K.build()["lin"].compile_seconds)
+            seeds = getattr(K, "LIN_SEEDS", None)
+            lin_variants = {g: type("Seeds", (type(K),), {"LIN_SEEDS": g, "UNITS": {"lin": ("linearize",)}})(
+                panda, DT, w_q=K.P.w_q, w_dq=K.P.w_dq, w_u=K.P.w_u, w_terminal=K.P.wT[0], u_lim=K.P.u_lim)
+                for g in (LIN_VARIANTS if seeds else ()) if g != seeds}
+            for g, V in lin_variants.items():
+                lib = V.build()["lin"]
+                attrs = V.kernel_attributes()["linearize"]
+                out.update({f"linearize_num_regs_G{g}": attrs["num_regs"],
+                            f"linearize_local_bytes_G{g}": attrs["local_bytes"],
+                            f"linearize_nvcc_s_G{g}": lib.compile_seconds})
+        AB = K.linearize(sd_x, us)
+        for g, V in lin_variants.items():
+            if not torch.equal(V.linearize(sd_x, us).view(torch.int32), AB.view(torch.int32)):
+                raise AssertionError(f"K2 with {g} seeds a thread differs from the default at B={B}")
+            out[f"linearize_ms_B{B}_G{g}"] = time_ms(lambda: V.linearize(sd_x, us))
 
     single = build_tracking_mpc(panda, Q_GOAL7, H, DT, iterations=ITERS, line_search_steps=ALPHAS)
     x1 = torch.cat([(lo + hi) / 2, torch.zeros(7, device="cuda")]).contiguous()

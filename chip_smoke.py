@@ -51,7 +51,8 @@ Phases, one line each (or one line per case):
    is exercised; random torques) and at the main path's shapes, B=1024
    H=50 (the solver's own controls), there also with a Levenberg-heavy
    ``reg`` of 10; max |d| per output within 1e-5 of that output's largest
-   magnitude;
+   magnitude, and 0 for K2 (a group of seeds a thread doing the plain
+   version's operations in its order);
 8. MPC main path: one solve and 3 rounds of ``batch_mpc_step`` with goals
    passed at run time, launch counts read just after (4/4/4/5 per solve),
    finite outputs, costs below the zero-control rollout's, |u| <= u_lim;
@@ -59,7 +60,8 @@ Phases, one line each (or one line per case):
    B=64 H=10 with 2 iterations;
 9. MPC time: the plain versions at full width and the plain solver at
    B=64; then each stage's kernel and one solve (CUDA events, median) at
-   B=1024, 4096 and 16384;
+   B=1024, 4096 and 16384, with K2's and K3's achieved rates (their
+   bounds' operations over their times; K2 also the statements it runs);
 10. single-problem parity: each of K6-K8 against its plain version on the
     card at Panda H=50 (the solver's own controls), H=37 (random torques
     within 30% of the limits; K6's H*m threads end mid-block) and H=50
@@ -425,6 +427,12 @@ def stage_bytes_ops(K: BatchMPCKernels, B: int, H: int, A: int) -> dict:
             (s["replay"] * H + s["cost_terminal"]) * B,
         ),
     }
+
+
+def lin_statements(K: BatchMPCKernels, B: int, H: int) -> int:
+    """The statements K2 runs: its group body once per (scenario, group of
+    seeds, step)."""
+    return K.statements["linearize_group"] * (K.m // K.LIN_SEEDS) * B * H
 
 
 def mid_rest(model) -> torch.Tensor:
@@ -1051,7 +1059,9 @@ def main() -> int:
                   ptxas=repr(ptxas_lines(b.log)))
         names = SINGLE_KERNELS if isinstance(K, SingleMPCKernels) else MPC_KERNELS
         for stage, a in mpc_attrs[robot].items():
-            phase("build", kernel=names[stage][0], robot=robot, statements=K.statements[stage], **a)
+            group = {"seeds_per_thread": K.LIN_SEEDS, "group_statements": K.statements["linearize_group"]} \
+                if isinstance(K, BatchMPCKernels) and stage == "linearize" else {}
+            phase("build", kernel=names[stage][0], robot=robot, statements=K.statements[stage], **group, **a)
     if mpc_attrs["panda single"]["backward"]["local_bytes"] != 0:  # its state lives in shared memory
         raise AssertionError(f"K7 uses local memory: {mpc_attrs['panda single']['backward']}")
     # 13. The static unit of K9 and K10.
@@ -1174,6 +1184,8 @@ def main() -> int:
     for nominal, x0_c, goals_c, us_c, full, reg in cases:
         B, H = us_c.shape[2], us_c.shape[0]
         errs, args, plain_ms = mpc_stage_parity(K, x0_c, goals_c, us_c, f"panda B={B} H={H} reg={reg}", full, reg=reg)
+        if errs["linearize"] != 0.0:  # K2 does the plain version's operations in its order
+            raise AssertionError(f"panda B={B} H={H} linearize: max |d| = {errs['linearize']}, not 0")
         if full:
             stage_args, stage_plain_ms = args, plain_ms
         mpc_err = {k: max(mpc_err[k], errs[k]) for k in mpc_err}
@@ -1261,14 +1273,21 @@ def main() -> int:
         if B == B_MPC:
             stage_ms = ms
         # K3's achieved rates: the bytes it must move (AB, xs, us read once,
-        # kK written once) and its emitted operations, over its time.
-        k3_bytes, k3_ops = stage_bytes_ops(K, B, H_MPC, ALPHAS)["backward"]
+        # kK written once) and its emitted operations, over its time; K2's
+        # operations (its bound's) and the statements it runs, over its time.
+        bo_b = stage_bytes_ops(K, B, H_MPC, ALPHAS)
+        k3_bytes, k3_ops = bo_b["backward"]
+        rates = {"linearize_Gops_per_s": bo_b["linearize"][1] / (ms["linearize"] * 1e6),
+                 "linearize_Gstatements_per_s": lin_statements(K, B, H_MPC) / (ms["linearize"] * 1e6)}
+        if B == B_MPC:
+            lin_rates = rates
         phase("mpc_time", card=repr(card), robot="panda", B=B, H=H_MPC, iterations=ITERS,
               **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()}, solve_ms=f"{solve:.4f}",
               solves_per_s=f"{B / (solve * 1e-3):.4e}", kernels_ms_per_solve=f"{kernel_sum:.4f}",
               kernel_share=f"{kernel_sum / solve:.4f}",
               backward_GBps=f"{k3_bytes / (ms['backward'] * 1e6):.1f}",
-              backward_Gops_per_s=f"{k3_ops / (ms['backward'] * 1e6):.1f}")
+              backward_Gops_per_s=f"{k3_ops / (ms['backward'] * 1e6):.1f}",
+              **{k: f"{v:.1f}" for k, v in rates.items()})
 
     bo = stage_bytes_ops(K, B_MPC, H_MPC, ALPHAS)
     for stage, (name, replaces) in MPC_KERNELS.items():
@@ -1276,11 +1295,17 @@ def main() -> int:
         a = mpc_attrs["panda"][stage]
         records.append({
             "name": name, "route": "cuda", "source": MPC_SOURCE, "replaces": replaces,
-            "launches": mpc_launches[stage], "max_abs_err": mpc_err[stage], "tolerance": f"{MPC_RTOL} x max|plain|",
+            "launches": mpc_launches[stage], "max_abs_err": mpc_err[stage],
+            "tolerance": "0" if stage == "linearize" else f"{MPC_RTOL} x max|plain|",
             "ms": stage_ms[stage], "plain_ms": stage_plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "num_regs": a["num_regs"], "local_bytes": a["local_bytes"],
             "smem_bytes": a["smem_bytes"],
         })
+        if stage == "linearize":
+            records[-1].update(seeds_per_thread=K.LIN_SEEDS, group_statements=K.statements["linearize_group"],
+                               Gops_per_s=lin_rates["linearize_Gops_per_s"],
+                               Gstatements_per_s=lin_rates["linearize_Gstatements_per_s"],
+                               backward_Gops_per_s=bo["backward"][1] / (stage_ms["backward"] * 1e6))
 
     records += single_path(panda, single, mpc_attrs["panda single"], card)
     records += planning(ur5, card, ew_attrs, records[0])

@@ -13,7 +13,8 @@
 //     MPT_UNIT_BWD, MPT_UNIT_FWD;
 //   the unit's generated device functions, emitted from the same Python
 //   code over cgen values as the plain PyTorch versions:
-//     LIN: fd_step_jvp (ops/fd_step.py::build_fd_step_jvp_source);
+//     LIN: #define MPT_LIN_SEEDS <G>, MPT_LIN_BLOCK <threads>,
+//          fd_step_jvp_group (ops/fd_step.py::build_fd_step_jvp_group_source);
 //     BWD: riccati_terminal, riccati_step;
 //     FWD: mpc_fwd_step, mpc_terminal (one body, two entry points);
 //   this file.
@@ -28,12 +29,18 @@
 // takes the place of a sequential axis, and of the VMEM scratch it carried.
 //
 // Bound and design, per kernel (statement counts are the emitter's, Panda):
-//   K2: one thread per (scenario b, seed k, step t), B*m*H independent
-//       threads; each runs the step and its tangent for seed k (~13k
-//       statements) and writes column k of AB at t. Operations bound it
-//       (~13k statements against 4*(3n + 2n) bytes per thread); the primal
-//       is recomputed by each of the m seeds, the price of keeping one
-//       seed's tangent per thread instead of m.
+//   K2: one thread per (scenario b, group of G = MPT_LIN_SEEDS seeds, step
+//       t), B*(m/G)*H independent threads in blocks of MPT_LIN_BLOCK; each
+//       runs the primal step once and the tangents of seeds gG .. gG+G-1
+//       (Panda, G = 3: ~30k statements, against 3 x 13k when each seed
+//       recomputed the step) and writes those G columns of AB at t.
+//       Operations bound it (~30k statements against 4*(3n + 2nG) bytes
+//       per thread). The primal and G tangents live at once: the body is
+//       emitted in an order that holds fewer values (ops/fd_step.py,
+//       `lean`), about (1 + G) x 115 at its peak for Panda and 87 for UR5,
+//       against 255 registers; Panda's thread still spills, part of it to
+//       shared memory (ptxas -O1 and its shared-memory spilling, PERF.md
+//       §6).
 //   K3: one warp per scenario, MPT_BWD_WARPS = 4 scenarios a block, so
 //       B/4 blocks (256 at B=1024, about two per SM). t = H-1 ... 0 stays
 //       inside the warp; its state (value function, [A | B] of step t, the
@@ -96,36 +103,54 @@
 
 // ---------------------------------------------------------------- K2 -----
 #if defined(MPT_UNIT_LIN)
+#if !defined(MPT_LIN_SEEDS) || !defined(MPT_LIN_BLOCK)
+#error "MPT_LIN_SEEDS and MPT_LIN_BLOCK must be defined with fd_step_jvp_group"
+#endif
+#if MPT_M % MPT_LIN_SEEDS != 0
+#error "MPT_LIN_SEEDS must divide the 3n seeds"
+#endif
+#define MPT_LIN_GROUPS (MPT_M / MPT_LIN_SEEDS)
+
+// Thread (b, grp, t): the step at (x, u) of scenario b, step t, and the
+// columns grp*G .. grp*G+G-1 of its Jacobian. Consecutive threads own
+// consecutive scenarios, so every load and store is one coalesced row.
 static __device__ __forceinline__ void lin_thread(
     const float* __restrict__ xs, const float* __restrict__ us,
-    float* __restrict__ AB, int B, int b, int k, int t) {
-  float x[MPT_NX], u[MPT_NJ], x_next[MPT_NX], col[MPT_NX];
+    float* __restrict__ AB, int B, int b, int grp, int t) {
+  float x[MPT_NX], u[MPT_NJ], x_next[MPT_NX], col[MPT_LIN_SEEDS * MPT_NX];
 #pragma unroll
   for (int i = 0; i < MPT_NX; ++i) x[i] = MPT_AT(xs, t * MPT_NX + i, b, B);
 #pragma unroll
   for (int j = 0; j < MPT_NJ; ++j) u[j] = MPT_AT(us, t * MPT_NJ + j, b, B);
-  fd_step_jvp(x, u, k, x_next, col);
+  const int k0 = grp * MPT_LIN_SEEDS;
+  fd_step_jvp_group(x, u, k0, x_next, col);
+  const size_t row0 = (size_t)t * MPT_NX * MPT_M + (size_t)k0;
 #pragma unroll
   for (int i = 0; i < MPT_NX; ++i)
-    MPT_AT(AB, ((size_t)t * MPT_NX + i) * MPT_M + k, b, B) = col[i];
+#pragma unroll
+    for (int j = 0; j < MPT_LIN_SEEDS; ++j)
+      MPT_AT(AB, row0 + (size_t)i * MPT_M + j, b, B) = col[j * MPT_NX + i];
 }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(MPT_BLOCK) mpt_lin_kernel(
+__global__ void __launch_bounds__(MPT_LIN_BLOCK) mpt_lin_kernel(
     const float* __restrict__ xs, const float* __restrict__ us,
     float* __restrict__ AB, int B) {
+  // The body's live values exceed the 255 registers a thread may hold; let
+  // ptxas spill part of them to shared memory before local memory.
+  asm volatile(".pragma \"enable_smem_spilling\";");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   lin_thread(xs, us, AB, B, b, (int)blockIdx.y, (int)blockIdx.z);
 }
 
-// xs (H, nx, B), us (H, n, B) -> AB (H, nx, m, B). Grid (B blocks, m, H).
+// xs (H, nx, B), us (H, n, B) -> AB (H, nx, m, B). Grid (B blocks, m/G, H).
 extern "C" int launch_linearize(const float* xs, const float* us, float* AB,
                                 int B, int H, void* stream) {
   if (B <= 0 || H <= 0) return 0;
-  const dim3 grid((unsigned int)((B + MPT_BLOCK - 1) / MPT_BLOCK), MPT_M,
-                  (unsigned int)H);
-  mpt_lin_kernel<<<grid, MPT_BLOCK, 0, (cudaStream_t)stream>>>(xs, us, AB, B);
+  const dim3 grid((unsigned int)((B + MPT_LIN_BLOCK - 1) / MPT_LIN_BLOCK),
+                  MPT_LIN_GROUPS, (unsigned int)H);
+  mpt_lin_kernel<<<grid, MPT_LIN_BLOCK, 0, (cudaStream_t)stream>>>(xs, us, AB, B);
   return (int)cudaGetLastError();
 }
 MPT_ATTRIBUTES(attributes_linearize, mpt_lin_kernel)

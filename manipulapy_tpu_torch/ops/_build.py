@@ -81,10 +81,12 @@ def _write_atomic(path: Path, text: str) -> None:
     os.replace(tmp, path)
 
 
-def build_library(source: str, name: str) -> BuiltLibrary:
-    """Compile ``source`` with ``nvcc`` for sm_90a (once per content) and
-    load the shared library."""
-    digest = hashlib.sha256((source + "\0" + " ".join(NVCC_FLAGS)).encode()).hexdigest()
+def build_library(source: str, name: str, flags: Tuple[str, ...] = ()) -> BuiltLibrary:
+    """Compile ``source`` with ``nvcc`` for sm_90a (once per content and
+    flags: ``NVCC_FLAGS``, then the unit's own ``flags``) and load the
+    shared library."""
+    flags = NVCC_FLAGS + tuple(flags)
+    digest = hashlib.sha256((source + "\0" + " ".join(flags)).encode()).hexdigest()
     hit = _LOADED.get(digest)
     if hit is not None:
         return hit
@@ -97,7 +99,7 @@ def build_library(source: str, name: str) -> BuiltLibrary:
         cu_path = out_dir / f"{name}.cu"
         _write_atomic(cu_path, source)
         tmp_so = out_dir / f".{name}.{os.getpid()}.so"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp_so), str(cu_path)]
+        cmd = [nvcc_path(), *flags, "-o", str(tmp_so), str(cu_path)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -121,11 +123,13 @@ class KernelSet:
     C entry point of its unit.
 
     A subclass sets ``UNITS`` (unit: its stages), ``ARGTYPES`` (stage: the
-    ctypes of its launch's arguments, the stream last), ``LIB_PREFIX`` and
-    its own ``launch_count`` dict (launches of every instance, per stage),
-    and fills ``self.sources`` (unit: CUDA source)."""
+    ctypes of its launch's arguments, the stream last), ``LIB_PREFIX``, its
+    own ``launch_count`` dict (launches of every instance, per stage) and,
+    where a unit needs them, ``UNIT_FLAGS`` (unit: nvcc flags besides
+    ``NVCC_FLAGS``), and fills ``self.sources`` (unit: CUDA source)."""
 
     UNITS: Dict[str, Tuple[str, ...]] = {}
+    UNIT_FLAGS: Dict[str, Tuple[str, ...]] = {}
     ARGTYPES: Dict[str, list] = {}
     LIB_PREFIX = ""
     launch_count: Dict[str, int] = {}
@@ -142,7 +146,8 @@ class KernelSet:
         if self._libs is None:
             with concurrent.futures.ThreadPoolExecutor(len(self.UNITS)) as pool:
                 futures = {
-                    unit: pool.submit(build_library, self.sources[unit], f"{self.LIB_PREFIX}_{unit}")
+                    unit: pool.submit(build_library, self.sources[unit], f"{self.LIB_PREFIX}_{unit}",
+                                      self.UNIT_FLAGS.get(unit, ()))
                     for unit in self.UNITS
                 }
                 built = {unit: f.result() for unit, f in futures.items()}

@@ -14,10 +14,11 @@ of the exact dynamics is a Python list of *values*, and a value is one of:
 * a :class:`Dual`, a primal value and its tangent (forward mode), each
   itself a float, a tensor or a CVar. Over tensors the tangent carries a
   leading seed axis (m, ...), so one pass gives every column of a
-  Jacobian; over CVars it is one scalar per thread, and each operation
-  emits the primal statement and then the tangent statements. A tangent
-  that is the constant 0 folds away, as the primal's zeros do, and a Dual
-  whose tangent folds to 0 becomes its primal.
+  Jacobian; over CVars it is one scalar per thread, or a :class:`Seeds`,
+  the tangents of a group of G seeds, and each operation emits the primal
+  statement once and then the tangent statements, once per seed. A
+  tangent that is the constant 0 folds away, as the primal's zeros do, and
+  a Dual whose tangent folds to 0 becomes its primal.
 
 The arithmetic helpers below fold constants exactly as the JAX package's
 do. ``sqrt``, ``sin``, ``cos``, ``clip`` and ``recip`` are the only places
@@ -58,6 +59,7 @@ import torch
 __all__ = [
     "CVar",
     "Dual",
+    "Seeds",
     "Emitter",
     "c_literal",
     "is_const",
@@ -83,6 +85,9 @@ __all__ = [
     "from_numpy",
     "primal",
     "tangent",
+    "seed",
+    "keep",
+    "KEEP_SOURCE",
     "c_function",
     "chain_length",
 ]
@@ -129,8 +134,8 @@ class CVar:
         self.name = name
 
     def _bin(self, op: str, a, b) -> "CVar":
-        if isinstance(a, Dual) or isinstance(b, Dual):
-            return NotImplemented  # the Dual's own operator takes over
+        if isinstance(a, (Dual, Seeds)) or isinstance(b, (Dual, Seeds)):
+            return NotImplemented  # the other value's own operator takes over
         return self.em.var(f"{self.em.ref(a)} {op} {self.em.ref(b)}")
 
     def __add__(self, o):
@@ -187,7 +192,81 @@ class Dual:
         return neg(self)
 
 
-Value = Union[float, torch.Tensor, CVar, Dual]
+class Seeds:
+    """The tangents of a group of seeds, one CVar each: an operation maps
+    over the seeds in order, with the other operand (a primal value or a
+    constant) shared. So a rule's shared factor (``cos(p)`` in ``sin``'s,
+    ``r * r`` in ``recip``'s, ``0.5 * recip(p)`` in ``sqrt``'s) is emitted
+    once, as the tensor version computes it once for its seed axis, and each
+    seed gets the one-seed program's operations in its order. A seed's zeros
+    are run-time values, never folded: as in the tensor version, ``0 * p``
+    keeps a NaN and the sign of a zero."""
+
+    __slots__ = ("v",)
+
+    def __init__(self, values):
+        self.v = tuple(values)
+
+    def _map(self, fn, o, swap: bool = False) -> "Seeds":
+        ov = o.v if isinstance(o, Seeds) else (o,) * len(self.v)
+        return Seeds(fn(b, a) if swap else fn(a, b) for a, b in zip(self.v, ov))
+
+    def __add__(self, o):
+        return self._map(add, o)
+
+    def __radd__(self, o):
+        return self._map(add, o, swap=True)
+
+    def __sub__(self, o):
+        return self._map(sub, o)
+
+    def __rsub__(self, o):
+        return self._map(sub, o, swap=True)
+
+    def __mul__(self, o):
+        return self._map(mul, o)
+
+    def __rmul__(self, o):
+        return self._map(mul, o, swap=True)
+
+    def __neg__(self):
+        return Seeds(neg(a) for a in self.v)
+
+
+# The C definition of keep(): an empty asm statement that the compiler
+# must assume changes the value, so an expression of a kept value is not
+# merged with the same expression of the original. No instruction results.
+KEEP_SOURCE = """static __device__ __forceinline__ float mpt_keep(float v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+f"(v));
+#endif
+  return v;
+}
+"""
+
+
+def keep(x: "Value") -> "Value":
+    """The same value, opaque to the C compiler (``mpt_keep``, whose source
+    is :data:`KEEP_SOURCE`), so that recomputing an expression of it is not
+    folded back into the first computation: the emitter can trade a long
+    live range for a few recomputed statements. Tensors, constants and
+    each part of a Dual or Seeds pass through as they are."""
+    if isinstance(x, Dual):
+        return Dual(keep(x.p), keep(x.t))
+    if isinstance(x, Seeds):
+        return Seeds(keep(v) for v in x.v)
+    if isinstance(x, CVar):
+        return x.em.var(f"mpt_keep({x.name})")
+    return x
+
+
+def seed(x, j: int):
+    """Seed ``j``'s value of a tangent: a constant (a folded 0) is every
+    seed's."""
+    return x.v[j] if isinstance(x, Seeds) else x
+
+
+Value = Union[float, torch.Tensor, CVar, Dual, Seeds]
 
 
 def is_const(x: Value) -> bool:
@@ -304,6 +383,8 @@ def _clip_tangent(p: Value, t: Value, lo: float, hi: float) -> Value:
     """The tangent of ``clip(p)``: ``t`` strictly inside the finite bounds,
     ``0.5 t`` at a bound, 0 outside (and 0 for a NaN primal), the JVP of
     ``jnp.clip``."""
+    if isinstance(t, Seeds):
+        return Seeds(_clip_tangent(p, x, lo, hi) for x in t.v)
     if is_const(t) or is_const(p):
         if is_const(t) and t == 0.0:
             return 0.0

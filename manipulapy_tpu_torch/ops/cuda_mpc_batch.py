@@ -5,7 +5,10 @@ Counterpart of the four ``pallas_call``s of
 ``manipulapy_tpu/mpc/fused_batch.py``:
 
 * K2 ``linearize`` (``lin_kernel``): ``A_t, B_t = d x' / d [x; u]`` of the
-  step program with ``clip_velocity=False``, over the m = 3n seeds;
+  step program with ``clip_velocity=False``, over the m = 3n seeds, a
+  group of ``LIN_SEEDS`` of them a thread: the primal step once, each
+  tangent once per seed (``fd_step_jvp_group``), as ``jax.linearize`` and
+  its vmapped linear program do;
 * K3 ``backward`` (``bwd_kernel``): the time-reversed Riccati sweep with a
   per-scenario Levenberg term and the unrolled Cholesky solve of
   ``_chol_solve_tiles``;
@@ -17,7 +20,8 @@ Counterpart of the four ``pallas_call``s of
 Each kernel's arithmetic is one Python function over cgen values
 (:func:`riccati_terminal`, :func:`riccati_step`, :func:`fwd_step`,
 :func:`terminal_cost`, and ``ops/fd_step.py::build_fd_step_jvp_planes``
-for K2). Run on tensors it is the plain PyTorch version; run on CVars it
+for K2, emitted over a group of seeds by ``build_fd_step_jvp_group_source``).
+Run on tensors it is the plain PyTorch version; run on CVars it
 is the kernel's device function (template ``csrc/mpc_batch.cuh``), built
 with ``--fmad=false``, so the two agree bitwise. The order of every sum
 is the JAX kernels'. K3 is the exception: one warp per scenario runs
@@ -50,6 +54,7 @@ from ._build import KernelSet
 from .fd_step import (
     DEFAULT_G,
     _full,
+    build_fd_step_jvp_group_source,
     build_fd_step_jvp_planes,
     build_fd_step_jvp_source,
     build_fd_step_planes,
@@ -61,6 +66,8 @@ __all__ = [
     "BatchMPCKernels",
     "STAGES",
     "BLOCK",
+    "LIN_SEEDS",
+    "LIN_BLOCK",
     "riccati_terminal",
     "riccati_step",
     "bwd_weights",
@@ -70,6 +77,13 @@ __all__ = [
 
 TEMPLATE = Path(__file__).resolve().parents[1] / "csrc" / "mpc_batch.cuh"
 BLOCK = 128  # threads per block
+# K2: tangent seeds a thread (``MPT_LIN_SEEDS``; 3 divides every m = 3n),
+# threads a block (``MPT_LIN_BLOCK``; 64 leave each thread more shared memory
+# to spill into than 128) and ptxas's -O1, whose schedule spills less than
+# its default -O3 and builds ~3x faster. Each chosen by timing Panda's and
+# UR5's K2 on an H100 (``chip_k2_variants.py``, PERF.md section 6).
+LIN_SEEDS, LIN_BLOCK = 3, 64
+LIN_FLAGS = ("-Xptxas", "-O1")
 STAGES = ("linearize", "backward", "linesearch_costs", "replay")
 # Translation units: K4 and K5 share one emitted body.
 UNITS = {"lin": ("linearize",), "bwd": ("backward",), "fwd": ("linesearch_costs", "replay")}
@@ -333,9 +347,10 @@ class MPCKernelSet(KernelSet):
         }
 
     def _linearize_body(self, model, dt, g) -> str:
-        """The linearization's device function (``fd_step_jvp``), counting
-        its statements and, as ``"step"``, those of the primal step alone:
-        the part that all m seeds share."""
+        """The one-seed linearization's device function (``fd_step_jvp``),
+        counting its statements and, as ``"step"``, those of the primal step
+        alone: the part that all m seeds share. K6 runs it; K2's bound
+        counts with both."""
         n, P = self.n, self.P
         _, src, self.statements["linearize"] = build_fd_step_jvp_source(model, dt, g=g)
         _, self.statements["step"] = cg.c_function(
@@ -364,17 +379,25 @@ class MPCKernelSet(KernelSet):
 
 
 class BatchMPCKernels(MPCKernelSet):
-    """K2-K5 for one (robot, dt, g, cost weights, torque limits)."""
+    """K2-K5 for one (robot, dt, g, cost weights, torque limits). K2's
+    unit carries ``fd_step_jvp_group`` for ``LIN_SEEDS`` seeds a thread
+    (``MPT_LIN_SEEDS``); the one-seed ``fd_step_jvp`` stays out of it, as
+    ``linearize_seed_source``, the host tests' reference."""
 
     kind = "cuda"
     STAGES, UNITS, ARGTYPES, LIB_PREFIX = STAGES, UNITS, _ARGTYPES, "mpc_batch"
     TEMPLATE, DEFINES = TEMPLATE, {"MPT_BLOCK": BLOCK}
+    LIN_SEEDS, UNIT_FLAGS = LIN_SEEDS, {"lin": LIN_FLAGS}
     launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
 
     def _bodies(self, model, dt, g) -> Dict[str, str]:
         P, n, nx = self.P, self.n, self.nx
         kkn, vn = n * (1 + nx), (nx + 1) * nx
-        lin_src = self._linearize_body(model, dt, g)
+        self.linearize_seed_source = self._linearize_body(model, dt, g)
+        _, group_src, self.statements["linearize_group"] = build_fd_step_jvp_group_source(
+            model, dt, g=g, seeds=self.LIN_SEEDS
+        )
+        lin_src = f"#define MPT_LIN_SEEDS {self.LIN_SEEDS}\n#define MPT_LIN_BLOCK {LIN_BLOCK}\n{group_src}"
         term_src, term_ops = cg.c_function(
             "riccati_terminal", [("x_last", nx), ("goal", n)], [], [("V", vn)],
             lambda x_last, goal: [riccati_terminal(P, x_last, goal)],

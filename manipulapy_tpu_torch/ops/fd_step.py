@@ -37,6 +37,7 @@ __all__ = [
     "build_fd_step_source",
     "build_fd_step_jvp_planes",
     "build_fd_step_jvp_source",
+    "build_fd_step_jvp_group_source",
     "build_bias_mass_fn",
     "build_rollout",
     "Rollout",
@@ -132,9 +133,19 @@ def _chol_solve_values(M, rhs):
     return x
 
 
-def _emit_dynamics(model: RobotModel, g=DEFAULT_G):
+def _emit_dynamics(model: RobotModel, g=DEFAULT_G, lean: bool = False):
     """The (q, dq) -> (M, bias) emitter shared by every ``build_*``
-    function, over per-joint value lists."""
+    function, over per-joint value lists.
+
+    ``lean`` emits the same operations on the same operands, so the same
+    values bit for bit, in an order that holds fewer values at once (K2's
+    group body, where each value is held once per seed as well): the
+    velocity bias before the mass matrix; each link's prefix, Jacobian
+    column and CoM frame in one pass, its gravity term first and its mass
+    matrix terms column by column; and each downward transform of the RNEA
+    recomputed in the backward pass from its joint's q, sin and cos (behind
+    :func:`~.cgen.keep`, so the compiler does not merge the two and hold
+    the transform across the sweep)."""
     S_np, Mc_np, G_np, *_ = _np_model(model)
     n = S_np.shape[0]
     g_np = np.asarray(g, dtype=np.float64)
@@ -157,49 +168,60 @@ def _emit_dynamics(model: RobotModel, g=DEFAULT_G):
         for k in range(n)
     ]
 
-    def dynamics_of(q_vals, dq_vals):
-        sines = [cg.sin(q) for q in q_vals]
-        cosines = [cg.cos(q) for q in q_vals]
-
-        # Mass matrix through per-link CoM Jacobians.
+    def mass_and_gravity(q_vals, sines, cosines):
+        """M(q) through per-link CoM Jacobians, and the gravity bias."""
         prefixes = [([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], [0.0, 0.0, 0.0])]
-        for k in range(n):
-            Ek = _joint_exp(S_np[k], q_vals[k], sines[k], cosines[k])
-            prefixes.append(cg.compose(prefixes[-1], Ek))
-        J_cols = [cg.adjoint_apply(prefixes[i], S_c[i]) for i in range(n)]
+        exp_of = lambda k: _joint_exp(S_np[k], q_vals[k], sines[k], cosines[k])
+        J_cols = []
+        if not lean:
+            for k in range(n):
+                prefixes.append(cg.compose(prefixes[-1], exp_of(k)))
+            J_cols = [cg.adjoint_apply(prefixes[i], S_c[i]) for i in range(n)]
 
         M = [[0.0] * n for _ in range(n)]
         bias_grav = [0.0] * n
         for k in range(n):
+            if lean:
+                J_cols.append(cg.adjoint_apply(prefixes[k], S_c[k]))
+                prefixes.append(cg.compose(prefixes[k], exp_of(k)))
             T_com = cg.compose(prefixes[k + 1], Mc_c[k])
             T_inv = _transform_inv_val(T_com)
             JB = [cg.adjoint_apply(T_inv, J_cols[i]) for i in range(k + 1)]
-            GJB = [cg.mat_vec(G_c[k], col) for col in JB]
-            for i in range(k + 1):
-                for j in range(i, k + 1):
-                    M[i][j] = cg.add(M[i][j], cg.dot(JB[i], GJB[j]))
-            # Gravity wrench F = [0; m R^T (-g)] in the CoM frame.
-            mass_k = float(G_np[k][3, 3])
-            Rt = cg.mat_T(T_com[0])
-            f_lin = cg.mat_vec(Rt, [float(-g_np[0]), float(-g_np[1]), float(-g_np[2])])
-            F = [0.0, 0.0, 0.0] + [cg.mul(mass_k, x) for x in f_lin]
-            for i in range(k + 1):
-                bias_grav[i] = cg.add(bias_grav[i], cg.dot(JB[i], F))
+
+            def gravity():  # the wrench [0; m R^T (-g)] in the CoM frame
+                f_lin = cg.mat_vec(cg.mat_T(T_com[0]), [float(-g_np[0]), float(-g_np[1]), float(-g_np[2])])
+                F = [0.0, 0.0, 0.0] + [cg.mul(float(G_np[k][3, 3]), x) for x in f_lin]
+                for i in range(k + 1):
+                    bias_grav[i] = cg.add(bias_grav[i], cg.dot(JB[i], F))
+
+            if lean:  # gravity first, then one G JB column at a time
+                gravity()
+                for j in range(k + 1):
+                    GJB_j = cg.mat_vec(G_c[k], JB[j])
+                    for i in range(j + 1):
+                        M[i][j] = cg.add(M[i][j], cg.dot(JB[i], GJB_j))
+            else:
+                GJB = [cg.mat_vec(G_c[k], col) for col in JB]
+                for i in range(k + 1):
+                    for j in range(i, k + 1):
+                        M[i][j] = cg.add(M[i][j], cg.dot(JB[i], GJB[j]))
+                gravity()
         for i in range(n):
             for j in range(i):
                 M[i][j] = M[j][i]
+        return M, bias_grav
 
-        # Velocity-product bias: RNEA with ddq = 0 and g = 0.
-        # exp(-[A_k] q_k): sin(-q) = -s, cos(-q) = c.
-        def joint_exp_neg(S_row, q_val, s, c):
-            return _joint_exp(S_row, cg.neg(q_val), cg.neg(s), c)
+    # exp(-[A_k] q_k): sin(-q) = -s, cos(-q) = c.
+    def down(k, q_val, s, c):
+        return cg.compose(_joint_exp(A_np[k], cg.neg(q_val), cg.neg(s), c), Mprev_inv_c[k])
 
+    def velocity_bias(q_vals, dq_vals, sines, cosines):
+        """The velocity-product bias: RNEA with ddq = 0 and g = 0."""
         V = [0.0] * 6
         Vd = [0.0] * 6
         V_list, Vd_list, Tdown_list = [], [], []
         for k in range(n):
-            Ek_neg = joint_exp_neg(A_np[k], q_vals[k], sines[k], cosines[k])
-            Td = cg.compose(Ek_neg, Mprev_inv_c[k])
+            Td = down(k, q_vals[k], sines[k], cosines[k])
             Tdown_list.append(Td)
             AdV = cg.adjoint_apply(Td, V)
             V = [cg.add(AdV[i], cg.mul(A_c[k][i], dq_vals[k])) for i in range(6)]
@@ -218,8 +240,21 @@ def _emit_dynamics(model: RobotModel, g=DEFAULT_G):
             adTF = cg.ad_T_apply(V_list[k], GV)
             F = [cg.sub(cg.add(F[i], GVd[i]), adTF[i]) for i in range(6)]
             bias_vel[k] = cg.dot(A_c[k], F)
-            F = cg.adjoint_T_apply(Tdown_list[k], F)
+            Td = Tdown_list[k]
+            if lean and k < n - 1:
+                Td = down(k, cg.keep(q_vals[k]), cg.keep(sines[k]), cg.keep(cosines[k]))
+            F = cg.adjoint_T_apply(Td, F)
+        return bias_vel
 
+    def dynamics_of(q_vals, dq_vals):
+        sines = [cg.sin(q) for q in q_vals]
+        cosines = [cg.cos(q) for q in q_vals]
+        if lean:
+            bias_vel = velocity_bias(q_vals, dq_vals, sines, cosines)
+            M, bias_grav = mass_and_gravity(q_vals, sines, cosines)
+        else:
+            M, bias_grav = mass_and_gravity(q_vals, sines, cosines)
+            bias_vel = velocity_bias(q_vals, dq_vals, sines, cosines)
         bias = [cg.add(bias_vel[i], bias_grav[i]) for i in range(n)]
         return M, bias
 
@@ -256,13 +291,15 @@ def build_fd_step_planes(
     g=DEFAULT_G,
     clip_limits: bool = True,
     clip_velocity: bool = True,
+    lean: bool = False,
 ):
     """``step(q_list, dq_list, tau_list) -> (q', dq', ddq)`` over per-joint
     value lists (tensors of one shape, or CVars). Limits are per-joint
     Python-float constants; ``clip_velocity`` is independent of
-    ``clip_limits``, and only finite limits are applied."""
+    ``clip_limits``, and only finite limits are applied. ``lean``: see
+    ``_emit_dynamics``."""
     *_, lower, upper, vel_lim = _np_model(model)
-    n, dynamics_of = _emit_dynamics(model, g)
+    n, dynamics_of = _emit_dynamics(model, g, lean=lean)
 
     def step(q_vals, dq_vals, tau_vals):
         M, bias = dynamics_of(q_vals, dq_vals)
@@ -347,6 +384,7 @@ def build_fd_step_jvp_planes(
     g=DEFAULT_G,
     clip_limits: bool = True,
     clip_velocity: bool = False,
+    lean: bool = False,
 ):
     """Forward mode over the step program (the MPC linearization):
     ``step_jvp(x_vals, u_vals, x_tans, u_tans) -> (x_next, x_next_tans)``
@@ -356,7 +394,7 @@ def build_fd_step_jvp_planes(
     tangent rules are those of ``jax.linearize`` (``ops/cgen.py``). An
     output whose tangent folded away has tangent 0.0."""
     n, step_planes = build_fd_step_planes(
-        model, dt, g=g, clip_limits=clip_limits, clip_velocity=clip_velocity
+        model, dt, g=g, clip_limits=clip_limits, clip_velocity=clip_velocity, lean=lean
     )
 
     def step_jvp(x_vals, u_vals, x_tans, u_tans):
@@ -404,6 +442,51 @@ def build_fd_step_jvp_source(
         preamble=[("int k", seeds)],
     )
     return n, source, ops
+
+
+def build_fd_step_jvp_group_source(
+    model: RobotModel,
+    dt: float,
+    g=DEFAULT_G,
+    seeds: int = 3,
+    clip_limits: bool = True,
+    clip_velocity: bool = False,
+):
+    """C source of ``__device__ void fd_step_jvp_group(const float x[2n],
+    const float u[n], int k0, float x_next[2n], float col[G * 2n])``: one
+    step and columns k0 .. k0+G-1 of its Jacobian, ``col[j * 2n + i] = d
+    x_next_i / d [x; u]_{k0+j}``, G = ``seeds``, which must divide 3n. The
+    primal step is emitted once and each tangent statement once per seed
+    (:class:`~.cgen.Seeds`), so seed j does exactly what
+    :func:`build_fd_step_jvp_source` does for k = k0 + j: the seeds are
+    run-time values, ``(k0 + j == i) ? 1 : 0``, as there. The step is
+    emitted ``lean`` (``_emit_dynamics``): the same values in an order that
+    holds fewer at once, since each is held once per seed. Returns ``(n,
+    source, statement count)``."""
+    n, step_jvp = build_fd_step_jvp_planes(
+        model, dt, g=g, clip_limits=clip_limits, clip_velocity=clip_velocity, lean=True
+    )
+    nx, m = 2 * n, 3 * n
+    if not (1 <= seeds <= m and m % seeds == 0):
+        raise ValueError(f"seeds must divide m = {m}, got {seeds}")
+    one, zero = cg.c_literal(1.0), cg.c_literal(0.0)
+
+    def seed_vars(em):
+        lines = [
+            f"const float s_{i}_{j} = (k0 + {j} == {i}) ? {one} : {zero};"
+            for i in range(m) for j in range(seeds)
+        ]
+        return lines, {"s": [cg.Seeds(cg.CVar(em, f"s_{i}_{j}") for j in range(seeds)) for i in range(m)]}
+
+    def body(x, u, s):
+        x_next, tans = step_jvp(x, u, s[:nx], s[nx:])
+        return x_next, [cg.seed(t, j) for j in range(seeds) for t in tans]
+
+    source, ops = cg.c_function(
+        "fd_step_jvp_group", [("x", nx), ("u", n)], [], [("x_next", nx), ("col", seeds * nx)], body,
+        preamble=[("int k0", seed_vars)],
+    )
+    return n, cg.KEEP_SOURCE + source, ops
 
 
 class Rollout(nn.Module):

@@ -13,7 +13,8 @@ around the chunk (``-k bitwise``); 1e-5 of each
 output's largest magnitude for K2-K8 (the same
 operations in the same order with --fmad=false, so 0 is expected; K3's
 own tests alone: ``-k "backward_kernel and not single"``; K7's, bit for
-bit: ``-k "single and backward"``); the JAX test's bars (cost rtol 1e-5,
+bit: ``-k "single and backward"``; K2's, bit for bit with NaN where the
+plain version has NaN: ``-k linearize_kernel``); the JAX test's bars (cost rtol 1e-5,
 final state atol 5e-4, controls atol 5e-3) for the
 whole MPC solves against the plain solvers; for K9 2e-6 / 2e-5 / 2e-4 on pos
 / vel / acc and for K10 rtol 1e-4 with atol 1e-5 on U and 1e-4 on its
@@ -209,6 +210,97 @@ def test_mpc_kernels_match_plain_versions(cuda_device, robot):
     assert {k: after[k] - before[k] for k in after} == {
         "linearize": 1, "backward": 1, "linesearch_costs": 1, "replay": 2
     }
+
+
+# K2 alone: one thread per (scenario, group of LIN_SEEDS seeds, step), the
+# primal step once and each tangent once per seed, bitwise against the plain
+# linearization (NaN where it is NaN). Its local bytes at LIN_SEEDS = 3 in
+# blocks of 64 (PERF.md section 6, nvcc 12.9): the body spills past 255
+# registers, and more local bytes than these would mean a worse schedule.
+K2_LOCAL_BYTES = {"ur5": 40, "panda": 1560}
+_K2_SETS = {}
+
+
+def _k2(robot, device, g=(0.0, 0.0, -9.81)):
+    """K2-K5 for a robot at dt 0.01 with its own torque limits (one build a
+    robot and g for the whole module)."""
+    if (robot, g) not in _K2_SETS:
+        model = catalog.get_robot(robot, device=device)
+        u_lim = [float(v) for v in model.torque_limit.cpu()]
+        _K2_SETS[robot, g] = (model, BatchMPCKernels(model, 0.01, g=g, u_lim=u_lim))
+    return _K2_SETS[robot, g]
+
+
+def _lin_states(model, B, H, device, seed):
+    """xs (H, 2n, B) inside the joint limits, us (H, n, B) within 30% of the
+    torque limits, from numpy."""
+    n = model.num_joints
+    rng = np.random.default_rng(seed)
+    lo, hi = model.joint_lower.cpu().double().numpy(), model.joint_upper.cpu().double().numpy()
+    lo, hi = np.maximum(lo, -np.pi), np.minimum(hi, np.pi)
+    q = (lo + hi)[None, :, None] / 2 + rng.uniform(-0.8, 0.8, (H, n, B)) * (hi - lo)[None, :, None] / 2
+    dq = rng.uniform(-0.5, 0.5, (H, n, B))
+    us = rng.uniform(-0.3, 0.3, (H, n, B)) * model.torque_limit.cpu().double().numpy()[None, :, None]
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(device).contiguous()
+    return f32(np.concatenate([q, dq], axis=1)), f32(us)
+
+
+def _assert_bits_and_nans(got, ref):
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(torch.int32)[~nan], ref.view(torch.int32)[~nan])
+
+
+@pytest.mark.parametrize("H", [1, 50])
+@pytest.mark.parametrize("B", [1, 3, 257, 1024])
+@pytest.mark.parametrize("robot", ["ur5", "panda"])
+def test_linearize_kernel_is_bitwise(cuda_device, robot, B, H):
+    model, K = _k2(robot, cuda_device)
+    n = model.num_joints
+    xs, us = _lin_states(model, B, H, cuda_device, seed=B + H)
+    before = BatchMPCKernels.launch_count["linearize"]
+    AB = K.linearize(xs, us)
+    torch.cuda.synchronize()
+    assert BatchMPCKernels.launch_count["linearize"] == before + 1
+    assert AB.shape == (H, 2 * n, 3 * n, B)
+    ref = K.linearize_plain(xs, us)
+    assert bool(torch.isfinite(ref).all())
+    _assert_bits_and_nans(AB, ref)
+
+
+@pytest.mark.parametrize("robot", ["ur5", "panda"])
+def test_linearize_kernel_halves_the_tangent_on_a_limit(cuda_device, robot):
+    """Gravity off, scenario 0 at rest on joint 0's lower limit with zero
+    torque: q'_0 is the limit exactly and its tangent is halved there."""
+    model, K = _k2(robot, cuda_device, g=(0.0, 0.0, 0.0))
+    n = model.num_joints
+    xs, us = _lin_states(model, 257, 8, cuda_device, seed=3)
+    xs[:, 0, 0] = model.joint_lower[0]
+    xs[:, n:, 0], us[..., 0] = 0.0, 0.0
+    AB = K.linearize(xs, us)
+    torch.cuda.synchronize()
+    _assert_bits_and_nans(AB, K.linearize_plain(xs, us))
+    assert bool((AB[:, 0, 0, 0] == 0.5).all())  # d q'_0 / d q_0 on the limit
+
+
+@pytest.mark.parametrize("robot", ["ur5", "panda"])
+def test_linearize_kernel_keeps_a_nan_scenario_to_itself(cuda_device, robot):
+    """Scenario 5's joint-0 velocity NaN at every step: its Jacobians go
+    NaN where the plain version's do, the other 256 keep the clean run's
+    bits. K2's local bytes stay at or below the recorded figure."""
+    model, K = _k2(robot, cuda_device)
+    n = model.num_joints
+    xs, us = _lin_states(model, 257, 8, cuda_device, seed=4)
+    clean = K.linearize(xs, us)
+    xs[:, n, 5] = float("nan")
+    dirty = K.linearize(xs, us)
+    torch.cuda.synchronize()
+    _assert_bits_and_nans(dirty, K.linearize_plain(xs, us))
+    assert bool(torch.isnan(dirty[..., 5]).any())
+    others = torch.arange(257, device=cuda_device) != 5
+    assert torch.equal(dirty[..., others].view(torch.int32), clean[..., others].view(torch.int32))
+    attrs = K.kernel_attributes()["linearize"]
+    assert attrs["local_bytes"] <= K2_LOCAL_BYTES[robot] and attrs["max_threads"] == 64
 
 
 @pytest.fixture(scope="module")

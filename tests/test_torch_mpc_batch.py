@@ -18,7 +18,10 @@
   shim, against the plain versions; K3's warp phases run lane by lane
   (``MPT_HOST_TEAM``) bitwise against the emitted one-thread
   ``riccati_step`` sweep on the two-link arm, UR5 and Panda, and a NaN
-  scenario kept to itself.
+  scenario kept to itself; K2's thread body, a group of G seeds a thread,
+  for every (scenario, group, step), bitwise against the plain
+  linearization and the emitted one-seed ``fd_step_jvp``, with G = 3 and
+  G = n, on a joint limit and with a NaN scenario.
 * The solver's behaviour: run-time goals, torque limits, the NaN guard,
   ``batch_mpc_step`` and the checks on its inputs.
 """
@@ -44,6 +47,7 @@ from manipulapy_tpu_torch.mpc import ILQRParams, ilqr, make_step_fn, make_tracki
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops import fd_step as tfd
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import STAGES, BatchMPCKernels
+from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
 
 CPU = torch.device("cpu")
 STAGE_RTOL = 2e-4  # of each output's largest magnitude
@@ -302,8 +306,8 @@ _HARNESS = """\
 {src}
 extern "C" void run(const float** in, float** out, int B, int H, int A) {{
 #if defined(MPT_UNIT_LIN)
-  for (int t = 0; t < H; ++t) for (int k = 0; k < MPT_M; ++k) for (int b = 0; b < B; ++b)
-    lin_thread(in[0], in[1], out[0], B, b, k, t);
+  for (int t = 0; t < H; ++t) for (int g = 0; g < MPT_LIN_GROUPS; ++g) for (int b = 0; b < B; ++b)
+    lin_thread(in[0], in[1], out[0], B, b, g, t);
 #elif defined(MPT_UNIT_BWD)
   // K3: one warp's storage, a host array; under MPT_HOST_TEAM each phase of
   // the sweep runs lanes 0..31 in turn before the next phase begins.
@@ -496,6 +500,177 @@ def test_bwd_team_keeps_a_nan_scenario_to_itself(team_units, robot):
     _close_to_scale(team_clean.numpy(), u.k.backward_plain(*clean).numpy(), 1e-5)
 
 
+# K2's thread body (a group of G seeds: the primal step once, each tangent
+# once per seed) for every (scenario, group, step), against the plain
+# linearization and the emitted one-seed fd_step_jvp, bit for bit. The host's
+# libm sinf/cosf/sqrtf and PyTorch's CPU sin/cos/sqrt (MKL's vector maths)
+# differ in the last bit for some 5% of inputs, so the harness routes the
+# three through PyTorch's own: what is held bitwise is the emitted arithmetic.
+# On the card the kernel's sinf is torch.sin's and nothing is substituted.
+
+_LIN_HARNESS = """\
+#include <math.h>
+extern "C" {{ float (*mpt_host_fn[3])(float); }}
+#define sinf(v) mpt_host_fn[0](v)
+#define cosf(v) mpt_host_fn[1](v)
+#define sqrtf(v) mpt_host_fn[2](v)
+#define __device__
+#define __forceinline__ inline
+{src}
+{seed_src}
+extern "C" void run(const float** in, float** out, int B, int H, int A) {{
+  for (int t = 0; t < H; ++t) for (int g = 0; g < MPT_LIN_GROUPS; ++g) for (int b = 0; b < B; ++b)
+    lin_thread(in[0], in[1], out[0], B, b, g, t);
+}}
+extern "C" void run_ref(const float** in, float** out, int B, int H, int A) {{
+  for (int t = 0; t < H; ++t) for (int k = 0; k < MPT_M; ++k) for (int b = 0; b < B; ++b) {{
+    float x[MPT_NX], u[MPT_NJ], x_next[MPT_NX], col[MPT_NX];
+    for (int i = 0; i < MPT_NX; ++i) x[i] = MPT_AT(in[0], t * MPT_NX + i, b, B);
+    for (int j = 0; j < MPT_NJ; ++j) u[j] = MPT_AT(in[1], t * MPT_NJ + j, b, B);
+    fd_step_jvp(x, u, k, x_next, col);
+    for (int i = 0; i < MPT_NX; ++i) MPT_AT(out[0], ((size_t)t * MPT_NX + i) * MPT_M + k, b, B) = col[i];
+  }}
+}}
+"""
+_FN = ctypes.CFUNCTYPE(ctypes.c_float, ctypes.c_float)
+# PyTorch's float32 sin, cos and sqrt of one value, for the harness.
+_TORCH_FNS = [_FN(lambda v, f=f: float(f(torch.tensor([v], dtype=torch.float32))[0]))
+              for f in (torch.sin, torch.cos, torch.sqrt)]
+LIN_ROBOTS = ("two_link_planar", "ur5", "panda")
+LIN_SHAPES = [(1, 1), (1, 8), (3, 1), (3, 8)]  # (B, H)
+
+
+@pytest.fixture(scope="module")
+def lin_units(tmp_path_factory):
+    """Per (robot, G, g) on first use: the K2 unit for G seeds a thread with
+    the one-seed ``fd_step_jvp`` beside it, compiled by g++ at -O0 (Panda's
+    G = 7 body is 63k statements)."""
+    if shutil.which("g++") is None:
+        pytest.skip("the host has no g++ to compile the emitted C")
+    units = {}
+
+    def get(robot, seeds, g=tfd.DEFAULT_G):
+        key = (robot, seeds, g)
+        if key not in units:
+            model = port_catalog.get_robot(robot, device="cpu")
+            n = model.num_joints
+            cls = type("Seeds", (BatchMPCKernels,), {"LIN_SEEDS": seeds})
+            k = cls(model, 0.01, g=g, u_lim=[10.0] * n)
+            tmp = tmp_path_factory.mktemp(f"{robot}_G{seeds}")
+            cpp, so = tmp / "lin.cpp", tmp / "lin.so"
+            cpp.write_text(_LIN_HARNESS.format(src=k.sources["lin"], seed_src=k.linearize_seed_source))
+            subprocess.run(["g++", "-O0", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(so), str(cpp)],
+                           check=True, timeout=300)
+            lib = ctypes.CDLL(str(so))
+            fns = (ctypes.c_void_p * 3).in_dll(lib, "mpt_host_fn")
+            for i, fn in enumerate(_TORCH_FNS):
+                fns[i] = ctypes.cast(fn, ctypes.c_void_p)
+            for fn in (lib.run, lib.run_ref):
+                fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_int] * 3
+            units[key] = SimpleNamespace(k=k, lib=lib, model=model)
+        return units[key]
+
+    return get
+
+
+def _lin_seeds(robot, which):
+    return 3 if which == "3" else port_catalog.get_robot(robot, device="cpu").num_joints
+
+
+def _lin_problem(model, B, H, seed=0):
+    """xs (H, 2n, B) inside the joint limits, us (H, n, B) within 30% of the
+    torque limits, from numpy."""
+    n = model.num_joints
+    rng = np.random.default_rng(seed)
+    lo, hi = model.joint_lower.double().numpy(), model.joint_upper.double().numpy()
+    lo, hi = np.maximum(lo, -np.pi), np.minimum(hi, np.pi)
+    q = (lo + hi)[None, :, None] / 2 + rng.uniform(-0.8, 0.8, (H, n, B)) * (hi - lo)[None, :, None] / 2
+    dq = rng.uniform(-0.5, 0.5, (H, n, B))
+    u_lim = model.torque_limit.double().numpy()
+    u_lim = np.where(np.isfinite(u_lim), u_lim, 10.0)  # the two-link arm has none
+    us = rng.uniform(-0.3, 0.3, (H, n, B)) * u_lim[None, :, None]
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).contiguous()
+    return f32(np.concatenate([q, dq], axis=1)), f32(us)
+
+
+def _lin_host(u, xs, us):
+    """(the group kernel's AB, the one-seed body's AB), NaN-filled first."""
+    H, B = xs.shape[0], xs.shape[2]
+    outs = [torch.full((H, u.k.nx, u.k.m, B), float("nan")) for _ in range(2)]
+    _call(u.lib, [xs, us], outs[:1], B, H)
+    u.lib.run_ref((ctypes.c_void_p * 2)(xs.data_ptr(), us.data_ptr()), (ctypes.c_void_p * 1)(outs[1].data_ptr()), B, H, 0)
+    return outs
+
+
+def _assert_same_bits(got, ref):
+    """Equal bits wherever ``ref`` is a number, NaN where it is NaN."""
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(_bits(got)[~nan], _bits(ref)[~nan])
+
+
+@pytest.mark.parametrize("B, H", LIN_SHAPES)
+@pytest.mark.parametrize("which", ["3", "n"])
+@pytest.mark.parametrize("robot", LIN_ROBOTS)
+def test_lin_group_body_matches_plain_bitwise(lin_units, robot, which, B, H):
+    u = lin_units(robot, _lin_seeds(robot, which))
+    xs, us = _lin_problem(u.model, B, H, seed=B + 10 * H)
+    got, one_seed = _lin_host(u, xs, us)
+    ref = u.k.linearize_plain(xs, us)
+    assert bool(torch.isfinite(ref).all())
+    assert torch.equal(_bits(got), _bits(ref))
+    assert torch.equal(_bits(one_seed), _bits(ref))
+
+
+@pytest.mark.parametrize("which", ["3", "n"])
+@pytest.mark.parametrize("robot", ["two_link_planar", "ur5"])
+def test_lin_group_body_halves_the_tangent_on_a_limit(lin_units, robot, which):
+    """Gravity off, scenario 0 at rest on joint 0's lower limit with zero
+    torque: q'_0 is the limit exactly, and JAX's clamp halves its tangent
+    there (the plain version's rule); bit for bit, at every step."""
+    u = lin_units(robot, _lin_seeds(robot, which), (0.0, 0.0, 0.0))
+    B, H = 3, 8
+    xs, us = _lin_problem(u.model, B, H, seed=1)
+    xs[:, 0, 0] = float(u.model.joint_lower[0])
+    xs[:, u.k.n:, 0], us[..., 0] = 0.0, 0.0
+    got, one_seed = _lin_host(u, xs, us)
+    ref = u.k.linearize_plain(xs, us)
+    assert torch.equal(_bits(got), _bits(ref)) and torch.equal(_bits(one_seed), _bits(ref))
+    assert bool((got[:, 0, 0, 0] == 0.5).all())  # d q'_0 / d q_0 on the limit
+    assert bool((got[:, 0, 0, 1:] == 1.0).all())  # inside: the whole tangent
+
+
+@pytest.mark.parametrize("which", ["3", "n"])
+@pytest.mark.parametrize("robot", LIN_ROBOTS)
+def test_lin_group_body_keeps_a_nan_scenario_to_itself(lin_units, robot, which):
+    """Scenario 1's velocity of joint 0 is NaN at every step: its Jacobians
+    go NaN where the plain version's do, and every other scenario keeps the
+    clean run's bits."""
+    u = lin_units(robot, _lin_seeds(robot, which))
+    B, H = 3, 8
+    xs, us = _lin_problem(u.model, B, H, seed=2)
+    clean, _ = _lin_host(u, xs, us)
+    xs[:, u.k.n, 1] = float("nan")
+    got, one_seed = _lin_host(u, xs, us)
+    ref = u.k.linearize_plain(xs, us)
+    _assert_same_bits(got, ref)
+    _assert_same_bits(one_seed, ref)
+    assert bool(torch.isnan(got[..., 1]).any())
+    assert torch.equal(_bits(got[..., [0, 2]]), _bits(clean[..., [0, 2]]))
+
+
+def test_single_lin_unit_keeps_the_one_seed_body():
+    """K6 keeps ``fd_step_jvp``: its unit holds the one-seed body as emitted,
+    which K2's unit no longer does."""
+    model = port_catalog.get_robot("ur5", device="cpu")
+    _, one_seed, _ = tfd.build_fd_step_jvp_source(model, 0.01, g=tfd.DEFAULT_G)
+    single = SingleMPCKernels(model, 0.01, u_lim=[10.0] * 6)
+    batch = BatchMPCKernels(model, 0.01, u_lim=[10.0] * 6)
+    assert one_seed in single.sources["lin"] and "fd_step_jvp_group" not in single.sources["lin"]
+    assert one_seed == batch.linearize_seed_source and one_seed not in batch.sources["lin"]
+    assert f"#define MPT_LIN_SEEDS {BatchMPCKernels.LIN_SEEDS}\n" in batch.sources["lin"]
+
+
 # ---------------------------------------------------------------------------
 # Solver behaviour (tests/test_mpc.py::TestBatchFusedMPC at the port)
 # ---------------------------------------------------------------------------
@@ -655,3 +830,24 @@ def test_step_statements_are_the_shared_primal(arms, robot):
     _, _, primal = tfd.build_fd_step_source(tm, 0.01, clip_limits=True, clip_velocity=False)
     assert k.statements["step"] == primal
     assert primal < k.statements["linearize"] < 4 * primal
+
+
+@pytest.mark.parametrize("seeds", [1, 3, 7, 21])
+def test_group_statements_count_the_primal_once(arms, seeds):
+    """The group body's statements grow by one seed's tangent a seed: the
+    primal step (and each rule's shared factor) is emitted once. With one
+    seed it is the one-seed body and the few statements that recompute the
+    RNEA's downward transforms (its lean order)."""
+    tm = arms["panda", torch.float32][1]
+    k = BatchMPCKernels(tm, 0.01, u_lim=[10.0] * 7)
+    one, step = k.statements["linearize"], k.statements["step"]
+    count = {g: tfd.build_fd_step_jvp_group_source(tm, 0.01, seeds=g)[2] for g in (1, 3, seeds)}
+    _, src, _ = tfd.build_fd_step_jvp_group_source(tm, 0.01, seeds=seeds)
+    assert src.count("\n  col[") == 14 * seeds
+    assert one < count[1] < 1.05 * one
+    tangent = (count[3] - count[1]) // 2
+    assert count[seeds] == count[1] + (seeds - 1) * tangent
+    assert 0.9 * (one - step) < tangent < 1.05 * (one - step)
+    assert k.statements["linearize_group"] == tfd.build_fd_step_jvp_group_source(tm, 0.01, seeds=3)[2]
+    with pytest.raises(ValueError):
+        tfd.build_fd_step_jvp_group_source(tm, 0.01, seeds=4)  # does not divide m = 21
