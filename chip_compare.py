@@ -27,14 +27,23 @@ then CUDA-event medians (5 timings after 2 warm-ups) of
   and nvcc seconds (0 when the library was already on disk); where the
   tree builds K2 with ``LIN_SEEDS`` seeds a thread, also K2 built for each
   other of ``LIN_VARIANTS`` (``linearize_ms_B<B>_G<seeds>``, its registers,
-  local bytes and nvcc seconds), held bitwise to the default's AB;
+  local bytes and nvcc seconds), held bitwise to the default's AB; K5's
+  registers, local bytes and nvcc seconds and, where the tree builds K5 as
+  a team of warps (``TEAM_WARPS``), its team (warps, scenarios, teams a
+  block, phases, slots, dynamic shared bytes) and K5 built for each other
+  shape of ``REPLAY_VARIANTS`` (``replay_ms_B<B>_W<warps>_S<scenarios>_T<teams
+  a block>``, the same figures), held bitwise to the default's outputs;
 * the Panda single-problem solve, H=50, 6 alphas, at 4 and at 2 iterations,
   the device's busy share over 3 solves at 4 (``torch.profiler``), and each
   of K6-K8 per launch (20 back-to-back launches) on that solve's own
   nominal; where the tree builds K7 with ``MPT_BWD_THREADS``, K7 also with
   each other block size of 128, 256 and 512 threads
   (``single_backward_ms_<threads>_threads``, and its local bytes), held
-  bitwise to the default's gains.
+  bitwise to the default's gains; K8's registers, local bytes and nvcc
+  seconds and, where the tree builds K8 as a team (``FWD_WARPS``), its team
+  and K8 built for each other of ``FORWARD_WARPS``
+  (``single_forward_ms_W<warps>``, the same figures), held bitwise to the
+  default's outputs.
 
 Compare two trees within one call, in turns (parent, change, change,
 parent), one process each:
@@ -57,7 +66,37 @@ B_WIDTHS, H, ITERS, ALPHAS, DT = (1024, 4096, 16384), 50, 4, 6, 0.01
 # K2's seeds a thread besides the unit's own, for Panda (m = 21): G = 21's
 # unit takes nvcc minutes (PERF.md section 6) and is left out.
 LIN_VARIANTS = (3, 7)
+# K5's team shapes (warps, scenarios a team, teams a block) and K8's warps,
+# each built as a variant unit where the tree's unit is a team.
+REPLAY_VARIANTS = ((8, 32, 1), (8, 32, 2), (16, 32, 1), (16, 32, 2), (32, 32, 1), (8, 16, 4))
+FORWARD_WARPS = (4, 8, 16, 32)
 Q_GOAL7 = (0.3, -0.4, 0.2, -1.6, 0.1, 1.4, 0.4)
+
+
+def variant_units(K, model, unit: str, variants) -> dict:
+    """Kernel sets like ``K`` with each variant's class attributes, only
+    ``unit`` built, all at once (one nvcc each): ``{name: kernel set}``."""
+    import concurrent.futures
+
+    sets = {name: type("Variant", (type(K),), {**attrs, "UNITS": {unit: type(K).UNITS[unit]}})(
+        model, DT, w_q=K.P.w_q, w_dq=K.P.w_dq, w_u=K.P.w_u,
+        w_terminal=K.P.wT[0], u_lim=K.P.u_lim) for name, attrs in variants}
+    if sets:
+        with concurrent.futures.ThreadPoolExecutor(len(sets)) as pool:
+            list(pool.map(lambda V: V.build(), sets.values()))
+    return sets
+
+
+def unit_figures(K, prefix: str, unit: str, stage: str) -> dict:
+    """A stage's registers, local bytes and its unit's nvcc seconds (0 when
+    the library was already on disk) and, for a team, its shape."""
+    attrs = K.kernel_attributes()[stage]
+    out = {f"{prefix}_num_regs": attrs["num_regs"], f"{prefix}_local_bytes": attrs["local_bytes"],
+           f"{prefix}_nvcc_s": K.build()[unit].compile_seconds}
+    if hasattr(K, "team_attributes"):
+        out.update({f"{prefix}_{k}": v for k, v in K.team_attributes().items()})
+        out.update({f"{prefix}_critical": K.team.partition.critical})
+    return out
 
 
 def main() -> int:
@@ -198,20 +237,32 @@ def main() -> int:
             out.update(linearize_num_regs=attrs["num_regs"], linearize_local_bytes=attrs["local_bytes"],
                        linearize_nvcc_s=K.build()["lin"].compile_seconds)
             seeds = getattr(K, "LIN_SEEDS", None)
-            lin_variants = {g: type("Seeds", (type(K),), {"LIN_SEEDS": g, "UNITS": {"lin": ("linearize",)}})(
-                panda, DT, w_q=K.P.w_q, w_dq=K.P.w_dq, w_u=K.P.w_u, w_terminal=K.P.wT[0], u_lim=K.P.u_lim)
-                for g in (LIN_VARIANTS if seeds else ()) if g != seeds}
+            lin_variants = variant_units(K, panda, "lin", [
+                (g, {"LIN_SEEDS": g}) for g in (LIN_VARIANTS if seeds else ()) if g != seeds])
             for g, V in lin_variants.items():
-                lib = V.build()["lin"]
                 attrs = V.kernel_attributes()["linearize"]
                 out.update({f"linearize_num_regs_G{g}": attrs["num_regs"],
                             f"linearize_local_bytes_G{g}": attrs["local_bytes"],
-                            f"linearize_nvcc_s_G{g}": lib.compile_seconds})
+                            f"linearize_nvcc_s_G{g}": V.build()["lin"].compile_seconds})
         AB = K.linearize(sd_x, us)
         for g, V in lin_variants.items():
             if not torch.equal(V.linearize(sd_x, us).view(torch.int32), AB.view(torch.int32)):
                 raise AssertionError(f"K2 with {g} seeds a thread differs from the default at B={B}")
             out[f"linearize_ms_B{B}_G{g}"] = time_ms(lambda: V.linearize(sd_x, us))
+        if B == B_WIDTHS[0]:
+            out.update(unit_figures(K, "replay", "fwd", "replay"))
+            team = hasattr(K, "TEAM_WARPS")
+            shape = (K.TEAM_WARPS, K.TEAM_S, K.TEAM_PER_BLOCK) if team else None
+            replay_variants = variant_units(K, panda, "fwd", [
+                (f"W{w}_S{sc}_T{t}", {"TEAM_WARPS": w, "TEAM_S": sc, "TEAM_PER_BLOCK": t})
+                for w, sc, t in (REPLAY_VARIANTS if team else ()) if (w, sc, t) != shape])
+            for name, V in replay_variants.items():
+                out.update(unit_figures(V, f"replay_{name}", "fwd", "replay"))
+        ref = K.replay(*args["replay"])
+        for name, V in replay_variants.items():
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(V.replay(*args["replay"]), ref)):
+                raise AssertionError(f"K5 {name} differs from the default at B={B}")
+            out[f"replay_ms_B{B}_{name}"] = time_ms(lambda: V.replay(*args["replay"]))
 
     single = build_tracking_mpc(panda, Q_GOAL7, H, DT, iterations=ITERS, line_search_steps=ALPHAS)
     x1 = torch.cat([(lo + hi) / 2, torch.zeros(7, device="cuda")]).contiguous()
@@ -233,12 +284,20 @@ def main() -> int:
     args = {"linearize": (sd1, us1), "backward": bwd_args, "forward": (x1, sd1, us1, kK, goal1, alphas)}
     for stage, a in args.items():
         out[f"single_{stage}_ms"] = per_call_ms(lambda: getattr(S, stage)(*a))
-    for threads in (128, 256, 512) if "MPT_BWD_THREADS" in S.DEFINES else ():
-        if threads == S.DEFINES["MPT_BWD_THREADS"]:
-            continue
-        other = type("Other", (type(S),), {"DEFINES": {**S.DEFINES, "MPT_BWD_THREADS": threads},
-                                           "UNITS": {"bwd": ("backward",)}})(
-            panda, DT, w_q=S.P.w_q, w_dq=S.P.w_dq, w_u=S.P.w_u, w_terminal=S.P.wT[0], u_lim=S.P.u_lim)
+    out.update(unit_figures(S, "single_forward", "fwd", "forward"))
+    fwd_ref = S.forward(*args["forward"])
+    forward_variants = variant_units(S, panda, "fwd", [
+        (f"W{w}", {"FWD_WARPS": w}) for w in (FORWARD_WARPS if hasattr(S, "FWD_WARPS") else ()) if w != S.FWD_WARPS])
+    for name, V in forward_variants.items():
+        out.update(unit_figures(V, f"single_forward_{name}", "fwd", "forward"))
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(V.forward(*args["forward"]), fwd_ref)):
+            raise AssertionError(f"K8 {name} differs from the default")
+        out[f"single_forward_ms_{name}"] = per_call_ms(lambda: V.forward(*args["forward"]))
+    bwd_variants = variant_units(S, panda, "bwd", [
+        (threads, {"DEFINES": {**S.DEFINES, "MPT_BWD_THREADS": threads}})
+        for threads in ((128, 256, 512) if "MPT_BWD_THREADS" in S.DEFINES else ())
+        if threads != S.DEFINES["MPT_BWD_THREADS"]])
+    for threads, other in bwd_variants.items():
         if not torch.equal(other.backward(*bwd_args).view(torch.int32), kK.view(torch.int32)):
             raise AssertionError(f"K7 with {threads} threads a block gives other gains than the default")
         out[f"single_backward_ms_{threads}_threads"] = per_call_ms(lambda: other.backward(*bwd_args))

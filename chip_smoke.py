@@ -52,7 +52,8 @@ Phases, one line each (or one line per case):
    H=50 (the solver's own controls), there also with a Levenberg-heavy
    ``reg`` of 10; max |d| per output within 1e-5 of that output's largest
    magnitude, and 0 for K2 (a group of seeds a thread doing the plain
-   version's operations in its order);
+   version's operations in its order) and K5 (a team of warps running
+   each emitted step, every statement as emitted);
 8. MPC main path: one solve and 3 rounds of ``batch_mpc_step`` with goals
    passed at run time, launch counts read just after (4/4/4/5 per solve),
    finite outputs, costs below the zero-control rollout's, |u| <= u_lim;
@@ -61,13 +62,18 @@ Phases, one line each (or one line per case):
 9. MPC time: the plain versions at full width and the plain solver at
    B=64; then each stage's kernel and one solve (CUDA events, median) at
    B=1024, 4096 and 16384, with K2's and K3's achieved rates (their
-   bounds' operations over their times; K2 also the statements it runs);
+   bounds' operations over their times; K2 also the statements it runs),
+   and K5 against its plain version at each width, max |d| = 0; K4's and
+   K5's records carry an estimate of their dependent chains' least time
+   (``chain_bound_ms``) and K5's its team (warps, scenarios a team, teams a
+   block, phases a step, slots, shared bytes);
 10. single-problem parity: each of K6-K8 against its plain version on the
     card at Panda H=50 (the solver's own controls), H=37 (random torques
     within 30% of the limits; K6's H*m threads end mid-block) and H=50
     again with a Levenberg-heavy reg of 10, max |d| per output within 1e-5
     of that output's largest magnitude, and 0 for K7 (one block of threads
-    whose phases do the plain version's operations in its order);
+    whose phases do the plain version's operations in its order) and K8
+    (one team of warps a block, as K5; its record carries its team);
 11. single-problem main path: one solve from rest at the middle of the
     joint limits towards the benchmark's goal, then 20 receding-horizon
     rounds (x <- xs[1], the warm start shifted by one), the goal
@@ -136,7 +142,6 @@ from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tra
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
 from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, CudaRollout, build_cuda_rollout
-from manipulapy_tpu_torch.ops import cgen
 from manipulapy_tpu_torch.ops import elementwise as ew
 from manipulapy_tpu_torch.ops.fd_step import build_rollout
 
@@ -435,6 +440,26 @@ def lin_statements(K: BatchMPCKernels, B: int, H: int) -> int:
     return K.statements["linearize_group"] * (K.m // K.LIN_SEEDS) * B * H
 
 
+def team_figures(K) -> dict:
+    """K5's or K8's team as built (warps, scenarios or alphas a team, teams
+    a block, phases a step, slots, dynamic shared bytes a block) and its
+    partition's critical length and statements a step."""
+    team = K.team_attributes()
+    return dict(team, critical=K.team.partition.critical, step_statements=K.team.statements,
+                team_shared_bytes=team["dynamic_smem_bytes"] // team["teams_per_block"])
+
+
+def batch_chain_ms(K: BatchMPCKernels, H: int) -> dict:
+    """K4's and K5's estimate of their least time along the dependent chain:
+    each scenario's (and alpha's) H steps follow one another, then its
+    terminal cost; the longest chain of the emitted step's statements
+    (``K.chains``), CHAIN_CYCLES cycles a link at the card's largest SM
+    clock, as for K6-K8."""
+    mhz = float(card_line("clocks.max.sm").split()[0])
+    ms = (H * K.chains["replay"] + K.chains["cost_terminal"]) * CHAIN_CYCLES / (mhz * 1e3)
+    return {"linesearch_costs": ms, "replay": ms}
+
+
 def mid_rest(model) -> torch.Tensor:
     """At rest at the middle of each joint's limits, (2n,) on the card (the
     zero pose lies outside the catalog Panda's joint-4 limit)."""
@@ -537,8 +562,9 @@ def single_path(panda, single, attrs: dict, card: str) -> list:
     ):
         label = f"panda single H={us_c.shape[0]} reg={reg}"
         errs, args, ms = single_stage_parity(S, x0_c, goal_c, us_c, label, calls, reg)
-        if errs["backward"] != 0.0:  # K7 does the plain version's operations in its order
-            raise AssertionError(f"{label} backward: max |d| = {errs['backward']}, not 0")
+        for stage in ("backward", "forward"):  # K7 and K8 do the plain version's operations in its order
+            if errs[stage] != 0.0:
+                raise AssertionError(f"{label} {stage}: max |d| = {errs[stage]}, not 0")
         err = {k: max(err[k], errs[k]) for k in err}
         if calls:
             stage_args, plain_ms = args, ms
@@ -645,13 +671,15 @@ def single_path(panda, single, attrs: dict, card: str) -> list:
         records.append({
             "name": name, "route": "cuda", "source": SINGLE_SOURCE, "replaces": replaces,
             "launches": launches[stage], "max_abs_err": err[stage],
-            "tolerance": "0" if stage == "backward" else f"{MPC_RTOL} x max|plain|",
+            "tolerance": "0" if stage in ("backward", "forward") else f"{MPC_RTOL} x max|plain|",
             "ms": ms[stage], "plain_ms": plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
             "chain_bound_ms": chain[stage], "chain_bound": "estimate: longest chain of emitted statements x "
             f"{CHAIN_CYCLES} cycles at clocks.max.sm", "library_ms": None,
             "num_regs": attrs[stage]["num_regs"], "local_bytes": attrs[stage]["local_bytes"],
             "smem_bytes": attrs[stage]["smem_bytes"],
         })
+        if stage == "forward":
+            records[-1].update(team_figures(S))
     return records
 
 # ---------------------------------------------------------------------------
@@ -959,7 +987,7 @@ def planning_time(ur5, gen: torch.Generator, inputs_on_path: dict, card: str):
     # the card's largest SM clock, as for K6-K8.
     q0, dq0, tau = inputs_on_path["rollout"]
     engine = build_cuda_rollout(ur5, dt=DT_PLAN)
-    chain = cgen.chain_length(engine.source)  # links of one step
+    chain = engine.chain  # links of one step
     mhz = float(card_line("clocks.max.sm").split()[0])
     one_step = tau[:, :2].contiguous()
     for label, taus, ms in (
@@ -1062,6 +1090,9 @@ def main() -> int:
             group = {"seeds_per_thread": K.LIN_SEEDS, "group_statements": K.statements["linearize_group"]} \
                 if isinstance(K, BatchMPCKernels) and stage == "linearize" else {}
             phase("build", kernel=names[stage][0], robot=robot, statements=K.statements[stage], **group, **a)
+        if robot != "ur5":
+            phase("build", kernel=names["replay" if robot == "panda" else "forward"][0], robot=robot,
+                  **team_figures(K))
     if mpc_attrs["panda single"]["backward"]["local_bytes"] != 0:  # its state lives in shared memory
         raise AssertionError(f"K7 uses local memory: {mpc_attrs['panda single']['backward']}")
     # 13. The static unit of K9 and K10.
@@ -1184,8 +1215,9 @@ def main() -> int:
     for nominal, x0_c, goals_c, us_c, full, reg in cases:
         B, H = us_c.shape[2], us_c.shape[0]
         errs, args, plain_ms = mpc_stage_parity(K, x0_c, goals_c, us_c, f"panda B={B} H={H} reg={reg}", full, reg=reg)
-        if errs["linearize"] != 0.0:  # K2 does the plain version's operations in its order
-            raise AssertionError(f"panda B={B} H={H} linearize: max |d| = {errs['linearize']}, not 0")
+        for stage in ("linearize", "replay"):  # K2 and K5 do the plain version's operations in its order
+            if errs[stage] != 0.0:
+                raise AssertionError(f"panda B={B} H={H} {stage}: max |d| = {errs[stage]}, not 0")
         if full:
             stage_args, stage_plain_ms = args, plain_ms
         mpc_err = {k: max(mpc_err[k], errs[k]) for k in mpc_err}
@@ -1259,6 +1291,7 @@ def main() -> int:
     phase("mpc_time_plain", card=repr(card), robot="panda", B=B_MPC, H=H_MPC,
           **{f"{s}_plain_ms": f"{v:.2f}" for s, v in stage_plain_ms.items()},
           **{f"plain_solve_ms_B{Bs}_H{Hs}": f"{small_plain_ms:.1f}", f"kernel_solve_ms_B{Bs}_H{Hs}": f"{small_kernel_ms:.4f}"})
+    replay_err_by_B = {}
     for B in (B_MPC,) + B_MPC_WIDE:
         if B == B_MPC:
             handle, x0_b, args = mpc, x0, stage_args
@@ -1269,6 +1302,11 @@ def main() -> int:
             args = mpc_stage_parity(K, x0_b, goals_b, us_b, f"panda B={B}", False, check=False)[1]
         ms = {s: time_ms(lambda s=s: getattr(K, s)(*args[s])) for s in MPC_KERNELS}
         solve = time_ms(lambda: handle.solve(x0_b, torch.zeros((B, H_MPC, 7), **f32)))
+        # K5 bit for bit at every width (after the timings: the plain version runs long).
+        got, ref = K.replay(*args["replay"]), K.replay_plain(*args["replay"])
+        replay_err_by_B[B] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        if replay_err_by_B[B] != 0.0 or not all(bool(torch.isfinite(r).all()) for r in ref):
+            raise AssertionError(f"panda B={B} replay: max |d| = {replay_err_by_B[B]}, not 0")
         kernel_sum = sum(ms[s] * per_solve[s] for s in MPC_KERNELS)
         if B == B_MPC:
             stage_ms = ms
@@ -1284,23 +1322,32 @@ def main() -> int:
         phase("mpc_time", card=repr(card), robot="panda", B=B, H=H_MPC, iterations=ITERS,
               **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()}, solve_ms=f"{solve:.4f}",
               solves_per_s=f"{B / (solve * 1e-3):.4e}", kernels_ms_per_solve=f"{kernel_sum:.4f}",
-              kernel_share=f"{kernel_sum / solve:.4f}",
+              kernel_share=f"{kernel_sum / solve:.4f}", replay_max_abs_err=f"{replay_err_by_B[B]:.3e}",
               backward_GBps=f"{k3_bytes / (ms['backward'] * 1e6):.1f}",
               backward_Gops_per_s=f"{k3_ops / (ms['backward'] * 1e6):.1f}",
               **{k: f"{v:.1f}" for k, v in rates.items()})
 
     bo = stage_bytes_ops(K, B_MPC, H_MPC, ALPHAS)
+    batch_chain = batch_chain_ms(K, H_MPC)
+    phase("mpc_chain", robot="panda", H=H_MPC, clocks_max_sm=repr(card_line("clocks.max.sm")),
+          cycles_per_link=CHAIN_CYCLES, **{f"{s}_links": v for s, v in K.chains.items()},
+          **{f"{s}_chain_bound_ms": f"{v:.5f}" for s, v in batch_chain.items()})
     for stage, (name, replaces) in MPC_KERNELS.items():
         b_ms, b_by = bound(*bo[stage])
         a = mpc_attrs["panda"][stage]
         records.append({
             "name": name, "route": "cuda", "source": MPC_SOURCE, "replaces": replaces,
             "launches": mpc_launches[stage], "max_abs_err": mpc_err[stage],
-            "tolerance": "0" if stage == "linearize" else f"{MPC_RTOL} x max|plain|",
+            "tolerance": "0" if stage in ("linearize", "replay") else f"{MPC_RTOL} x max|plain|",
             "ms": stage_ms[stage], "plain_ms": stage_plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "num_regs": a["num_regs"], "local_bytes": a["local_bytes"],
             "smem_bytes": a["smem_bytes"],
         })
+        if stage in batch_chain:
+            records[-1].update(chain_bound_ms=batch_chain[stage], chain_bound="estimate: longest chain of emitted "
+                               f"statements x {CHAIN_CYCLES} cycles at clocks.max.sm")
+        if stage == "replay":
+            records[-1].update(team_figures(K), max_abs_err_by_B=replay_err_by_B)
         if stage == "linearize":
             records[-1].update(seeds_per_thread=K.LIN_SEEDS, group_statements=K.statements["linearize_group"],
                                Gops_per_s=lin_rates["linearize_Gops_per_s"],

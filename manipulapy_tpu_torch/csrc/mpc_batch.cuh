@@ -16,7 +16,10 @@
 //     LIN: #define MPT_LIN_SEEDS <G>, MPT_LIN_BLOCK <threads>,
 //          fd_step_jvp_group (ops/fd_step.py::build_fd_step_jvp_group_source);
 //     BWD: riccati_terminal, riccati_step;
-//     FWD: mpc_fwd_step, mpc_terminal (one body, two entry points);
+//     FWD: #define MPT_TEAM_S <scenarios a team>, MPT_TEAM_PER_BLOCK
+//          <teams a block>; mpc_fwd_step, mpc_terminal (K4), and the same
+//          step split over a team of warps (mpt_fwd_team, with
+//          ops/cgen.py::TEAM_SOURCE) for K5;
 //   this file.
 // The three units build in parallel, one nvcc each.
 //
@@ -53,10 +56,21 @@
 //       phases' longest sums. From B=4096 on, shared-memory loads (both
 //       operands of every product) most likely bound it (PERF.md).
 //   K4: one thread per (scenario, alpha), the closed-loop rollout with the
-//       step inlined; K5 one thread per scenario with its own alpha,
-//       streaming out xs, us and the cost. Operations set K4's least time
-//       and bytes K5's (~5k statements per step); at B=1024 both are
-//       latency-bound: B threads fill few of the 132 SMs.
+//       step inlined. Operations set its least time (~5k statements per
+//       step); at B=1024 it is latency-bound: B threads fill few of the
+//       132 SMs.
+//   K5: a team of MPT_FWD_TEAM_W warps per MPT_TEAM_S scenarios (on the
+//       lanes), MPT_TEAM_PER_BLOCK teams a block: each closed-loop step is
+//       the emitted step partitioned into one straight-line program per
+//       warp over MPT_FWD_TEAM_P phases (ops/cgen.py::team_function), the
+//       team's named barrier between phases, values that cross warps in
+//       shared-memory slots, the next step's rows on their way by cp.async.
+//       Every statement is the emitted one, so the bits are the plain
+//       version's. What bounds it is the instruction stream, not the
+//       dependent chain: the step is ~6k instructions of straight-line code
+//       (~12k split over 8 warps, the slots' loads and stores included)
+//       that no instruction cache holds, so each SM fetches it anew every
+//       step (PERF.md section 6).
 // Every kernel is built with --fmad=false and the emitter's order of
 // operations, so each agrees bitwise with its plain PyTorch version.
 //
@@ -64,7 +78,8 @@
 // index, and K3's phases plain functions of the lane: a host harness
 // compiles this file with `__device__` defined away (and MPT_HOST_TEAM
 // defined, so each of K3's phases runs lanes 0..31 in turn) and runs them in
-// a loop (tests/test_torch_mpc_batch.py).
+// a loop; K5's team function runs there with each thread a coroutine that
+// yields at every barrier (tests/test_torch_mpc_batch.py).
 
 #include <stddef.h>
 #ifdef __CUDACC__
@@ -545,11 +560,152 @@ static __device__ __forceinline__ void cost_thread(
       fwd_rollout(x0, sd_x, sd_u, kK, goal, alphas[a], NULL, NULL, B, H, b);
 }
 
-static __device__ __forceinline__ void replay_thread(
-    const float* x0, const float* sd_x, const float* sd_u, const float* kK,
-    const float* goal, const float* alpha, float* xs, float* us, float* cost,
-    int B, int H, int b) {
-  cost[b] = fwd_rollout(x0, sd_x, sd_u, kK, goal, alpha[b], xs, us, B, H, b);
+// K5: a team of MPT_FWD_TEAM_W warps owns MPT_TEAM_S scenarios, scenario
+// b0 + s on lane s of every warp (lanes s + S, s + 2S, ... repeat lane s's
+// work in the same columns, and only lane s stores). Each step is the
+// emitted team step `mpt_fwd_team` (ops/cgen.py::team_function): warp w runs
+// its own straight-line program over MPT_FWD_TEAM_P phases, the team's named
+// barrier between them; values that cross warps go through slots. Storage
+// of one team, in floats, each value a column of MPT_TEAM_S lanes:
+//   XIN   2 x nx     the state of step t in buffer t & 1, written by step t-1
+//   ROWS  2 x ROWN   sd_x, sd_u, kK of step t in buffer t & 1 (cp.async)
+//   GOAL  n
+//   OB    2 x (n+1)  u, then the running cost, of step t in buffer t & 1
+//   SLOTS MPT_FWD_TEAM_SLOTS
+#if !defined(MPT_TEAM_S) || !defined(MPT_TEAM_PER_BLOCK) || !defined(MPT_FWD_TEAM_W)
+#error "MPT_TEAM_S, MPT_TEAM_PER_BLOCK and the emitted team step must come before K5"
+#endif
+#if 32 % MPT_TEAM_S != 0 || MPT_TEAM_S % 4 != 0 || MPT_TEAM_PER_BLOCK > 15 || MPT_FWD_TEAM_W * MPT_TEAM_PER_BLOCK > 32
+#error "a team's S must divide 32 and be a multiple of 4; a block holds at most 15 teams and 32 warps"
+#endif
+#define MPT_ROWN (MPT_NX + MPT_NJ + MPT_NJ * MPT_KK)
+#define MPT_TEAM_THREADS (32 * MPT_FWD_TEAM_W)
+#define MPT_T_XIN 0
+#define MPT_T_ROWS (MPT_T_XIN + 2 * MPT_NX * MPT_TEAM_S)
+#define MPT_T_GOAL (MPT_T_ROWS + 2 * MPT_ROWN * MPT_TEAM_S)
+#define MPT_T_OB (MPT_T_GOAL + MPT_NJ * MPT_TEAM_S)
+#define MPT_T_SLOTS (MPT_T_OB + 2 * (MPT_NJ + 1) * MPT_TEAM_S)
+#define MPT_T_FLOATS (MPT_T_SLOTS + MPT_FWD_TEAM_SLOTS * MPT_TEAM_S)
+#define MPT_T_BYTES ((size_t)MPT_T_FLOATS * sizeof(float))
+// Teams a block: MPT_TEAM_PER_BLOCK where their storage fits the 232448
+// bytes of shared memory a block may take, else as many as fit (a robot with
+// more joints has more slots).
+#define MPT_SMEM_MAX 232448
+#if MPT_T_FLOATS * 4 > MPT_SMEM_MAX
+#error "one team's storage exceeds the shared memory a block may take"
+#endif
+#define MPT_TEAMS (MPT_TEAM_PER_BLOCK * MPT_T_FLOATS * 4 <= MPT_SMEM_MAX ? MPT_TEAM_PER_BLOCK \
+                   : MPT_SMEM_MAX / (MPT_T_FLOATS * 4))
+
+// x0 and the goals of the team's scenarios into XIN buffer 0 and GOAL
+// (zeros past B).
+static __device__ __forceinline__ void replay_team_init(
+    int tid, float* tm, const float* __restrict__ x0, const float* __restrict__ goal,
+    int B, int b0) {
+  for (int e = tid; e < (MPT_NX + MPT_NJ) * MPT_TEAM_S; e += MPT_TEAM_THREADS) {
+    const int k = e / MPT_TEAM_S, s = e % MPT_TEAM_S, b = b0 + s;
+    if (k < MPT_NX) tm[MPT_T_XIN + e] = b < B ? MPT_AT(x0, k, b, B) : 0.0f;
+    else tm[MPT_T_GOAL + e - MPT_NX * MPT_TEAM_S] = b < B ? MPT_AT(goal, k - MPT_NX, b, B) : 0.0f;
+  }
+}
+
+// One block of step t's rows (`rows` of them from row t * rows of `src`) of
+// the team's scenarios into `dst`, value-major (element e: value e / S of
+// scenario e % S), so consecutive threads copy consecutive scenarios of one
+// row. By 4 scenarios a copy where B % 4 == 0 (16 aligned bytes, the team's
+// four scenarios all below B or all past it), else one.
+static __device__ __forceinline__ void replay_team_block(
+    int tid, float* dst, const float* __restrict__ src, int rows, int B, int b0, int t) {
+  const float* base = src + (size_t)t * rows * (size_t)B + b0;
+  if (B % 4 == 0) {
+    for (int e = 4 * tid; e < rows * MPT_TEAM_S; e += 4 * MPT_TEAM_THREADS) {
+      const int k = e / MPT_TEAM_S, s = e % MPT_TEAM_S;
+      const bool ok = b0 + s < B;
+      mpt_team_copy4(dst + e, ok ? base + (size_t)k * B + s : src, ok);
+    }
+  } else {
+    for (int e = tid; e < rows * MPT_TEAM_S; e += MPT_TEAM_THREADS) {
+      const int k = e / MPT_TEAM_S, s = e % MPT_TEAM_S;
+      const bool ok = b0 + s < B;
+      mpt_team_copy(dst + e, ok ? base + (size_t)k * B + s : src, ok);
+    }
+  }
+}
+
+// Step t's rows of the team's scenarios (sd_x, sd_u, kK) into ROWS buffer
+// t & 1, one group of copies.
+static __device__ __forceinline__ void replay_team_rows(
+    int tid, float* tm, const float* __restrict__ sd_x, const float* __restrict__ sd_u,
+    const float* __restrict__ kK, int B, int b0, int t) {
+  float* dst = tm + MPT_T_ROWS + (t & 1) * MPT_ROWN * MPT_TEAM_S;
+  replay_team_block(tid, dst, sd_x, MPT_NX, B, b0, t);
+  replay_team_block(tid, dst + MPT_NX * MPT_TEAM_S, sd_u, MPT_NJ, B, b0, t);
+  replay_team_block(tid, dst + (MPT_NX + MPT_NJ) * MPT_TEAM_S, kK, MPT_NJ * MPT_KK, B, b0, t);
+  mpt_team_commit();
+}
+
+// Step t's post-step state and controls of the team's scenarios to rows t
+// of xs and us, one coalesced row at a time; thread s < S adds scenario s's
+// running cost to its sum, in the order of the steps.
+static __device__ __forceinline__ void replay_team_store(
+    int tid, const float* tm, float* __restrict__ xs, float* __restrict__ us, float* acc,
+    int B, int b0, int t) {
+  const float* x_next = tm + MPT_T_XIN + ((t + 1) & 1) * MPT_NX * MPT_TEAM_S;
+  const float* ob = tm + MPT_T_OB + (t & 1) * (MPT_NJ + 1) * MPT_TEAM_S;
+  for (int e = tid; e < (MPT_NX + MPT_NJ) * MPT_TEAM_S; e += MPT_TEAM_THREADS) {
+    const int k = e / MPT_TEAM_S, s = e % MPT_TEAM_S, b = b0 + s;
+    if (b < B) {
+      if (k < MPT_NX) MPT_AT(xs, (size_t)t * MPT_NX + k, b, B) = x_next[e];
+      else MPT_AT(us, (size_t)t * MPT_NJ + (k - MPT_NX), b, B) = ob[e - MPT_NX * MPT_TEAM_S];
+    }
+  }
+  if (tid < MPT_TEAM_S) *acc = *acc + ob[MPT_NJ * MPT_TEAM_S + tid];
+}
+
+// Thread s < S: scenario b0 + s's terminal cost, added to its running sum.
+static __device__ __forceinline__ void replay_team_finish(
+    int tid, const float* tm, float acc, float* __restrict__ cost, int B, int b0, int H) {
+  if (tid < MPT_TEAM_S && b0 + tid < B) {
+    const float* xin = tm + MPT_T_XIN + (H & 1) * MPT_NX * MPT_TEAM_S;
+    float x[MPT_NX], g[MPT_NJ], c[1];
+#pragma unroll
+    for (int i = 0; i < MPT_NX; ++i) x[i] = xin[i * MPT_TEAM_S + tid];
+#pragma unroll
+    for (int j = 0; j < MPT_NJ; ++j) g[j] = tm[MPT_T_GOAL + j * MPT_TEAM_S + tid];
+    mpc_terminal(x, g, c);
+    cost[b0 + tid] = acc + c[0];
+  }
+}
+
+// The replay of scenarios b0 .. b0+S-1 by thread `tid` of their team, whose
+// barrier is `bar`. Step t+1's rows are on their way while step t runs; the
+// team meets after the step's last phase, once they have landed. Every
+// thread runs every step and barrier; only the stores look at B.
+static __device__ __forceinline__ void replay_team(
+    int tid, int bar, float* tm, const float* __restrict__ x0,
+    const float* __restrict__ sd_x, const float* __restrict__ sd_u,
+    const float* __restrict__ kK, const float* __restrict__ goal,
+    const float* __restrict__ alpha, float* __restrict__ xs, float* __restrict__ us,
+    float* __restrict__ cost, int B, int H, int b0) {
+  const int w = tid / 32, ln = tid % MPT_TEAM_S;
+  const float a = b0 + ln < B ? alpha[b0 + ln] : 0.0f;
+  float acc = 0.0f;
+  replay_team_init(tid, tm, x0, goal, B, b0);
+  replay_team_rows(tid, tm, sd_x, sd_u, kK, B, b0, 0);
+  mpt_team_wait_all();
+  mpt_team_sync(bar, MPT_TEAM_THREADS);
+  for (int t = 0; t < H; ++t) {
+    if (t + 1 < H) replay_team_rows(tid, tm, sd_x, sd_u, kK, B, b0, t + 1);
+    mpt_fwd_team(w, bar, tm + MPT_T_XIN + (t & 1) * MPT_NX * MPT_TEAM_S + ln,
+                 tm + MPT_T_ROWS + (t & 1) * MPT_ROWN * MPT_TEAM_S + ln, tm + MPT_T_GOAL + ln,
+                 tm + MPT_T_OB + (t & 1) * (MPT_NJ + 1) * MPT_TEAM_S + ln,
+                 tm + MPT_T_XIN + ((t + 1) & 1) * MPT_NX * MPT_TEAM_S + ln,
+                 tm + MPT_T_SLOTS + ln, a);
+    mpt_team_wait_all();
+    mpt_team_sync(bar, MPT_TEAM_THREADS);
+    replay_team_store(tid, tm, xs, us, &acc, B, b0, t);
+  }
+  replay_team_finish(tid, tm, acc, cost, B, b0, H);
 }
 
 #ifdef __CUDACC__
@@ -563,15 +719,18 @@ __global__ void __launch_bounds__(MPT_BLOCK) mpt_cost_kernel(
   cost_thread(x0, sd_x, sd_u, kK, goal, alphas, costs, B, H, b, (int)blockIdx.y);
 }
 
-__global__ void __launch_bounds__(MPT_BLOCK) mpt_replay_kernel(
+__global__ void __launch_bounds__(MPT_TEAM_THREADS * MPT_TEAMS) mpt_replay_kernel(
     const float* __restrict__ x0, const float* __restrict__ sd_x,
     const float* __restrict__ sd_u, const float* __restrict__ kK,
     const float* __restrict__ goal, const float* __restrict__ alpha,
     float* __restrict__ xs, float* __restrict__ us, float* __restrict__ cost,
     int B, int H) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  replay_thread(x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H, b);
+  extern __shared__ float mpt_team_smem[];
+  const int team = (int)threadIdx.x / MPT_TEAM_THREADS;
+  const int b0 = ((int)blockIdx.x * MPT_TEAMS + team) * MPT_TEAM_S;
+  if (b0 >= B) return;  // the whole team: its barrier is its own
+  replay_team((int)threadIdx.x % MPT_TEAM_THREADS, 1 + team, mpt_team_smem + (size_t)team * MPT_T_FLOATS,
+              x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H, b0);
 }
 
 // x0 (nx, B), sd_x (H, nx, B), sd_u (H, n, B), kK (H, n, 1+nx, B),
@@ -589,17 +748,43 @@ extern "C" int launch_linesearch_costs(const float* x0, const float* sd_x,
 }
 
 // The same inputs with one alpha per scenario, alpha (B) -> xs (H, nx, B),
-// us (H, n, B), cost (B).
+// us (H, n, B), cost (B). Blocks of MPT_TEAMS teams; the teams'
+// storage is dynamic shared memory, whose limit is raised once per device.
+#define MPT_REPLAY_SMEM (MPT_T_BYTES * MPT_TEAMS)
 extern "C" int launch_replay(const float* x0, const float* sd_x,
                              const float* sd_u, const float* kK,
                              const float* goal, const float* alpha, float* xs,
                              float* us, float* cost, int B, int H,
                              void* stream) {
+  static bool raised[64];
   if (B <= 0) return 0;
-  const unsigned int blocks = (unsigned int)((B + MPT_BLOCK - 1) / MPT_BLOCK);
-  mpt_replay_kernel<<<blocks, MPT_BLOCK, 0, (cudaStream_t)stream>>>(
-      x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(mpt_replay_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)MPT_REPLAY_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    raised[dev] = true;
+  }
+  const long long teams = ((long long)B + MPT_TEAM_S - 1) / MPT_TEAM_S;
+  const unsigned int blocks = (unsigned int)((teams + MPT_TEAMS - 1) / MPT_TEAMS);
+  mpt_replay_kernel<<<blocks, MPT_TEAM_THREADS * MPT_TEAMS, MPT_REPLAY_SMEM,
+                      (cudaStream_t)stream>>>(x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H);
   return (int)cudaGetLastError();
+}
+
+// K5's team: warps, scenarios a team, teams a block, phases a step, slots,
+// and the dynamic shared bytes of a block.
+extern "C" int team_replay(int* out) {
+  out[0] = MPT_FWD_TEAM_W;
+  out[1] = MPT_TEAM_S;
+  out[2] = MPT_TEAMS;
+  out[3] = MPT_FWD_TEAM_P;
+  out[4] = MPT_FWD_TEAM_SLOTS;
+  out[5] = (int)MPT_REPLAY_SMEM;
+  return 0;
 }
 MPT_ATTRIBUTES(attributes_linesearch_costs, mpt_cost_kernel)
 MPT_ATTRIBUTES(attributes_replay, mpt_replay_kernel)

@@ -16,7 +16,9 @@
 //     BWD: the folded weights MPT_BWD_2WX, MPT_BWD_2WU only: K7's phases
 //       do the operations of riccati_step_gj (the Gauss-Jordan Riccati step
 //       of fused.py), written by hand in the same order;
-//     FWD: mpc_fwd_step (K4's closed-loop step), mpc_terminal_fused;
+//     FWD: mpc_fwd_step (K4's closed-loop step), mpc_terminal_fused, and
+//       the same step split over a team of warps (mpt_fwd_team, with
+//       ops/cgen.py::TEAM_SOURCE);
 //   this file.
 // The three units build in parallel, one nvcc each.
 //
@@ -41,15 +43,19 @@
 //       pivot-free Gauss-Jordan of fused.py one pivot a phase. H dependent
 //       steps of ~30k operations (Panda) spread over the block: bound by
 //       the phases' dependent chains and barriers.
-//   K8: one thread per alpha, the closed-loop rollout with the step inlined,
-//       streaming out xs and us and writing the cost.
+//   K8: one team of MPT_FWD_TEAM_W warps a block runs the closed loops of
+//       32 alphas (one a lane), each step the emitted step partitioned over
+//       the warps as K5's (ops/cgen.py::team_function), the next step's rows
+//       by cp.async; xs, us and the costs leave after each step. Bound by
+//       the instruction stream of its ~12k-instruction step, as K5.
 // Every kernel is built with --fmad=false and the emitter's order of
 // operations, so each agrees bitwise with its plain PyTorch version.
 //
 // The per-thread bodies (`*_thread`) and K7's phases are plain functions: a
 // host harness compiles this file with `__device__` defined away (and
 // MPT_HOST_TEAM defined, so each of K7's phases runs threads 0..T-1 in turn)
-// and runs them in a loop (tests/test_torch_mpc_single.py).
+// and runs them in a loop; K8's team function runs there with each thread a
+// coroutine that yields at every barrier (tests/test_torch_mpc_single.py).
 
 #include <stddef.h>
 #ifdef __CUDACC__
@@ -473,70 +479,169 @@ MPT_ATTRIBUTES(attributes_backward, mps_bwd_block_kernel)
 
 // ---------------------------------------------------------------- K8 -----
 #if defined(MPT_UNIT_FWD)
-// The closed-loop rollout under alpha a: post-step states and controls to
-// xs_out / us_out at row a, the total cost to costs[a].
-static __device__ __forceinline__ void fwd_thread(
-    const float* __restrict__ x0, const float* __restrict__ sd_x,
+#if !defined(MPT_FWD_TEAM_W) || !defined(MPT_TS)
+#error "the emitted team step must come before K8"
+#endif
+// A block is one team of MPT_FWD_TEAM_W warps that rolls alphas a0 .. a0+31
+// (a0 = 32 * blockIdx.x), alpha a0 + l on lane l of every warp (lanes past A
+// repeat the last alpha in their own columns, and store nothing). Each step
+// is the emitted team step `mpt_fwd_team` (ops/cgen.py::team_function):
+// warp w runs its own straight-line program over MPT_FWD_TEAM_P phases, the
+// block's barrier between them; values that cross warps go through slots.
+// Storage, in floats; per-alpha values are columns of 32 lanes, the rows
+// (sd_x, sd_u, kK of a step) and the goal one copy that every lane reads:
+//   XIN   2 x nx x 32  the state of step t in buffer t & 1
+//   ROWS  2 x ROWN     step t's rows in buffer t & 1 (cp.async)
+//   GOAL  n
+//   OB    2 x (n+1) x 32  u, then the running cost, of step t in buffer t & 1
+//   SLOTS MPT_FWD_TEAM_SLOTS x 32
+#define MPT_ROWN (MPT_NX + MPT_NJ + MPT_NJ * MPT_KK)
+#define MPT_TEAM_THREADS (MPT_WARP * MPT_FWD_TEAM_W)
+#define MPT_T_XIN 0
+#define MPT_T_ROWS (2 * MPT_NX * MPT_WARP)
+#define MPT_T_GOAL (MPT_T_ROWS + 2 * MPT_ROWN)
+#define MPT_T_OB (MPT_T_GOAL + MPT_NJ)
+#define MPT_T_SLOTS (MPT_T_OB + 2 * (MPT_NJ + 1) * MPT_WARP)
+#define MPT_T_FLOATS (MPT_T_SLOTS + MPT_FWD_TEAM_SLOTS * MPT_WARP)
+#define MPT_T_BYTES ((size_t)MPT_T_FLOATS * sizeof(float))
+
+// x0 into every lane's column of XIN buffer 0, and the goal.
+static __device__ __forceinline__ void fwd_team_init(
+    int tid, float* tm, const float* __restrict__ x0, const float* __restrict__ goal) {
+  for (int e = tid; e < MPT_NX * MPT_WARP + MPT_NJ; e += MPT_TEAM_THREADS) {
+    if (e < MPT_NX * MPT_WARP) tm[MPT_T_XIN + e] = x0[e / MPT_WARP];
+    else tm[MPT_T_GOAL + e - MPT_NX * MPT_WARP] = goal[e - MPT_NX * MPT_WARP];
+  }
+}
+
+// Step t's rows into ROWS buffer t & 1, one group of copies.
+static __device__ __forceinline__ void fwd_team_rows(
+    int tid, float* tm, const float* __restrict__ sd_x, const float* __restrict__ sd_u,
+    const float* __restrict__ kK, int t) {
+  float* dst = tm + MPT_T_ROWS + (t & 1) * MPT_ROWN;
+  for (int k = tid; k < MPT_ROWN; k += MPT_TEAM_THREADS) {
+    const float* src;
+    if (k < MPT_NX) src = sd_x + (size_t)t * MPT_NX + k;
+    else if (k < MPT_NX + MPT_NJ) src = sd_u + (size_t)t * MPT_NJ + (k - MPT_NX);
+    else src = kK + (size_t)t * MPT_NJ * MPT_KK + (k - MPT_NX - MPT_NJ);
+    mpt_team_copy(dst + k, src, true);
+  }
+  mpt_team_commit();
+}
+
+// Step t's post-step states and controls of alphas a0 .. a0+31 to xs[a, t]
+// and us[a, t]; thread l < 32 adds alpha a0 + l's running cost to its sum.
+static __device__ __forceinline__ void fwd_team_store(
+    int tid, const float* tm, float* __restrict__ xs, float* __restrict__ us, float* acc,
+    int H, int A, int a0, int t) {
+  const float* x_next = tm + MPT_T_XIN + ((t + 1) & 1) * MPT_NX * MPT_WARP;
+  const float* ob = tm + MPT_T_OB + (t & 1) * (MPT_NJ + 1) * MPT_WARP;
+  for (int e = tid; e < (MPT_NX + MPT_NJ) * MPT_WARP; e += MPT_TEAM_THREADS) {
+    const int l = e / (MPT_NX + MPT_NJ), k = e % (MPT_NX + MPT_NJ);
+    if (a0 + l < A) {
+      const size_t row = (size_t)(a0 + l) * H + t;
+      if (k < MPT_NX) xs[row * MPT_NX + k] = x_next[k * MPT_WARP + l];
+      else us[row * MPT_NJ + (k - MPT_NX)] = ob[(k - MPT_NX) * MPT_WARP + l];
+    }
+  }
+  if (tid < MPT_WARP) *acc = *acc + ob[MPT_NJ * MPT_WARP + tid];
+}
+
+// Thread l < 32: alpha a0 + l's terminal cost, added to its running sum.
+static __device__ __forceinline__ void fwd_team_finish(
+    int tid, const float* tm, float acc, float* __restrict__ costs, int H, int A, int a0) {
+  if (tid < MPT_WARP && a0 + tid < A) {
+    const float* xin = tm + MPT_T_XIN + (H & 1) * MPT_NX * MPT_WARP;
+    float x[MPT_NX], g[MPT_NJ], c[1];
+#pragma unroll
+    for (int i = 0; i < MPT_NX; ++i) x[i] = xin[i * MPT_WARP + tid];
+#pragma unroll
+    for (int j = 0; j < MPT_NJ; ++j) g[j] = tm[MPT_T_GOAL + j];
+    mpc_terminal_fused(x, g, c);
+    costs[a0 + tid] = acc + c[0];
+  }
+}
+
+// The closed loops of alphas a0 .. a0+31 by thread `tid` of the block's
+// team (barrier 1). Step t+1's rows are on their way while step t runs;
+// the team meets after the step's last phase, once they have landed.
+static __device__ __forceinline__ void fwd_team(
+    int tid, float* tm, const float* __restrict__ x0, const float* __restrict__ sd_x,
     const float* __restrict__ sd_u, const float* __restrict__ kK,
     const float* __restrict__ goal, const float* __restrict__ alphas,
-    float* __restrict__ xs_out, float* __restrict__ us_out,
-    float* __restrict__ costs, int H, int a) {
-  float x[MPT_NX], g[MPT_NJ], sdx[MPT_NX], sdu[MPT_NJ], kk[MPT_NJ * MPT_KK];
-  float u[MPT_NJ], c[1], x_next[MPT_NX];
-#pragma unroll
-  for (int i = 0; i < MPT_NX; ++i) x[i] = x0[i];
-#pragma unroll
-  for (int j = 0; j < MPT_NJ; ++j) g[j] = goal[j];
-  const float alpha = alphas[a];
+    float* __restrict__ xs, float* __restrict__ us, float* __restrict__ costs,
+    int H, int A, int a0) {
+  const int w = tid / MPT_WARP, l = tid % MPT_WARP;
+  const float alpha = alphas[a0 + l < A ? a0 + l : A - 1];
   float acc = 0.0f;
+  fwd_team_init(tid, tm, x0, goal);
+  fwd_team_rows(tid, tm, sd_x, sd_u, kK, 0);
+  mpt_team_wait_all();
+  mpt_team_sync(1, MPT_TEAM_THREADS);
   for (int t = 0; t < H; ++t) {
-#pragma unroll
-    for (int i = 0; i < MPT_NX; ++i) sdx[i] = sd_x[t * MPT_NX + i];
-#pragma unroll
-    for (int j = 0; j < MPT_NJ; ++j) sdu[j] = sd_u[t * MPT_NJ + j];
-    const size_t kk_row = (size_t)t * (MPT_NJ * MPT_KK);
-#pragma unroll
-    for (int e = 0; e < MPT_NJ * MPT_KK; ++e) kk[e] = kK[kk_row + e];
-    mpc_fwd_step(x, sdx, sdu, kk, g, alpha, u, c, x_next);
-    acc = acc + c[0];
-    const size_t row = (size_t)a * H + t;
-#pragma unroll
-    for (int i = 0; i < MPT_NX; ++i) {
-      x[i] = x_next[i];
-      xs_out[row * MPT_NX + i] = x[i];
-    }
-#pragma unroll
-    for (int j = 0; j < MPT_NJ; ++j) us_out[row * MPT_NJ + j] = u[j];
+    if (t + 1 < H) fwd_team_rows(tid, tm, sd_x, sd_u, kK, t + 1);
+    mpt_fwd_team(w, 1, tm + MPT_T_XIN + (t & 1) * MPT_NX * MPT_WARP + l,
+                 tm + MPT_T_ROWS + (t & 1) * MPT_ROWN, tm + MPT_T_GOAL,
+                 tm + MPT_T_OB + (t & 1) * (MPT_NJ + 1) * MPT_WARP + l,
+                 tm + MPT_T_XIN + ((t + 1) & 1) * MPT_NX * MPT_WARP + l,
+                 tm + MPT_T_SLOTS + l, alpha);
+    mpt_team_wait_all();
+    mpt_team_sync(1, MPT_TEAM_THREADS);
+    fwd_team_store(tid, tm, xs, us, &acc, H, A, a0, t);
   }
-  mpc_terminal_fused(x, g, c);
-  costs[a] = acc + c[0];
+  fwd_team_finish(tid, tm, acc, costs, H, A, a0);
 }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(MPT_WARP) mps_fwd_kernel(
+__global__ void __launch_bounds__(MPT_TEAM_THREADS) mps_fwd_kernel(
     const float* __restrict__ x0, const float* __restrict__ sd_x,
     const float* __restrict__ sd_u, const float* __restrict__ kK,
     const float* __restrict__ goal, const float* __restrict__ alphas,
     float* __restrict__ xs, float* __restrict__ us, float* __restrict__ costs,
     int H, int A) {
-  const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  if (a >= A) return;
-  fwd_thread(x0, sd_x, sd_u, kK, goal, alphas, xs, us, costs, H, a);
+  extern __shared__ float mpt_team_smem[];
+  fwd_team((int)threadIdx.x, mpt_team_smem, x0, sd_x, sd_u, kK, goal, alphas, xs, us, costs, H, A,
+           (int)blockIdx.x * MPT_WARP);
 }
 
 // x0 (nx), sd_x (H, nx), sd_u (H, n), kK (H, n, 1+nx), goal (n),
-// alphas (A) -> xs (A, H, nx), us (A, H, n), costs (A). One thread per alpha.
+// alphas (A) -> xs (A, H, nx), us (A, H, n), costs (A). One team a block
+// of 32 alphas; its storage is dynamic shared memory, whose limit is
+// raised once per device.
 extern "C" int launch_forward(const float* x0, const float* sd_x,
                               const float* sd_u, const float* kK,
                               const float* goal, const float* alphas, float* xs,
                               float* us, float* costs, int H, int A,
                               void* stream) {
+  static bool raised[64];
   if (H <= 0 || A <= 0) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(mps_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)MPT_T_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    raised[dev] = true;
+  }
   const unsigned int blocks = (unsigned int)((A + MPT_WARP - 1) / MPT_WARP);
-  mps_fwd_kernel<<<blocks, MPT_WARP, 0, (cudaStream_t)stream>>>(
+  mps_fwd_kernel<<<blocks, MPT_TEAM_THREADS, MPT_T_BYTES, (cudaStream_t)stream>>>(
       x0, sd_x, sd_u, kK, goal, alphas, xs, us, costs, H, A);
   return (int)cudaGetLastError();
 }
 MPT_ATTRIBUTES(attributes_forward, mps_fwd_kernel)
+
+// K8's team: warps, alphas a team, teams a block, phases a step, slots, and
+// the dynamic shared bytes of a block.
+extern "C" int team_forward(int* out) {
+  out[0] = MPT_FWD_TEAM_W;
+  out[1] = MPT_WARP;
+  out[2] = 1;
+  out[3] = MPT_FWD_TEAM_P;
+  out[4] = MPT_FWD_TEAM_SLOTS;
+  out[5] = (int)MPT_T_BYTES;
+  return 0;
+}
 #endif
 #endif  // MPT_UNIT_FWD

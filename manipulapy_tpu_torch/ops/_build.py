@@ -106,8 +106,9 @@ def build_library(source: str, name: str, flags: Tuple[str, ...] = ()) -> BuiltL
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             tmp_so.unlink(missing_ok=True)
+            errors = "\n".join(line for line in log.splitlines() if "error" in line)
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {cu_path}:\n{log[-8000:]}"
+                f"nvcc failed ({proc.returncode}) building {cu_path}:\n{errors[:8000]}\n...\n{log[-4000:]}"
             )
         _write_atomic(log_path, log)
         os.replace(tmp_so, so_path)

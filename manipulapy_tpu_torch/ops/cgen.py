@@ -49,9 +49,11 @@ Convention: matrices are row-major nested lists; twists are 6-lists
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import heapq
 import math
-import re
-from typing import List, Sequence, Tuple, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -90,6 +92,11 @@ __all__ = [
     "KEEP_SOURCE",
     "c_function",
     "chain_length",
+    "TEAM_SOURCE",
+    "TeamPartition",
+    "TeamStep",
+    "partition_team",
+    "team_function",
 ]
 
 
@@ -103,16 +110,26 @@ def c_literal(x: float) -> str:
 
 
 class Emitter:
-    """Collects the SSA statements of one straight-line C function body."""
+    """Collects the SSA statements of one straight-line C function body:
+    per statement its C line, its expression and the names of the CVars it
+    reads (``operands``, in the expression's order), so that the dependence
+    graph needs no parsing of the text (:func:`chain_length`,
+    :func:`partition_team`)."""
 
     def __init__(self):
         self.lines: List[str] = []
+        self.exprs: List[str] = []
+        self.operands: List[Tuple[str, ...]] = []
         self._count = 0
 
-    def var(self, expr: str) -> "CVar":
+    def var(self, expr: str, *reads) -> "CVar":
+        """A new statement ``const float tK = expr;``; ``reads`` are the
+        values the expression names (constants among them are ignored)."""
         name = f"t{self._count}"
         self._count += 1
         self.lines.append(f"const float {name} = {expr};")
+        self.exprs.append(expr)
+        self.operands.append(tuple(x.name for x in reads if isinstance(x, CVar)))
         return CVar(self, name)
 
     def ref(self, x) -> str:
@@ -136,7 +153,7 @@ class CVar:
     def _bin(self, op: str, a, b) -> "CVar":
         if isinstance(a, (Dual, Seeds)) or isinstance(b, (Dual, Seeds)):
             return NotImplemented  # the other value's own operator takes over
-        return self.em.var(f"{self.em.ref(a)} {op} {self.em.ref(b)}")
+        return self.em.var(f"{self.em.ref(a)} {op} {self.em.ref(b)}", a, b)
 
     def __add__(self, o):
         return self._bin("+", self, o)
@@ -157,7 +174,7 @@ class CVar:
         return self._bin("*", o, self)
 
     def __neg__(self):
-        return self.em.var(f"-{self.name}")
+        return self.em.var(f"-{self.name}", self)
 
 
 class Dual:
@@ -256,7 +273,7 @@ def keep(x: "Value") -> "Value":
     if isinstance(x, Seeds):
         return Seeds(keep(v) for v in x.v)
     if isinstance(x, CVar):
-        return x.em.var(f"mpt_keep({x.name})")
+        return x.em.var(f"mpt_keep({x.name})", x)
     return x
 
 
@@ -346,7 +363,7 @@ def _unary(x: Value, const_fn, c_name: str, torch_fn) -> Value:
     if is_const(x):
         return float(const_fn(x))
     if isinstance(x, CVar):
-        return x.em.var(f"{c_name}({x.name})")
+        return x.em.var(f"{c_name}({x.name})", x)
     return torch_fn(x)
 
 
@@ -375,7 +392,7 @@ def recip(x: Value) -> Value:
         r = recip(x.p)
         return dual(r, neg(mul(x.t, mul(r, r))))
     if isinstance(x, CVar):
-        return x.em.var(f"{c_literal(1.0)} / {x.name}")
+        return x.em.var(f"{c_literal(1.0)} / {x.name}", x)
     return 1.0 / x
 
 
@@ -399,7 +416,7 @@ def _clip_tangent(p: Value, t: Value, lo: float, hi: float) -> Value:
         inside = " && ".join(f"{p.name} {op} {c_literal(b)}" for op, b in bounds)
         at = " || ".join(f"{p.name} == {c_literal(b)}" for _, b in bounds)
         half = f"{em.ref(t)} * {c_literal(0.5)}"
-        return em.var(f"({inside}) ? {em.ref(t)} : (({at}) ? {half} : {c_literal(0.0)})")
+        return em.var(f"({inside}) ? {em.ref(t)} : (({at}) ? {half} : {c_literal(0.0)})", p, t)
     inside = torch.ones_like(p, dtype=torch.bool)
     at = torch.zeros_like(p, dtype=torch.bool)
     for op, b in bounds:
@@ -422,7 +439,7 @@ def clip(x: Value, lo: float, hi: float) -> Value:
             expr = f"({x.name} > {c_literal(hi)} ? {c_literal(hi)} : {expr})"
         if math.isfinite(lo):
             expr = f"({x.name} < {c_literal(lo)} ? {c_literal(lo)} : {expr})"
-        return x.em.var(expr)
+        return x.em.var(expr, x)
     # maximum, then minimum, as jnp.clip: their derivatives split a tie
     # evenly, so autograd of the tensor emitter follows JAX's clamp rule
     # (torch.clamp's derivative is 1 at a bound). Both keep NaN.
@@ -506,18 +523,10 @@ def ad_T_apply(V: Sequence[Value], F: Sequence[Value]) -> List[Value]:
     return top + [neg(x) for x in cross(w, f)]
 
 
-def c_function(name: str, arrays_in, scalars_in, arrays_out, body, preamble=()):
-    """The C source of ``static __device__ __forceinline__ void name(...)``
-    that runs ``body`` once over CVars.
-
-    ``arrays_in``: ``(name, size)`` of the ``const float`` array inputs;
-    ``scalars_in``: names of the ``float`` scalar inputs; ``arrays_out``:
-    ``(name, size)`` of the output arrays. ``preamble``: ``(decl, names)``
-    pairs, a C parameter declaration and the CVars it defines through
-    ``lines``, a function ``em -> (lines, {name: CVar})``. ``body`` takes
-    the inputs as keyword arguments (lists of CVars for arrays, CVars for
-    scalars, and the preamble's values) and returns one list of values per
-    output array. Returns ``(source, statement count)``."""
+def _emit(arrays_in, scalars_in, arrays_out, body, preamble=()):
+    """Run ``body`` once over CVars (see :func:`c_function`); returns the
+    emitter, the C parameters, the head's lines and the stores as ``(array,
+    index, value)``."""
     em = Emitter()
     kwargs = {a: [CVar(em, f"{a}_{i}") for i in range(size)] for a, size in arrays_in}
     kwargs.update({sc: CVar(em, sc) for sc in scalars_in})
@@ -534,8 +543,28 @@ def c_function(name: str, arrays_in, scalars_in, arrays_out, body, preamble=()):
     stores = []
     for (a, size), vals in zip(arrays_out, outs):
         if len(vals) != size:
-            raise ValueError(f"{name}: output {a} has {len(vals)} values, not {size}")
-        stores += [f"{a}[{i}] = {em.ref(v)};" for i, v in enumerate(vals)]
+            raise ValueError(f"output {a} has {len(vals)} values, not {size}")
+        stores += [(a, i, v) for i, v in enumerate(vals)]
+    return em, params, head, stores
+
+
+def c_function(name: str, arrays_in, scalars_in, arrays_out, body, preamble=(), emitter=None):
+    """The C source of ``static __device__ __forceinline__ void name(...)``
+    that runs ``body`` once over CVars.
+
+    ``arrays_in``: ``(name, size)`` of the ``const float`` array inputs;
+    ``scalars_in``: names of the ``float`` scalar inputs; ``arrays_out``:
+    ``(name, size)`` of the output arrays. ``preamble``: ``(decl, names)``
+    pairs, a C parameter declaration and the CVars it defines through
+    ``lines``, a function ``em -> (lines, {name: CVar})``. ``body`` takes
+    the inputs as keyword arguments (lists of CVars for arrays, CVars for
+    scalars, and the preamble's values) and returns one list of values per
+    output array. Returns ``(source, statement count)``; ``emitter``, a
+    list, receives the :class:`Emitter` (its statements' operands)."""
+    em, params, head, outs = _emit(arrays_in, scalars_in, arrays_out, body, preamble)
+    if emitter is not None:
+        emitter.append(em)
+    stores = [f"{a}[{i}] = {em.ref(v)};" for a, i, v in outs]
     text = "\n".join("  " + line for line in head + em.lines + stores)
     source = (
         f"static __device__ __forceinline__ void {name}(\n    "
@@ -553,12 +582,363 @@ def from_numpy(arr) -> list:
     return [from_numpy(row) for row in a]
 
 
-def chain_length(source: str) -> int:
-    """The longest chain of dependent statements in an emitted body
-    (:func:`c_function`'s source): each ``const float tK = ...;`` is one
-    link after the longest chain among the statements it reads; inputs and
-    constants start no chain."""
-    depth = {}
-    for name, expr in re.findall(r"const float t(\d+) = ([^;]*);", source):
-        depth[name] = 1 + max((depth[d] for d in re.findall(r"\bt(\d+)\b", expr)), default=0)
+def chain_length(em: Emitter) -> int:
+    """The longest chain of dependent statements of an emitter's body: each
+    statement is one link after the longest chain among the statements it
+    reads (its recorded operands); inputs and constants start no chain."""
+    depth: Dict[str, int] = {}
+    for i, reads in enumerate(em.operands):
+        depth[f"t{i}"] = 1 + max((depth[r] for r in reads if r in depth), default=0)
     return max(depth.values(), default=0)
+
+
+# ---------------------------------------------------------------------------
+# A body split over a team of warps
+# ---------------------------------------------------------------------------
+#
+# The emitted body of a step is straight-line code with no two statements
+# alike, so the lanes of a warp cannot share it: a team of W warps runs it
+# instead, each warp its own straight-line program, while the lanes carry
+# independent problems (scenarios, line-search alphas). The statements are
+# partitioned into W warp programs over P phases, a barrier of the team
+# between phases. A statement reads values that its own warp computed
+# (earlier in the same phase or in an earlier one: registers), or values of
+# another warp from an earlier phase, through a shared-memory slot (or the
+# output the value was stored to). Every statement keeps its text, so each
+# value keeps its bits.
+
+# C helpers of a team step: its barrier and the asynchronous copies with
+# which a kernel brings the next step's rows in. On the host
+# (MPT_HOST_TEAM) the barrier hands over to the team's next thread (the
+# harness runs each thread as a coroutine, in thread order between
+# barriers) and a copy is a plain guarded copy.
+TEAM_SOURCE = """#ifndef MPT_TEAM_SOURCE
+#define MPT_TEAM_SOURCE
+#if defined(MPT_HOST_TEAM)
+extern "C" void mpt_host_yield(void);
+#endif
+// Barrier `bar` (1..15) of one team of `threads` threads, whole warps.
+static __device__ __forceinline__ void mpt_team_sync(int bar, int threads) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("bar.sync %0, %1;" :: "r"(bar), "r"(threads) : "memory");
+#elif defined(MPT_HOST_TEAM)
+  (void)bar;
+  (void)threads;
+  mpt_host_yield();
+#endif
+}
+// One float from global to shared memory, zero where not `ok`; on the card
+// cp.async, completed by mpt_team_wait_all after mpt_team_commit.
+static __device__ __forceinline__ void mpt_team_copy(float* dst, const float* src, bool ok) {
+#if defined(__CUDA_ARCH__)
+  const unsigned int to = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\\n"
+               :: "r"(to), "l"(src), "r"(ok ? 4 : 0) : "memory");
+#else
+  *dst = ok ? *src : 0.0f;
+#endif
+}
+// Four floats (16 aligned bytes) likewise.
+static __device__ __forceinline__ void mpt_team_copy4(float* dst, const float* src, bool ok) {
+#if defined(__CUDA_ARCH__)
+  const unsigned int to = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n"
+               :: "r"(to), "l"(src), "r"(ok ? 16 : 0) : "memory");
+#else
+  for (int i = 0; i < 4; ++i) dst[i] = ok ? src[i] : 0.0f;
+#endif
+}
+static __device__ __forceinline__ void mpt_team_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\\n" ::: "memory");
+#endif
+}
+static __device__ __forceinline__ void mpt_team_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group 0;\\n" ::: "memory");
+#endif
+}
+#endif
+"""
+
+# The partitioner's cost model, in issue slots of one warp: a statement
+# costs 1, a clamp 3, a division 12, a square root 10, a sine or cosine 24
+# (libdevice's sinf/cosf), and its result is ready TEAM_LATENCY later; a
+# barrier costs TEAM_BARRIER. The partition is a list schedule of each phase
+# under a budget of issue slots a warp, and the budget (TEAM_BUDGETS) is the
+# one whose estimate (each phase's latest finish, plus its barrier) is least.
+TEAM_LATENCY, TEAM_BARRIER, TEAM_SLACK = 4, 20, 60
+TEAM_BUDGETS = (40, 60, 80, 120, 180, 300, 10**9)
+
+
+def _cost(expr: str) -> int:
+    if "sinf(" in expr or "cosf(" in expr:
+        return 24
+    if "sqrtf(" in expr:
+        return 10
+    if " / " in expr:
+        return 12
+    return 3 if "?" in expr else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TeamPartition:
+    """Statement i runs on warp ``place[i][1]`` in phase ``place[i][0]``."""
+
+    warps: int
+    phases: int
+    place: Tuple[Tuple[int, int], ...]
+    estimate: int  # the cost model's time of one step, in issue slots
+
+    @property
+    def critical(self) -> int:
+        """The team's critical length: over the phases, the sum of the
+        largest warp's statement count."""
+        count = [[0] * self.warps for _ in range(self.phases)]
+        for p, w in self.place:
+            count[p][w] += 1
+        return sum(max(row) for row in count)
+
+
+def _graph(em: Emitter):
+    index = {f"t{i}": i for i in range(len(em.lines))}
+    preds = [sorted({index[r] for r in reads if r in index}) for reads in em.operands]
+    succs: List[List[int]] = [[] for _ in preds]
+    for i, ps in enumerate(preds):
+        for u in ps:
+            succs[u].append(i)
+    return preds, succs
+
+
+def _schedule(preds, succs, cost, warps: int, budget: int):
+    """Phase by phase: the warp that is least far on takes the most urgent
+    statement it may run (highest path of latency to the end), preferring
+    one whose operands it holds unless another is more urgent by
+    TEAM_SLACK. A statement whose operands of this phase lie on two warps
+    waits for the next phase."""
+    N = len(preds)
+    lat = [c + TEAM_LATENCY for c in cost]
+    urgency = [0] * N
+    for i in range(N - 1, -1, -1):
+        urgency[i] = lat[i] + max((urgency[s] for s in succs[i]), default=0)
+    phase, warp, finish = [-1] * N, [-1] * N, [0] * N
+    waiting = [len(ps) for ps in preds]
+    shared: list = []
+    home: List[list] = [[] for _ in range(warps)]
+
+    def release(i):  # i may run on any warp from the next phase on
+        heapq.heappush(shared, (-urgency[i], i))
+        ws = [warp[u] for u in preds[i]]
+        if ws:
+            heapq.heappush(home[max(set(ws), key=ws.count)], (-urgency[i], i))
+
+    def top(h):
+        while h and phase[h[0][1]] >= 0:
+            heapq.heappop(h)
+        return h[0] if h else None
+
+    for i in range(N):
+        if not waiting[i]:
+            release(i)
+    placed, p, estimate = 0, 0, 0
+    while placed < N:
+        clock, done = [0] * warps, [False] * warps
+        bound: List[list] = [[] for _ in range(warps)]
+        deferred, seen = [], [set() for _ in range(warps)]
+        latest = 0
+        while True:
+            w = min((v for v in range(warps) if not done[v]), key=lambda v: clock[v], default=None)
+            if w is None:
+                break
+            if clock[w] >= budget:
+                done[w] = True
+                continue
+            own = [c for c in (top(bound[w]), top(home[w])) if c is not None]
+            pick = min(own) if own else None
+            other = top(shared)
+            if other is not None and (pick is None or -other[0] > -pick[0] + TEAM_SLACK):
+                pick = other
+            if pick is None:
+                done[w] = True
+                continue
+            i = pick[1]
+            start = clock[w]
+            for u in preds[i]:
+                if phase[u] == p:
+                    start = max(start, finish[u])
+                elif warp[u] != w and u not in seen[w]:
+                    seen[w].add(u)  # one load from shared memory
+                    clock[w] += 1
+                    start = max(start, clock[w])
+            phase[i], warp[i] = p, w
+            finish[i], clock[w] = start + lat[i], start + cost[i]
+            latest = max(latest, finish[i])
+            placed += 1
+            for s in succs[i]:
+                waiting[s] -= 1
+                if not waiting[s]:
+                    ws = {warp[u] for u in preds[s] if phase[u] == p}
+                    if len(ws) == 1:
+                        heapq.heappush(bound[ws.pop()], (-urgency[s], s))
+                    else:
+                        deferred.append(s)
+        for s in deferred:
+            release(s)
+        for w in range(warps):
+            for _, s in bound[w]:
+                if phase[s] < 0:
+                    release(s)
+        estimate += latest + TEAM_BARRIER
+        p += 1
+    return tuple(zip(phase, warp)), p, estimate
+
+
+_PARTITIONS: Dict[Tuple[str, int], TeamPartition] = {}
+
+
+def partition_team(em: Emitter, warps: int) -> TeamPartition:
+    """Partition the emitter's statements into ``warps`` warp programs over
+    phases (see :func:`_schedule`), the budget chosen by the cost model.
+    Cached by the body's text."""
+    key = (hashlib.sha256("\n".join(em.lines).encode()).hexdigest(), warps)
+    if key not in _PARTITIONS:
+        preds, succs = _graph(em)
+        cost = [_cost(e) for e in em.exprs]
+        best = None
+        for budget in TEAM_BUDGETS if warps > 1 else (10**9,):
+            place, phases, estimate = _schedule(preds, succs, cost, warps, budget)
+            if best is None or estimate < best.estimate:
+                best = TeamPartition(warps, phases, place, estimate)
+        _PARTITIONS[key] = best
+    return _PARTITIONS[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class TeamStep:
+    """The C source of a body split over a team (:func:`team_function`) and
+    what the tests and the kernel table read of it."""
+
+    source: str
+    partition: TeamPartition
+    statements: int
+    reads: Tuple[Tuple[int, ...], ...]  # the statements each statement reads
+    slots: int  # shared-memory slots a lane (the most live at once)
+    # Per value that another warp reads: (statement, its slot or -1 where it
+    # is read from the output it was stored to, phase written, ((warp,
+    # phase) of each other warp's first read, ...)).
+    crossings: Tuple[Tuple[int, int, int, Tuple[Tuple[int, int], ...]], ...]
+    chain: int  # longest chain of dependent statements
+
+
+def team_function(prefix: str, arrays_in, scalars_in, arrays_out, body, layout, warps: int) -> TeamStep:
+    """``body`` (as for :func:`c_function`) split over a team of ``warps``
+    warps: one ``static __device__`` function ``{prefix}_w{w}`` per warp
+    that runs its statements of every phase with ``mpt_team_sync(bar,
+    32 * warps)`` between phases (P - 1 barriers: the caller meets after
+    the last phase), and ``{prefix}(w, bar, ...)`` that calls warp w's.
+
+    ``layout`` places the inputs and outputs in shared memory: ``{array:
+    (pointer, offset, stride)}`` for each input array (element i at
+    ``pointer[(offset + i) * stride]``, ``stride`` a C expression) and
+    ``{array: (pointer, offset)}`` for each output (stride ``MPT_TS``); the
+    slots are ``sl[k * MPT_TS]``. The pointers, already at the lane's own
+    column, are the functions' parameters after ``bar``, in the order of
+    ``layout``, then ``sl``, then the scalar inputs. A warp reads an input
+    or another warp's value once, at its first use, and keeps it; a slot is
+    reused once every warp that reads its value has done so (interval
+    colouring over the phases). Also defines ``{PREFIX}_W``, ``_P`` and
+    ``_SLOTS``."""
+    em, _, _, outs = _emit(arrays_in, scalars_in, arrays_out, body)
+    part = partition_team(em, warps)
+    N, P = len(em.lines), part.phases
+    preds, _ = _graph(em)
+    index = {f"t{i}": i for i in range(N)}
+    inputs = {f"{a}_{i}": (a, i) for a, size in arrays_in for i in range(size)}
+    # Where each output is stored: (warp, phase) and C location.
+    store_at: Dict[Tuple[int, int], List[Tuple[str, str]]] = {}
+    home_of: Dict[int, str] = {}  # statement -> the output location that holds it
+    for a, i, v in outs:
+        ptr, off = layout[a]
+        loc = f"{ptr}[{off + i} * MPT_TS]"
+        if isinstance(v, CVar) and v.name in index:
+            k = index[v.name]
+            home_of.setdefault(k, loc)
+            store_at.setdefault((part.place[k][1], part.place[k][0]), []).append((loc, v.name))
+        else:
+            store_at.setdefault((0, 0), []).append((loc, em.ref(v)))
+    # First read of each value by each other warp.
+    first: Dict[Tuple[int, int], int] = {}
+    for i, ps in enumerate(preds):
+        p, w = part.place[i]
+        for u in ps:
+            if part.place[u][1] != w:
+                first[(u, w)] = min(first.get((u, w), P), p)
+    readers: Dict[int, List[Tuple[int, int]]] = {}
+    for (u, w), p in sorted(first.items()):
+        readers.setdefault(u, []).append((w, p))
+    # Slots: values without an output location, interval [written, last first read].
+    slot: Dict[int, int] = {}
+    free: list = []  # (last read phase, slot)
+    nslots = 0
+    for u in sorted((u for u in readers if u not in home_of), key=lambda u: (part.place[u][0], u)):
+        start, end = part.place[u][0], max(p for _, p in readers[u])
+        if free and free[0][0] < start:
+            _, k = heapq.heappop(free)
+        else:
+            k, nslots = nslots, nslots + 1
+        slot[u] = k
+        heapq.heappush(free, (end, k))
+    crossings = tuple((u, slot.get(u, -1), part.place[u][0], tuple(readers[u])) for u in sorted(readers))
+    # Per warp and phase, its statements in program order.
+    program: List[List[List[int]]] = [[[] for _ in range(P)] for _ in range(warps)]
+    for i, (p, w) in enumerate(part.place):
+        program[w][p].append(i)
+    pointers = list(dict.fromkeys([layout[a][0] for a, _ in arrays_in] + [layout[a][0] for a, _ in arrays_out]))
+    out_ptrs = {layout[a][0] for a, _ in arrays_out}
+    params = ["int bar"] + [
+        f"float* {ptr}" if ptr in out_ptrs else f"const float* __restrict__ {ptr}" for ptr in pointers
+    ] + ["float* sl"] + [f"float {sc}" for sc in scalars_in]
+    args = ", ".join(["bar"] + pointers + ["sl"] + list(scalars_in))
+    macro = prefix.upper()
+    text = [f"#define {macro}_W {warps}\n#define {macro}_P {P}\n#define {macro}_SLOTS {max(nslots, 1)}\n"]
+    for w in range(warps):
+        lines, have = [], set(scalars_in)
+
+        def read(r):  # an input's or another warp's value, at its first use
+            if r in have:
+                return
+            have.add(r)
+            if r in inputs:
+                a, e = inputs[r]
+                ptr, off, stride = layout[a]
+                lines.append(f"const float {r} = {ptr}[{off + e} * {stride}];")
+            elif r in index and part.place[index[r]][1] != w:
+                u = index[r]
+                lines.append(f"const float {r} = {home_of.get(u, f'sl[{slot.get(u)} * MPT_TS]')};")
+
+        for p in range(P):
+            lines.append(f"// phase {p}")
+            for i in program[w][p]:
+                for r in em.operands[i]:
+                    read(r)
+                lines.append(em.lines[i])
+                have.add(f"t{i}")
+            for i in program[w][p]:
+                if i in slot:
+                    lines.append(f"sl[{slot[i]} * MPT_TS] = t{i};")
+            for loc, ref in store_at.get((w, p), []):
+                read(ref)
+                lines.append(f"{loc} = {ref};")
+            if p + 1 < P:
+                lines.append(f"mpt_team_sync(bar, {32 * warps});")
+        text.append(
+            f"static __device__ __forceinline__ void {prefix}_w{w}(\n    " + ", ".join(params) + ") {\n"
+            + "\n".join("  " + line for line in lines) + "\n}\n"
+        )
+    cases = "\n".join(f"    case {w}: {prefix}_w{w}({args}); break;" for w in range(warps))
+    text.append(
+        f"// Warp w of the team runs its program of the step.\n"
+        f"static __device__ __forceinline__ void {prefix}(\n    int w, " + ", ".join(params)
+        + f") {{\n  switch (w) {{\n{cases}\n  }}\n}}\n"
+    )
+    return TeamStep("".join(text), part, N, tuple(map(tuple, preds)), nslots, crossings, chain_length(em))

@@ -68,6 +68,9 @@ __all__ = [
     "BLOCK",
     "LIN_SEEDS",
     "LIN_BLOCK",
+    "TEAM_WARPS",
+    "TEAM_S",
+    "TEAM_PER_BLOCK",
     "riccati_terminal",
     "riccati_step",
     "bwd_weights",
@@ -84,6 +87,11 @@ BLOCK = 128  # threads per block
 # UR5's K2 on an H100 (``chip_k2_variants.py``, PERF.md section 6).
 LIN_SEEDS, LIN_BLOCK = 3, 64
 LIN_FLAGS = ("-Xptxas", "-O1")
+# K5: warps a team (the partition of the emitted step, ``cg.team_function``),
+# scenarios a team (``MPT_TEAM_S``, on the lanes) and teams a block
+# (``MPT_TEAM_PER_BLOCK``), chosen by timing Panda's K5 on an H100
+# (``chip_compare.py``, PERF.md section 6).
+TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK = 8, 32, 2
 STAGES = ("linearize", "backward", "linesearch_costs", "replay")
 # Translation units: K4 and K5 share one emitted body.
 UNITS = {"lin": ("linearize",), "bwd": ("backward",), "fwd": ("linesearch_costs", "replay")}
@@ -270,6 +278,32 @@ def fwd_step(P: Costs, x, sd_x, sd_u, kk, goal, alpha):
     return u, c, list(q2) + list(dq2)
 
 
+def fwd_signature(P: Costs):
+    """The arguments of the emitted closed-loop step (``mpc_fwd_step`` and
+    its team form): array inputs, scalar inputs, array outputs."""
+    n, nx = P.n, 2 * P.n
+    return (
+        [("x", nx), ("sdx", nx), ("sdu", n), ("kk", n * (1 + nx)), ("goal", n)],
+        ["alpha"],
+        [("u", n), ("c", 1), ("x_next", nx)],
+    )
+
+
+def team_layout(P: Costs, row_stride: str):
+    """Where a team step (``cg.team_function``) finds the closed-loop step's
+    inputs and puts its outputs in shared memory, every value a column of
+    ``MPT_TS`` lanes: ``xin`` the state, ``rows`` sd_x, sd_u and the gains
+    (``row_stride`` apart, ``MPT_TS`` when each lane has its own, 1 when the
+    lanes share them), ``goal`` (the same stride), ``ob`` u then the running
+    cost, ``xout`` the next state."""
+    n, nx = P.n, 2 * P.n
+    return {
+        "x": ("xin", 0, "MPT_TS"), "sdx": ("rows", 0, row_stride), "sdu": ("rows", nx, row_stride),
+        "kk": ("rows", nx + n, row_stride), "goal": ("goal", 0, row_stride),
+        "u": ("ob", 0), "c": ("ob", n), "x_next": ("xout", 0),
+    }
+
+
 def terminal_cost(P: Costs, x, goal):
     """``_terminal``: ``sum wT_q (q - goal)^2 + wT_dq dq^2``."""
     n = P.n
@@ -305,13 +339,16 @@ class MPCKernelSet(KernelSet):
     functions and the template), the statement counts, the plain
     linearization (K2's and K6's) and :meth:`plain`.
 
-    A subclass sets ``STAGES``, ``TEMPLATE`` and ``DEFINES`` (extra
-    ``#define``s of its units) besides :class:`KernelSet`'s attributes, and
-    gives ``_bodies(model, dt, g) -> {unit: emitted source}``."""
+    A subclass sets ``STAGES``, ``TEMPLATE``, ``DEFINES`` (extra
+    ``#define``s of its units) and ``TEAM_STAGE`` (the stage whose kernel
+    runs the closed-loop step as a team, ``self.team``) besides
+    :class:`KernelSet`'s attributes, and gives ``_bodies(model, dt, g) ->
+    {unit: emitted source}``."""
 
     STAGES: tuple = ()
     TEMPLATE: Path
     DEFINES: Dict[str, int] = {}
+    TEAM_STAGE: str
 
     def __init__(
         self,
@@ -352,7 +389,9 @@ class MPCKernelSet(KernelSet):
         alone: the part that all m seeds share. K6 runs it; K2's bound
         counts with both."""
         n, P = self.n, self.P
-        _, src, self.statements["linearize"] = build_fd_step_jvp_source(model, dt, g=g)
+        ems = []
+        _, src, self.statements["linearize"] = build_fd_step_jvp_source(model, dt, g=g, emitter=ems)
+        self._lin_emitter = ems[0]
         _, self.statements["step"] = cg.c_function(
             "fd_step", [("q", n), ("dq", n), ("tau", n)], [], [("q_next", n), ("dq_next", n)],
             lambda q, dq, tau: P.step(q, dq, tau)[:2],
@@ -372,6 +411,15 @@ class MPCKernelSet(KernelSet):
         AB = _stack(tans, xs[:, 0].expand((m, xs.shape[0]) + rest), dim=1)  # (m, nx, H, ...)
         return AB.permute(2, 1, 0, *range(3, AB.dim())).contiguous()
 
+    def team_attributes(self) -> Dict[str, int]:
+        """The team kernel (``TEAM_STAGE``) as built: warps, scenarios (or
+        alphas) a team, teams a block, phases a step, slots a lane and the
+        dynamic shared bytes of a block (its unit's ``team_<stage>``)."""
+        keys = ("warps", "scenarios", "teams_per_block", "phases", "slots", "dynamic_smem_bytes")
+        out = (ctypes.c_int * len(keys))()
+        getattr(self._lib(self.TEAM_STAGE), f"team_{self.TEAM_STAGE}")(out)
+        return dict(zip(keys, out))
+
     def plain(self) -> SimpleNamespace:
         """The stages through their plain versions on any device (the
         reference the kernels are held against)."""
@@ -388,6 +436,7 @@ class BatchMPCKernels(MPCKernelSet):
     STAGES, UNITS, ARGTYPES, LIB_PREFIX = STAGES, UNITS, _ARGTYPES, "mpc_batch"
     TEMPLATE, DEFINES = TEMPLATE, {"MPT_BLOCK": BLOCK}
     LIN_SEEDS, UNIT_FLAGS = LIN_SEEDS, {"lin": LIN_FLAGS}
+    TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK, TEAM_STAGE = TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK, "replay"
     launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
 
     def _bodies(self, model, dt, g) -> Dict[str, str]:
@@ -418,17 +467,25 @@ class BatchMPCKernels(MPCKernelSet):
             u, c, x_next = fwd_step(P, x, sdx, sdu, kk, goal, alpha)
             return u, [c], x_next
 
-        fwd_src, fwd_ops = cg.c_function(
-            "mpc_fwd_step", [("x", nx), ("sdx", nx), ("sdu", n), ("kk", kkn), ("goal", n)],
-            ["alpha"], [("u", n), ("c", 1), ("x_next", nx)], fwd_body,
-        )
+        ems = []
+        fwd_src, fwd_ops = cg.c_function("mpc_fwd_step", *fwd_signature(P), fwd_body, emitter=ems)
         cost_src, cost_ops = cg.c_function(
             "mpc_terminal", [("x", nx), ("goal", n)], [], [("c", 1)],
-            lambda x, goal: [[terminal_cost(P, x, goal)]],
+            lambda x, goal: [[terminal_cost(P, x, goal)]], emitter=ems,
+        )
+        # K5: the same step split over a team of warps, the scenarios on its
+        # lanes: every input and output a column of MPT_TEAM_S lanes.
+        self.team = cg.team_function(
+            "mpt_fwd_team", *fwd_signature(P), fwd_body, team_layout(P, "MPT_TS"), self.TEAM_WARPS
+        )
+        team_src = (
+            f"#define MPT_TEAM_S {self.TEAM_S}\n#define MPT_TEAM_PER_BLOCK {self.TEAM_PER_BLOCK}\n"
+            f"#define MPT_TS MPT_TEAM_S\n{cg.TEAM_SOURCE}{self.team.source}"
         )
         self.statements["linesearch_costs"] = self.statements["replay"] = fwd_ops
         self.statements["cost_terminal"] = cost_ops
-        return {"lin": lin_src, "bwd": bwd_weights(P) + term_src, "fwd": fwd_src + cost_src}
+        self.chains = {"replay": cg.chain_length(ems[0]), "cost_terminal": cg.chain_length(ems[1])}
+        return {"lin": lin_src, "bwd": bwd_weights(P) + term_src, "fwd": fwd_src + cost_src + team_src}
 
     # -- checks -----------------------------------------------------------
     @staticmethod

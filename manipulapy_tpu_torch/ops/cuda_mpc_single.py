@@ -47,13 +47,16 @@ from typing import Dict, List
 import torch
 
 from . import cgen as cg
-from .cuda_mpc_batch import Costs, MPCKernelSet, _stack, _sum, bwd_weights, fwd_step
+from .cuda_mpc_batch import Costs, MPCKernelSet, _stack, _sum, bwd_weights, fwd_signature, fwd_step, team_layout
 from .fd_step import _full
 
-__all__ = ["SingleMPCKernels", "STAGES", "BWD_THREADS", "riccati_step_gj", "terminal_cost_fused"]
+__all__ = ["SingleMPCKernels", "STAGES", "BWD_THREADS", "FWD_WARPS", "riccati_step_gj", "terminal_cost_fused"]
 
 TEMPLATE = Path(__file__).resolve().parents[1] / "csrc" / "mpc_single.cuh"
 BWD_THREADS = 256  # K7's block; chip_compare.py times 128 and 512 beside it (PERF.md)
+# K8: warps of its team (the partition of the emitted step, ``cg.team_function``),
+# chosen by timing Panda's K8 on an H100 (``chip_compare.py``, PERF.md section 6).
+FWD_WARPS = 32
 STAGES = ("linearize", "backward", "forward")
 UNITS = {"lin": ("linearize",), "bwd": ("backward",), "fwd": ("forward",)}
 _P = ctypes.c_void_p
@@ -191,42 +194,48 @@ class SingleMPCKernels(MPCKernelSet):
 
     STAGES, UNITS, ARGTYPES, LIB_PREFIX = STAGES, UNITS, _ARGTYPES, "mpc_single"
     TEMPLATE, DEFINES = TEMPLATE, {"MPT_BWD_THREADS": BWD_THREADS}
+    FWD_WARPS, TEAM_STAGE = FWD_WARPS, "forward"
     launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
 
     def _bodies(self, model, dt, g) -> Dict[str, str]:
-        """The units' generated parts; also ``riccati_step_source`` and,
-        per emitted body, ``chains``: its longest chain of dependent
-        statements (``cg.chain_length``)."""
+        """The units' generated parts; also ``riccati_step_source``, K8's
+        ``team`` (``cg.TeamStep``) and, per emitted body, ``chains``: its
+        longest chain of dependent statements (``cg.chain_length``)."""
         P, n, nx = self.P, self.n, self.nx
         kkn, vn = n * (1 + nx), (nx + 1) * nx
         lin_src = self._linearize_body(model, dt, g)
         # K7's phases (csrc/mpc_single.cuh) do riccati_step_gj's operations,
         # so its emitted body stays out of the unit: it is the host harness's
         # reference and its statements K7's operation count.
+        ems = []
         self.riccati_step_source, self.statements["backward"] = cg.c_function(
             "riccati_step_gj", [("ab", nx * self.m), ("x", nx), ("u", n), ("goal", n), ("V", vn)],
             ["reg"], [("kk", kkn), ("V_next", vn)],
-            lambda ab, x, u, goal, V, reg: riccati_step_gj(P, ab, x, u, goal, V, reg),
+            lambda ab, x, u, goal, V, reg: riccati_step_gj(P, ab, x, u, goal, V, reg), emitter=ems,
         )
+        self._bwd_emitter = ems[0]
 
         def fwd_body(x, sdx, sdu, kk, goal, alpha):
             u, c, x_next = fwd_step(P, x, sdx, sdu, kk, goal, alpha)
             return u, [c], x_next
 
-        fwd_src, self.statements["forward"] = cg.c_function(
-            "mpc_fwd_step", [("x", nx), ("sdx", nx), ("sdu", n), ("kk", kkn), ("goal", n)],
-            ["alpha"], [("u", n), ("c", 1), ("x_next", nx)], fwd_body,
-        )
+        ems = []
+        fwd_src, self.statements["forward"] = cg.c_function("mpc_fwd_step", *fwd_signature(P), fwd_body, emitter=ems)
         cost_src, self.statements["cost_terminal"] = cg.c_function(
             "mpc_terminal_fused", [("x", nx), ("goal", n)], [], [("c", 1)],
-            lambda x, goal: [[terminal_cost_fused(P, x, goal)]],
+            lambda x, goal: [[terminal_cost_fused(P, x, goal)]], emitter=ems,
         )
+        # K8: the same step split over a team of warps, the alphas on its
+        # lanes (columns of 32), the rows and the goal shared by every lane.
+        self.team = cg.team_function("mpt_fwd_team", *fwd_signature(P), fwd_body, team_layout(P, "1"), self.FWD_WARPS)
         self.chains = {
-            stage: cg.chain_length(src)
-            for stage, src in (("linearize", lin_src), ("backward", self.riccati_step_source),
-                               ("forward", fwd_src), ("cost_terminal", cost_src))
+            "linearize": cg.chain_length(self._lin_emitter),
+            "backward": cg.chain_length(self._bwd_emitter),
+            "forward": cg.chain_length(ems[0]),
+            "cost_terminal": cg.chain_length(ems[1]),
         }
-        return {"lin": lin_src, "bwd": bwd_weights(P), "fwd": fwd_src + cost_src}
+        team_src = f"#define MPT_TS 32\n{cg.TEAM_SOURCE}{self.team.source}"
+        return {"lin": lin_src, "bwd": bwd_weights(P), "fwd": fwd_src + cost_src + team_src}
 
     # -- checks ------------------------------------------------------------
     @staticmethod

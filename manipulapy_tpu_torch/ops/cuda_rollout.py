@@ -32,6 +32,7 @@ from pathlib import Path
 import torch
 from torch import nn
 
+from . import cgen as cg
 from ._build import build_library
 from .fd_step import DEFAULT_G, build_fd_step_source, build_rollout
 from ..models.robot import RobotModel, host_arrays
@@ -45,10 +46,13 @@ CHUNK = 3  # waypoints a block stages through shared memory at a time
 
 def rollout_source(model: RobotModel, dt: float, intRes: int, g=DEFAULT_G):
     """The full CUDA translation unit of the rollout kernel for this robot,
-    and the statement count of one step: ``(source, statements)``."""
+    the statement count of one step and its longest chain of dependent
+    statements: ``(source, statements, chain)``."""
+    ems = []
     n, step_src, ops = build_fd_step_source(
-        model, float(dt) / intRes, g=g, clip_limits=True, clip_velocity=True
+        model, float(dt) / intRes, g=g, clip_limits=True, clip_velocity=True, emitter=ems
     )
+    chain = cg.chain_length(ems[0])
     host = host_arrays(model)
     digest = host["digest"] if host is not None else "unregistered model"
     header = (
@@ -57,7 +61,7 @@ def rollout_source(model: RobotModel, dt: float, intRes: int, g=DEFAULT_G):
         f"#define MPT_NJ {n}\n#define MPT_INT_RES {int(intRes)}\n#define MPT_CHUNK {CHUNK}\n"
         f"#define MPT_BLOCK {BLOCK}\n"
     )
-    return header + "#include <math.h>\n" + step_src + "\n" + TEMPLATE.read_text(), ops
+    return header + "#include <math.h>\n" + step_src + "\n" + TEMPLATE.read_text(), ops, chain
 
 
 class CudaRollout(nn.Module):
@@ -71,7 +75,7 @@ class CudaRollout(nn.Module):
         if intRes < 1:
             raise ValueError("intRes must be >= 1")
         self.n = model.num_joints
-        self.source, self.statements = rollout_source(model, dt, intRes, g)  # per step
+        self.source, self.statements, self.chain = rollout_source(model, dt, intRes, g)  # per step
         self.plain = build_rollout(model, dt=dt, intRes=intRes, g=g)
         self.launches = 0
         self._built = None

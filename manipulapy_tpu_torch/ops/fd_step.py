@@ -350,11 +350,13 @@ def build_fd_step_source(
     g=DEFAULT_G,
     clip_limits: bool = True,
     clip_velocity: bool = True,
+    emitter=None,
 ):
     """C source of ``__device__ void fd_step(float q[n], float dq[n], const
     float tau[n], float ddq[n])``: one step in f32, updating q and dq in
     place and writing ddq. The same emitter as :func:`build_fd_step`, run
-    on CVars. Returns ``(n, source, op_count)``."""
+    on CVars. Returns ``(n, source, op_count)``; ``emitter``, a list,
+    receives the emitter."""
     n, step_planes = build_fd_step_planes(
         model, dt, g=g, clip_limits=clip_limits, clip_velocity=clip_velocity
     )
@@ -375,6 +377,8 @@ def build_fd_step_source(
         f"    float q[{n}], float dq[{n}], const float tau[{n}], float ddq[{n}]) {{\n"
         f"{body}\n}}\n"
     )
+    if emitter is not None:
+        emitter.append(em)
     return n, source, len(em.lines)
 
 
@@ -413,6 +417,7 @@ def build_fd_step_jvp_source(
     g=DEFAULT_G,
     clip_limits: bool = True,
     clip_velocity: bool = False,
+    emitter=None,
 ):
     """C source of ``__device__ void fd_step_jvp(const float x[2n], const
     float u[n], int k, float x_next[2n], float col[2n])``: one step and
@@ -421,7 +426,7 @@ def build_fd_step_jvp_source(
     1 : 0``), so one function serves all 3n seeds: m specialised copies
     would multiply a body of ~10^4 statements by 3n. The same emitter as
     the plain linearization (``ops/cuda_mpc_batch.py``), run on CVars. Returns ``(n, source,
-    statement count)``."""
+    statement count)``; ``emitter``, a list, receives the emitter."""
     n, step_jvp = build_fd_step_jvp_planes(
         model, dt, g=g, clip_limits=clip_limits, clip_velocity=clip_velocity
     )
@@ -439,7 +444,7 @@ def build_fd_step_jvp_source(
 
     source, ops = cg.c_function(
         "fd_step_jvp", [("x", nx), ("u", n)], [], [("x_next", nx), ("col", nx)], body,
-        preamble=[("int k", seeds)],
+        preamble=[("int k", seeds)], emitter=emitter,
     )
     return n, source, ops
 

@@ -14,7 +14,8 @@ output's largest magnitude for K2-K8 (the same
 operations in the same order with --fmad=false, so 0 is expected; K3's
 own tests alone: ``-k "backward_kernel and not single"``; K7's, bit for
 bit: ``-k "single and backward"``; K2's, bit for bit with NaN where the
-plain version has NaN: ``-k linearize_kernel``); the JAX test's bars (cost rtol 1e-5,
+plain version has NaN: ``-k linearize_kernel``; K5's and K8's, the same:
+``-k "replay_kernel or forward_kernel"``); the JAX test's bars (cost rtol 1e-5,
 final state atol 5e-4, controls atol 5e-3) for the
 whole MPC solves against the plain solvers; for K9 2e-6 / 2e-5 / 2e-4 on pos
 / vel / acc and for K10 rtol 1e-4 with atol 1e-5 on U and 1e-4 on its
@@ -398,6 +399,75 @@ def test_mpc_kernels_reject_float64_and_mixed_devices(cuda_device):
     assert K.linearize(xs, us).shape == (2, 4, 6, 3)
 
 
+# K5 alone: a team of TEAM_WARPS warps per TEAM_S scenarios runs each
+# closed-loop step (the emitted step partitioned over the warps), bitwise
+# against the plain replay (NaN where it is NaN), at the main path's widths
+# and at widths whose last team runs past B.
+
+
+def _replay_args(model, K, B, H, device, seed):
+    """x0 at rest inside the limits, a nominal of states inside the limits
+    and torques within 30% of the limits, gains of 0.1 scale, one alpha a
+    scenario."""
+    n = model.num_joints
+    x0, goals, _ = _mpc_problem(model, B, 1, device, seed)
+    sd_x, us = _lin_states(model, B, H, device, seed)
+    rng = np.random.default_rng(seed)
+    kK = torch.from_numpy(rng.uniform(-0.1, 0.1, (H, n, 1 + 2 * n, B)).astype(np.float32)).to(device)
+    alpha = (0.5 ** torch.arange(6, device=device, dtype=torch.float32))[torch.arange(B, device=device) % 6]
+    return x0.T.contiguous(), sd_x, us, kK, goals.T.contiguous(), alpha.contiguous()
+
+
+@pytest.mark.parametrize("robot, B, H", [
+    ("panda", 1024, 50), ("panda", 4096, 50), ("panda", 16384, 50), ("panda", 1025, 50),
+    ("panda", 33, 7), ("ur5", 1024, 50), ("ur5", 31, 7),
+])
+def test_replay_kernel_is_bitwise_the_plain_version(cuda_device, robot, B, H):
+    model, K = _k2(robot, cuda_device)
+    args = _replay_args(model, K, B, H, cuda_device, seed=B)
+    before = BatchMPCKernels.launch_count["replay"]
+    got = K.replay(*args)
+    torch.cuda.synchronize()
+    assert BatchMPCKernels.launch_count["replay"] == before + 1
+    for g, r in zip(got, K.replay_plain(*args)):
+        _assert_bits_and_nans(g, r)
+    team = K.team_attributes()
+    assert (team["warps"], team["scenarios"], team["teams_per_block"]) == (K.TEAM_WARPS, K.TEAM_S, K.TEAM_PER_BLOCK)
+    assert team["phases"] == K.team.partition.phases and team["slots"] == max(K.team.slots, 1)
+
+
+def test_replay_kernel_fits_fewer_teams_a_block_for_eight_joints(cuda_device):
+    """An 8-joint chain's team needs more than half the shared memory a
+    block may take, so its block holds one team; still bit for bit."""
+    model = catalog.serial_chain(8, device=cuda_device)
+    K = BatchMPCKernels(model, 0.01, u_lim=[10.0] * 8)
+    B, H, rng = 100, 6, np.random.default_rng(8)
+    f32 = lambda *shape: torch.from_numpy(rng.uniform(-1.0, 1.0, shape).astype(np.float32)).to(cuda_device)
+    args = (f32(16, B) * 0.5, f32(H, 16, B) * 0.5, f32(H, 8, B) * 3.0, f32(H, 8, 17, B) * 0.1, f32(8, B),
+            f32(B).abs())
+    for g, r in zip(K.replay(*args), K.replay_plain(*args)):
+        _assert_bits_and_nans(g, r)
+    team = K.team_attributes()
+    assert team["teams_per_block"] == 1 < K.TEAM_PER_BLOCK
+    assert team["dynamic_smem_bytes"] <= 232448
+
+
+def test_replay_kernel_keeps_a_nan_scenario_to_itself(cuda_device):
+    """Scenario 5's gains all NaN: its rows go NaN, every other scenario of
+    its team keeps the clean run's bits."""
+    model, K = _k2("panda", cuda_device)
+    args = list(_replay_args(model, K, 64, 10, cuda_device, seed=3))
+    clean = K.replay(*args)
+    args[3] = args[3].clone()
+    args[3][..., 5] = float("nan")
+    dirty = K.replay(*args)
+    for g, c, r in zip(dirty, clean, K.replay_plain(*args)):
+        _assert_bits_and_nans(g, r)
+        assert bool(torch.isnan(g[..., 5]).all())
+        keep = [b for b in range(64) if b != 5]
+        assert torch.equal(g[..., keep].view(torch.int32), c[..., keep].view(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # The single-problem fused MPC kernels (K6-K8)
 # ---------------------------------------------------------------------------
@@ -665,3 +735,26 @@ def test_elementwise_kernels_reject_float64_and_mixed_devices(cuda_device):
         ew.cartesian_potential_kernel(pts, pts[0].cpu(), pts)
     attrs = ew.kernels().kernel_attributes()
     assert set(attrs) == {"trajectory", "potential"} and all(0 < a["num_regs"] <= 255 for a in attrs.values())
+
+
+# K8 alone: one team of FWD_WARPS warps per 32 alphas runs each closed-loop
+# step, bitwise against the plain version.
+@pytest.mark.parametrize("H, A", [(50, 6), (37, 6), (50, 1), (8, 33)])
+def test_forward_kernel_is_bitwise_the_plain_version(cuda_device, H, A):
+    model = catalog.panda(device=cuda_device)
+    n = 7
+    x0, goals, _ = _mpc_problem(model, 1, 1, cuda_device, seed=H)
+    sd_x, us = _lin_states(model, 1, H, cuda_device, seed=H)
+    rng = np.random.default_rng(A)
+    kK = torch.from_numpy(rng.uniform(-0.1, 0.1, (H, n, 1 + 2 * n)).astype(np.float32)).to(cuda_device)
+    K = build_tracking_mpc(model, goals[0], H, 0.01).kernels
+    args = (x0[0].contiguous(), sd_x[..., 0].contiguous(), us[..., 0].contiguous(), kK, goals[0].contiguous(),
+            0.5 ** torch.arange(A, device=cuda_device, dtype=torch.float32))
+    before = SingleMPCKernels.launch_count["forward"]
+    got = K.forward(*args)
+    torch.cuda.synchronize()
+    assert SingleMPCKernels.launch_count["forward"] == before + 1
+    for g, r in zip(got, K.forward_plain(*args)):
+        _assert_bits_and_nans(g, r)
+    team = K.team_attributes()
+    assert team["warps"] == K.FWD_WARPS and team["phases"] == K.team.partition.phases

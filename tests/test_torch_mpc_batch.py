@@ -299,11 +299,99 @@ def test_solve_matches_generic_ilqr_per_scenario(planar):
 # The emitted kernel bodies on the host
 # ---------------------------------------------------------------------------
 
-_HARNESS = """\
+# Runs the threads of one team as coroutines: between two barriers
+# (``mpt_team_sync``, which yields here) threads 0..T-1 run one after the
+# other, so each phase runs warp by warp, then lane by lane, each thread with
+# its own registers. Returns nonzero when the threads met different numbers
+# of barriers.
+TEAM_RUNNER = """\
+#include <math.h>
+#include <stdlib.h>
+#include <ucontext.h>
+static ucontext_t mpt_main_ctx;
+static ucontext_t* mpt_ctx;
+static int *mpt_meets, mpt_cur;
+static char* mpt_done;
+typedef void (*mpt_thread_fn)(int tid, void* arg);
+static mpt_thread_fn mpt_fn;
+static void* mpt_arg;
+extern "C" void mpt_host_yield(void) {
+  ++mpt_meets[mpt_cur];
+  swapcontext(&mpt_ctx[mpt_cur], &mpt_main_ctx);
+}
+static void mpt_entry(int tid) {
+  mpt_fn(tid, mpt_arg);
+  mpt_done[tid] = 1;
+}
+static int mpt_run_team(int T, mpt_thread_fn fn, void* arg) {
+  const size_t stack = 1 << 18;
+  mpt_ctx = (ucontext_t*)calloc(T, sizeof(ucontext_t));
+  mpt_meets = (int*)calloc(T, sizeof(int));
+  mpt_done = (char*)calloc(T, 1);
+  char* stacks = (char*)malloc(stack * T);
+  mpt_fn = fn;
+  mpt_arg = arg;
+  for (int t = 0; t < T; ++t) {
+    getcontext(&mpt_ctx[t]);
+    mpt_ctx[t].uc_stack.ss_sp = stacks + stack * t;
+    mpt_ctx[t].uc_stack.ss_size = stack;
+    mpt_ctx[t].uc_link = &mpt_main_ctx;
+    makecontext(&mpt_ctx[t], (void (*)())mpt_entry, 1, t);
+  }
+  for (int live = T; live > 0;) {
+    live = 0;
+    for (int t = 0; t < T; ++t)
+      if (!mpt_done[t]) {
+        mpt_cur = t;
+        swapcontext(&mpt_main_ctx, &mpt_ctx[t]);
+        live += !mpt_done[t];
+      }
+  }
+  int bad = 0;
+  for (int t = 1; t < T; ++t) bad |= mpt_meets[t] != mpt_meets[0];
+  free(mpt_ctx);
+  free(mpt_meets);
+  free(mpt_done);
+  free(stacks);
+  return bad;
+}
+"""
+
+# K5 on the host: every team of the batch in turn, its storage NaN-filled
+# first; inputs x0, sd_x, sd_u, kK, goal, alpha; outputs xs, us, cost.
+REPLAY_TEAMS = """
+#if defined(MPT_UNIT_FWD)
+struct mpt_replay_args {{ const float** in; float** out; int B, H, b0; float* tm; }};
+static void mpt_replay_thread(int tid, void* p) {{
+  const mpt_replay_args* a = (const mpt_replay_args*)p;
+  replay_team(tid, 1, a->tm, a->in[0], a->in[1], a->in[2], a->in[3], a->in[4], a->in[5],
+              a->out[0], a->out[1], a->out[2], a->B, a->H, a->b0);
+}}
+extern "C" int run_replay(const float** in, float** out, int B, int H) {{
+  float* tm = (float*)malloc(MPT_T_BYTES);
+  int bad = 0;
+  for (int b0 = 0; b0 < B; b0 += MPT_TEAM_S) {{
+    for (int i = 0; i < MPT_T_FLOATS; ++i) tm[i] = NAN;
+    mpt_replay_args a = {{in, out, B, H, b0, tm}};
+    bad |= mpt_run_team(MPT_TEAM_THREADS, mpt_replay_thread, &a);
+  }}
+  free(tm);
+  return bad;
+}}
+#endif
+"""
+
+def _braced(c_source: str) -> str:
+    """C source, escaped for ``str.format``."""
+    return c_source.replace("{", "{{").replace("}", "}}")
+
+
+_HARNESS = _braced(TEAM_RUNNER) + """\
 #define __device__
 #define __forceinline__ inline
 #define MPT_HOST_TEAM 1
 {src}
+""" + REPLAY_TEAMS + """
 extern "C" void run(const float** in, float** out, int B, int H, int A) {{
 #if defined(MPT_UNIT_LIN)
   for (int t = 0; t < H; ++t) for (int g = 0; g < MPT_LIN_GROUPS; ++g) for (int b = 0; b < B; ++b)
@@ -316,8 +404,9 @@ extern "C" void run(const float** in, float** out, int B, int H, int A) {{
 #else
   for (int a = 0; a < A; ++a) for (int b = 0; b < B; ++b)
     cost_thread(in[0], in[1], in[2], in[3], in[4], in[5], out[0], B, H, b, a);
-  for (int b = 0; b < B; ++b)
-    replay_thread(in[0], in[1], in[2], in[3], in[4], in[6], out[1], out[2], out[3], B, H, b);
+  // K5: its teams, each thread a coroutine (TEAM_RUNNER).
+  const float* rin[6] = {{in[0], in[1], in[2], in[3], in[4], in[6]}};
+  if (run_replay(rin, out + 1, B, H)) abort();
 #endif
 }}
 """
@@ -669,6 +758,201 @@ def test_single_lin_unit_keeps_the_one_seed_body():
     assert one_seed in single.sources["lin"] and "fd_step_jvp_group" not in single.sources["lin"]
     assert one_seed == batch.linearize_seed_source and one_seed not in batch.sources["lin"]
     assert f"#define MPT_LIN_SEEDS {BatchMPCKernels.LIN_SEEDS}\n" in batch.sources["lin"]
+
+
+# K5, a team of W warps per MPT_TEAM_S scenarios, each closed-loop step the
+# emitted step partitioned over the warps (``cg.team_function``). The
+# partition's invariants, then the team's threads run on the host as
+# coroutines (TEAM_RUNNER): every team of the batch, phase by phase, warp by
+# warp, lane by lane, bit for bit against the emitted one-thread step (the
+# unit's ``fwd_rollout``, which K4 runs) and against ``replay_plain``, with
+# sin, cos and sqrt routed through PyTorch's own as for K2.
+
+
+def check_team_partition(team, statements: int) -> None:
+    """The invariants of a team step (``cg.TeamStep``): every statement runs
+    once; each read follows its write (the same warp, earlier in the phase,
+    or an earlier phase); a value crosses warps through its slot (or its
+    output), which no other value overwrites before its last first read;
+    P - 1 barriers a warp."""
+    part = team.partition
+    W, P = part.warps, part.phases
+    assert team.statements == statements == len(part.place) == len(team.reads)
+    assert all(0 <= p < P and 0 <= w < W for p, w in part.place)
+    first = {}
+    for i, reads in enumerate(team.reads):
+        p, w = part.place[i]
+        for u in reads:
+            pu, wu = part.place[u]
+            assert u < i and (pu < p or (pu == p and wu == w))
+            if wu != w:
+                first[(u, w)] = min(first.get((u, w), P), p)
+    crossing = {u: (k, written, dict(readers)) for u, k, written, readers in team.crossings}
+    for (u, w), p in first.items():
+        k, written, readers = crossing[u]
+        assert written == part.place[u][0] and readers[w] == p > written
+    assert len(crossing) == len({u for u, _ in first})
+    by_slot = {}
+    for u, (k, written, readers) in crossing.items():
+        if k >= 0:
+            assert k < team.slots
+            by_slot.setdefault(k, []).append((written, max(readers.values())))
+    for spans in by_slot.values():
+        spans.sort()
+        assert all(b[0] > a[1] for a, b in zip(spans, spans[1:]))
+    assert team.source.count("mpt_team_sync(bar, ") == W * (P - 1)
+    for w in range(W):
+        assert f"void mpt_fwd_team_w{w}(" in team.source
+
+
+TEAM_WARPS = [1, 4, 8]
+
+
+@pytest.mark.parametrize("warps", TEAM_WARPS)
+@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+def test_replay_team_partition_invariants(robot, warps):
+    model = port_catalog.get_robot(robot, device="cpu")
+    cls = type("Team", (BatchMPCKernels,), {"TEAM_WARPS": warps})
+    k = cls(model, 0.01, u_lim=[10.0] * model.num_joints)
+    check_team_partition(k.team, k.statements["replay"])
+    assert k.team.partition.critical <= k.statements["replay"]
+    assert (warps == 1) == (k.team.partition.phases == 1)
+
+
+_REPLAY_REFERENCE = """
+extern "C" void run_ref(const float** in, float** out, int B, int H) {
+  for (int b = 0; b < B; ++b)
+    out[2][b] = fwd_rollout(in[0], in[1], in[2], in[3], in[4], in[5][b], out[0], out[1], B, H, b);
+}
+"""
+HOST_FNS = """\
+#include <math.h>
+extern "C" { float (*mpt_host_fn[3])(float); }
+#define sinf(v) mpt_host_fn[0](v)
+#define cosf(v) mpt_host_fn[1](v)
+#define sqrtf(v) mpt_host_fn[2](v)
+"""
+
+
+def compile_team_unit(source: str, tmp, name: str, entries) -> ctypes.CDLL:
+    """A unit under the host shim, g++ -O0 without contraction, sin, cos and
+    sqrt PyTorch's own (``_TORCH_FNS``); ``entries`` get (in, out, int, int)."""
+    cpp, so = tmp / f"{name}.cpp", tmp / f"{name}.so"
+    cpp.write_text(HOST_FNS + TEAM_RUNNER + "#define __device__\n#define __forceinline__ inline\n"
+                   "#define MPT_HOST_TEAM 1\n" + source)
+    subprocess.run(["g++", "-O0", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(so), str(cpp)],
+                   check=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    fns = (ctypes.c_void_p * 3).in_dll(lib, "mpt_host_fn")
+    for i, fn in enumerate(_TORCH_FNS):
+        fns[i] = ctypes.cast(fn, ctypes.c_void_p)
+    for entry in entries:
+        getattr(lib, entry).argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_int] * 2
+    return lib
+
+
+@pytest.fixture(scope="module")
+def replay_units(tmp_path_factory):
+    """Per (robot, W, S) on first use: the K4/K5 unit with its team of W
+    warps over S scenarios, on the host, and the emitted one-thread replay
+    beside it."""
+    if shutil.which("g++") is None:
+        pytest.skip("the host has no g++ to compile the emitted C")
+    units = {}
+
+    def get(robot, warps, scenarios=32):
+        key = (robot, warps, scenarios)
+        if key not in units:
+            model = port_catalog.get_robot(robot, device="cpu")
+            cls = type("Team", (BatchMPCKernels,), {"TEAM_WARPS": warps, "TEAM_S": scenarios})
+            k = cls(model, 0.01, u_lim=[10.0] * model.num_joints)
+            src = k.sources["fwd"] + REPLAY_TEAMS.format() + _REPLAY_REFERENCE
+            lib = compile_team_unit(src, tmp_path_factory.mktemp(f"{robot}_W{warps}_S{scenarios}"), "fwd",
+                                    ("run_replay", "run_ref"))
+            units[key] = SimpleNamespace(k=k, lib=lib, model=model)
+        return units[key]
+
+    return get
+
+
+def _replay_problem(u, B, H, seed=0):
+    """x0 inside the joint limits at rest, an open-loop nominal of H steps
+    under torques within 30% of 10, gains of 0.1 scale, alphas in [0, 1]."""
+    model, k = u.model, u.k
+    n = model.num_joints
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32)).contiguous()
+    lo, hi = model.joint_lower.double().numpy(), model.joint_upper.double().numpy()
+    lo, hi = np.maximum(lo, -np.pi), np.minimum(hi, np.pi)
+    q0 = (lo + hi)[:, None] / 2 + rng.uniform(-0.4, 0.4, (n, B)) * (hi - lo)[:, None] / 2
+    x0 = f32(np.concatenate([q0, rng.uniform(-0.2, 0.2, (n, B))]))
+    us = f32(rng.uniform(-3.0, 3.0, (H, n, B)))
+    goal = f32(rng.uniform(-1.0, 1.0, (n, B)))
+    xs = k.replay_plain(x0, torch.zeros(H, 2 * n, B), us, torch.zeros(H, n, 1 + 2 * n, B), goal, torch.zeros(B))[0]
+    sd_x = torch.cat([x0[None], xs[:-1]]).contiguous()
+    kK = f32(rng.uniform(-0.1, 0.1, (H, n, 1 + 2 * n, B)))
+    return [x0, sd_x, us, kK, goal, f32(rng.uniform(0.0, 1.0, B))]
+
+
+def _replay_host(u, ins):
+    """(the team's outputs, the one-thread replay's), NaN-filled first."""
+    H, n2, B = ins[1].shape
+    runs = []
+    for entry in ("run_replay", "run_ref"):
+        outs = [torch.full((H, n2, B), float("nan")), torch.full((H, n2 // 2, B), float("nan")),
+                torch.full((B,), float("nan"))]
+        ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+        met = getattr(u.lib, entry)(ptrs(ins), ptrs(outs), B, H)
+        assert entry == "run_ref" or met == 0  # the team's threads met equally often
+        runs.append(outs)
+    return runs
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 64])
+@pytest.mark.parametrize("warps", TEAM_WARPS)
+@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+def test_replay_team_matches_emitted_step_bitwise(replay_units, robot, warps, B):
+    """B = 64 takes the rows four scenarios a copy (B % 4 == 0), the others
+    one at a time."""
+    u = replay_units(robot, warps)
+    ins = _replay_problem(u, B, 4, seed=B)
+    team, one = _replay_host(u, ins)
+    plain = u.k.replay_plain(*ins)
+    for got, ref, pl in zip(team, one, plain):
+        assert bool(torch.isfinite(pl).all())
+        assert torch.equal(_bits(got), _bits(ref)) and torch.equal(_bits(got), _bits(pl))
+
+
+@pytest.mark.parametrize("robot, warps, scenarios, B, H", [
+    ("two_link_planar", 8, 32, 1025, 2), ("ur5", 8, 32, 1025, 2), ("panda", 8, 32, 1025, 2),
+    ("ur5", 4, 8, 33, 3), ("ur5", 4, 16, 31, 3), ("panda", 4, 8, 9, 2), ("panda", 4, 8, 36, 2),
+])
+def test_replay_team_with_idle_lanes_matches_plain_bitwise(replay_units, robot, warps, scenarios, B, H):
+    """Teams whose last one runs past B, and teams of 8 or 16 scenarios whose
+    other lanes repeat their work: bit for bit as the plain version."""
+    u = replay_units(robot, warps, scenarios)
+    ins = _replay_problem(u, B, H, seed=3)
+    team, one = _replay_host(u, ins)
+    for got, ref, pl in zip(team, one, u.k.replay_plain(*ins)):
+        assert torch.equal(_bits(got), _bits(pl)) and torch.equal(_bits(ref), _bits(pl))
+
+
+@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+def test_replay_team_keeps_a_nan_scenario_to_itself(replay_units, robot):
+    """Scenario 1's gains all NaN: its rollout goes NaN where the plain
+    version's does, and every other scenario of its team keeps the clean
+    run's bits."""
+    u = replay_units(robot, 8)
+    B, H = 5, 4
+    ins = _replay_problem(u, B, H, seed=4)
+    clean, _ = _replay_host(u, ins)
+    ins[3][..., 1] = float("nan")
+    team, one = _replay_host(u, ins)
+    for got, ref, pl, cl in zip(team, one, u.k.replay_plain(*ins), clean):
+        _assert_same_bits(got, pl)
+        _assert_same_bits(ref, pl)
+        assert bool(torch.isnan(got[..., 1]).all())
+        assert torch.equal(_bits(got[..., [0, 2, 3, 4]]), _bits(cl[..., [0, 2, 3, 4]]))
 
 
 # ---------------------------------------------------------------------------

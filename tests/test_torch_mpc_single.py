@@ -42,6 +42,7 @@ from manipulapy_tpu_torch.mpc import ILQRParams, build_tracking_mpc, ilqr, make_
 from manipulapy_tpu_torch.ops import fd_step as tfd
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import STAGES, SingleMPCKernels
+from test_torch_mpc_batch import TEAM_RUNNER, _braced, check_team_partition, compile_team_unit
 
 CPU = torch.device("cpu")
 STAGE_RTOL = 2e-4  # of each output's largest magnitude
@@ -319,11 +320,58 @@ def test_statements_count_the_shared_primal(arms):
 # The emitted kernel bodies on the host
 # ---------------------------------------------------------------------------
 
-_HARNESS = """\
+# K8 on the host: each block's team (32 alphas) in turn, its storage
+# NaN-filled first, every thread a coroutine (TEAM_RUNNER); inputs x0, sd_x,
+# sd_u, kK, goal, alphas; outputs xs, us, costs. ``run_ref`` is the emitted
+# one-thread step, alpha by alpha, as the kernel before the team ran it.
+FWD_TEAMS = """
+#if defined(MPT_UNIT_FWD)
+struct mpt_fwd_args {{ const float** in; float** out; int H, A, a0; float* tm; }};
+static void mpt_fwd_thread(int tid, void* p) {{
+  const mpt_fwd_args* a = (const mpt_fwd_args*)p;
+  fwd_team(tid, a->tm, a->in[0], a->in[1], a->in[2], a->in[3], a->in[4], a->in[5],
+           a->out[0], a->out[1], a->out[2], a->H, a->A, a->a0);
+}}
+extern "C" int run_forward(const float** in, float** out, int H, int A) {{
+  float* tm = (float*)malloc(MPT_T_BYTES);
+  int bad = 0;
+  for (int a0 = 0; a0 < A; a0 += MPT_WARP) {{
+    for (int i = 0; i < MPT_T_FLOATS; ++i) tm[i] = NAN;
+    mpt_fwd_args a = {{in, out, H, A, a0, tm}};
+    bad |= mpt_run_team(MPT_TEAM_THREADS, mpt_fwd_thread, &a);
+  }}
+  free(tm);
+  return bad;
+}}
+extern "C" int run_ref(const float** in, float** out, int H, int A) {{
+  for (int a = 0; a < A; ++a) {{
+    float x[MPT_NX], g[MPT_NJ], sdx[MPT_NX], sdu[MPT_NJ], kk[MPT_NJ * MPT_KK], u[MPT_NJ], c[1], xn[MPT_NX];
+    for (int i = 0; i < MPT_NX; ++i) x[i] = in[0][i];
+    for (int j = 0; j < MPT_NJ; ++j) g[j] = in[4][j];
+    float acc = 0.0f;
+    for (int t = 0; t < H; ++t) {{
+      for (int i = 0; i < MPT_NX; ++i) sdx[i] = in[1][t * MPT_NX + i];
+      for (int j = 0; j < MPT_NJ; ++j) sdu[j] = in[2][t * MPT_NJ + j];
+      for (int e = 0; e < MPT_NJ * MPT_KK; ++e) kk[e] = in[3][(size_t)t * MPT_NJ * MPT_KK + e];
+      mpc_fwd_step(x, sdx, sdu, kk, g, in[5][a], u, c, xn);
+      acc = acc + c[0];
+      for (int i = 0; i < MPT_NX; ++i) out[0][((size_t)a * H + t) * MPT_NX + i] = x[i] = xn[i];
+      for (int j = 0; j < MPT_NJ; ++j) out[1][((size_t)a * H + t) * MPT_NJ + j] = u[j];
+    }}
+    mpc_terminal_fused(x, g, c);
+    out[2][a] = acc + c[0];
+  }}
+  return 0;
+}}
+#endif
+"""
+
+_HARNESS = _braced(TEAM_RUNNER) + """\
 #define __device__
 #define __forceinline__ inline
 #define MPT_HOST_TEAM 1
 {src}
+""" + FWD_TEAMS + """
 extern "C" void run(const float** in, float** out, int H, int A) {{
 #if defined(MPT_UNIT_LIN)
   for (int idx = 0; idx < H * MPT_M; ++idx) lin_thread(in[0], in[1], out[0], idx);
@@ -333,8 +381,7 @@ extern "C" void run(const float** in, float** out, int H, int A) {{
   static mps_bwd_state state;
   bwd_sweep(0, &state, in[0], in[1], in[2], in[3], in[4], in[5], out[0], H);
 #else
-  for (int a = 0; a < A; ++a)
-    fwd_thread(in[0], in[1], in[2], in[3], in[4], in[5], out[0], out[1], out[2], H, a);
+  if (run_forward(in, out, H, A)) abort();
 #endif
 }}
 """
@@ -507,3 +554,102 @@ def test_bwd_team_nan_step_leaves_later_steps_alone(team_units, robot):
     assert bool(torch.isnan(team[: NAN_STEP + 1]).all())
     assert torch.equal(_bits(team[NAN_STEP + 1:]), _bits(team_clean[NAN_STEP + 1:]))
     _close_to_scale(team_clean.numpy(), u.k.backward_plain(*clean).numpy(), 1e-5)
+
+
+# K8, one team of W warps per 32 alphas, each closed-loop step the emitted
+# step partitioned over the warps (``cg.team_function``): the partition's
+# invariants, then the team's threads on the host as coroutines, bit for bit
+# against the emitted one-thread step and ``forward_plain`` (sin, cos and
+# sqrt PyTorch's own).
+FWD_WARPS = [1, 4, 8]
+
+
+@pytest.mark.parametrize("warps", FWD_WARPS)
+@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+def test_forward_team_partition_invariants(robot, warps):
+    model = catalog.get_robot(robot, device="cpu")
+    k = type("Team", (SingleMPCKernels,), {"FWD_WARPS": warps})(model, 0.01, u_lim=[10.0] * model.num_joints)
+    check_team_partition(k.team, k.statements["forward"])
+    assert k.chains["forward"] == k.team.chain
+
+
+@pytest.fixture(scope="module")
+def forward_units(tmp_path_factory):
+    """Per (robot, W) on first use: the K8 unit with its team of W warps on
+    the host, and the one-thread reference beside it."""
+    if shutil.which("g++") is None:
+        pytest.skip("the host has no g++ to compile the emitted C")
+    units = {}
+
+    def get(robot, warps):
+        if (robot, warps) not in units:
+            model = catalog.get_robot(robot, device="cpu")
+            k = type("Team", (SingleMPCKernels,), {"FWD_WARPS": warps})(model, 0.01, u_lim=[10.0] * model.num_joints)
+            lib = compile_team_unit(k.sources["fwd"] + FWD_TEAMS.format(), tmp_path_factory.mktemp(f"{robot}_W{warps}"),
+                                    "fwd", ("run_forward", "run_ref"))
+            units[(robot, warps)] = SimpleNamespace(k=k, lib=lib, model=model)
+        return units[(robot, warps)]
+
+    return get
+
+
+def _forward_problem(u, A, H, seed=0):
+    """x0 inside the joint limits, an open-loop nominal of H steps under
+    torques within 30% of 10, gains of 0.1 scale, alphas 0.5^a."""
+    model, k = u.model, u.k
+    n = model.num_joints
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32)).contiguous()
+    lo, hi = model.joint_lower.double().numpy(), model.joint_upper.double().numpy()
+    lo, hi = np.maximum(lo, -np.pi), np.minimum(hi, np.pi)
+    x0 = f32(np.concatenate([(lo + hi) / 2 + rng.uniform(-0.4, 0.4, n) * (hi - lo) / 2, rng.uniform(-0.2, 0.2, n)]))
+    us = f32(rng.uniform(-3.0, 3.0, (H, n)))
+    goal = f32(rng.uniform(-1.0, 1.0, n))
+    xs = k.forward_plain(x0, torch.zeros(H, 2 * n), us, torch.zeros(H, n, 1 + 2 * n), goal, torch.zeros(1))[0][0]
+    sd_x = torch.cat([x0[None], xs[:-1]]).contiguous()
+    kK = f32(rng.uniform(-0.1, 0.1, (H, n, 1 + 2 * n)))
+    return [x0, sd_x, us, kK, goal, f32(0.5 ** np.arange(A))]
+
+
+def _forward_host(u, ins):
+    """(the team's outputs, the one-thread reference's), NaN-filled first."""
+    H, nx = ins[1].shape
+    A = ins[5].shape[0]
+    runs = []
+    for entry in ("run_forward", "run_ref"):
+        outs = [torch.full((A, H, nx), float("nan")), torch.full((A, H, nx // 2), float("nan")),
+                torch.full((A,), float("nan"))]
+        ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+        assert getattr(u.lib, entry)(ptrs(ins), ptrs(outs), H, A) == 0  # the team's threads met equally often
+        runs.append(outs)
+    return runs
+
+
+@pytest.mark.parametrize("A", [1, 6, 33])
+@pytest.mark.parametrize("warps", FWD_WARPS)
+@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+def test_forward_team_matches_emitted_step_bitwise(forward_units, robot, warps, A):
+    """A = 1 and 6 leave most lanes idle; A = 33 runs two blocks."""
+    u = forward_units(robot, warps)
+    ins = _forward_problem(u, A, 5, seed=A)
+    team, one = _forward_host(u, ins)
+    for got, ref, pl in zip(team, one, u.k.forward_plain(*ins)):
+        assert bool(torch.isfinite(pl).all())
+        assert torch.equal(_bits(got), _bits(ref)) and torch.equal(_bits(got), _bits(pl))
+
+
+@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+def test_forward_team_keeps_a_nan_alpha_to_itself(forward_units, robot):
+    """Alpha 2 is NaN: its closed loop goes NaN where the plain version's
+    does, and every other alpha keeps the clean run's bits."""
+    u = forward_units(robot, 8)
+    ins = _forward_problem(u, 6, 5, seed=5)
+    clean, _ = _forward_host(u, ins)
+    ins[5][2] = float("nan")
+    team, one = _forward_host(u, ins)
+    for got, ref, pl, cl in zip(team, one, u.k.forward_plain(*ins), clean):
+        nan = torch.isnan(pl)
+        assert torch.equal(torch.isnan(got), nan) and torch.equal(torch.isnan(ref), nan)
+        assert torch.equal(_bits(got)[~nan], _bits(pl)[~nan])
+        assert bool(torch.isnan(got[2]).any())
+        assert torch.equal(_bits(got[[0, 1, 3, 4, 5]]), _bits(cl[[0, 1, 3, 4, 5]]))
