@@ -12,7 +12,7 @@ States lie inside the joint limits, velocities in [-0.5, 0.5], torques
 within 30% of the limits, from ``torch.Generator`` seed 0. A variant is
 the unit as ``BatchMPCKernels`` builds it, changed in one or more ways:
 
-* ``unit``: as built (G = LIN_SEEDS, lean order, ptxas -O1, blocks of
+* ``unit``: as built (G = ``lin_seeds(n)``, lean order, ptxas -O1, blocks of
   LIN_BLOCK, shared-memory spilling);
 * ``G<k>``: k seeds a thread (k must divide 3n; others are skipped);
 * ``O3``: ptxas's default optimisation level instead of -O1;
@@ -61,7 +61,7 @@ def kernel_set(model, variant: str):
         elif p == "O3":
             attrs["UNIT_FLAGS"] = {}
     n = model.num_joints
-    if (3 * n) % attrs.get("LIN_SEEDS", cmb.LIN_SEEDS):
+    if (3 * n) % attrs.get("LIN_SEEDS", cmb.lin_seeds(n)):
         return None
     planes = fd_step.build_fd_step_jvp_planes
     if "interleaved" in parts:  # the group source asks for lean=True

@@ -46,27 +46,31 @@ Phases, one line each (or one line per case):
    kernel achieves (the bytes of its bound over its time) and its us a
    waypoint;
 7. MPC parity: each of K2-K5 against its plain version on the card, fed
-   from a nominal trajectory (K2 and K3) and from K3's gains (K4 and K5),
-   at Panda B=257 H=8 (not a multiple of the block, so the ``b < B`` guard
-   is exercised; random torques) and at the main path's shapes, B=1024
-   H=50 (the solver's own controls), there also with a Levenberg-heavy
-   ``reg`` of 10; max |d| per output within 1e-5 of that output's largest
-   magnitude, and 0 for K2 (a group of seeds a thread doing the plain
-   version's operations in its order) and K5 (a team of warps running
-   each emitted step, every statement as emitted);
+   from a nominal trajectory (K2 and K3) and from K3's gains (K4, with and
+   without every alpha's trajectory, and K5), at Panda B=257 H=8 (not a
+   multiple of the block, so the ``b < B`` guard is exercised; random
+   torques) and at the main path's shapes, B=1024 H=50 (the solver's own
+   controls), there also with a Levenberg-heavy ``reg`` of 10; max |d| per
+   output within 1e-5 of that output's largest magnitude for K3, and 0 for
+   K2, K4 and K5 (the plain version's emitted operations in its order);
 8. MPC main path: one solve and 3 rounds of ``batch_mpc_step`` with goals
-   passed at run time, launch counts read just after (4/4/4/5 per solve),
-   finite outputs, costs below the zero-control rollout's, |u| <= u_lim;
-   then the whole solve against the plain solver on the card at Panda
-   B=64 H=10 with 2 iterations;
+   passed at run time, launch counts read just after (per solve K2 4, K3
+   4, K4 4 with the trajectories, K5 1: the initial rollout), finite
+   outputs, costs below the zero-control rollout's, |u| <= u_lim; then the
+   whole solve against the plain solver on the card at Panda B=64 H=10
+   with 2 iterations;
 9. MPC time: the plain versions at full width and the plain solver at
    B=64; then each stage's kernel and one solve (CUDA events, median) at
    B=1024, 4096 and 16384, with K2's and K3's achieved rates (their
    bounds' operations over their times; K2 also the statements it runs),
-   and K5 against its plain version at each width, max |d| = 0; K4's and
-   K5's records carry an estimate of their dependent chains' least time
-   (``chain_bound_ms``) and K5's its team (warps, scenarios a team, teams a
-   block, phases a step, slots, shared bytes);
+   K4 (with its trajectories, every alpha; NaN where the plain version has
+   NaN) and K5 against their plain versions at each width, max |d| = 0,
+   and K4 built with 32 and 64 threads a block (variant
+   units of the fwd unit, built with the others) held bitwise to the
+   default and timed at each width; K4's and K5's records carry an
+   estimate of their dependent chains' least time (``chain_bound_ms``),
+   K4's its trajectory bytes, costs-only time and block variants, K5's its
+   one thread a scenario;
 10. single-problem parity: each of K6-K8 against its plain version on the
     card at Panda H=50 (the solver's own controls), H=37 (random torques
     within 30% of the limits; K6's H*m threads end mid-block) and H=50
@@ -139,7 +143,7 @@ from manipulapy_tpu_torch.kinematics import forward_kinematics
 from manipulapy_tpu_torch.models import catalog
 from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
-from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
+from manipulapy_tpu_torch.ops.cuda_mpc_batch import BLOCK as BLOCK_MPC, LIN_BLOCK, BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
 from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, CudaRollout, build_cuda_rollout
 from manipulapy_tpu_torch.ops import elementwise as ew
@@ -177,12 +181,16 @@ F32_OPS_PER_S = 33.5e12
 CHAIN_CYCLES = 4
 ROLLOUT_SOURCE = "manipulapy_tpu_torch/csrc/rollout.cuh"
 MPC_SOURCE = "manipulapy_tpu_torch/csrc/mpc_batch.cuh"
-MPC_KERNELS = {  # stage: (id and name, the TPU kernel's pallas_call)
+MPC_KERNELS = {  # the main path's stage of each kernel: (id and name, the TPU kernel's pallas_call)
     "linearize": ("K2 linearize (forward mode over K0)", "manipulapy_tpu/mpc/fused_batch.py:249"),
     "backward": ("K3 Riccati backward", "manipulapy_tpu/mpc/fused_batch.py:372"),
-    "linesearch_costs": ("K4 line-search costs (K0 inlined)", "manipulapy_tpu/mpc/fused_batch.py:453"),
+    "linesearch": ("K4 line search, every alpha's cost and trajectory (K0 inlined)",
+                   "manipulapy_tpu/mpc/fused_batch.py:453"),
     "replay": ("K5 replay (K0 inlined)", "manipulapy_tpu/mpc/fused_batch.py:507"),
 }
+MPC_STAGES = ("linearize", "backward", "linesearch_costs", "linesearch", "replay")
+BITWISE_STAGES = ("linearize", "linesearch_costs", "linesearch", "replay")  # max |d| must be 0
+K4_BLOCKS = (32, 64)  # K4's block-shape variants besides the unit's BLOCK
 SINGLE_SOURCE = "manipulapy_tpu_torch/csrc/mpc_single.cuh"
 SINGLE_KERNELS = {  # stage: (id and name, the TPU kernel's pallas_call, the CUDA kernel's name)
     "linearize": ("K6 single-problem linearize (forward mode over K0)", "manipulapy_tpu/mpc/fused.py:213", "mps_lin_kernel"),
@@ -354,6 +362,19 @@ def compare(stage: str, got, ref, label: str) -> dict:
     return errs
 
 
+def bit_diff(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """0.0 when ``got`` has ``ref``'s bits, NaN where ``ref`` has NaN; else
+    the largest |d| over the entries both hold finite (inf where their NaNs
+    differ or no entry is finite)."""
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(got), nan):
+        return float("inf")
+    if torch.equal(got.view(torch.int32)[~nan], ref.view(torch.int32)[~nan]):
+        return 0.0
+    both = torch.isfinite(got) & torch.isfinite(ref)
+    return float((got - ref)[both].abs().max()) if bool(both.any()) else float("inf")
+
+
 def stage_vs_plain(K, stage: str, args, label: str, errs, plain_ms: dict, plain_calls: int):
     """Run one stage's kernel and, unless ``errs`` is None, its plain
     version on the same inputs: record the max |d| in ``errs`` and, for
@@ -401,9 +422,11 @@ def mpc_stage_parity(K: BatchMPCKernels, x0, goals, us, label: str, time_plain: 
     kK = both("backward", bwd_args)[0]
     ls_args = (x0_t, sd_x, us, kK, goal_t, alphas)
     both("linesearch_costs", ls_args)
+    both("linesearch", ls_args)
     rep_args = (x0_t, sd_x, us, kK, goal_t, alpha)
     both("replay", rep_args)
-    stage_args = {"linearize": (sd_x, us), "backward": bwd_args, "linesearch_costs": ls_args, "replay": rep_args}
+    stage_args = {"linearize": (sd_x, us), "backward": bwd_args, "linesearch_costs": ls_args,
+                  "linesearch": ls_args, "replay": rep_args}
     return errs, stage_args, plain_ms
 
 
@@ -427,6 +450,11 @@ def stage_bytes_ops(K: BatchMPCKernels, B: int, H: int, A: int) -> dict:
             (nx * B + H * (nx + n) * B + H * kk * B + n * B + A + A * B) * f,
             (s["linesearch_costs"] * H + s["cost_terminal"]) * B * A,
         ),
+        # the same, and every alpha's trajectory written once
+        "linesearch": (
+            (nx * B + H * (nx + n) * B + H * kk * B + n * B + A + A * B + A * H * (nx + n) * B) * f,
+            (s["linesearch"] * H + s["cost_terminal"]) * B * A,
+        ),
         "replay": (
             (nx * B + H * (nx + n) * B + H * kk * B + n * B + B + H * (nx + n) * B + B) * f,
             (s["replay"] * H + s["cost_terminal"]) * B,
@@ -435,8 +463,8 @@ def stage_bytes_ops(K: BatchMPCKernels, B: int, H: int, A: int) -> dict:
 
 
 def lin_statements(K: BatchMPCKernels, B: int, H: int) -> int:
-    """The statements K2 runs: its group body once per (scenario, group of
-    seeds, step)."""
+    """The statements K2 runs: its thread's body (one seed, or a group) once
+    per (scenario, seed or group of seeds, step)."""
     return K.statements["linearize_group"] * (K.m // K.LIN_SEEDS) * B * H
 
 
@@ -457,7 +485,7 @@ def batch_chain_ms(K: BatchMPCKernels, H: int) -> dict:
     clock, as for K6-K8."""
     mhz = float(card_line("clocks.max.sm").split()[0])
     ms = (H * K.chains["replay"] + K.chains["cost_terminal"]) * CHAIN_CYCLES / (mhz * 1e3)
-    return {"linesearch_costs": ms, "replay": ms}
+    return {"linesearch": ms, "replay": ms}
 
 
 def mid_rest(model) -> torch.Tensor:
@@ -1066,8 +1094,13 @@ def main() -> int:
     }
     mpc_panda = build_batch_tracking_mpc(panda, np.zeros(7), B_MPC, H_MPC, DT, iterations=ITERS)
     single = build_tracking_mpc(panda, Q_GOAL7, H_MPC, DT, iterations=ITERS, line_search_steps=ALPHAS)
-    mpc_kernels = {"panda": mpc_panda.kernels, "ur5": build_batch_tracking_mpc(ur5, np.zeros(6), 1, H_MPC, DT).kernels,
-                   "panda single": single.kernels}
+    K_panda = mpc_panda.kernels
+    k4_blocks = {threads: type("K4Block", (BatchMPCKernels,), {
+        "UNITS": {"fwd": BatchMPCKernels.UNITS["fwd"]}, "DEFINES": {**BatchMPCKernels.DEFINES, "MPT_BLOCK": threads}})(
+        panda, DT, w_q=K_panda.P.w_q, w_dq=K_panda.P.w_dq, w_u=K_panda.P.w_u, w_terminal=K_panda.P.wT[0],
+        u_lim=K_panda.P.u_lim) for threads in K4_BLOCKS}
+    mpc_kernels = {"panda": K_panda, "ur5": build_batch_tracking_mpc(ur5, np.zeros(6), 1, H_MPC, DT).kernels,
+                   "panda single": single.kernels, **{f"panda K4 T{t}": V for t, V in k4_blocks.items()}}
     built, build_wall = build_all(engines, mpc_kernels, ew.kernels())
     attrs = {}
     for name, eng in engines.items():
@@ -1085,14 +1118,16 @@ def main() -> int:
         for unit, b in built["mpc", robot].items():
             phase("build", kernel=f"mpc unit {unit}", robot=robot, seconds=f"{b.compile_seconds:.2f}",
                   ptxas=repr(ptxas_lines(b.log)))
-        names = SINGLE_KERNELS if isinstance(K, SingleMPCKernels) else MPC_KERNELS
+        names = SINGLE_KERNELS if isinstance(K, SingleMPCKernels) else {
+            **MPC_KERNELS, "linesearch_costs": ("K4 line-search costs alone (K0 inlined)",)}
         for stage, a in mpc_attrs[robot].items():
-            group = {"seeds_per_thread": K.LIN_SEEDS, "group_statements": K.statements["linearize_group"]} \
-                if isinstance(K, BatchMPCKernels) and stage == "linearize" else {}
-            phase("build", kernel=names[stage][0], robot=robot, statements=K.statements[stage], **group, **a)
-        if robot != "ur5":
-            phase("build", kernel=names["replay" if robot == "panda" else "forward"][0], robot=robot,
-                  **team_figures(K))
+            extra = {"seeds_per_thread": K.LIN_SEEDS, "thread_statements": K.statements["linearize_group"],
+                     "block": LIN_BLOCK} if isinstance(K, BatchMPCKernels) and stage == "linearize" else {}
+            if isinstance(K, BatchMPCKernels) and stage == "backward":
+                extra = {"dynamic_smem_bytes": K.layout_bytes()["backward"]}
+            phase("build", kernel=names[stage][0], robot=robot, statements=K.statements[stage], **extra, **a)
+        if robot == "panda single":
+            phase("build", kernel=names["forward"][0], robot=robot, **team_figures(K))
     if mpc_attrs["panda single"]["backward"]["local_bytes"] != 0:  # its state lives in shared memory
         raise AssertionError(f"K7 uses local memory: {mpc_attrs['panda single']['backward']}")
     # 13. The static unit of K9 and K10.
@@ -1197,7 +1232,7 @@ def main() -> int:
 
     # 7. MPC kernels vs their plain versions on the card.
     K = mpc_panda.kernels
-    mpc_err = dict.fromkeys(MPC_KERNELS, 0.0)
+    mpc_err = dict.fromkeys(MPC_STAGES, 0.0)
     # Off the block size: random torques within 30% of the limits. At full
     # width, 50 such steps leave some scenarios non-finite (open loop, the
     # wrist's small inertias), so the nominal there is the solver's own
@@ -1215,7 +1250,7 @@ def main() -> int:
     for nominal, x0_c, goals_c, us_c, full, reg in cases:
         B, H = us_c.shape[2], us_c.shape[0]
         errs, args, plain_ms = mpc_stage_parity(K, x0_c, goals_c, us_c, f"panda B={B} H={H} reg={reg}", full, reg=reg)
-        for stage in ("linearize", "replay"):  # K2 and K5 do the plain version's operations in its order
+        for stage in BITWISE_STAGES:  # K2, K4 and K5 do the plain version's operations in its order
             if errs[stage] != 0.0:
                 raise AssertionError(f"panda B={B} H={H} {stage}: max |d| = {errs[stage]}, not 0")
         if full:
@@ -1240,8 +1275,9 @@ def main() -> int:
     torch.cuda.synchronize()
     solve_wall = time.perf_counter() - t0
     per_solve = dict(BatchMPCKernels.launch_count)
-    if per_solve != {"linearize": ITERS, "backward": ITERS, "linesearch_costs": ITERS, "replay": ITERS + 1}:
-        raise AssertionError(f"launches per solve {per_solve}, expected {ITERS}/{ITERS}/{ITERS}/{ITERS + 1}")
+    if per_solve != {"linearize": ITERS, "backward": ITERS, "linesearch_costs": 0, "linesearch": ITERS, "replay": 1}:
+        raise AssertionError(f"launches per solve {per_solve}, expected K2 {ITERS}, K3 {ITERS}, K4 {ITERS} "
+                             "(with the trajectories), K5 1")
 
     def check_solution(label, us, xs, cost):
         if tuple(us.shape) != (B_MPC, H_MPC, 7) or tuple(xs.shape) != (B_MPC, H_MPC + 1, 14):
@@ -1291,7 +1327,8 @@ def main() -> int:
     phase("mpc_time_plain", card=repr(card), robot="panda", B=B_MPC, H=H_MPC,
           **{f"{s}_plain_ms": f"{v:.2f}" for s, v in stage_plain_ms.items()},
           **{f"plain_solve_ms_B{Bs}_H{Hs}": f"{small_plain_ms:.1f}", f"kernel_solve_ms_B{Bs}_H{Hs}": f"{small_kernel_ms:.4f}"})
-    replay_err_by_B = {}
+    replay_err_by_B, linesearch_err_by_B = {}, {}
+    block_ms = {threads: {} for threads in K4_BLOCKS}
     for B in (B_MPC,) + B_MPC_WIDE:
         if B == B_MPC:
             handle, x0_b, args = mpc, x0, stage_args
@@ -1300,14 +1337,29 @@ def main() -> int:
             handle = build_batch_tracking_mpc(panda, goals_b, B, H_MPC, DT, iterations=ITERS)
             us_b = handle.solve(x0_b, torch.zeros((B, H_MPC, 7), **f32))[0].permute(1, 2, 0).contiguous()
             args = mpc_stage_parity(K, x0_b, goals_b, us_b, f"panda B={B}", False, check=False)[1]
-        ms = {s: time_ms(lambda s=s: getattr(K, s)(*args[s])) for s in MPC_KERNELS}
+        ms = {s: time_ms(lambda s=s: getattr(K, s)(*args[s])) for s in MPC_STAGES}
         solve = time_ms(lambda: handle.solve(x0_b, torch.zeros((B, H_MPC, 7), **f32)))
-        # K5 bit for bit at every width (after the timings: the plain version runs long).
+        for threads, V in k4_blocks.items():
+            block_ms[threads][B] = time_ms(lambda V=V: V.linesearch(*args["linesearch"]))
+        # K5 and K4 bit for bit at every width, K4's block variants bit for
+        # bit as the unit (after the timings: the plain versions run long).
         got, ref = K.replay(*args["replay"]), K.replay_plain(*args["replay"])
         replay_err_by_B[B] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         if replay_err_by_B[B] != 0.0 or not all(bool(torch.isfinite(r).all()) for r in ref):
             raise AssertionError(f"panda B={B} replay: max |d| = {replay_err_by_B[B]}, not 0")
-        kernel_sum = sum(ms[s] * per_solve[s] for s in MPC_KERNELS)
+        # Every alpha of every scenario: some diverge (alpha 1 on a nominal
+        # far from the optimum), in the plain version too; the solve's
+        # isfinite test rejects them. Bit for bit, NaN where it is NaN.
+        got, ref = K.linesearch(*args["linesearch"]), K.linesearch_plain(*args["linesearch"])
+        linesearch_err_by_B[B] = max(bit_diff(g, r) for g, r in zip(got, ref))
+        nonfinite = int((~torch.isfinite(ref[0])).sum())
+        if linesearch_err_by_B[B] != 0.0:
+            raise AssertionError(f"panda B={B} linesearch: max |d| = {linesearch_err_by_B[B]}, not 0")
+        for threads, V in k4_blocks.items():
+            if not all(torch.equal(g.view(torch.int32), r.view(torch.int32))
+                       for g, r in zip(V.linesearch(*args["linesearch"]), got)):
+                raise AssertionError(f"panda B={B}: K4 with {threads} threads a block differs from the unit")
+        kernel_sum = sum(ms[s] * per_solve[s] for s in MPC_STAGES)
         if B == B_MPC:
             stage_ms = ms
         # K3's achieved rates: the bytes it must move (AB, xs, us read once,
@@ -1320,9 +1372,11 @@ def main() -> int:
         if B == B_MPC:
             lin_rates = rates
         phase("mpc_time", card=repr(card), robot="panda", B=B, H=H_MPC, iterations=ITERS,
-              **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()}, solve_ms=f"{solve:.4f}",
+              **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()},
+              **{f"linesearch_ms_T{t}": f"{block_ms[t][B]:.4f}" for t in K4_BLOCKS}, solve_ms=f"{solve:.4f}",
               solves_per_s=f"{B / (solve * 1e-3):.4e}", kernels_ms_per_solve=f"{kernel_sum:.4f}",
               kernel_share=f"{kernel_sum / solve:.4f}", replay_max_abs_err=f"{replay_err_by_B[B]:.3e}",
+              linesearch_max_abs_err=f"{linesearch_err_by_B[B]:.3e}", linesearch_nonfinite_costs=nonfinite,
               backward_GBps=f"{k3_bytes / (ms['backward'] * 1e6):.1f}",
               backward_Gops_per_s=f"{k3_ops / (ms['backward'] * 1e6):.1f}",
               **{k: f"{v:.1f}" for k, v in rates.items()})
@@ -1335,10 +1389,13 @@ def main() -> int:
     for stage, (name, replaces) in MPC_KERNELS.items():
         b_ms, b_by = bound(*bo[stage])
         a = mpc_attrs["panda"][stage]
+        launches, err = mpc_launches[stage], mpc_err[stage]
+        if stage == "linesearch":  # K4 serves both stages
+            launches, err = launches + mpc_launches["linesearch_costs"], max(err, mpc_err["linesearch_costs"])
         records.append({
             "name": name, "route": "cuda", "source": MPC_SOURCE, "replaces": replaces,
-            "launches": mpc_launches[stage], "max_abs_err": mpc_err[stage],
-            "tolerance": "0" if stage in ("linearize", "replay") else f"{MPC_RTOL} x max|plain|",
+            "launches": launches, "max_abs_err": err,
+            "tolerance": "0" if stage in BITWISE_STAGES else f"{MPC_RTOL} x max|plain|",
             "ms": stage_ms[stage], "plain_ms": stage_plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "num_regs": a["num_regs"], "local_bytes": a["local_bytes"],
             "smem_bytes": a["smem_bytes"],
@@ -1347,9 +1404,25 @@ def main() -> int:
             records[-1].update(chain_bound_ms=batch_chain[stage], chain_bound="estimate: longest chain of emitted "
                                f"statements x {CHAIN_CYCLES} cycles at clocks.max.sm")
         if stage == "replay":
-            records[-1].update(team_figures(K), max_abs_err_by_B=replay_err_by_B)
+            records[-1].update(threads_per_scenario=1, block=BLOCK_MPC, max_abs_err_by_B=replay_err_by_B)
+        if stage == "linesearch":
+            c_ms, c_by = bound(*bo["linesearch_costs"])
+            c_attrs = mpc_attrs["panda"]["linesearch_costs"]
+            records[-1].update(
+                block=BLOCK_MPC, max_abs_err_by_B=linesearch_err_by_B,
+                trajectory_bytes=ALPHAS * H_MPC * (K.nx + K.n) * B_MPC * 4,
+                costs_only_ms=stage_ms["linesearch_costs"], costs_only_plain_ms=stage_plain_ms["linesearch_costs"],
+                costs_only_bound_ms=c_ms, costs_only_bound_by=c_by, costs_only_num_regs=c_attrs["num_regs"],
+                costs_only_local_bytes=c_attrs["local_bytes"],
+                block_variants={t: {**{f"ms_B{B}": v for B, v in block_ms[t].items()},
+                                    "num_regs": mpc_attrs[f"panda K4 T{t}"]["linesearch"]["num_regs"],
+                                    "local_bytes": mpc_attrs[f"panda K4 T{t}"]["linesearch"]["local_bytes"]}
+                                for t in K4_BLOCKS})
+        if stage == "backward":
+            records[-1].update(dynamic_smem_bytes=K.layout_bytes()["backward"])
         if stage == "linearize":
-            records[-1].update(seeds_per_thread=K.LIN_SEEDS, group_statements=K.statements["linearize_group"],
+            records[-1].update(seeds_per_thread=K.LIN_SEEDS, block=LIN_BLOCK,
+                               thread_statements=K.statements["linearize_group"],
                                Gops_per_s=lin_rates["linearize_Gops_per_s"],
                                Gstatements_per_s=lin_rates["linearize_Gstatements_per_s"],
                                backward_Gops_per_s=bo["backward"][1] / (stage_ms["backward"] * 1e6))

@@ -16,11 +16,12 @@ all of them:
   for W = 8, 16 and 32 warps, with each team's phases, critical length,
   slots, crossing values and their loads;
 * ``replay``: K5 on Panda at B = 32 (one team), 1024, 4096 and 16384, each
-  variant held bitwise to the first: where the tree builds K5 as a team,
-  the unit (W8 S32 T2), W8 S32 T1, W32 S32 T1, the unit without its row
-  copies (``nocopy``: wrong results, timed only) and with the teams of a
-  block on one barrier (``lockstep``); else the one-thread kernel with
-  blocks of 32, 64 and 128 threads.
+  variant held bitwise to the first: where the tree can build K5 as a
+  team, W8 S32 T2 (``unit``, the team shape first chosen), W8 S32 T1, W32 S32
+  T1, W8 S32 T2 without its row copies (``nocopy``: wrong results, timed
+  only) and with the teams of a block on one barrier (``lockstep``), and
+  the one-thread kernel where that is the tree's unit (``one_thread``);
+  else the one-thread kernel with blocks of 32, 64 and 128 threads.
 
 Inputs: x0 at rest inside the limits, nominal states from the open loop of
 torques within 30% of 10 (two-link arm, UR5) or of 3 N m (Panda), gains of
@@ -191,9 +192,12 @@ def main() -> int:
     panda = robots["panda"]
     lim = [87.0] * 4 + [12.0] * 3
     fwd = {"UNITS": {"fwd": ("linesearch_costs", "replay")}}
-    if team:
-        shapes = {"unit": {}, "W8_S32_T1": {"TEAM_PER_BLOCK": 1}, "W32_S32_T1": {"TEAM_WARPS": 32, "TEAM_PER_BLOCK": 1},
-                  "nocopy": {}, "lockstep": {}}
+    if team:  # the team shape first chosen, W8 S32 T2, and shapes beside it; one thread too where it is the unit
+        w8 = {"TEAM_WARPS": 8, "TEAM_S": 32, "TEAM_PER_BLOCK": 2}
+        shapes = {"unit": w8, "W8_S32_T1": {**w8, "TEAM_PER_BLOCK": 1},
+                  "W32_S32_T1": {**w8, "TEAM_WARPS": 32, "TEAM_PER_BLOCK": 1}, "nocopy": w8, "lockstep": w8}
+        if not BatchMPCKernels.TEAM_WARPS:
+            shapes["one_thread"] = {"TEAM_WARPS": 0}
     else:
         shapes = {f"T{t}": {"DEFINES": {"MPT_BLOCK": t}} for t in (128, 32, 64)}
     sets = {k: type("Variant", (BatchMPCKernels,), {**fwd, **v})(panda, DT, u_lim=lim) for k, v in shapes.items()}

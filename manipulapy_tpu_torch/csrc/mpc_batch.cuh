@@ -16,17 +16,21 @@
 //     LIN: #define MPT_LIN_SEEDS <G>, MPT_LIN_BLOCK <threads>,
 //          fd_step_jvp_group (ops/fd_step.py::build_fd_step_jvp_group_source);
 //     BWD: riccati_terminal, riccati_step;
-//     FWD: #define MPT_TEAM_S <scenarios a team>, MPT_TEAM_PER_BLOCK
-//          <teams a block>; mpc_fwd_step, mpc_terminal (K4), and the same
-//          step split over a team of warps (mpt_fwd_team, with
-//          ops/cgen.py::TEAM_SOURCE) for K5;
+//     FWD: mpc_fwd_step, mpc_terminal (K4 and K5 run the same
+//          fwd_rollout); with MPT_REPLAY_TEAM, K5's variant unit, also
+//          MPT_TEAM_S_MAX <scenarios a team>, MPT_TEAM_PER_BLOCK <teams a
+//          block> and the step split over a team of warps (mpt_fwd_team,
+//          with ops/cgen.py::TEAM_SOURCE);
 //   this file.
 // The three units build in parallel, one nvcc each.
 //
 // Layout. Every tensor is scenario-minor, (..., B), so the threads of a
 // warp, which own neighbouring scenarios, touch neighbouring addresses:
 //   xs (H, nx, B), us (H, n, B), AB (H, nx, m, B), kK (H, n, 1+nx, B),
-//   x0 / x_last (nx, B), goal (n, B), reg / alpha / cost (B), costs (A, B).
+//   x0 / x_last (nx, B), goal (n, B), reg / alpha / cost (B), costs (A, B),
+//   and K4's trajectories of every alpha, xs_all (H, nx, A, B) and us_all
+//   (H, n, A, B): the plain version's layout, the alpha between the row and
+//   the scenario, so each store is one coalesced row of B.
 // There is no padding: every kernel guards `b < B`. The TPU's (8, 128)
 // tiles and its sequential grid axes are gone: a loop inside one thread
 // takes the place of a sequential axis, and of the VMEM scratch it carried.
@@ -35,20 +39,23 @@
 //   K2: one thread per (scenario b, group of G = MPT_LIN_SEEDS seeds, step
 //       t), B*(m/G)*H independent threads in blocks of MPT_LIN_BLOCK; each
 //       runs the primal step once and the tangents of seeds gG .. gG+G-1
-//       (Panda, G = 3: ~30k statements, against 3 x 13k when each seed
-//       recomputed the step) and writes those G columns of AB at t.
-//       Operations bound it (~30k statements against 4*(3n + 2nG) bytes
-//       per thread). The primal and G tangents live at once: the body is
-//       emitted in an order that holds fewer values (ops/fd_step.py,
-//       `lean`), about (1 + G) x 115 at its peak for Panda and 87 for UR5,
-//       against 255 registers; Panda's thread still spills, part of it to
-//       shared memory (ptxas -O1 and its shared-memory spilling, PERF.md
-//       §6).
+//       and writes those G columns of AB at t. Operations bound it (Panda,
+//       G = 1: ~13k statements against 4*(3n + 2n) bytes per thread). The
+//       primal and G tangents live at once: the body is emitted in an order
+//       that holds fewer values (ops/fd_step.py, `lean`), about (1 + G) x
+//       115 at its peak for Panda, against 255 registers. At G = 3 Panda's
+//       thread spills (1560 local bytes; ~30k statements against 3 x 13k)
+//       and takes 1.7x as long as at G = 1, which spills nothing; UR5's
+//       fits (40 local bytes) and is 19-24% faster at G = 3 than at 1, so G
+//       comes from the joints (ops/cuda_mpc_batch.py::lin_seeds; ptxas -O1
+//       and its shared-memory spilling, PERF.md section 6).
 //   K3: one warp per scenario, MPT_BWD_WARPS = 4 scenarios a block, so
 //       B/4 blocks (256 at B=1024, about two per SM). t = H-1 ... 0 stays
 //       inside the warp; its state (value function, [A | B] of step t, the
 //       Q blocks, the Cholesky factor, the gains) lives in the warp's own
-//       region of shared memory, none on the stack. A step is seven phases
+//       region of dynamic shared memory (a block's grows with n: 19056
+//       bytes for Panda, 54736 at n = 12, past the 48 KB a block may
+//       declare statically), none on the stack. A step is seven phases
 //       over the lanes (see the K3 section); each entry's sum stays in one
 //       lane in the emitter's order. AB, xs and us of step t-1 are loaded
 //       into registers while step t computes. Operations set its least time
@@ -56,21 +63,24 @@
 //       phases' longest sums. From B=4096 on, shared-memory loads (both
 //       operands of every product) most likely bound it (PERF.md).
 //   K4: one thread per (scenario, alpha), the closed-loop rollout with the
-//       step inlined. Operations set its least time (~5k statements per
-//       step); at B=1024 it is latency-bound: B threads fill few of the
-//       132 SMs.
-//   K5: a team of MPT_FWD_TEAM_W warps per MPT_TEAM_S scenarios (on the
-//       lanes), MPT_TEAM_PER_BLOCK teams a block: each closed-loop step is
-//       the emitted step partitioned into one straight-line program per
-//       warp over MPT_FWD_TEAM_P phases (ops/cgen.py::team_function), the
+//       step inlined, in blocks of MPT_BLOCK; `linesearch` also stores each
+//       step's post-step state and control (21 floats a step for Panda,
+//       coalesced), so the solver selects the chosen alpha's trajectory
+//       and replays nothing. Operations set its least time (~5k statements
+//       per step); at B=1024 it is latency-bound: B*A threads fill few of
+//       the 132 SMs.
+//   K5: one thread per scenario with its own alpha, the same fwd_rollout,
+//       streaming out xs, us and the cost; the solver runs it once, for
+//       the initial rollout. Its variant unit (MPT_REPLAY_TEAM) runs a team
+//       of MPT_FWD_TEAM_W warps per MPT_TEAM_S scenarios (on the lanes):
+//       each closed-loop step is the emitted step partitioned into one
+//       straight-line program per warp (ops/cgen.py::team_function), the
 //       team's named barrier between phases, values that cross warps in
-//       shared-memory slots, the next step's rows on their way by cp.async.
-//       Every statement is the emitted one, so the bits are the plain
-//       version's. What bounds it is the instruction stream, not the
-//       dependent chain: the step is ~6k instructions of straight-line code
-//       (~12k split over 8 warps, the slots' loads and stores included)
-//       that no instruction cache holds, so each SM fetches it anew every
-//       step (PERF.md section 6).
+//       shared-memory slots. Both are bound by the instruction stream, not
+//       by the dependent chain: the step is ~6k instructions of
+//       straight-line code (~12k split over 8 warps) that no instruction
+//       cache holds, so each SM fetches it anew every step, and the team
+//       was 1.3-3.2x slower than one thread (PERF.md section 6).
 // Every kernel is built with --fmad=false and the emitter's order of
 // operations, so each agrees bitwise with its plain PyTorch version.
 //
@@ -78,8 +88,10 @@
 // index, and K3's phases plain functions of the lane: a host harness
 // compiles this file with `__device__` defined away (and MPT_HOST_TEAM
 // defined, so each of K3's phases runs lanes 0..31 in turn) and runs them in
-// a loop; K5's team function runs there with each thread a coroutine that
-// yields at every barrier (tests/test_torch_mpc_batch.py).
+// a loop; K5's team variant runs there with each thread a coroutine that
+// yields at every barrier (tests/test_torch_mpc_batch.py). The `mpt_layout_*`
+// functions give the shared bytes a block takes, from the same macros and
+// types as the kernels, to the host too.
 
 #include <stddef.h>
 #ifdef __CUDACC__
@@ -356,34 +368,42 @@ static __device__ __forceinline__ void bwd_cholesky_column(int lane, mpt_bwd_tea
 // Phase 5: lane c solves Quu z = rhs_c (rhs_0 = Qu, rhs_{1+i} = Qux[:, i]),
 // forward then back substitution, and stores -z as column c of the gains,
 // in shared memory and in kK[t].
+static __device__ __forceinline__ void bwd_solve_column(
+    int c, mpt_bwd_team* tm, float* __restrict__ kK, int B, int b, int t) {
+  const float* L = tm->s.L;
+  const float* inv_d = tm->s.inv_d;
+  float y[MPT_NJ], z[MPT_NJ];
+#pragma unroll
+  for (int i = 0; i < MPT_NJ; ++i) {
+    float s = c == 0 ? tm->Qu[i] : tm->Qux[i * MPT_NX + (c - 1)];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s = s - L[i * MPT_NJ + k] * y[k];
+    y[i] = s * inv_d[i];
+  }
+#pragma unroll
+  for (int i = MPT_NJ - 1; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int k = i + 1; k < MPT_NJ; ++k) s = s - L[k * MPT_NJ + i] * z[k];
+    z[i] = s * inv_d[i];
+  }
+  const size_t row = (size_t)t * MPT_KKN;
+#pragma unroll
+  for (int j = 0; j < MPT_NJ; ++j) {
+    const float v = -z[j];
+    tm->s.kk[j * MPT_KK + c] = v;
+    MPT_AT(kK, row + j * MPT_KK + c, b, B) = v;
+  }
+}
+
+// Past 15 joints a step has more gain columns (1 + nx) than a warp has
+// lanes: lane c also takes column c + 32.
 static __device__ __forceinline__ void bwd_solve(
     int lane, mpt_bwd_team* tm, float* __restrict__ kK, int B, int b, int t) {
-  if (lane < MPT_KK) {
-    const float* L = tm->s.L;
-    const float* inv_d = tm->s.inv_d;
-    float y[MPT_NJ], z[MPT_NJ];
-#pragma unroll
-    for (int i = 0; i < MPT_NJ; ++i) {
-      float s = lane == 0 ? tm->Qu[i] : tm->Qux[i * MPT_NX + (lane - 1)];
-#pragma unroll
-      for (int k = 0; k < i; ++k) s = s - L[i * MPT_NJ + k] * y[k];
-      y[i] = s * inv_d[i];
-    }
-#pragma unroll
-    for (int i = MPT_NJ - 1; i >= 0; --i) {
-      float s = y[i];
-#pragma unroll
-      for (int k = i + 1; k < MPT_NJ; ++k) s = s - L[k * MPT_NJ + i] * z[k];
-      z[i] = s * inv_d[i];
-    }
-    const size_t row = (size_t)t * MPT_KKN;
-#pragma unroll
-    for (int j = 0; j < MPT_NJ; ++j) {
-      const float v = -z[j];
-      tm->s.kk[j * MPT_KK + lane] = v;
-      MPT_AT(kK, row + j * MPT_KK + lane, b, B) = v;
-    }
-  }
+  if (lane < MPT_KK) bwd_solve_column(lane, tm, kK, B, b, t);
+#if MPT_KK > MPT_LANES
+  if (lane + MPT_LANES < MPT_KK) bwd_solve_column(lane + MPT_LANES, tm, kK, B, b, t);
+#endif
 }
 
 // Phase 6: Quu k, then K^T Quu.
@@ -484,13 +504,19 @@ static __device__ __forceinline__ void bwd_sweep(
   }
 }
 
+// The warps' storage, dynamic shared memory: past 11 joints it exceeds the
+// 48 KB a block may declare statically.
+#define MPT_BWD_SMEM (MPT_BWD_WARPS * sizeof(mpt_bwd_team))
+extern "C" long long mpt_layout_backward(void) { return (long long)MPT_BWD_SMEM; }
+
 #ifdef __CUDACC__
 __global__ void __launch_bounds__(MPT_BWD_WARPS * MPT_LANES) mpt_bwd_warp_kernel(
     const float* __restrict__ AB, const float* __restrict__ xs,
     const float* __restrict__ us, const float* __restrict__ x_last,
     const float* __restrict__ goal, const float* __restrict__ reg,
     float* __restrict__ kK, int B, int H) {
-  __shared__ mpt_bwd_team teams[MPT_BWD_WARPS];
+  extern __shared__ float mpt_bwd_smem[];
+  mpt_bwd_team* teams = (mpt_bwd_team*)mpt_bwd_smem;
   const int w = (int)threadIdx.x / MPT_LANES;
   const int b = (int)blockIdx.x * MPT_BWD_WARPS + w;
   if (b >= B) return;  // the whole warp: its lanes meet no one else
@@ -498,14 +524,26 @@ __global__ void __launch_bounds__(MPT_BWD_WARPS * MPT_LANES) mpt_bwd_warp_kernel
 }
 
 // AB (H, nx, m, B), xs (H, nx, B), us (H, n, B), x_last (nx, B),
-// goal (n, B), reg (B) -> kK (H, n, 1+nx, B). MPT_BWD_WARPS scenarios a block.
+// goal (n, B), reg (B) -> kK (H, n, 1+nx, B). MPT_BWD_WARPS scenarios a
+// block; their storage's limit is raised once per device.
 extern "C" int launch_backward(const float* AB, const float* xs,
                                const float* us, const float* x_last,
                                const float* goal, const float* reg, float* kK,
                                int B, int H, void* stream) {
+  static bool raised[64];
   if (B <= 0 || H <= 0) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(mpt_bwd_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)MPT_BWD_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    raised[dev] = true;
+  }
   const unsigned int blocks = (unsigned int)(((long long)B + MPT_BWD_WARPS - 1) / MPT_BWD_WARPS);
-  mpt_bwd_warp_kernel<<<blocks, MPT_BWD_WARPS * MPT_LANES, 0, (cudaStream_t)stream>>>(
+  mpt_bwd_warp_kernel<<<blocks, MPT_BWD_WARPS * MPT_LANES, MPT_BWD_SMEM, (cudaStream_t)stream>>>(
       AB, xs, us, x_last, goal, reg, kK, B, H);
   return (int)cudaGetLastError();
 }
@@ -515,13 +553,15 @@ MPT_ATTRIBUTES(attributes_backward, mpt_bwd_warp_kernel)
 
 // ----------------------------------------------------------- K4 and K5 ---
 #if defined(MPT_UNIT_FWD)
-// The closed-loop rollout of one scenario under one alpha. Writes the
-// trajectory when xs_out is not null (K5) and returns the total cost.
+// The closed-loop rollout of one scenario under one alpha. Writes each
+// step's post-step state and control when xs_out is not null, row r of
+// them at xs_out[r * stride * B] (K5: stride 1; K4: the A alphas, xs_out
+// already at its alpha's column), and returns the total cost.
 static __device__ __forceinline__ float fwd_rollout(
     const float* __restrict__ x0, const float* __restrict__ sd_x,
     const float* __restrict__ sd_u, const float* __restrict__ kK,
     const float* __restrict__ goal, float alpha, float* __restrict__ xs_out,
-    float* __restrict__ us_out, int B, int H, int b) {
+    float* __restrict__ us_out, int stride, int B, int H, int b) {
   float x[MPT_NX], g[MPT_NJ], sdx[MPT_NX], sdu[MPT_NJ], kk[MPT_NJ * MPT_KK];
   float u[MPT_NJ], c[1], x_next[MPT_NX];
 #pragma unroll
@@ -543,23 +583,124 @@ static __device__ __forceinline__ float fwd_rollout(
     for (int i = 0; i < MPT_NX; ++i) x[i] = x_next[i];
     if (xs_out != NULL) {
 #pragma unroll
-      for (int i = 0; i < MPT_NX; ++i) MPT_AT(xs_out, t * MPT_NX + i, b, B) = x[i];
+      for (int i = 0; i < MPT_NX; ++i)
+        MPT_AT(xs_out, (size_t)(t * MPT_NX + i) * stride, b, B) = x[i];
 #pragma unroll
-      for (int j = 0; j < MPT_NJ; ++j) MPT_AT(us_out, t * MPT_NJ + j, b, B) = u[j];
+      for (int j = 0; j < MPT_NJ; ++j)
+        MPT_AT(us_out, (size_t)(t * MPT_NJ + j) * stride, b, B) = u[j];
     }
   }
   mpc_terminal(x, g, c);
   return acc + c[0];
 }
 
+// K4, costs only: thread (b, a) scores alpha a for scenario b.
 static __device__ __forceinline__ void cost_thread(
     const float* x0, const float* sd_x, const float* sd_u, const float* kK,
     const float* goal, const float* alphas, float* costs, int B, int H, int b,
     int a) {
   MPT_AT(costs, a, b, B) =
-      fwd_rollout(x0, sd_x, sd_u, kK, goal, alphas[a], NULL, NULL, B, H, b);
+      fwd_rollout(x0, sd_x, sd_u, kK, goal, alphas[a], NULL, NULL, 1, B, H, b);
 }
 
+// K4 with the trajectories: thread (b, a) also stores alpha a's states and
+// controls into xs_all (H, nx, A, B) and us_all (H, n, A, B).
+static __device__ __forceinline__ void linesearch_thread(
+    const float* x0, const float* sd_x, const float* sd_u, const float* kK,
+    const float* goal, const float* alphas, float* costs, float* xs_all,
+    float* us_all, int B, int H, int A, int b, int a) {
+  const size_t col = (size_t)a * (size_t)B;
+  MPT_AT(costs, a, b, B) = fwd_rollout(x0, sd_x, sd_u, kK, goal, alphas[a], xs_all + col,
+                                       us_all + col, A, B, H, b);
+}
+
+// K5: scenario b under its own alpha.
+static __device__ __forceinline__ void replay_thread(
+    const float* x0, const float* sd_x, const float* sd_u, const float* kK,
+    const float* goal, const float* alpha, float* xs, float* us, float* cost,
+    int B, int H, int b) {
+  cost[b] = fwd_rollout(x0, sd_x, sd_u, kK, goal, alpha[b], xs, us, 1, B, H, b);
+}
+
+#ifdef __CUDACC__
+// K4: block (i, a) holds scenarios i*MPT_BLOCK .. of alpha a; STORE adds
+// the trajectories (`linesearch`), without it the costs alone
+// (`linesearch_costs`).
+template <bool STORE>
+__global__ void __launch_bounds__(MPT_BLOCK) mpt_cost_kernel(
+    const float* __restrict__ x0, const float* __restrict__ sd_x,
+    const float* __restrict__ sd_u, const float* __restrict__ kK,
+    const float* __restrict__ goal, const float* __restrict__ alphas,
+    float* __restrict__ costs, float* __restrict__ xs_all, float* __restrict__ us_all,
+    int B, int H) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  if (STORE)
+    linesearch_thread(x0, sd_x, sd_u, kK, goal, alphas, costs, xs_all, us_all, B, H,
+                      (int)gridDim.y, b, (int)blockIdx.y);
+  else
+    cost_thread(x0, sd_x, sd_u, kK, goal, alphas, costs, B, H, b, (int)blockIdx.y);
+}
+
+// x0 (nx, B), sd_x (H, nx, B), sd_u (H, n, B), kK (H, n, 1+nx, B),
+// goal (n, B), alphas (A) -> costs (A, B). Grid (B blocks, A).
+extern "C" int launch_linesearch_costs(const float* x0, const float* sd_x,
+                                       const float* sd_u, const float* kK,
+                                       const float* goal, const float* alphas,
+                                       float* costs, int B, int H, int A,
+                                       void* stream) {
+  if (B <= 0 || A <= 0) return 0;
+  const dim3 grid((unsigned int)((B + MPT_BLOCK - 1) / MPT_BLOCK), (unsigned int)A);
+  mpt_cost_kernel<false><<<grid, MPT_BLOCK, 0, (cudaStream_t)stream>>>(
+      x0, sd_x, sd_u, kK, goal, alphas, costs, NULL, NULL, B, H);
+  return (int)cudaGetLastError();
+}
+
+// The same inputs -> costs (A, B), xs_all (H, nx, A, B), us_all (H, n, A, B).
+extern "C" int launch_linesearch(const float* x0, const float* sd_x,
+                                 const float* sd_u, const float* kK,
+                                 const float* goal, const float* alphas,
+                                 float* costs, float* xs_all, float* us_all,
+                                 int B, int H, int A, void* stream) {
+  if (B <= 0 || A <= 0) return 0;
+  const dim3 grid((unsigned int)((B + MPT_BLOCK - 1) / MPT_BLOCK), (unsigned int)A);
+  mpt_cost_kernel<true><<<grid, MPT_BLOCK, 0, (cudaStream_t)stream>>>(
+      x0, sd_x, sd_u, kK, goal, alphas, costs, xs_all, us_all, B, H);
+  return (int)cudaGetLastError();
+}
+MPT_ATTRIBUTES(attributes_linesearch_costs, mpt_cost_kernel<false>)
+MPT_ATTRIBUTES(attributes_linesearch, mpt_cost_kernel<true>)
+#endif
+
+#if !defined(MPT_REPLAY_TEAM)
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(MPT_BLOCK) mpt_replay_kernel(
+    const float* __restrict__ x0, const float* __restrict__ sd_x,
+    const float* __restrict__ sd_u, const float* __restrict__ kK,
+    const float* __restrict__ goal, const float* __restrict__ alpha,
+    float* __restrict__ xs, float* __restrict__ us, float* __restrict__ cost,
+    int B, int H) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  replay_thread(x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H, b);
+}
+
+// The same inputs with one alpha per scenario, alpha (B) -> xs (H, nx, B),
+// us (H, n, B), cost (B).
+extern "C" int launch_replay(const float* x0, const float* sd_x,
+                             const float* sd_u, const float* kK,
+                             const float* goal, const float* alpha, float* xs,
+                             float* us, float* cost, int B, int H,
+                             void* stream) {
+  if (B <= 0) return 0;
+  const unsigned int blocks = (unsigned int)((B + MPT_BLOCK - 1) / MPT_BLOCK);
+  mpt_replay_kernel<<<blocks, MPT_BLOCK, 0, (cudaStream_t)stream>>>(
+      x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H);
+  return (int)cudaGetLastError();
+}
+MPT_ATTRIBUTES(attributes_replay, mpt_replay_kernel)
+#endif
+#else  // MPT_REPLAY_TEAM
 // K5: a team of MPT_FWD_TEAM_W warps owns MPT_TEAM_S scenarios, scenario
 // b0 + s on lane s of every warp (lanes s + S, s + 2S, ... repeat lane s's
 // work in the same columns, and only lane s stores). Each step is the
@@ -572,14 +713,31 @@ static __device__ __forceinline__ void cost_thread(
 //   GOAL  n
 //   OB    2 x (n+1)  u, then the running cost, of step t in buffer t & 1
 //   SLOTS MPT_FWD_TEAM_SLOTS
-#if !defined(MPT_TEAM_S) || !defined(MPT_TEAM_PER_BLOCK) || !defined(MPT_FWD_TEAM_W)
-#error "MPT_TEAM_S, MPT_TEAM_PER_BLOCK and the emitted team step must come before K5"
-#endif
-#if 32 % MPT_TEAM_S != 0 || MPT_TEAM_S % 4 != 0 || MPT_TEAM_PER_BLOCK > 15 || MPT_FWD_TEAM_W * MPT_TEAM_PER_BLOCK > 32
-#error "a team's S must divide 32 and be a multiple of 4; a block holds at most 15 teams and 32 warps"
+#if !defined(MPT_TEAM_S_MAX) || !defined(MPT_TEAM_PER_BLOCK)
+#error "MPT_TEAM_S_MAX and MPT_TEAM_PER_BLOCK must come before K5's team"
 #endif
 #define MPT_ROWN (MPT_NX + MPT_NJ + MPT_NJ * MPT_KK)
 #define MPT_TEAM_THREADS (32 * MPT_FWD_TEAM_W)
+// Floats a team holds per scenario, and the shared memory a block may take.
+#define MPT_T_LANE (2 * MPT_NX + 2 * MPT_ROWN + MPT_NJ + 2 * (MPT_NJ + 1) + MPT_FWD_TEAM_SLOTS)
+#define MPT_SMEM_MAX 232448
+#define MPT_T_FITS(S) ((S) * MPT_T_LANE * 4 <= MPT_SMEM_MAX)
+// Scenarios a team: MPT_TEAM_S_MAX, halved (to 4 at least) until one team's
+// storage fits a block: a robot with more joints has longer rows and more
+// slots (n = 12 takes 285568 bytes at 32 scenarios).
+#define MPT_TEAM_S (MPT_T_FITS(MPT_TEAM_S_MAX) ? MPT_TEAM_S_MAX        \
+                    : MPT_TEAM_S_MAX >= 8 && MPT_T_FITS(MPT_TEAM_S_MAX / 2) ? MPT_TEAM_S_MAX / 2 \
+                    : MPT_TEAM_S_MAX >= 16 && MPT_T_FITS(MPT_TEAM_S_MAX / 4) ? MPT_TEAM_S_MAX / 4 \
+                    : 4)
+// MPT_TEAM_STEP: the unit's writer puts the emitted team step here (its
+// MPT_FWD_TEAM_* defines and warp programs, ops/cgen.py::team_function),
+// after the macros its programs read (MPT_TS, the team's scenarios).
+#if !defined(MPT_FWD_TEAM_W)
+#error "the emitted team step must come before K5's team"
+#endif
+#if 32 % MPT_TEAM_S_MAX != 0 || MPT_TEAM_S_MAX % 4 != 0 || MPT_TEAM_PER_BLOCK > 15 || MPT_FWD_TEAM_W * MPT_TEAM_PER_BLOCK > 32
+#error "a team's S must divide 32 and be a multiple of 4; a block holds at most 15 teams and 32 warps"
+#endif
 #define MPT_T_XIN 0
 #define MPT_T_ROWS (MPT_T_XIN + 2 * MPT_NX * MPT_TEAM_S)
 #define MPT_T_GOAL (MPT_T_ROWS + 2 * MPT_ROWN * MPT_TEAM_S)
@@ -587,15 +745,15 @@ static __device__ __forceinline__ void cost_thread(
 #define MPT_T_SLOTS (MPT_T_OB + 2 * (MPT_NJ + 1) * MPT_TEAM_S)
 #define MPT_T_FLOATS (MPT_T_SLOTS + MPT_FWD_TEAM_SLOTS * MPT_TEAM_S)
 #define MPT_T_BYTES ((size_t)MPT_T_FLOATS * sizeof(float))
-// Teams a block: MPT_TEAM_PER_BLOCK where their storage fits the 232448
-// bytes of shared memory a block may take, else as many as fit (a robot with
-// more joints has more slots).
-#define MPT_SMEM_MAX 232448
 #if MPT_T_FLOATS * 4 > MPT_SMEM_MAX
 #error "one team's storage exceeds the shared memory a block may take"
 #endif
+// Teams a block: MPT_TEAM_PER_BLOCK where their storage fits, else as many
+// as fit.
 #define MPT_TEAMS (MPT_TEAM_PER_BLOCK * MPT_T_FLOATS * 4 <= MPT_SMEM_MAX ? MPT_TEAM_PER_BLOCK \
                    : MPT_SMEM_MAX / (MPT_T_FLOATS * 4))
+#define MPT_REPLAY_SMEM (MPT_T_BYTES * MPT_TEAMS)
+extern "C" long long mpt_layout_replay_team(void) { return (long long)MPT_REPLAY_SMEM; }
 
 // x0 and the goals of the team's scenarios into XIN buffer 0 and GOAL
 // (zeros past B).
@@ -709,16 +867,6 @@ static __device__ __forceinline__ void replay_team(
 }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(MPT_BLOCK) mpt_cost_kernel(
-    const float* __restrict__ x0, const float* __restrict__ sd_x,
-    const float* __restrict__ sd_u, const float* __restrict__ kK,
-    const float* __restrict__ goal, const float* __restrict__ alphas,
-    float* __restrict__ costs, int B, int H) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  cost_thread(x0, sd_x, sd_u, kK, goal, alphas, costs, B, H, b, (int)blockIdx.y);
-}
-
 __global__ void __launch_bounds__(MPT_TEAM_THREADS * MPT_TEAMS) mpt_replay_kernel(
     const float* __restrict__ x0, const float* __restrict__ sd_x,
     const float* __restrict__ sd_u, const float* __restrict__ kK,
@@ -733,24 +881,9 @@ __global__ void __launch_bounds__(MPT_TEAM_THREADS * MPT_TEAMS) mpt_replay_kerne
               x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H, b0);
 }
 
-// x0 (nx, B), sd_x (H, nx, B), sd_u (H, n, B), kK (H, n, 1+nx, B),
-// goal (n, B), alphas (A) -> costs (A, B). Grid (B blocks, A).
-extern "C" int launch_linesearch_costs(const float* x0, const float* sd_x,
-                                       const float* sd_u, const float* kK,
-                                       const float* goal, const float* alphas,
-                                       float* costs, int B, int H, int A,
-                                       void* stream) {
-  if (B <= 0 || A <= 0) return 0;
-  const dim3 grid((unsigned int)((B + MPT_BLOCK - 1) / MPT_BLOCK), (unsigned int)A);
-  mpt_cost_kernel<<<grid, MPT_BLOCK, 0, (cudaStream_t)stream>>>(
-      x0, sd_x, sd_u, kK, goal, alphas, costs, B, H);
-  return (int)cudaGetLastError();
-}
-
 // The same inputs with one alpha per scenario, alpha (B) -> xs (H, nx, B),
 // us (H, n, B), cost (B). Blocks of MPT_TEAMS teams; the teams'
 // storage is dynamic shared memory, whose limit is raised once per device.
-#define MPT_REPLAY_SMEM (MPT_T_BYTES * MPT_TEAMS)
 extern "C" int launch_replay(const float* x0, const float* sd_x,
                              const float* sd_u, const float* kK,
                              const float* goal, const float* alpha, float* xs,
@@ -786,7 +919,7 @@ extern "C" int team_replay(int* out) {
   out[5] = (int)MPT_REPLAY_SMEM;
   return 0;
 }
-MPT_ATTRIBUTES(attributes_linesearch_costs, mpt_cost_kernel)
 MPT_ATTRIBUTES(attributes_replay, mpt_replay_kernel)
 #endif
+#endif  // MPT_REPLAY_TEAM
 #endif  // MPT_UNIT_FWD

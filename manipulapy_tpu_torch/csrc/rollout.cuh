@@ -278,8 +278,11 @@ static __device__ __forceinline__ void rollout_block(
   }
 }
 
-#ifdef __CUDACC__
+// The tiles' dynamic shared bytes a block, on the card and to the host.
 #define MPT_SMEM_BYTES (MPT_TILE_FLOATS(MPT_BLOCK) * sizeof(float))
+extern "C" long long mpt_layout_rollout(void) { return (long long)MPT_SMEM_BYTES; }
+
+#ifdef __CUDACC__
 
 __global__ void __launch_bounds__(MPT_BLOCK) mpt_rollout_kernel(
     const float* __restrict__ q0, const float* __restrict__ dq0,

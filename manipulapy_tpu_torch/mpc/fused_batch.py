@@ -1,17 +1,22 @@
 """Batched fused tracking MPC: one iLQR problem per scenario, B at once.
 
 Counterpart of ``manipulapy_tpu/mpc/fused_batch.py``. Each iteration runs
-four kernels (``ops/cuda_mpc_batch.py``) over every scenario:
+three kernels (``ops/cuda_mpc_batch.py``) over every scenario:
 
 * ``linearize`` (K2): the exact ``A_t, B_t`` of the step program along the
   nominal trajectory, all 3n tangent seeds;
 * ``backward`` (K3): the Riccati sweep with a per-scenario Levenberg term;
-* ``linesearch_costs`` (K4): the closed-loop cost of every alpha;
-* ``replay`` (K5): the rollout of each scenario's first improving alpha.
+* ``linesearch`` (K4): the closed-loop rollout of every alpha, its cost
+  and its trajectory.
 
-The glue between them is plain tensor ops on the device, as it is XLA in
-the JAX package: the alphas ``0.5 ** arange(A)``, the first improving
-alpha per scenario, the guard that keeps a rejected scenario's state (NaN
+The solver then selects each scenario's first improving alpha from K4's
+trajectories, as the JAX single-problem solver selects from its forward
+kernel's; the JAX batched solver instead replays that alpha (its
+``replay``, K5 here), which gives the same bits. K5 runs once a solve, for
+the initial open-loop rollout. The glue between the kernels is plain tensor
+ops on the device, as it is XLA in the JAX package: the alphas ``0.5 **
+arange(A)``, the first improving alpha per scenario and the selection
+along the alpha axis, the guard that keeps a rejected scenario's state (NaN
 gains from a Quu that lost definiteness must not reach it), and the
 regularisation update ``reg <- clamp(reg / 10 or reg * 10, 1e-9, 1e6)``.
 
@@ -43,8 +48,8 @@ class BatchTrackingMPC(NamedTuple):
     ``q_goal_new`` is (n,) or (B, n) and re-targets every scenario; the
     goals given at build time serve when it is None.
 
-    ``linearize``/``backward``/``linesearch_costs``/``replay`` are the four
-    stages in the scenario-minor layout; ``kernels`` is their
+    ``linearize``/``backward``/``linesearch_costs``/``linesearch``/``replay``
+    are the stages in the scenario-minor layout; ``kernels`` is their
     :class:`~manipulapy_tpu_torch.ops.cuda_mpc_batch.BatchMPCKernels`;
     ``solve_plain`` is ``solve`` through the plain versions on any device,
     the reference the kernels are held against."""
@@ -56,6 +61,7 @@ class BatchTrackingMPC(NamedTuple):
     linearize: Callable
     backward: Callable
     linesearch_costs: Callable
+    linesearch: Callable
     replay: Callable
     kernels: BatchMPCKernels
     solve_plain: Callable
@@ -150,21 +156,25 @@ def build_batch_tracking_mpc(
             torch.zeros((B,), **f32),
         )
         reg_t = torch.full((B,), float(reg), **f32)
+        # Every alpha's trajectory: allocated by the first line search and
+        # written again by each later one.
+        xs_all = us_all = None
         for _ in range(iterations):
             # Pre-step nominal states: x0, then xs_post[:-1].
             sd_x = torch.cat([x0_t[None], xs_post[:-1]], dim=0)
             AB = stages.linearize(sd_x, us_cur)
             kK = stages.backward(AB, sd_x, us_cur, xs_post[-1].contiguous(), goal_t, reg_t)
-            costs_all = stages.linesearch_costs(x0_t, sd_x, us_cur, kK, goal_t, alphas)  # (A, B)
-            # Per scenario, the first improving alpha (alphas descend from 1).
+            costs_all, xs_all, us_all = stages.linesearch(x0_t, sd_x, us_cur, kK, goal_t, alphas, xs_all, us_all)
+            # Per scenario, the first improving alpha (alphas descend from 1),
+            # and its trajectory and cost.
             improving = torch.isfinite(costs_all) & (costs_all < cost[None])
             idx = torch.argmax(improving.to(torch.int32), dim=0)
             accepted = improving.any(dim=0)
-            alpha_sel = torch.where(accepted, alphas[idx], torch.zeros((), **f32))
-            xs_new, us_new, cost_new = stages.replay(x0_t, sd_x, us_cur, kK, goal_t, alpha_sel)
-            # alpha = 0 retraces the nominal trajectory for finite gains, but
-            # NaN gains would poison it through 0 * NaN: keep a rejected
-            # scenario's whole state, and its cost against f32 drift.
+            xs_new = torch.gather(xs_all, 2, idx.view(1, 1, 1, B).expand(H, nx, 1, B))[:, :, 0]
+            us_new = torch.gather(us_all, 2, idx.view(1, 1, 1, B).expand(H, n, 1, B))[:, :, 0]
+            cost_new = torch.gather(costs_all, 0, idx[None])[0]
+            # A rejected scenario keeps its whole state: its idx points at
+            # alpha 1, whose rollout NaN gains would have poisoned.
             xs_post = torch.where(accepted, xs_new, xs_post)
             us_cur = torch.where(accepted, us_new, us_cur)
             cost = torch.where(accepted, cost_new, cost)
@@ -187,7 +197,7 @@ def build_batch_tracking_mpc(
     return BatchTrackingMPC(
         solve=solve, horizon=H, n=n, batch=B,
         linearize=kernels.linearize, backward=kernels.backward,
-        linesearch_costs=kernels.linesearch_costs, replay=kernels.replay,
+        linesearch_costs=kernels.linesearch_costs, linesearch=kernels.linesearch, replay=kernels.replay,
         kernels=kernels, solve_plain=solve_plain,
     )
 

@@ -6,22 +6,24 @@ Counterpart of the four ``pallas_call``s of
 
 * K2 ``linearize`` (``lin_kernel``): ``A_t, B_t = d x' / d [x; u]`` of the
   step program with ``clip_velocity=False``, over the m = 3n seeds, a
-  group of ``LIN_SEEDS`` of them a thread: the primal step once, each
-  tangent once per seed (``fd_step_jvp_group``), as ``jax.linearize`` and
-  its vmapped linear program do;
+  group of them a thread (``fd_step_jvp_group``: the primal step once,
+  each tangent once per seed, as ``jax.linearize`` and its vmapped linear
+  program do), as many as :func:`lin_seeds` gives for the robot;
 * K3 ``backward`` (``bwd_kernel``): the time-reversed Riccati sweep with a
   per-scenario Levenberg term and the unrolled Cholesky solve of
   ``_chol_solve_tiles``;
 * K4 ``linesearch_costs`` (``cost_kernel``): the closed-loop cost of every
-  alpha for every scenario;
+  alpha for every scenario; ``linesearch`` is the same kernel keeping every
+  alpha's trajectory too, so the solver selects the chosen one, as the JAX
+  single-problem solver's forward kernel does (``mpc/fused.py``);
 * K5 ``replay`` (``replay_kernel``): the rollout of each scenario's own
-  alpha, streaming out xs, us and the cost.
+  alpha, streaming out xs, us and the cost, one thread a scenario; a
+  variant unit (``TEAM_WARPS`` > 0) runs each step on a team of warps.
 
 Each kernel's arithmetic is one Python function over cgen values
 (:func:`riccati_terminal`, :func:`riccati_step`, :func:`fwd_step`,
 :func:`terminal_cost`, and ``ops/fd_step.py::build_fd_step_jvp_planes``
-for K2, emitted over a group of seeds by ``build_fd_step_jvp_group_source``).
-Run on tensors it is the plain PyTorch version; run on CVars it
+for K2). Run on tensors it is the plain PyTorch version; run on CVars it
 is the kernel's device function (template ``csrc/mpc_batch.cuh``), built
 with ``--fmad=false``, so the two agree bitwise. The order of every sum
 is the JAX kernels'. K3 is the exception: one warp per scenario runs
@@ -32,7 +34,8 @@ the template in the same order; the emitted step
 Layout: scenario-minor, ``xs (H, nx, B)``, ``us (H, n, B)``, ``AB (H, nx,
 m, B)``, ``kK (H, n, 1+nx, B)`` (``[..., j, 0, :]`` = k_j, ``[..., j, 1+i,
 :]`` = K_ji), ``x0 (nx, B)``, ``goal (n, B)``, ``reg``/``alpha``/``cost
-(B,)``, ``costs (A, B)``.
+(B,)``, ``costs (A, B)``, and ``linesearch``'s ``xs_all (H, nx, A, B)``,
+``us_all (H, n, A, B)``.
 
 On CPU tensors every stage runs its plain version, and only because the
 tensors lie on the CPU. On CUDA tensors it launches its kernel or raises:
@@ -66,7 +69,7 @@ __all__ = [
     "BatchMPCKernels",
     "STAGES",
     "BLOCK",
-    "LIN_SEEDS",
+    "lin_seeds",
     "LIN_BLOCK",
     "TEAM_WARPS",
     "TEAM_S",
@@ -79,28 +82,44 @@ __all__ = [
 ]
 
 TEMPLATE = Path(__file__).resolve().parents[1] / "csrc" / "mpc_batch.cuh"
-BLOCK = 128  # threads per block
-# K2: tangent seeds a thread (``MPT_LIN_SEEDS``; 3 divides every m = 3n),
-# threads a block (``MPT_LIN_BLOCK``; 64 leave each thread more shared memory
-# to spill into than 128) and ptxas's -O1, whose schedule spills less than
-# its default -O3 and builds ~3x faster. Each chosen by timing Panda's and
-# UR5's K2 on an H100 (``chip_k2_variants.py``, PERF.md section 6).
-LIN_SEEDS, LIN_BLOCK = 3, 64
+BLOCK = 128  # threads per block (K4, K5)
+# K2: threads a block (``MPT_LIN_BLOCK``; 64 leave each thread more shared
+# memory to spill into than 128) and ptxas's -O1, whose schedule spills less
+# than its default -O3 and builds ~3x faster (``chip_k2_variants.py``).
+LIN_BLOCK = 64
 LIN_FLAGS = ("-Xptxas", "-O1")
-# K5: warps a team (the partition of the emitted step, ``cg.team_function``),
-# scenarios a team (``MPT_TEAM_S``, on the lanes) and teams a block
-# (``MPT_TEAM_PER_BLOCK``), chosen by timing Panda's K5 on an H100
-# (``chip_compare.py``, PERF.md section 6).
-TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK = 8, 32, 2
-STAGES = ("linearize", "backward", "linesearch_costs", "replay")
+
+
+def lin_seeds(n: int) -> int:
+    """K2's tangent seeds a thread (``MPT_LIN_SEEDS``) for a robot of n
+    joints: 3 where the primal step and three tangents fit a thread's 255
+    registers, up to 6 joints (UR5: 40 local bytes, 19-24% faster than one
+    seed), else 1 (Panda: three seeds spill 1560 local bytes and take 1.7x
+    as long; one seed spills nothing and is 1-3% faster than a unit of the
+    one-seed ``fd_step_jvp`` in blocks of 128 at ptxas -O3). Both measured
+    in one ``chip_compare.py`` call on an H100 (PERF.md section 6)."""
+    return 3 if n <= 6 else 1
+
+
+# K5: one thread a scenario (``TEAM_WARPS`` = 0). A variant unit runs a team
+# of ``TEAM_WARPS`` warps per ``TEAM_S`` scenarios at most (``MPT_TEAM_S_MAX``,
+# halved until a team fits a block), ``TEAM_PER_BLOCK`` teams a block: 1.3x
+# to 3.2x slower for Panda on an H100 (``chip_compare.py``, PERF.md
+# section 6).
+TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK = 0, 32, 2
+STAGES = ("linearize", "backward", "linesearch_costs", "linesearch", "replay")
 # Translation units: K4 and K5 share one emitted body.
-UNITS = {"lin": ("linearize",), "bwd": ("backward",), "fwd": ("linesearch_costs", "replay")}
+UNITS = {"lin": ("linearize",), "bwd": ("backward",), "fwd": ("linesearch_costs", "linesearch", "replay")}
+# Per unit, the entry (``mpt_layout_*``) that gives a block's dynamic shared
+# bytes where the unit's kernel takes them: K3, K5's team variant.
+LAYOUTS = {"bwd": ("backward", "mpt_layout_backward"), "fwd": ("replay_team", "mpt_layout_replay_team")}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "linearize": [_P] * 3 + [_I, _I, _P],
     "backward": [_P] * 7 + [_I, _I, _P],
     "linesearch_costs": [_P] * 7 + [_I, _I, _I, _P],
+    "linesearch": [_P] * 9 + [_I, _I, _I, _P],
     "replay": [_P] * 9 + [_I, _I, _P],
 }
 
@@ -427,41 +446,66 @@ class MPCKernelSet(KernelSet):
 
 
 class BatchMPCKernels(MPCKernelSet):
-    """K2-K5 for one (robot, dt, g, cost weights, torque limits). K2's
-    unit carries ``fd_step_jvp_group`` for ``LIN_SEEDS`` seeds a thread
-    (``MPT_LIN_SEEDS``); the one-seed ``fd_step_jvp`` stays out of it, as
-    ``linearize_seed_source``, the host tests' reference."""
+    """K2-K5 for one (robot, dt, g, cost weights, torque limits). K2's unit
+    carries ``fd_step_jvp_group`` for ``LIN_SEEDS`` seeds a thread
+    (``MPT_LIN_SEEDS``; None: :func:`lin_seeds` of the robot, set on the
+    instance); the one-seed ``fd_step_jvp`` stays out of it, as
+    ``linearize_seed_source``, the host tests' reference. K5's unit runs
+    one thread a scenario, or with ``TEAM_WARPS`` > 0 a team of warps
+    (``self.team``). Only the units of ``UNITS`` are emitted and built."""
 
     kind = "cuda"
     STAGES, UNITS, ARGTYPES, LIB_PREFIX = STAGES, UNITS, _ARGTYPES, "mpc_batch"
     TEMPLATE, DEFINES = TEMPLATE, {"MPT_BLOCK": BLOCK}
-    LIN_SEEDS, UNIT_FLAGS = LIN_SEEDS, {"lin": LIN_FLAGS}
+    LIN_SEEDS, UNIT_FLAGS = None, {"lin": LIN_FLAGS}
     TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK, TEAM_STAGE = TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK, "replay"
     launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
+    team = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.team is not None:  # the team step goes where the template marks it, after the macros it reads
+            fwd = self.sources["fwd"]
+            at = fwd.rindex("// MPT_TEAM_STEP:")
+            self.sources["fwd"] = fwd[:at] + self.team.source + fwd[at:]
 
     def _bodies(self, model, dt, g) -> Dict[str, str]:
         P, n, nx = self.P, self.n, self.nx
         kkn, vn = n * (1 + nx), (nx + 1) * nx
-        self.linearize_seed_source = self._linearize_body(model, dt, g)
-        _, group_src, self.statements["linearize_group"] = build_fd_step_jvp_group_source(
-            model, dt, g=g, seeds=self.LIN_SEEDS
-        )
-        lin_src = f"#define MPT_LIN_SEEDS {self.LIN_SEEDS}\n#define MPT_LIN_BLOCK {LIN_BLOCK}\n{group_src}"
-        term_src, term_ops = cg.c_function(
-            "riccati_terminal", [("x_last", nx), ("goal", n)], [], [("V", vn)],
-            lambda x_last, goal: [riccati_terminal(P, x_last, goal)],
-        )
-        step_src, step_ops = cg.c_function(
-            "riccati_step", [("ab", nx * self.m), ("x", nx), ("u", n), ("goal", n), ("V", vn)],
-            ["reg"], [("kk", kkn), ("V_next", vn)],
-            lambda ab, x, u, goal, V, reg: riccati_step(P, ab, x, u, goal, V, reg),
-        )
-        # K3's phases (csrc/mpc_batch.cuh) do riccati_step's operations, so
-        # its emitted body stays out of the unit: it is the host harness's
-        # reference and its statements K3's operation count.
-        self.riccati_step_source = step_src
-        self.statements["backward"] = step_ops
-        self.statements["value_terminal"] = term_ops
+        out = {}
+        if self.LIN_SEEDS is None:
+            self.LIN_SEEDS = lin_seeds(n)
+        if "lin" in self.UNITS:
+            self.linearize_seed_source = self._linearize_body(model, dt, g)
+            _, group_src, self.statements["linearize_group"] = build_fd_step_jvp_group_source(
+                model, dt, g=g, seeds=self.LIN_SEEDS
+            )
+            out["lin"] = f"#define MPT_LIN_SEEDS {self.LIN_SEEDS}\n#define MPT_LIN_BLOCK {LIN_BLOCK}\n{group_src}"
+        if "bwd" in self.UNITS:
+            term_src, term_ops = cg.c_function(
+                "riccati_terminal", [("x_last", nx), ("goal", n)], [], [("V", vn)],
+                lambda x_last, goal: [riccati_terminal(P, x_last, goal)],
+            )
+            step_src, step_ops = cg.c_function(
+                "riccati_step", [("ab", nx * self.m), ("x", nx), ("u", n), ("goal", n), ("V", vn)],
+                ["reg"], [("kk", kkn), ("V_next", vn)],
+                lambda ab, x, u, goal, V, reg: riccati_step(P, ab, x, u, goal, V, reg),
+            )
+            # K3's phases (csrc/mpc_batch.cuh) do riccati_step's operations, so
+            # its emitted body stays out of the unit: it is the host harness's
+            # reference and its statements K3's operation count.
+            self.riccati_step_source = step_src
+            self.statements["backward"] = step_ops
+            self.statements["value_terminal"] = term_ops
+            out["bwd"] = bwd_weights(P) + term_src
+        if "fwd" in self.UNITS:
+            out["fwd"] = self._fwd_body()
+        return out
+
+    def _fwd_body(self) -> str:
+        """K4's and K5's unit: the emitted closed-loop step and terminal cost
+        (``fwd_rollout``), and for a team the step split over its warps."""
+        P, n, nx = self.P, self.n, self.nx
 
         def fwd_body(x, sdx, sdu, kk, goal, alpha):
             u, c, x_next = fwd_step(P, x, sdx, sdu, kk, goal, alpha)
@@ -473,19 +517,40 @@ class BatchMPCKernels(MPCKernelSet):
             "mpc_terminal", [("x", nx), ("goal", n)], [], [("c", 1)],
             lambda x, goal: [[terminal_cost(P, x, goal)]], emitter=ems,
         )
-        # K5: the same step split over a team of warps, the scenarios on its
-        # lanes: every input and output a column of MPT_TEAM_S lanes.
+        for stage in ("linesearch_costs", "linesearch", "replay"):
+            self.statements[stage] = fwd_ops
+        self.statements["cost_terminal"] = cost_ops
+        self.chains = {"replay": cg.chain_length(ems[0]), "cost_terminal": cg.chain_length(ems[1])}
+        if not self.TEAM_WARPS:
+            return fwd_src + cost_src
+        # K5's variant: the same step split over a team of warps, the
+        # scenarios on its lanes: every input and output a column of
+        # MPT_TEAM_S lanes.
         self.team = cg.team_function(
             "mpt_fwd_team", *fwd_signature(P), fwd_body, team_layout(P, "MPT_TS"), self.TEAM_WARPS
         )
-        team_src = (
-            f"#define MPT_TEAM_S {self.TEAM_S}\n#define MPT_TEAM_PER_BLOCK {self.TEAM_PER_BLOCK}\n"
-            f"#define MPT_TS MPT_TEAM_S\n{cg.TEAM_SOURCE}{self.team.source}"
+        return (
+            f"{fwd_src}{cost_src}#define MPT_REPLAY_TEAM 1\n#define MPT_TEAM_S_MAX {self.TEAM_S}\n"
+            f"#define MPT_TEAM_PER_BLOCK {self.TEAM_PER_BLOCK}\n#define MPT_TS MPT_TEAM_S\n{cg.TEAM_SOURCE}"
         )
-        self.statements["linesearch_costs"] = self.statements["replay"] = fwd_ops
-        self.statements["cost_terminal"] = cost_ops
-        self.chains = {"replay": cg.chain_length(ems[0]), "cost_terminal": cg.chain_length(ems[1])}
-        return {"lin": lin_src, "bwd": bwd_weights(P) + term_src, "fwd": fwd_src + cost_src + team_src}
+
+    def team_attributes(self) -> Dict[str, int]:
+        if self.team is None:
+            raise ValueError("K5 runs one thread a scenario here; a team is a variant unit (TEAM_WARPS > 0)")
+        return super().team_attributes()
+
+    def layout_bytes(self) -> Dict[str, int]:
+        """The dynamic shared bytes a block of K3 (``backward``) and of K5's
+        team (``replay_team``, a team variant only) takes, from the built
+        units' ``mpt_layout_*`` entries (the kernels' own macros)."""
+        out = {}
+        for unit, lib in self.build().items():
+            key, entry = LAYOUTS.get(unit, (None, None))
+            fn = getattr(lib.lib, entry, None) if entry else None
+            if fn is not None:
+                fn.restype = ctypes.c_longlong
+                out[key] = int(fn())
+        return out
 
     # -- checks -----------------------------------------------------------
     @staticmethod
@@ -538,17 +603,22 @@ class BatchMPCKernels(MPCKernelSet):
         return torch.stack(rows)
 
     # -- K4 ----------------------------------------------------------------
-    def linesearch_costs(self, x0, sd_x, sd_u, kK, goal, alphas) -> torch.Tensor:
-        """Score every alpha (A,) for every scenario: -> (A, B)."""
+    def _linesearch_inputs(self, stage, x0, sd_x, sd_u, kK, goal, alphas):
+        """(H, B, A, whether the stage runs its kernel)."""
         H, B = self._dims(sd_x)
         n, nx = self.n, self.nx
         A = alphas.shape[0] if alphas.dim() == 1 else -1
         if A == 0 or A > 65535:
-            raise ValueError(f"linesearch_costs takes 1 to 65535 alphas, got {A}")
+            raise ValueError(f"{stage} takes 1 to 65535 alphas, got {A}")
         tensors = {"x0": x0, "sd_x": sd_x, "sd_u": sd_u, "kK": kK, "goal": goal, "alphas": alphas}
         shapes = {"x0": (nx, B), "sd_x": (H, nx, B), "sd_u": (H, n, B),
                   "kK": (H, n, 1 + nx, B), "goal": (n, B), "alphas": (A,)}
-        if not self._route("linesearch_costs", tensors, shapes):
+        return H, B, A, self._route(stage, tensors, shapes)
+
+    def linesearch_costs(self, x0, sd_x, sd_u, kK, goal, alphas) -> torch.Tensor:
+        """Score every alpha (A,) for every scenario: -> (A, B)."""
+        H, B, A, kernel = self._linesearch_inputs("linesearch_costs", x0, sd_x, sd_u, kK, goal, alphas)
+        if not kernel:
             return self.linesearch_costs_plain(x0, sd_x, sd_u, kK, goal, alphas)
         costs = torch.empty((A, B), dtype=x0.dtype, device=x0.device)
         self._launch("linesearch_costs", x0.device, x0, sd_x, sd_u, kK, goal, alphas, costs, B, H, A)
@@ -556,6 +626,35 @@ class BatchMPCKernels(MPCKernelSet):
 
     def linesearch_costs_plain(self, x0, sd_x, sd_u, kK, goal, alphas) -> torch.Tensor:
         return self.replay_plain(x0, sd_x, sd_u, kK, goal, alphas[:, None])[2]
+
+    def linesearch(self, x0, sd_x, sd_u, kK, goal, alphas, xs_all=None, us_all=None):
+        """Roll every alpha (A,) for every scenario and keep its trajectory:
+        -> (costs (A, B), xs_all (H, nx, A, B), us_all (H, n, A, B)), xs_all
+        the post-step states. ``xs_all`` and ``us_all``, where given, are
+        written in place and returned (a solve reuses them)."""
+        H, B, A, kernel = self._linesearch_inputs("linesearch", x0, sd_x, sd_u, kK, goal, alphas)
+        shapes = {"xs_all": (H, self.nx, A, B), "us_all": (H, self.n, A, B)}
+        outs = {"xs_all": xs_all, "us_all": us_all}
+        for name, out in outs.items():
+            if out is None:
+                outs[name] = torch.empty(shapes[name], dtype=x0.dtype, device=x0.device)
+            elif tuple(out.shape) != shapes[name] or out.device != x0.device or out.dtype != x0.dtype \
+                    or not out.is_contiguous():
+                raise ValueError(f"linesearch: {name} must be a contiguous {x0.dtype} {shapes[name]} "
+                                 f"on {x0.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+        if not kernel:
+            costs, xs, us = self.linesearch_plain(x0, sd_x, sd_u, kK, goal, alphas)
+            return costs, outs["xs_all"].copy_(xs), outs["us_all"].copy_(us)
+        costs = torch.empty((A, B), dtype=x0.dtype, device=x0.device)
+        self._launch("linesearch", x0.device, x0, sd_x, sd_u, kK, goal, alphas, costs,
+                     outs["xs_all"], outs["us_all"], B, H, A)
+        return costs, outs["xs_all"], outs["us_all"]
+
+    def linesearch_plain(self, x0, sd_x, sd_u, kK, goal, alphas, xs_all=None, us_all=None):
+        """The plain version of ``linesearch``: the plain replay of every
+        alpha, ``alphas (A, 1)``. ``xs_all`` and ``us_all`` are ignored."""
+        xs, us, costs = self.replay_plain(x0, sd_x, sd_u, kK, goal, alphas[:, None])
+        return costs, xs, us
 
     # -- K5 ----------------------------------------------------------------
     def replay(self, x0, sd_x, sd_u, kK, goal, alpha):

@@ -15,7 +15,8 @@ operations in the same order with --fmad=false, so 0 is expected; K3's
 own tests alone: ``-k "backward_kernel and not single"``; K7's, bit for
 bit: ``-k "single and backward"``; K2's, bit for bit with NaN where the
 plain version has NaN: ``-k linearize_kernel``; K5's and K8's, the same:
-``-k "replay_kernel or forward_kernel"``); the JAX test's bars (cost rtol 1e-5,
+``-k "replay or forward_kernel"``; K4's with its trajectories and the
+12-joint solve: ``-k "linesearch or serial_chain_12"``); the JAX test's bars (cost rtol 1e-5,
 final state atol 5e-4, controls atol 5e-3) for the
 whole MPC solves against the plain solvers; for K9 2e-6 / 2e-5 / 2e-4 on pos
 / vel / acc and for K10 rtol 1e-4 with atol 1e-5 on U and 1e-4 on its
@@ -203,22 +204,24 @@ def test_mpc_kernels_match_plain_versions(cuda_device, robot):
     alphas = 0.5 ** torch.arange(6, device=cuda_device, dtype=torch.float32)
     args = (x0_t, sd_x, us, kK, goal_t, alphas)
     _close_to_scale(K.linesearch_costs(*args), P.linesearch_costs(*args))
+    for g, r in zip(K.linesearch(*args), P.linesearch(*args)):
+        _close_to_scale(g, r)
     args = (x0_t, sd_x, us, kK, goal_t, alphas[torch.arange(B, device=cuda_device) % 6].contiguous())
     for g, r in zip(K.replay(*args), P.replay(*args)):
         _close_to_scale(g, r)
     torch.cuda.synchronize()
     after = BatchMPCKernels.launch_count
     assert {k: after[k] - before[k] for k in after} == {
-        "linearize": 1, "backward": 1, "linesearch_costs": 1, "replay": 2
+        "linearize": 1, "backward": 1, "linesearch_costs": 1, "linesearch": 1, "replay": 2
     }
 
 
 # K2 alone: one thread per (scenario, group of LIN_SEEDS seeds, step), the
 # primal step once and each tangent once per seed, bitwise against the plain
-# linearization (NaN where it is NaN). Its local bytes at LIN_SEEDS = 3 in
-# blocks of 64 (PERF.md section 6, nvcc 12.9): the body spills past 255
-# registers, and more local bytes than these would mean a worse schedule.
-K2_LOCAL_BYTES = {"ur5": 40, "panda": 1560}
+# linearization (NaN where it is NaN). Its local bytes in blocks of 64, UR5
+# at 3 seeds a thread and Panda at 1 (PERF.md section 6, nvcc 12.8): more
+# local bytes than these would mean a worse schedule.
+K2_LOCAL_BYTES = {"ur5": 40, "panda": 0}
 _K2_SETS = {}
 
 
@@ -353,7 +356,8 @@ def test_backward_kernel_matches_plain_version(cuda_device, panda_bwd_nominal, B
 def test_backward_kernel_keeps_a_nan_scenario_to_itself(cuda_device, panda_bwd_nominal):
     """Scenario 5's Jacobians all NaN: its gains go NaN, the other 256 stay
     bit for bit those of the clean run (warps share a block, not a storage
-    region). K3 keeps its state in shared memory: no local (stack) bytes."""
+    region). K3 keeps its state in dynamic shared memory: no local (stack)
+    bytes, no static shared bytes."""
     K, nominal = panda_bwd_nominal
     args = _bwd_args(nominal, 257, 8)
     clean = K.backward(*args)
@@ -365,7 +369,8 @@ def test_backward_kernel_keeps_a_nan_scenario_to_itself(cuda_device, panda_bwd_n
     others = torch.arange(257, device=cuda_device) != 5
     assert torch.equal(dirty[..., others].view(torch.int32), clean[..., others].view(torch.int32))
     attrs = K.kernel_attributes()["backward"]
-    assert attrs["local_bytes"] == 0 and 0 < attrs["num_regs"] <= 255 and attrs["smem_bytes"] > 0
+    assert attrs["local_bytes"] == 0 and 0 < attrs["num_regs"] <= 255 and attrs["smem_bytes"] == 0
+    assert K.layout_bytes()["backward"] == 19056  # 4 warps' storage for Panda
 
 
 def test_mpc_solve_runs_on_the_kernels(cuda_device):
@@ -377,7 +382,8 @@ def test_mpc_solve_runs_on_the_kernels(cuda_device):
     BatchMPCKernels.reset_launch_count()
     us, xs, cost = mpc.solve(x0, us0)
     torch.cuda.synchronize()
-    assert BatchMPCKernels.launch_count == {"linearize": 2, "backward": 2, "linesearch_costs": 2, "replay": 3}
+    assert BatchMPCKernels.launch_count == {"linearize": 2, "backward": 2, "linesearch_costs": 0, "linesearch": 2,
+                                            "replay": 1}
     us_p, xs_p, cost_p = mpc.solve_plain(x0, us0)
     assert us.shape == (B, H, 7) and xs.shape == (B, H + 1, 14) and cost.shape == (B,)
     assert float(((cost - cost_p).abs() / cost_p.abs()).max()) <= 1e-5
@@ -399,10 +405,10 @@ def test_mpc_kernels_reject_float64_and_mixed_devices(cuda_device):
     assert K.linearize(xs, us).shape == (2, 4, 6, 3)
 
 
-# K5 alone: a team of TEAM_WARPS warps per TEAM_S scenarios runs each
-# closed-loop step (the emitted step partitioned over the warps), bitwise
-# against the plain replay (NaN where it is NaN), at the main path's widths
-# and at widths whose last team runs past B.
+# K5 alone: one thread a scenario, bitwise against the plain replay (NaN
+# where it is NaN), at the main path's widths and off the block; its team
+# variant (TEAM_WARPS warps per TEAM_S scenarios run each closed-loop step,
+# the emitted step partitioned over the warps) likewise.
 
 
 def _replay_args(model, K, B, H, device, seed):
@@ -431,25 +437,52 @@ def test_replay_kernel_is_bitwise_the_plain_version(cuda_device, robot, B, H):
     assert BatchMPCKernels.launch_count["replay"] == before + 1
     for g, r in zip(got, K.replay_plain(*args)):
         _assert_bits_and_nans(g, r)
-    team = K.team_attributes()
-    assert (team["warps"], team["scenarios"], team["teams_per_block"]) == (K.TEAM_WARPS, K.TEAM_S, K.TEAM_PER_BLOCK)
-    assert team["phases"] == K.team.partition.phases and team["slots"] == max(K.team.slots, 1)
+    assert K.team is None and K.kernel_attributes()["replay"]["max_threads"] == 128
 
 
-def test_replay_kernel_fits_fewer_teams_a_block_for_eight_joints(cuda_device):
-    """An 8-joint chain's team needs more than half the shared memory a
-    block may take, so its block holds one team; still bit for bit."""
-    model = catalog.serial_chain(8, device=cuda_device)
-    K = BatchMPCKernels(model, 0.01, u_lim=[10.0] * 8)
-    B, H, rng = 100, 6, np.random.default_rng(8)
-    f32 = lambda *shape: torch.from_numpy(rng.uniform(-1.0, 1.0, shape).astype(np.float32)).to(cuda_device)
-    args = (f32(16, B) * 0.5, f32(H, 16, B) * 0.5, f32(H, 8, B) * 3.0, f32(H, 8, 17, B) * 0.1, f32(8, B),
-            f32(B).abs())
+_TEAMS = {}
+
+
+def _team(robot, device):
+    """K5's team variant (8 warps per 32 scenarios, 2 teams a block) for a
+    robot, its fwd unit alone."""
+    if robot not in _TEAMS:
+        model = catalog.get_robot(robot, device=device)
+        cls = type("Team", (BatchMPCKernels,), {"TEAM_WARPS": 8, "UNITS": {"fwd": BatchMPCKernels.UNITS["fwd"]}})
+        _TEAMS[robot] = (model, cls(model, 0.01, u_lim=[float(v) for v in model.torque_limit.cpu()]))
+    return _TEAMS[robot]
+
+
+@pytest.mark.parametrize("robot, B, H", [("panda", 1024, 50), ("panda", 1025, 7), ("ur5", 31, 7)])
+def test_replay_team_variant_is_bitwise_the_plain_version(cuda_device, robot, B, H):
+    model, K = _team(robot, cuda_device)
+    args = _replay_args(model, K, B, H, cuda_device, seed=B)
     for g, r in zip(K.replay(*args), K.replay_plain(*args)):
         _assert_bits_and_nans(g, r)
     team = K.team_attributes()
-    assert team["teams_per_block"] == 1 < K.TEAM_PER_BLOCK
-    assert team["dynamic_smem_bytes"] <= 232448
+    assert (team["warps"], team["scenarios"], team["teams_per_block"]) == (K.TEAM_WARPS, K.TEAM_S, K.TEAM_PER_BLOCK)
+    assert team["phases"] == K.team.partition.phases and team["slots"] == max(K.team.slots, 1)
+    assert team["dynamic_smem_bytes"] == K.layout_bytes()["replay_team"]
+
+
+def test_replay_kernel_fits_fewer_teams_a_block_for_eight_joints(cuda_device):
+    """An 8-joint chain's team (the variant unit) needs more than half the
+    shared memory a block may take, so its block holds one team; a
+    12-joint chain's holds 16 scenarios a team. Still bit for bit."""
+    for n, B, H in ((8, 100, 6), (12, 40, 3)):
+        model = catalog.serial_chain(n, device=cuda_device)
+        K = type("Team", (BatchMPCKernels,), {"TEAM_WARPS": 8, "UNITS": {"fwd": BatchMPCKernels.UNITS["fwd"]}})(
+            model, 0.01, u_lim=[10.0] * n)
+        rng = np.random.default_rng(n)
+        f32 = lambda *shape: torch.from_numpy(rng.uniform(-1.0, 1.0, shape).astype(np.float32)).to(cuda_device)
+        args = (f32(2 * n, B) * 0.5, f32(H, 2 * n, B) * 0.5, f32(H, n, B) * 3.0, f32(H, n, 1 + 2 * n, B) * 0.1,
+                f32(n, B), f32(B).abs())
+        for g, r in zip(K.replay(*args), K.replay_plain(*args)):
+            _assert_bits_and_nans(g, r)
+        team = K.team_attributes()
+        assert team["teams_per_block"] == 1 < K.TEAM_PER_BLOCK
+        assert team["scenarios"] == (32 if n == 8 else 16)
+        assert team["dynamic_smem_bytes"] <= 232448
 
 
 def test_replay_kernel_keeps_a_nan_scenario_to_itself(cuda_device):
@@ -466,6 +499,95 @@ def test_replay_kernel_keeps_a_nan_scenario_to_itself(cuda_device):
         assert bool(torch.isnan(g[..., 5]).all())
         keep = [b for b in range(64) if b != 5]
         assert torch.equal(g[..., keep].view(torch.int32), c[..., keep].view(torch.int32))
+
+
+def test_linesearch_trajectory_at_the_chosen_alpha_is_the_replay(cuda_device):
+    """K4 keeps every alpha's trajectory: at each scenario's alpha (here b %
+    6) its states, controls and cost are the one-thread K5's replay at that
+    alpha, bit for bit, at the main path's width; each launch counts once."""
+    model, K = _k2("panda", cuda_device)
+    B, H, A = 1024, 50, 6
+    x0_t, sd_x, us, kK, goal_t, alpha = _replay_args(model, K, B, H, cuda_device, seed=11)
+    alphas = 0.5 ** torch.arange(A, device=cuda_device, dtype=torch.float32)
+    before = dict(BatchMPCKernels.launch_count)
+    costs, xs_all, us_all = K.linesearch(x0_t, sd_x, us, kK, goal_t, alphas)
+    xs, us_r, cost = K.replay(x0_t, sd_x, us, kK, goal_t, alpha)
+    torch.cuda.synchronize()
+    assert {k: BatchMPCKernels.launch_count[k] - before[k] for k in ("linesearch", "replay")} == {
+        "linesearch": 1, "replay": 1}
+    idx, cols = torch.arange(B, device=cuda_device) % A, torch.arange(B, device=cuda_device)
+    assert bool(torch.isfinite(costs).any())  # the random nominal diverges under some alphas, in both
+    _assert_bits_and_nans(xs_all[:, :, idx, cols], xs)
+    _assert_bits_and_nans(us_all[:, :, idx, cols], us_r)
+    _assert_bits_and_nans(costs[idx, cols], cost)
+    _assert_bits_and_nans(costs, K.linesearch_costs(x0_t, sd_x, us, kK, goal_t, alphas))
+    for g, r in zip((costs, xs_all, us_all), K.linesearch_plain(x0_t, sd_x, us, kK, goal_t, alphas)):
+        _assert_bits_and_nans(g, r)
+
+
+@pytest.mark.parametrize("threads", [32, 64])
+def test_linesearch_block_variants_match_the_default(cuda_device, threads):
+    """K4 built with 32 or 64 threads a block (``MPT_BLOCK``, the fwd unit
+    alone) gives the default's bits, with and without its trajectories, at
+    B off every block and at a main-path width."""
+    model, K = _k2("panda", cuda_device)
+    V = type("Block", (BatchMPCKernels,), {"UNITS": {"fwd": BatchMPCKernels.UNITS["fwd"]},
+                                            "DEFINES": {"MPT_BLOCK": threads}})(model, 0.01, u_lim=K.P.u_lim)
+    assert V.kernel_attributes()["linesearch"]["max_threads"] == threads
+    alphas = 0.5 ** torch.arange(6, device=cuda_device, dtype=torch.float32)
+    for B, H in ((1025, 8), (4096, 50)):
+        x0_t, sd_x, us, kK, goal_t, _ = _replay_args(model, K, B, H, cuda_device, seed=B + threads)
+        args = (x0_t, sd_x, us, kK, goal_t, alphas)
+        for g, r in zip(V.linesearch(*args), K.linesearch(*args)):
+            _assert_bits_and_nans(g, r)
+        _assert_bits_and_nans(V.linesearch_costs(*args), K.linesearch_costs(*args))
+
+
+def test_serial_chain_12_solve_builds_and_every_stage_is_bitwise(cuda_device):
+    """A 12-joint chain (K3's storage past the 48 KB a block may declare
+    statically, K5 one thread a scenario): the whole batched solve builds and
+    runs on the kernels, B=64 H=10, and each of K2-K5 and the line search
+    with its trajectories gives its plain version's bits on that solve's own
+    nominal."""
+    n, B, H = 12, 64, 10
+    model = catalog.serial_chain(n, device=cuda_device)
+    u_lim = [20.0] * n
+    rng = np.random.default_rng(12)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device).contiguous()
+    x0 = f32(np.concatenate([rng.uniform(-0.5, 0.5, (B, n)), np.zeros((B, n))], 1))
+    goals = f32(rng.uniform(-0.5, 0.5, (B, n)))
+    mpc = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2, u_limit=u_lim)
+    K, P = mpc.kernels, mpc.kernels.plain()
+    BatchMPCKernels.reset_launch_count()
+    us_k, xs_k, cost_k = mpc.solve(x0, torch.zeros((B, H, n), device=cuda_device))
+    torch.cuda.synchronize()
+    assert BatchMPCKernels.launch_count == {"linearize": 2, "backward": 2, "linesearch_costs": 0, "linesearch": 2,
+                                            "replay": 1}
+    assert us_k.shape == (B, H, n) and xs_k.shape == (B, H + 1, 2 * n)
+    assert all(bool(torch.isfinite(v).all()) for v in (us_k, xs_k, cost_k))
+    assert bool((us_k.abs() <= 20.0).all())
+    assert K.layout_bytes()["backward"] > 48 * 1024
+    x0_t, goal_t = x0.T.contiguous(), goals.T.contiguous()
+    us = us_k.permute(1, 2, 0).contiguous()
+    zeros = lambda *shape: torch.zeros(shape, device=cuda_device)
+    init = (x0_t, zeros(H, 2 * n, B), us, zeros(H, n, 1 + 2 * n, B), goal_t, zeros(B))
+    xs0 = K.replay(*init)
+    for g, r in zip(xs0, P.replay(*init)):
+        _assert_bits_and_nans(g, r)
+    sd_x = torch.cat([x0_t[None], xs0[0][:-1]]).contiguous()
+    AB = K.linearize(sd_x, us)
+    _assert_bits_and_nans(AB, P.linearize(sd_x, us))
+    bwd = (AB, sd_x, us, xs0[0][-1].contiguous(), goal_t, torch.full((B,), 1e-3, device=cuda_device))
+    kK = K.backward(*bwd)
+    _assert_bits_and_nans(kK, P.backward(*bwd))
+    alphas = 0.5 ** torch.arange(6, device=cuda_device, dtype=torch.float32)
+    ls = (x0_t, sd_x, us, kK, goal_t, alphas)
+    _assert_bits_and_nans(K.linesearch_costs(*ls), P.linesearch_costs(*ls))
+    for g, r in zip(K.linesearch(*ls), P.linesearch(*ls)):
+        _assert_bits_and_nans(g, r)
+    rep = (x0_t, sd_x, us, kK, goal_t, alphas[torch.arange(B, device=cuda_device) % 6].contiguous())
+    for g, r in zip(K.replay(*rep), P.replay(*rep)):
+        _assert_bits_and_nans(g, r)
 
 
 # ---------------------------------------------------------------------------

@@ -360,7 +360,7 @@ static int mpt_run_team(int T, mpt_thread_fn fn, void* arg) {
 # K5 on the host: every team of the batch in turn, its storage NaN-filled
 # first; inputs x0, sd_x, sd_u, kK, goal, alpha; outputs xs, us, cost.
 REPLAY_TEAMS = """
-#if defined(MPT_UNIT_FWD)
+#if defined(MPT_UNIT_FWD) && defined(MPT_REPLAY_TEAM)
 struct mpt_replay_args {{ const float** in; float** out; int B, H, b0; float* tm; }};
 static void mpt_replay_thread(int tid, void* p) {{
   const mpt_replay_args* a = (const mpt_replay_args*)p;
@@ -404,9 +404,14 @@ extern "C" void run(const float** in, float** out, int B, int H, int A) {{
 #else
   for (int a = 0; a < A; ++a) for (int b = 0; b < B; ++b)
     cost_thread(in[0], in[1], in[2], in[3], in[4], in[5], out[0], B, H, b, a);
-  // K5: its teams, each thread a coroutine (TEAM_RUNNER).
+#if defined(MPT_REPLAY_TEAM)
+  // K5's team variant: its teams, each thread a coroutine (TEAM_RUNNER).
   const float* rin[6] = {{in[0], in[1], in[2], in[3], in[4], in[6]}};
   if (run_replay(rin, out + 1, B, H)) abort();
+#else
+  for (int b = 0; b < B; ++b)
+    replay_thread(in[0], in[1], in[2], in[3], in[4], in[6], out[1], out[2], out[3], B, H, b);
+#endif
 #endif
 }}
 """
@@ -663,7 +668,7 @@ def lin_units(tmp_path_factory):
 
 
 def _lin_seeds(robot, which):
-    return 3 if which == "3" else port_catalog.get_robot(robot, device="cpu").num_joints
+    return int(which) if which in ("1", "3") else port_catalog.get_robot(robot, device="cpu").num_joints
 
 
 def _lin_problem(model, B, H, seed=0):
@@ -699,7 +704,7 @@ def _assert_same_bits(got, ref):
 
 
 @pytest.mark.parametrize("B, H", LIN_SHAPES)
-@pytest.mark.parametrize("which", ["3", "n"])
+@pytest.mark.parametrize("which", ["1", "3", "n"])
 @pytest.mark.parametrize("robot", LIN_ROBOTS)
 def test_lin_group_body_matches_plain_bitwise(lin_units, robot, which, B, H):
     u = lin_units(robot, _lin_seeds(robot, which))
@@ -711,7 +716,7 @@ def test_lin_group_body_matches_plain_bitwise(lin_units, robot, which, B, H):
     assert torch.equal(_bits(one_seed), _bits(ref))
 
 
-@pytest.mark.parametrize("which", ["3", "n"])
+@pytest.mark.parametrize("which", ["1", "3", "n"])
 @pytest.mark.parametrize("robot", ["two_link_planar", "ur5"])
 def test_lin_group_body_halves_the_tangent_on_a_limit(lin_units, robot, which):
     """Gravity off, scenario 0 at rest on joint 0's lower limit with zero
@@ -729,7 +734,7 @@ def test_lin_group_body_halves_the_tangent_on_a_limit(lin_units, robot, which):
     assert bool((got[:, 0, 0, 1:] == 1.0).all())  # inside: the whole tangent
 
 
-@pytest.mark.parametrize("which", ["3", "n"])
+@pytest.mark.parametrize("which", ["1", "3", "n"])
 @pytest.mark.parametrize("robot", LIN_ROBOTS)
 def test_lin_group_body_keeps_a_nan_scenario_to_itself(lin_units, robot, which):
     """Scenario 1's velocity of joint 0 is NaN at every step: its Jacobians
@@ -750,14 +755,17 @@ def test_lin_group_body_keeps_a_nan_scenario_to_itself(lin_units, robot, which):
 
 def test_single_lin_unit_keeps_the_one_seed_body():
     """K6 keeps ``fd_step_jvp``: its unit holds the one-seed body as emitted,
-    which K2's unit no longer does."""
+    which K2's unit does not: it runs the group body, three seeds a thread
+    for the UR5 and one for the Panda."""
     model = port_catalog.get_robot("ur5", device="cpu")
     _, one_seed, _ = tfd.build_fd_step_jvp_source(model, 0.01, g=tfd.DEFAULT_G)
     single = SingleMPCKernels(model, 0.01, u_lim=[10.0] * 6)
     batch = BatchMPCKernels(model, 0.01, u_lim=[10.0] * 6)
     assert one_seed in single.sources["lin"] and "fd_step_jvp_group" not in single.sources["lin"]
     assert one_seed == batch.linearize_seed_source and one_seed not in batch.sources["lin"]
-    assert f"#define MPT_LIN_SEEDS {BatchMPCKernels.LIN_SEEDS}\n" in batch.sources["lin"]
+    assert batch.LIN_SEEDS == 3 and f"#define MPT_LIN_SEEDS 3\n" in batch.sources["lin"]
+    panda = BatchMPCKernels(port_catalog.get_robot("panda", device="cpu"), 0.01, u_lim=[10.0] * 7)
+    assert panda.LIN_SEEDS == 1 and f"#define MPT_LIN_SEEDS 1\n" in panda.sources["lin"]
 
 
 # K5, a team of W warps per MPT_TEAM_S scenarios, each closed-loop step the
@@ -822,7 +830,7 @@ def test_replay_team_partition_invariants(robot, warps):
 _REPLAY_REFERENCE = """
 extern "C" void run_ref(const float** in, float** out, int B, int H) {
   for (int b = 0; b < B; ++b)
-    out[2][b] = fwd_rollout(in[0], in[1], in[2], in[3], in[4], in[5][b], out[0], out[1], B, H, b);
+    out[2][b] = fwd_rollout(in[0], in[1], in[2], in[3], in[4], in[5][b], out[0], out[1], 1, B, H, b);
 }
 """
 HOST_FNS = """\
@@ -1077,11 +1085,13 @@ def _stage_inputs(B, H, A):
         "linearize": (z(H, 4, B), z(H, 2, B)),
         "backward": (z(H, 4, 6, B), z(H, 4, B), z(H, 2, B), z(4, B), z(2, B), z(B)),
         "linesearch_costs": (z(4, B), z(H, 4, B), z(H, 2, B), z(H, 2, 5, B), z(2, B), z(A)),
+        "linesearch": (z(4, B), z(H, 4, B), z(H, 2, B), z(H, 2, 5, B), z(2, B), z(A)),
         "replay": (z(4, B), z(H, 4, B), z(H, 2, B), z(H, 2, 5, B), z(2, B), z(B)),
     }
 
 
-_EMPTY = [(s, 0, 3, 2) for s in STAGES] + [(s, 2, 0, 2) for s in STAGES] + [("linesearch_costs", 2, 3, 0)]
+_EMPTY = [(s, 0, 3, 2) for s in STAGES] + [(s, 2, 0, 2) for s in STAGES] + [
+    ("linesearch_costs", 2, 3, 0), ("linesearch", 2, 3, 0)]
 
 
 @pytest.mark.parametrize("stage, B, H, A", _EMPTY)
@@ -1132,6 +1142,280 @@ def test_group_statements_count_the_primal_once(arms, seeds):
     tangent = (count[3] - count[1]) // 2
     assert count[seeds] == count[1] + (seeds - 1) * tangent
     assert 0.9 * (one - step) < tangent < 1.05 * (one - step)
-    assert k.statements["linearize_group"] == tfd.build_fd_step_jvp_group_source(tm, 0.01, seeds=3)[2]
+    assert k.LIN_SEEDS == 1 and k.statements["linearize_group"] == count[1]
     with pytest.raises(ValueError):
         tfd.build_fd_step_jvp_group_source(tm, 0.01, seeds=4)  # does not divide m = 21
+
+
+# ---------------------------------------------------------------------------
+# K4 keeps every alpha's trajectory; the solver selects the chosen one
+# ---------------------------------------------------------------------------
+
+SELECT_ROBOTS = {"two_link_planar": (5, 6, 3), "ur5": (4, 5, 2), "panda": (3, 4, 2)}  # B, H, iterations
+
+
+def _select_problem(robot):
+    """A robot from the port's catalog on the CPU, states at rest inside its
+    limits, goals near them and a random warm start, from numpy."""
+    model = port_catalog.get_robot(robot, device="cpu")
+    B, H, iters = SELECT_ROBOTS[robot]
+    n = model.num_joints
+    rng = np.random.default_rng(len(robot))
+    lo, hi = model.joint_lower.double().numpy(), model.joint_upper.double().numpy()
+    lo, hi = np.maximum(lo, -np.pi), np.minimum(hi, np.pi)
+    q0 = (lo + hi) / 2 + rng.uniform(-0.4, 0.4, (B, n)) * (hi - lo) / 2
+    goals = np.clip(q0 + rng.uniform(-0.3, 0.3, (B, n)), lo, hi).astype(np.float32)
+    x0 = torch.from_numpy(np.concatenate([q0, np.zeros_like(q0)], 1).astype(np.float32))
+    us_warm = torch.from_numpy(rng.uniform(-1.0, 1.0, (B, H, n)).astype(np.float32))
+    return model, goals, x0, us_warm, B, H, iters
+
+
+def _replay_structured_solve(k, backward, x0, us_init, goals, H, iters, A=6, reg=1e-6):
+    """The solver as it ran before its line search kept the trajectories:
+    K4's costs, then K5 replays each scenario's first improving alpha
+    (alpha 0 where none improves), the same guards."""
+    B, nx, n = x0.shape[0], k.nx, k.n
+    u_lim = torch.tensor(k.P.u_lim)
+    us_cur = torch.clamp(us_init, -u_lim, u_lim).permute(1, 2, 0).contiguous()
+    x0_t, goal_t = x0.T.contiguous(), torch.from_numpy(goals).T.contiguous()
+    alphas = torch.as_tensor(0.5 ** np.arange(A, dtype=np.float32))
+    xs_post, us_cur, cost = k.replay_plain(x0_t, torch.zeros(H, nx, B), us_cur, torch.zeros(H, n, 1 + nx, B),
+                                           goal_t, torch.zeros(B))
+    reg_t = torch.full((B,), reg)
+    for _ in range(iters):
+        sd_x = torch.cat([x0_t[None], xs_post[:-1]])
+        kK = backward(k.linearize_plain(sd_x, us_cur), sd_x, us_cur, xs_post[-1].contiguous(), goal_t, reg_t)
+        costs_all = k.linesearch_costs_plain(x0_t, sd_x, us_cur, kK, goal_t, alphas)
+        improving = torch.isfinite(costs_all) & (costs_all < cost[None])
+        idx = torch.argmax(improving.to(torch.int32), dim=0)
+        accepted = improving.any(dim=0)
+        alpha_sel = torch.where(accepted, alphas[idx], torch.zeros(()))
+        xs_new, us_new, cost_new = k.replay_plain(x0_t, sd_x, us_cur, kK, goal_t, alpha_sel)
+        xs_post = torch.where(accepted, xs_new, xs_post)
+        us_cur = torch.where(accepted, us_new, us_cur)
+        cost = torch.where(accepted, cost_new, cost)
+        reg_t = torch.where(accepted, torch.clamp(reg_t / 10.0, min=1e-9), torch.clamp(reg_t * 10.0, max=1e6))
+    xs_full = torch.cat([x0_t.T[:, None], xs_post.permute(2, 0, 1)], dim=1)
+    return us_cur.permute(2, 0, 1).contiguous(), xs_full.contiguous(), cost
+
+
+def _gains(case, backward):
+    """K3's stage as the case has it: as built; scenario 1 with a NaN gain
+    (one entry of one step's K); or every gain 0, so that every alpha
+    retraces the nominal and none improves its cost."""
+    if case == "as_built":
+        return backward
+
+    def changed(*args):
+        kK = backward(*args).clone()
+        if case == "nan_gain":
+            kK[1, 0, 3, 1] = float("nan")
+        else:
+            kK.zero_()
+        return kK
+
+    return changed
+
+
+@pytest.mark.parametrize("case", ["as_built", "nan_gain", "no_alpha_improves"])
+@pytest.mark.parametrize("robot", sorted(SELECT_ROBOTS))
+def test_solve_selecting_from_linesearch_equals_replay_structured_loop(robot, case):
+    """The solve (K4's trajectories, the chosen alpha's taken along the alpha
+    axis) gives us, xs and cost bit for bit as the loop that replays the
+    chosen alpha (K5), through the plain versions on the CPU."""
+    model, goals, x0, us_warm, B, H, iters = _select_problem(robot)
+    mpc = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=iters)
+    k = mpc.kernels
+    k.backward = _gains(case, k.backward)  # the solve looks its stages up on the kernel set
+    got = mpc.solve(x0, us_warm)
+    ref = _replay_structured_solve(k, k.backward, x0, us_warm, goals, H, iters)
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(_bits(g), _bits(r))
+    start = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=0).solve(x0, us_warm)
+    if case == "no_alpha_improves":  # every scenario keeps its initial rollout
+        assert all(torch.equal(_bits(g), _bits(s)) for g, s in zip(got, start))
+    elif case == "nan_gain":  # scenario 1 rejects every step and keeps its rollout; the others move
+        assert all(torch.equal(_bits(g[1]), _bits(s[1])) for g, s in zip(got, start))
+        assert bool((got[2][[0, 2]] < start[2][[0, 2]]).all())
+    else:
+        assert bool((got[2] < start[2]).all())
+
+
+@pytest.mark.parametrize("robot", sorted(SELECT_ROBOTS))
+def test_linesearch_plain_costs_equal_linesearch_costs_plain(robot):
+    """``linesearch_plain``'s costs are ``linesearch_costs_plain``'s bit for
+    bit, its trajectories are the replay of each alpha, and the stage on the
+    CPU writes them into the buffers it is given."""
+    model, goals, x0, us_warm, B, H, _ = _select_problem(robot)
+    k = BatchMPCKernels(model, 0.01, u_lim=[float(v) for v in model.torque_limit])
+    n, nx = k.n, k.nx
+    rng = np.random.default_rng(7)
+    x0_t, goal_t = x0.T.contiguous(), torch.from_numpy(goals).T.contiguous()
+    us = us_warm.permute(1, 2, 0).contiguous()
+    sd_x = torch.cat([x0_t[None], k.replay_plain(x0_t, torch.zeros(H, nx, B), us, torch.zeros(H, n, 1 + nx, B),
+                                                 goal_t, torch.zeros(B))[0][:-1]])
+    kK = torch.from_numpy(rng.uniform(-0.1, 0.1, (H, n, 1 + nx, B)).astype(np.float32))
+    alphas = torch.as_tensor(0.5 ** np.arange(6, dtype=np.float32))
+    costs, xs_all, us_all = k.linesearch_plain(x0_t, sd_x, us, kK, goal_t, alphas)
+    assert costs.shape == (6, B) and xs_all.shape == (H, nx, 6, B) and us_all.shape == (H, n, 6, B)
+    assert torch.equal(_bits(costs), _bits(k.linesearch_costs_plain(x0_t, sd_x, us, kK, goal_t, alphas)))
+    for a in (0, 3, 5):
+        xs, us_a, cost = k.replay_plain(x0_t, sd_x, us, kK, goal_t, alphas[a].expand(B).contiguous())
+        assert torch.equal(_bits(xs_all[:, :, a]), _bits(xs)) and torch.equal(_bits(us_all[:, :, a]), _bits(us_a))
+        assert torch.equal(_bits(costs[a]), _bits(cost))
+    bufs = torch.full_like(xs_all, float("nan")), torch.full_like(us_all, float("nan"))
+    staged = k.linesearch(x0_t, sd_x, us, kK, goal_t, alphas, *bufs)
+    assert staged[1] is bufs[0] and staged[2] is bufs[1]
+    for g, r in zip(staged, (costs, xs_all, us_all)):
+        assert torch.equal(_bits(g), _bits(r))
+    with pytest.raises(ValueError):
+        k.linesearch(x0_t, sd_x, us, kK, goal_t, alphas, xs_all[:, :, :5].contiguous(), us_all)
+
+
+# K4's thread body with its stores (the unit's ``linesearch_thread``), on
+# the host: every (scenario, alpha), bit for bit against the plain version,
+# and the chosen alpha's trajectory against K5's one-thread replay in the
+# same unit.
+
+_LINESEARCH_ENTRIES = """
+extern "C" void run_linesearch(const float** in, float** out, int B, int H, int A) {
+  for (int a = 0; a < A; ++a) for (int b = 0; b < B; ++b)
+    linesearch_thread(in[0], in[1], in[2], in[3], in[4], in[5], out[0], out[1], out[2], B, H, A, b, a);
+}
+extern "C" void run_replay_one(const float** in, float** out, int B, int H, int A) {
+  for (int b = 0; b < B; ++b)
+    replay_thread(in[0], in[1], in[2], in[3], in[4], in[5], out[0], out[1], out[2], B, H, b);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def fwd_units(tmp_path_factory):
+    """Per robot on first use: its default K4/K5 unit under the host shim."""
+    if shutil.which("g++") is None:
+        pytest.skip("the host has no g++ to compile the emitted C")
+    units = {}
+
+    def get(robot):
+        if robot not in units:
+            model = port_catalog.get_robot(robot, device="cpu")
+            k = BatchMPCKernels(model, 0.01, u_lim=[10.0] * model.num_joints)
+            lib = compile_team_unit(k.sources["fwd"] + _LINESEARCH_ENTRIES, tmp_path_factory.mktemp(f"{robot}_fwd"),
+                                    "fwd", ())
+            for entry in ("run_linesearch", "run_replay_one"):
+                getattr(lib, entry).argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_int] * 3
+            units[robot] = SimpleNamespace(k=k, lib=lib, model=model)
+        return units[robot]
+
+    return get
+
+
+@pytest.mark.parametrize("B, H, A", [(3, 4, 6), (33, 2, 1), (5, 3, 7)])
+@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+def test_linesearch_body_keeps_every_alphas_trajectory_bitwise(fwd_units, robot, B, H, A):
+    u = fwd_units(robot)
+    ins = _replay_problem(u, B, H, seed=B + A)
+    alphas = torch.as_tensor(np.linspace(1.0, 0.0, A, dtype=np.float32))
+    nan = lambda *s: torch.full(s, float("nan"))
+    outs = [nan(A, B), nan(H, u.k.nx, A, B), nan(H, u.k.n, A, B)]
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    u.lib.run_linesearch(ptrs(ins[:5] + [alphas]), ptrs(outs), B, H, A)
+    ref = u.k.linesearch_plain(*ins[:5], alphas)
+    for g, r in zip(outs, ref):
+        assert bool(torch.isfinite(r).all())
+        assert torch.equal(_bits(g), _bits(r))
+    # Alpha a = b % A for scenario b: the one-thread K5 gives that column.
+    pick = torch.arange(B) % A
+    one, rins = [nan(H, u.k.nx, B), nan(H, u.k.n, B), nan(B)], ins[:5] + [alphas[pick].contiguous()]
+    u.lib.run_replay_one(ptrs(rins), ptrs(one), B, H, 0)
+    cols = torch.arange(B)
+    assert torch.equal(_bits(outs[1][:, :, pick, cols]), _bits(one[0]))
+    assert torch.equal(_bits(outs[2][:, :, pick, cols]), _bits(one[1]))
+    assert torch.equal(_bits(outs[0][pick, cols]), _bits(one[2]))
+
+
+def test_bwd_team_solves_more_gain_columns_than_lanes(tmp_path):
+    """Past 15 joints a step has more gain columns (1 + 2n) than a warp has
+    lanes: columns c and c + 32 share a lane. K3's phases on the host for a
+    16-joint chain, bit for bit against the plain sweep (sqrt PyTorch's)."""
+    if shutil.which("g++") is None:
+        pytest.skip("the host has no g++ to compile the emitted C")
+    n, B, H = 16, 2, 2
+    model = port_catalog.serial_chain(n, device="cpu")
+    k = type("Bwd", (BatchMPCKernels,), {"UNITS": {"bwd": ("backward",)}})(model, 0.01, u_lim=[10.0] * n)
+    lib = compile_team_unit(k.sources["bwd"] + """
+extern "C" void run_bwd(const float** in, float** out, int B, int H) {
+  mpt_bwd_team team;
+  for (int b = 0; b < B; ++b) bwd_sweep(0, &team, in[0], in[1], in[2], in[3], in[4], in[5], out[0], B, H, b);
+}
+""", tmp_path, "bwd", ("run_bwd",))
+    rng = np.random.default_rng(16)
+    f32 = lambda *s: torch.from_numpy(rng.uniform(-0.2, 0.2, s).astype(np.float32))
+    AB = f32(H, 2 * n, 3 * n, B) * 0.1
+    for t in range(H):
+        AB[t, :, : 2 * n] += torch.eye(2 * n)[..., None]
+    args = [AB.contiguous(), f32(H, 2 * n, B), f32(H, n, B), f32(2 * n, B), f32(n, B), torch.tensor([1e-3, 1.0])]
+    out = torch.full((H, n, 1 + 2 * n, B), float("nan"))
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    lib.run_bwd(ptrs(args), ptrs([out]), B, H)
+    ref = k.backward_plain(*args)
+    assert bool(torch.isfinite(ref).all())
+    assert torch.equal(_bits(out), _bits(ref))
+
+
+# The dynamic shared bytes a block of each kernel whose storage grows with n
+# takes (K1's tiles, K3's warps, K5's team variant), computed by the
+# kernels' own macros and types: the template compiled on the host with its
+# generated bodies stubbed, for every n a chain may have up to 16.
+_LAYOUT_SHIM = """\
+#include <math.h>
+#include <stddef.h>
+#define __device__
+#define __forceinline__ inline
+#define MPT_HOST_TEAM 1
+extern "C" void mpt_host_yield(void) {}
+#define fd_step(...) ((void)0)
+#define riccati_terminal(...) ((void)0)
+#define mpc_fwd_step(...) ((void)0)
+#define mpc_terminal(...) ((void)0)
+#define mpt_fwd_team(...) ((void)0)
+"""
+SMEM_DYNAMIC_MAX = 232448  # a block's shared memory on an H100 (dynamic, after the attribute is raised)
+
+
+def _layout(tmp, name, head, template, entry):
+    cpp, so = tmp / f"{name}.cpp", tmp / f"{name}.so"
+    cpp.write_text(head + _LAYOUT_SHIM + template)
+    subprocess.run(["g++", "-O0", "-w", "-shared", "-fPIC", "-o", str(so), str(cpp)], check=True, timeout=120)
+    fn = getattr(ctypes.CDLL(str(so)), entry)
+    fn.restype = ctypes.c_longlong
+    return int(fn())
+
+
+@pytest.mark.parametrize("n", range(2, 17))
+def test_shared_bytes_fit_a_block_for_every_joint_count(n, tmp_path):
+    if shutil.which("g++") is None:
+        pytest.skip("the host has no g++ to compile the templates")
+    from manipulapy_tpu_torch.ops import cuda_rollout
+    from manipulapy_tpu_torch.ops.cgen import TEAM_SOURCE
+    from manipulapy_tpu_torch.ops.cuda_mpc_batch import TEMPLATE, UNITS
+
+    batch = TEMPLATE.read_text()
+    k1 = _layout(tmp_path, "k1", f"#define MPT_NJ {n}\n#define MPT_INT_RES 1\n#define MPT_CHUNK {cuda_rollout.CHUNK}\n"
+                 f"#define MPT_BLOCK {cuda_rollout.BLOCK}\n", cuda_rollout.TEMPLATE.read_text(), "mpt_layout_rollout")
+    k3 = _layout(tmp_path, "k3", f"#define MPT_NJ {n}\n#define MPT_UNIT_BWD 1\n"
+                 f"static const float MPT_BWD_2WX[{2 * n}] = {{0}};\n#define MPT_BWD_2WU 0.0f\n", batch,
+                 "mpt_layout_backward")
+    model = port_catalog.serial_chain(n, device="cpu")
+    team = type("Team", (BatchMPCKernels,), {"TEAM_WARPS": 8, "UNITS": {"fwd": UNITS["fwd"]}})(
+        model, 0.01, u_lim=[10.0] * n)
+    defines = "".join(f"{line}\n" for line in team.team.source.splitlines() if line.startswith("#define MPT_FWD_TEAM_"))
+    k5 = _layout(tmp_path, "k5", f"#define MPT_NJ {n}\n#define MPT_BLOCK 128\n#define MPT_UNIT_FWD 1\n"
+                 f"#define MPT_REPLAY_TEAM 1\n#define MPT_TEAM_S_MAX {team.TEAM_S}\n"
+                 f"#define MPT_TEAM_PER_BLOCK {team.TEAM_PER_BLOCK}\n#define MPT_TS MPT_TEAM_S\n{defines}",
+                 TEAM_SOURCE + batch, "mpt_layout_replay_team")
+    for name, got in (("K1", k1), ("K3", k3), ("K5 team", k5)):
+        assert 0 < got <= SMEM_DYNAMIC_MAX, (name, n, got)
+    assert k1 == 5 * cuda_rollout.BLOCK * ((3 * n) | 1) * 4
+    assert (k3 > 48 * 1024) == (n >= 12)  # past the 48 KB a block may declare statically
