@@ -47,7 +47,14 @@ then CUDA-event medians (5 timings after 2 warm-ups) of
   seconds and, where the tree builds K8 as a team (``FWD_WARPS``), its team
   and K8 built for each other of ``FORWARD_WARPS``
   (``single_forward_ms_W<warps>``, the same figures), held bitwise to the
-  default's outputs.
+  default's outputs. Where the tree has K6's designs (``LIN_WARPS``), K6's
+  registers, local bytes, nvcc seconds and team, and with ``--variants``
+  K6 built for each other of ``LIN_WARPS`` (0: one thread a lane) and as
+  its unit was before the lean body (``jvp``: the one-seed
+  ``fd_step_jvp``, ptxas -O3), each with the same figures and held bitwise
+  to the default's AB, then all of them timed per launch in turns, five
+  rounds (``single_linearize_ms_turns``, ``..._turns_W<warps>``,
+  ``..._turns_jvp``, medians).
 
 Compare trees within one call, in turns (e.g. older, parent, change,
 change, parent, older), one process each; unpack each other tree with
@@ -81,6 +88,9 @@ K4_BLOCKS = (32, 64)
 # each built as a variant unit where the tree's unit is a team.
 REPLAY_VARIANTS = ((8, 32, 1), (8, 32, 2), (16, 32, 1), (16, 32, 2), (32, 32, 1), (8, 16, 4))
 FORWARD_WARPS = (4, 8, 16, 32)
+# K6's designs where the tree has them (``LIN_WARPS``): one thread a lane
+# (0) and a team of each other number of warps, each a variant unit.
+LIN_WARPS = (0, 2, 4, 8, 16)
 Q_GOAL7 = (0.3, -0.4, 0.2, -1.6, 0.1, 1.4, 0.4)
 
 
@@ -107,14 +117,34 @@ def build_sets(sets) -> None:
 
 def unit_figures(K, prefix: str, unit: str, stage: str) -> dict:
     """A stage's registers, local bytes and its unit's nvcc seconds (0 when
-    the library was already on disk) and, for a team, its shape."""
+    the library was already on disk) and, for a team (K6's where the stage
+    is ``linearize``), its shape."""
     attrs = K.kernel_attributes()[stage]
     out = {f"{prefix}_num_regs": attrs["num_regs"], f"{prefix}_local_bytes": attrs["local_bytes"],
            f"{prefix}_nvcc_s": K.build()[unit].compile_seconds}
-    if getattr(K, "team", None) is not None:
-        out.update({f"{prefix}_{k}": v for k, v in K.team_attributes().items()})
-        out.update({f"{prefix}_critical": K.team.partition.critical})
+    team = getattr(K, "lin_team", None) if stage == "linearize" else getattr(K, "team", None)
+    if team is not None:
+        shape = K.team_attributes() if stage == K.TEAM_STAGE else K.team_attributes(stage)
+        out.update({f"{prefix}_{k}": v for k, v in shape.items()})
+        out.update({f"{prefix}_critical": team.partition.critical})
     return out
+
+
+def k6_jvp_unit(S, model):
+    """K6's unit as it was before the lean body: the one-seed ``fd_step_jvp``
+    one thread a lane, blocks of one warp, ptxas at its default -O3 (the
+    one-thread unit with its body swapped back)."""
+
+    class JVP(type(S)):
+        LIN_WARPS, UNITS, UNIT_FLAGS = 0, {"lin": type(S).UNITS["lin"]}, {}
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            src = self.sources["lin"].replace(
+                self.linearize_group_source, self.linearize_seed_source + "#define fd_step_jvp_group fd_step_jvp\n")
+            self.sources["lin"] = src.replace('asm volatile(".pragma \\"enable_smem_spilling\\";");', "")
+
+    return JVP(model, DT, w_q=S.P.w_q, w_dq=S.P.w_dq, w_u=S.P.w_u, w_terminal=S.P.wT[0], u_lim=S.P.u_lim)
 
 
 def main() -> int:
@@ -345,6 +375,23 @@ def main() -> int:
         for stage, a in args.items():
             out[f"single_{stage}_ms"] = per_call_ms(lambda: getattr(S, stage)(*a))
         out.update(unit_figures(S, "single_forward", "fwd", "forward"))
+        out.update(unit_figures(S, "single_linearize", "lin", "linearize"))
+        if cli.variants and hasattr(S, "LIN_WARPS"):  # K6's designs, timed in turns, each bitwise to the default
+            lin_variants = variant_units(S, panda, "lin", [
+                (f"W{w}", {"LIN_WARPS": w}) for w in LIN_WARPS if w != S.LIN_WARPS], build=False)
+            lin_variants["jvp"] = k6_jvp_unit(S, panda)
+            build_sets(lin_variants.values())
+            AB = S.linearize(*args["linearize"])
+            runs = {"": S, **{f"_{name}": V for name, V in lin_variants.items()}}
+            for name, V in lin_variants.items():
+                out.update(unit_figures(V, f"single_linearize_{name}", "lin", "linearize"))
+                if not torch.equal(V.linearize(*args["linearize"]).view(torch.int32), AB.view(torch.int32)):
+                    raise AssertionError(f"K6 {name} differs from the default")
+            times = {k: [] for k in runs}
+            for _ in range(5):
+                for k, V in runs.items():
+                    times[k].append(per_call_ms(lambda: V.linearize(*args["linearize"])))
+            out.update({f"single_linearize_ms_turns{k}": statistics.median(v) for k, v in times.items()})
         fwd_ref = S.forward(*args["forward"])
         forward_variants = variant_units(S, panda, "fwd", [
             (f"W{w}", {"FWD_WARPS": w}) for w in (FORWARD_WARPS if cli.variants and hasattr(S, "FWD_WARPS") else ())

@@ -34,7 +34,10 @@ Phases, one line each (or one line per case):
    path's dt, and for Panda; K2-K5 for Panda and UR5; K6-K8 for Panda; the
    static unit of K9 and K10), with build seconds, registers, spill
    bytes and static shared bytes per block (K3, one warp per scenario, and
-   K7, one block, keep their state there; K7 must have no local bytes);
+   K7, one block, keep their state there; K7 must have no local bytes,
+   K6 no spills and no more than sinf/cosf's 32-byte frame); K6's design
+   (warps, lanes a block, phases, slots, critical length, dynamic shared
+   bytes, nvcc seconds);
    K1 with its block and chunk, its tiles' dynamic shared bytes and the
    blocks an SM holds with and without them (they must be equal, and local
    bytes at most 32);
@@ -73,11 +76,12 @@ Phases, one line each (or one line per case):
    one thread a scenario;
 10. single-problem parity: each of K6-K8 against its plain version on the
     card at Panda H=50 (the solver's own controls), H=37 (random torques
-    within 30% of the limits; K6's H*m threads end mid-block) and H=50
-    again with a Levenberg-heavy reg of 10, max |d| per output within 1e-5
-    of that output's largest magnitude, and 0 for K7 (one block of threads
-    whose phases do the plain version's operations in its order) and K8
-    (one team of warps a block, as K5; its record carries its team);
+    within 30% of the limits; K6's H*m lanes end mid-block) and H=50
+    again with a Levenberg-heavy reg of 10, max |d| per output 0 for each:
+    K6 (the lean one-seed body, one thread a lane or split over a team of
+    warps; its record carries its design), K7 (one block of threads whose
+    phases do the plain version's operations in its order) and K8 (one
+    team of warps a block, as K5; its record carries its team);
 11. single-problem main path: one solve from rest at the middle of the
     joint limits towards the benchmark's goal, then 20 receding-horizon
     rounds (x <- xs[1], the warm start shifted by one), the goal
@@ -130,6 +134,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -468,13 +473,33 @@ def lin_statements(K: BatchMPCKernels, B: int, H: int) -> int:
     return K.statements["linearize_group"] * (K.m // K.LIN_SEEDS) * B * H
 
 
-def team_figures(K) -> dict:
-    """K5's or K8's team as built (warps, scenarios or alphas a team, teams
-    a block, phases a step, slots, dynamic shared bytes a block) and its
-    partition's critical length and statements a step."""
-    team = K.team_attributes()
-    return dict(team, critical=K.team.partition.critical, step_statements=K.team.statements,
+def team_figures(K, stage: str = None) -> dict:
+    """K5's, K8's or K6's team (``stage``) as built (warps, scenarios,
+    alphas or lanes a team, teams a block, phases a step, slots, dynamic
+    shared bytes a block) and its partition's critical length and
+    statements a step."""
+    team = K.team_attributes(stage)
+    step = K.lin_team if stage == "linearize" else K.team
+    return dict(team, critical=step.partition.critical, step_statements=step.statements,
                 team_shared_bytes=team["dynamic_smem_bytes"] // team["teams_per_block"])
+
+
+def lin_figures(S: SingleMPCKernels, built: dict) -> dict:
+    """K6's design as built: warps, lanes a block, phases, slots, critical
+    length (statements a lane in a row, the largest warp's of each phase),
+    dynamic shared bytes, its unit's nvcc seconds and ptxas's spill bytes
+    (stores and loads). One thread a lane is one warp of 32 lanes, one
+    phase and the whole body."""
+    if S.lin_team is None:
+        fig = {"warps": 1, "lanes": 32, "phases": 1, "slots": 0, "critical": S.statements["linearize_group"],
+               "dynamic_smem_bytes": 0}
+    else:
+        t = team_figures(S, "linearize")
+        fig = {"warps": t["warps"], "lanes": t["scenarios"], "phases": t["phases"], "slots": t["slots"],
+               "critical": t["critical"], "dynamic_smem_bytes": t["dynamic_smem_bytes"]}
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", built["lin"].log)
+    return dict(fig, thread_statements=S.statements["linearize_group"], nvcc_seconds=built["lin"].compile_seconds,
+                spill_bytes=sum(int(a) + int(b) for a, b in spills))
 
 
 def batch_chain_ms(K: BatchMPCKernels, H: int) -> dict:
@@ -569,7 +594,7 @@ def single_chain_ms(S: SingleMPCKernels, H: int) -> dict:
             "forward": ms(H * c["forward"] + c["cost_terminal"])}
 
 
-def single_path(panda, single, attrs: dict, card: str) -> list:
+def single_path(panda, single, attrs: dict, card: str, built: dict) -> list:
     """Phases 10-12, the single-problem solver; returns its kernels'
     records."""
     S = single.kernels
@@ -590,7 +615,7 @@ def single_path(panda, single, attrs: dict, card: str) -> list:
     ):
         label = f"panda single H={us_c.shape[0]} reg={reg}"
         errs, args, ms = single_stage_parity(S, x0_c, goal_c, us_c, label, calls, reg)
-        for stage in ("backward", "forward"):  # K7 and K8 do the plain version's operations in its order
+        for stage in SINGLE_KERNELS:  # each does the plain version's operations in its order
             if errs[stage] != 0.0:
                 raise AssertionError(f"{label} {stage}: max |d| = {errs[stage]}, not 0")
         err = {k: max(err[k], errs[k]) for k in err}
@@ -699,7 +724,7 @@ def single_path(panda, single, attrs: dict, card: str) -> list:
         records.append({
             "name": name, "route": "cuda", "source": SINGLE_SOURCE, "replaces": replaces,
             "launches": launches[stage], "max_abs_err": err[stage],
-            "tolerance": "0" if stage in ("backward", "forward") else f"{MPC_RTOL} x max|plain|",
+            "tolerance": "0",
             "ms": ms[stage], "plain_ms": plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
             "chain_bound_ms": chain[stage], "chain_bound": "estimate: longest chain of emitted statements x "
             f"{CHAIN_CYCLES} cycles at clocks.max.sm", "library_ms": None,
@@ -708,6 +733,8 @@ def single_path(panda, single, attrs: dict, card: str) -> list:
         })
         if stage == "forward":
             records[-1].update(team_figures(S))
+        if stage == "linearize":
+            records[-1].update(lin_figures(S, built))
     return records
 
 # ---------------------------------------------------------------------------
@@ -1128,8 +1155,14 @@ def main() -> int:
             phase("build", kernel=names[stage][0], robot=robot, statements=K.statements[stage], **extra, **a)
         if robot == "panda single":
             phase("build", kernel=names["forward"][0], robot=robot, **team_figures(K))
+            phase("build", kernel=names["linearize"][0], robot=robot, **lin_figures(K, built["mpc", robot]))
     if mpc_attrs["panda single"]["backward"]["local_bytes"] != 0:  # its state lives in shared memory
         raise AssertionError(f"K7 uses local memory: {mpc_attrs['panda single']['backward']}")
+    # K6 spills nothing (ptxas's report); no more local bytes than sinf/cosf's 32-byte frame.
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", built["mpc", "panda single"]["lin"].log)
+    if not spills or any(st != "0" or ld != "0" for st, ld in spills) \
+            or mpc_attrs["panda single"]["linearize"]["local_bytes"] > 32:
+        raise AssertionError(f"K6 spills: {spills}, {mpc_attrs['panda single']['linearize']}")
     # 13. The static unit of K9 and K10.
     ew_attrs = ew.kernels().kernel_attributes()
     for unit, b in built["planning", "elementwise"].items():
@@ -1427,7 +1460,7 @@ def main() -> int:
                                Gstatements_per_s=lin_rates["linearize_Gstatements_per_s"],
                                backward_Gops_per_s=bo["backward"][1] / (stage_ms["backward"] * 1e6))
 
-    records += single_path(panda, single, mpc_attrs["panda single"], card)
+    records += single_path(panda, single, mpc_attrs["panda single"], card, built["mpc", "panda single"])
     records += planning(ur5, card, ew_attrs, records[0])
     print(json.dumps({"kernels": records}))
     print(card)

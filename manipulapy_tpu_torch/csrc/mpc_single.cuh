@@ -12,7 +12,11 @@
 //     MPT_UNIT_BWD, MPT_UNIT_FWD;
 //   the unit's generated part, emitted from the same Python code over cgen
 //   values as the plain PyTorch versions:
-//     LIN: fd_step_jvp (ops/fd_step.py::build_fd_step_jvp_source);
+//     LIN: #define MPT_LIN_SEEDS 1 and the lean one-seed body
+//          fd_step_jvp_group (ops/fd_step.py::build_fd_step_jvp_group_source,
+//          K2's for Panda); or, with MPT_LIN_TEAM, the same body with the
+//          seed an input column split over a team of warps (mpt_lin_team,
+//          with ops/cgen.py::TEAM_SOURCE), put where the K6 section marks it;
 //     BWD: the folded weights MPT_BWD_2WX, MPT_BWD_2WU only: K7's phases
 //       do the operations of riccati_step_gj (the Gauss-Jordan Riccati step
 //       of fused.py), written by hand in the same order;
@@ -33,10 +37,19 @@
 //
 // Bound and design, per kernel (one problem, so none of them fills the card;
 // the path is bound by launch latency and by dependent chains):
-//   K6: one thread per (seed k, step t), H*m threads (1050 for Panda at
-//       H=50), one warp per block so that they spread over H*m/32 SMs; each
-//       runs the step and its tangent for seed k and writes column k of AB
-//       at t. The same function as K2 at B=1, with its own entry point.
+//   K6: H*m lanes (step t, seed k) (1050 for Panda at H=50), each the
+//       step and its tangent for seed k, column k of AB at t: the function
+//       K2 computes at B=1. ~13k straight-line statements a lane (Panda),
+//       33 warps' worth of lanes, far from the card's rates: the bound is
+//       fetching the program on each SM, about five cycles an instruction
+//       for a warp alone, whether or not it spills (PERF.md). Either one
+//       thread a lane, one warp a block (the H*m/32 blocks spread over as
+//       many SMs), or a team of MPT_LIN_TEAM_W warps per 32 lanes, one
+//       team a block: the body split into one program per warp (as K8's
+//       step), so the warps fetch and run their parts side by side (at 8
+//       warps for Panda: 39 phases, 2389 statements in a row of 13455,
+//       18% faster). Which one a unit builds is
+//       ops/cuda_mpc_single.py::LIN_WARPS, chosen by timing.
 //   K7: one block of MPT_BWD_THREADS threads runs the whole time-reversed
 //       sweep; its state lives in shared memory and each step is 4 + n
 //       phases over the threads (see the K7 section), Quu solved by the
@@ -54,8 +67,11 @@
 // The per-thread bodies (`*_thread`) and K7's phases are plain functions: a
 // host harness compiles this file with `__device__` defined away (and
 // MPT_HOST_TEAM defined, so each of K7's phases runs threads 0..T-1 in turn)
-// and runs them in a loop; K8's team function runs there with each thread a
-// coroutine that yields at every barrier (tests/test_torch_mpc_single.py).
+// and runs them in a loop; K6's and K8's team functions run there with each
+// thread a coroutine that yields at every barrier
+// (tests/test_torch_mpc_single.py). `mpt_layout_linearize_team` gives the
+// shared bytes a block of K6's team takes, from the kernel's own macros, to
+// the host too.
 
 #include <stddef.h>
 #ifdef __CUDACC__
@@ -89,7 +105,15 @@
 
 // ---------------------------------------------------------------- K6 -----
 #if defined(MPT_UNIT_LIN)
-// Thread `idx` = t * m + k: neighbouring threads write neighbouring columns.
+// A lane is (step t, seed k), idx = t * m + k, H*m lanes; neighbouring
+// lanes own neighbouring columns of AB at t.
+#if !defined(MPT_LIN_TEAM)
+// One thread a lane runs the lean one-seed body, `fd_step_jvp_group` at
+// MPT_LIN_SEEDS = 1 (K2's thread body for Panda), and writes column k of AB
+// at t; one warp a block, so the H*m/32 blocks spread over as many SMs.
+#if MPT_LIN_SEEDS != 1
+#error "K6 runs one seed a thread"
+#endif
 static __device__ __forceinline__ void lin_thread(
     const float* __restrict__ xs, const float* __restrict__ us,
     float* __restrict__ AB, int idx) {
@@ -99,7 +123,7 @@ static __device__ __forceinline__ void lin_thread(
   for (int i = 0; i < MPT_NX; ++i) x[i] = xs[t * MPT_NX + i];
 #pragma unroll
   for (int j = 0; j < MPT_NJ; ++j) u[j] = us[t * MPT_NJ + j];
-  fd_step_jvp(x, u, k, x_next, col);
+  fd_step_jvp_group(x, u, k, x_next, col);
 #pragma unroll
   for (int i = 0; i < MPT_NX; ++i) AB[((size_t)t * MPT_NX + i) * MPT_M + k] = col[i];
 }
@@ -108,6 +132,9 @@ static __device__ __forceinline__ void lin_thread(
 __global__ void __launch_bounds__(MPT_WARP) mps_lin_kernel(
     const float* __restrict__ xs, const float* __restrict__ us,
     float* __restrict__ AB, int H) {
+  // As K2's: should the body's live values pass the 255 registers, let
+  // ptxas spill to shared memory before local memory.
+  asm volatile(".pragma \"enable_smem_spilling\";");
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= H * MPT_M) return;
   lin_thread(xs, us, AB, idx);
@@ -123,6 +150,130 @@ extern "C" int launch_linearize(const float* xs, const float* us, float* AB,
 }
 MPT_ATTRIBUTES(attributes_linearize, mps_lin_kernel)
 #endif
+#else  // MPT_LIN_TEAM
+// A block is one team of MPT_LIN_TEAM_W warps that owns MPT_LIN_S lanes,
+// idx0 .. idx0+S-1 (idx0 = S * blockIdx.x), lane idx0 + l on lane l of every
+// warp (lanes l + S, l + 2S, ... repeat lane l's work in the same columns).
+// The body is the same lean one-seed body with the seed's one-hot row s as
+// an input column, split by ops/cgen.py::team_function into one
+// straight-line program per warp over MPT_LIN_TEAM_P phases, the team's
+// named barrier between them; values that cross warps go through slots.
+// Every statement keeps its text, so each lane gets the one-thread body's
+// bits. Storage, in floats, each value a column of S lanes:
+//   IN    nx + n + m   x_t, u_t and s (s_i = k == i ? 1 : 0) of the lane
+//   COL   nx           column k of AB at t
+//   SLOTS MPT_LIN_TEAM_SLOTS
+// Lanes past H*m run on the last lane's index, so that they meet every
+// barrier, and store nothing.
+#define MPT_L_IN (MPT_NX + MPT_NJ + MPT_M)
+#define MPT_L_LANE (MPT_L_IN + MPT_NX + MPT_LIN_TEAM_SLOTS)  // floats a lane
+#define MPT_SMEM_MAX 232448
+#define MPT_L_FITS(S) ((S) * MPT_L_LANE * 4 <= MPT_SMEM_MAX)
+// Lanes a team: 32, halved until the team's storage fits a block (a robot
+// with more joints has more slots: a chain of 8 takes 255488 bytes at 32).
+#define MPT_LIN_S (MPT_L_FITS(32) ? 32 : MPT_L_FITS(16) ? 16 : MPT_L_FITS(8) ? 8 \
+                   : MPT_L_FITS(4) ? 4 : MPT_L_FITS(2) ? 2 : 1)
+#define MPT_TS MPT_LIN_S
+// MPT_LIN_TEAM_STEP: the unit's writer puts the emitted team body here (its
+// MPT_LIN_TEAM_* defines and warp programs), after MPT_TS.
+#if !defined(MPT_LIN_TEAM_W)
+#error "the emitted team body must come before K6's team"
+#endif
+#if !MPT_L_FITS(1)
+#error "one lane's storage exceeds the shared memory a block may take"
+#endif
+#define MPT_LIN_THREADS (MPT_WARP * MPT_LIN_TEAM_W)
+#define MPT_L_XIN 0
+#define MPT_L_COL (MPT_L_IN * MPT_LIN_S)
+#define MPT_L_SLOTS (MPT_L_COL + MPT_NX * MPT_LIN_S)
+#define MPT_L_FLOATS (MPT_L_SLOTS + MPT_LIN_TEAM_SLOTS * MPT_LIN_S)
+#define MPT_L_BYTES ((size_t)MPT_L_FLOATS * sizeof(float))
+extern "C" long long mpt_layout_linearize_team(void) { return (long long)MPT_L_BYTES; }
+
+// The team's lanes' inputs into IN, row by row (element e: row e / S of lane
+// e % S), so consecutive threads fill consecutive lanes of one row.
+static __device__ __forceinline__ void lin_team_load(
+    int tid, float* tm, const float* __restrict__ xs, const float* __restrict__ us, int HM, int idx0) {
+  for (int e = tid; e < MPT_L_IN * MPT_LIN_S; e += MPT_LIN_THREADS) {
+    const int r = e / MPT_LIN_S, l = e - r * MPT_LIN_S;
+    const int idx = idx0 + l < HM ? idx0 + l : HM - 1;
+    const int t = idx / MPT_M, k = idx - t * MPT_M;
+    float v;
+    if (r < MPT_NX) v = xs[(size_t)t * MPT_NX + r];
+    else if (r < MPT_NX + MPT_NJ) v = us[(size_t)t * MPT_NJ + (r - MPT_NX)];
+    else v = r - MPT_NX - MPT_NJ == k ? 1.0f : 0.0f;
+    tm[MPT_L_XIN + e] = v;
+  }
+}
+
+// Column k of AB at t of each lane below H*m; consecutive threads store
+// consecutive lanes of one row, so neighbouring addresses.
+static __device__ __forceinline__ void lin_team_store(
+    int tid, const float* tm, float* __restrict__ AB, int HM, int idx0) {
+  for (int e = tid; e < MPT_NX * MPT_LIN_S; e += MPT_LIN_THREADS) {
+    const int i = e / MPT_LIN_S, idx = idx0 + (e - i * MPT_LIN_S);
+    if (idx < HM) {
+      const int t = idx / MPT_M, k = idx - t * MPT_M;
+      AB[((size_t)t * MPT_NX + i) * MPT_M + k] = tm[MPT_L_COL + e];
+    }
+  }
+}
+
+// Lanes idx0 .. idx0+S-1 by thread `tid` of their team (barrier 1).
+static __device__ __forceinline__ void lin_team(
+    int tid, float* tm, const float* __restrict__ xs, const float* __restrict__ us,
+    float* __restrict__ AB, int HM, int idx0) {
+  const int w = tid / MPT_WARP, ln = tid % MPT_LIN_S;
+  lin_team_load(tid, tm, xs, us, HM, idx0);
+  mpt_team_sync(1, MPT_LIN_THREADS);
+  mpt_lin_team(w, 1, tm + MPT_L_XIN + ln, tm + MPT_L_COL + ln, tm + MPT_L_SLOTS + ln);
+  mpt_team_sync(1, MPT_LIN_THREADS);
+  lin_team_store(tid, tm, AB, HM, idx0);
+}
+
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(MPT_LIN_THREADS) mps_lin_kernel(
+    const float* __restrict__ xs, const float* __restrict__ us,
+    float* __restrict__ AB, int H) {
+  extern __shared__ float mpt_team_smem[];
+  lin_team((int)threadIdx.x, mpt_team_smem, xs, us, AB, H * MPT_M, (int)blockIdx.x * MPT_LIN_S);
+}
+
+// xs (H, nx), us (H, n) -> AB (H, nx, m). One team a block of S lanes; its
+// storage is dynamic shared memory, whose limit is raised once per device.
+extern "C" int launch_linearize(const float* xs, const float* us, float* AB,
+                                int H, void* stream) {
+  static bool raised[64];
+  if (H <= 0) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(mps_lin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)MPT_L_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    raised[dev] = true;
+  }
+  const unsigned int blocks = (unsigned int)((H * MPT_M + MPT_LIN_S - 1) / MPT_LIN_S);
+  mps_lin_kernel<<<blocks, MPT_LIN_THREADS, MPT_L_BYTES, (cudaStream_t)stream>>>(xs, us, AB, H);
+  return (int)cudaGetLastError();
+}
+MPT_ATTRIBUTES(attributes_linearize, mps_lin_kernel)
+
+// K6's team: warps, lanes a team, teams a block, phases, slots, and the
+// dynamic shared bytes of a block.
+extern "C" int team_linearize(int* out) {
+  out[0] = MPT_LIN_TEAM_W;
+  out[1] = MPT_LIN_S;
+  out[2] = 1;
+  out[3] = MPT_LIN_TEAM_P;
+  out[4] = MPT_LIN_TEAM_SLOTS;
+  out[5] = (int)MPT_L_BYTES;
+  return 0;
+}
+#endif
+#endif  // MPT_LIN_TEAM
 #endif  // MPT_UNIT_LIN
 
 // ---------------------------------------------------------------- K7 -----

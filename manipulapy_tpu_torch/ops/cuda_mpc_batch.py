@@ -359,8 +359,9 @@ class MPCKernelSet(KernelSet):
     linearization (K2's and K6's) and :meth:`plain`.
 
     A subclass sets ``STAGES``, ``TEMPLATE``, ``DEFINES`` (extra
-    ``#define``s of its units) and ``TEAM_STAGE`` (the stage whose kernel
-    runs the closed-loop step as a team, ``self.team``) besides
+    ``#define``s of its units), ``TEAM_STAGE`` (the stage whose kernel
+    runs the closed-loop step as a team, ``self.team``) and ``LAYOUTS``
+    (unit: the kernel and the ``mpt_layout_*`` entry of :meth:`layout_bytes`) besides
     :class:`KernelSet`'s attributes, and gives ``_bodies(model, dt, g) ->
     {unit: emitted source}``."""
 
@@ -368,6 +369,7 @@ class MPCKernelSet(KernelSet):
     TEMPLATE: Path
     DEFINES: Dict[str, int] = {}
     TEAM_STAGE: str
+    LAYOUTS: Dict[str, tuple] = {}
 
     def __init__(
         self,
@@ -405,12 +407,10 @@ class MPCKernelSet(KernelSet):
     def _linearize_body(self, model, dt, g) -> str:
         """The one-seed linearization's device function (``fd_step_jvp``),
         counting its statements and, as ``"step"``, those of the primal step
-        alone: the part that all m seeds share. K6 runs it; K2's bound
-        counts with both."""
+        alone: the part that all m seeds share. The host tests hold K2 and
+        K6 against it; their bounds count with both."""
         n, P = self.n, self.P
-        ems = []
-        _, src, self.statements["linearize"] = build_fd_step_jvp_source(model, dt, g=g, emitter=ems)
-        self._lin_emitter = ems[0]
+        _, src, self.statements["linearize"] = build_fd_step_jvp_source(model, dt, g=g)
         _, self.statements["step"] = cg.c_function(
             "fd_step", [("q", n), ("dq", n), ("tau", n)], [], [("q_next", n), ("dq_next", n)],
             lambda q, dq, tau: P.step(q, dq, tau)[:2],
@@ -430,14 +430,30 @@ class MPCKernelSet(KernelSet):
         AB = _stack(tans, xs[:, 0].expand((m, xs.shape[0]) + rest), dim=1)  # (m, nx, H, ...)
         return AB.permute(2, 1, 0, *range(3, AB.dim())).contiguous()
 
-    def team_attributes(self) -> Dict[str, int]:
-        """The team kernel (``TEAM_STAGE``) as built: warps, scenarios (or
-        alphas) a team, teams a block, phases a step, slots a lane and the
-        dynamic shared bytes of a block (its unit's ``team_<stage>``)."""
+    def team_attributes(self, stage: str = None) -> Dict[str, int]:
+        """A team kernel (``stage``, by default ``TEAM_STAGE``) as built:
+        warps, scenarios (alphas, or lanes) a team, teams a block, phases a
+        step, slots a lane and the dynamic shared bytes of a block (its
+        unit's ``team_<stage>``)."""
+        stage = stage or self.TEAM_STAGE
         keys = ("warps", "scenarios", "teams_per_block", "phases", "slots", "dynamic_smem_bytes")
         out = (ctypes.c_int * len(keys))()
-        getattr(self._lib(self.TEAM_STAGE), f"team_{self.TEAM_STAGE}")(out)
+        getattr(self._lib(stage), f"team_{stage}")(out)
         return dict(zip(keys, out))
+
+    def layout_bytes(self) -> Dict[str, int]:
+        """The dynamic shared bytes a block takes, per kernel of ``LAYOUTS``
+        whose built unit has its ``mpt_layout_*`` entry (the kernel's own
+        macros): K3 (``backward``) and K5's team (``replay_team``, a team
+        variant only); K6's team (``linearize_team``, a team unit only)."""
+        out = {}
+        for unit, lib in self.build().items():
+            key, entry = self.LAYOUTS.get(unit, (None, None))
+            fn = getattr(lib.lib, entry, None) if entry else None
+            if fn is not None:
+                fn.restype = ctypes.c_longlong
+                out[key] = int(fn())
+        return out
 
     def plain(self) -> SimpleNamespace:
         """The stages through their plain versions on any device (the
@@ -456,7 +472,7 @@ class BatchMPCKernels(MPCKernelSet):
 
     kind = "cuda"
     STAGES, UNITS, ARGTYPES, LIB_PREFIX = STAGES, UNITS, _ARGTYPES, "mpc_batch"
-    TEMPLATE, DEFINES = TEMPLATE, {"MPT_BLOCK": BLOCK}
+    TEMPLATE, DEFINES, LAYOUTS = TEMPLATE, {"MPT_BLOCK": BLOCK}, LAYOUTS
     LIN_SEEDS, UNIT_FLAGS = None, {"lin": LIN_FLAGS}
     TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK, TEAM_STAGE = TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK, "replay"
     launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
@@ -534,23 +550,10 @@ class BatchMPCKernels(MPCKernelSet):
             f"#define MPT_TEAM_PER_BLOCK {self.TEAM_PER_BLOCK}\n#define MPT_TS MPT_TEAM_S\n{cg.TEAM_SOURCE}"
         )
 
-    def team_attributes(self) -> Dict[str, int]:
+    def team_attributes(self, stage: str = None) -> Dict[str, int]:
         if self.team is None:
             raise ValueError("K5 runs one thread a scenario here; a team is a variant unit (TEAM_WARPS > 0)")
-        return super().team_attributes()
-
-    def layout_bytes(self) -> Dict[str, int]:
-        """The dynamic shared bytes a block of K3 (``backward``) and of K5's
-        team (``replay_team``, a team variant only) takes, from the built
-        units' ``mpt_layout_*`` entries (the kernels' own macros)."""
-        out = {}
-        for unit, lib in self.build().items():
-            key, entry = LAYOUTS.get(unit, (None, None))
-            fn = getattr(lib.lib, entry, None) if entry else None
-            if fn is not None:
-                fn.restype = ctypes.c_longlong
-                out[key] = int(fn())
-        return out
+        return super().team_attributes(stage)
 
     # -- checks -----------------------------------------------------------
     @staticmethod

@@ -5,7 +5,10 @@ Counterpart of the three ``pallas_call``s of ``manipulapy_tpu/mpc/fused.py``:
 
 * K6 ``linearize`` (``lin_kernel``): ``A_t, B_t = d x' / d [x; u]`` of the
   step program with ``clip_velocity=False`` at every step of one horizon,
-  over the m = 3n seeds: the function K2 computes, at one problem;
+  over the m = 3n seeds: the function K2 computes, at one problem; each
+  (step, seed) lane runs the lean one-seed body (K2's for Panda), one
+  thread a lane, or, with ``LIN_WARPS`` > 0, split over a team of warps
+  (:func:`lin_team_step`);
 * K7 ``backward`` (``bwd_kernel``): the time-reversed Riccati sweep of one
   problem from a given terminal value function, Quu solved by the
   pivot-free Gauss-Jordan of ``_gj_solve``; one block of ``BWD_THREADS``
@@ -15,7 +18,7 @@ Counterpart of the three ``pallas_call``s of ``manipulapy_tpu/mpc/fused.py``:
   terminal cost.
 
 Each kernel's arithmetic is one Python function over cgen values
-(``ops/fd_step.py::build_fd_step_jvp_planes`` for K6,
+(``ops/fd_step.py::build_fd_step_jvp_planes`` for K6, emitted ``lean``,
 :func:`riccati_step_gj` for K7, ``ops/cuda_mpc_batch.py::fwd_step`` and
 :func:`terminal_cost_fused` for K8). Run on tensors it is the plain PyTorch
 version; run on CVars it is the kernel's device function (template
@@ -47,16 +50,40 @@ from typing import Dict, List
 import torch
 
 from . import cgen as cg
-from .cuda_mpc_batch import Costs, MPCKernelSet, _stack, _sum, bwd_weights, fwd_signature, fwd_step, team_layout
-from .fd_step import _full
+from .cuda_mpc_batch import (
+    LIN_FLAGS,
+    Costs,
+    MPCKernelSet,
+    _stack,
+    _sum,
+    bwd_weights,
+    fwd_signature,
+    fwd_step,
+    team_layout,
+)
+from .fd_step import _full, build_fd_step_jvp_group_source, build_fd_step_jvp_planes
 
-__all__ = ["SingleMPCKernels", "STAGES", "BWD_THREADS", "FWD_WARPS", "riccati_step_gj", "terminal_cost_fused"]
+__all__ = [
+    "SingleMPCKernels",
+    "STAGES",
+    "BWD_THREADS",
+    "FWD_WARPS",
+    "LIN_WARPS",
+    "lin_team_step",
+    "riccati_step_gj",
+    "terminal_cost_fused",
+]
 
 TEMPLATE = Path(__file__).resolve().parents[1] / "csrc" / "mpc_single.cuh"
 BWD_THREADS = 256  # K7's block; chip_compare.py times 128 and 512 beside it (PERF.md)
 # K8: warps of its team (the partition of the emitted step, ``cg.team_function``),
 # chosen by timing Panda's K8 on an H100 (``chip_compare.py``, PERF.md section 6).
 FWD_WARPS = 32
+# K6: warps of a team per 32 (step, seed) lanes (``lin_team_step``), or 0 for
+# one thread a lane; chosen by timing Panda's K6 on an H100
+# (``chip_compare.py --variants``, PERF.md section 6): 8 warps 18% faster
+# than one thread a lane in one call, 2, 4 and 16 warps slower than 8.
+LIN_WARPS = 8
 STAGES = ("linearize", "backward", "forward")
 UNITS = {"lin": ("linearize",), "bwd": ("backward",), "fwd": ("forward",)}
 _P = ctypes.c_void_p
@@ -88,6 +115,24 @@ def _gj_solve_rows(aug: List[List], n: int) -> List[List]:
         for c in range(p + 1, width):
             aug[p][c] = row_p[c]
     return [row[n:] for row in aug]
+
+
+def lin_team_step(model, dt, g, warps: int) -> cg.TeamStep:
+    """K6's body split over a team of ``warps`` warps (``cg.team_function``):
+    the lean one-seed body, the statements of ``fd_step_jvp_group`` at one
+    seed in its order, with the seed's one-hot row ``s`` (m values, ``s_i
+    = k == i ? 1 : 0``) an input column beside x and u, and column k of the
+    Jacobian its output; every value a column of ``MPT_TS`` lanes
+    (``xin``: x, u, s; ``cout``: the column)."""
+    n, step_jvp = build_fd_step_jvp_planes(model, dt, g=g, lean=True)
+    nx, m = 2 * n, 3 * n
+
+    def body(x, u, s):
+        return [step_jvp(x, u, s[:nx], s[nx:])[1]]
+
+    layout = {"x": ("xin", 0, "MPT_TS"), "u": ("xin", nx, "MPT_TS"), "s": ("xin", nx + n, "MPT_TS"),
+              "col": ("cout", 0)}
+    return cg.team_function("mpt_lin_team", [("x", nx), ("u", n), ("s", m)], [], [("col", nx)], body, layout, warps)
 
 
 def riccati_step_gj(P: Costs, ab, x, u, goal, V, reg):
@@ -190,20 +235,46 @@ def terminal_cost_fused(P: Costs, x, goal):
 
 
 class SingleMPCKernels(MPCKernelSet):
-    """K6-K8 for one (robot, dt, g, cost weights, torque limits)."""
+    """K6-K8 for one (robot, dt, g, cost weights, torque limits). K6's unit
+    runs the lean one-seed body one thread a lane (``LIN_WARPS`` = 0) or
+    split over a team of ``LIN_WARPS`` warps (``self.lin_team``); the
+    one-seed ``fd_step_jvp`` stays out of it, as ``linearize_seed_source``,
+    and so does the body for a team, as ``linearize_group_source``: the
+    host tests' references. Only the units of ``UNITS`` are built."""
 
     STAGES, UNITS, ARGTYPES, LIB_PREFIX = STAGES, UNITS, _ARGTYPES, "mpc_single"
     TEMPLATE, DEFINES = TEMPLATE, {"MPT_BWD_THREADS": BWD_THREADS}
     FWD_WARPS, TEAM_STAGE = FWD_WARPS, "forward"
+    LIN_WARPS, UNIT_FLAGS = LIN_WARPS, {"lin": LIN_FLAGS}
+    LAYOUTS = {"lin": ("linearize_team", "mpt_layout_linearize_team")}
     launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
+    lin_team = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.lin_team is not None:  # the team body goes where the template marks it, after MPT_TS
+            lin = self.sources["lin"]
+            at = lin.rindex("// MPT_LIN_TEAM_STEP:")
+            self.sources["lin"] = lin[:at] + self.lin_team.source + lin[at:]
 
     def _bodies(self, model, dt, g) -> Dict[str, str]:
         """The units' generated parts; also ``riccati_step_source``, K8's
-        ``team`` (``cg.TeamStep``) and, per emitted body, ``chains``: its
-        longest chain of dependent statements (``cg.chain_length``)."""
+        ``team`` and K6's ``lin_team`` (``cg.TeamStep``) and, per emitted
+        body, ``chains``: its longest chain of dependent statements
+        (``cg.chain_length``)."""
         P, n, nx = self.P, self.n, self.nx
         kkn, vn = n * (1 + nx), (nx + 1) * nx
-        lin_src = self._linearize_body(model, dt, g)
+        self.linearize_seed_source = self._linearize_body(model, dt, g)
+        ems = []
+        _, self.linearize_group_source, self.statements["linearize_group"] = build_fd_step_jvp_group_source(
+            model, dt, g=g, seeds=1, emitter=ems
+        )
+        lin_chain = cg.chain_length(ems[0])
+        if self.LIN_WARPS:
+            self.lin_team = lin_team_step(model, dt, g, self.LIN_WARPS)
+            lin_src = f"{cg.KEEP_SOURCE}{cg.TEAM_SOURCE}#define MPT_LIN_TEAM 1\n"
+        else:
+            lin_src = f"#define MPT_LIN_SEEDS 1\n{self.linearize_group_source}"
         # K7's phases (csrc/mpc_single.cuh) do riccati_step_gj's operations,
         # so its emitted body stays out of the unit: it is the host harness's
         # reference and its statements K7's operation count.
@@ -229,7 +300,7 @@ class SingleMPCKernels(MPCKernelSet):
         # lanes (columns of 32), the rows and the goal shared by every lane.
         self.team = cg.team_function("mpt_fwd_team", *fwd_signature(P), fwd_body, team_layout(P, "1"), self.FWD_WARPS)
         self.chains = {
-            "linearize": cg.chain_length(self._lin_emitter),
+            "linearize": lin_chain,
             "backward": cg.chain_length(self._bwd_emitter),
             "forward": cg.chain_length(ems[0]),
             "cost_terminal": cg.chain_length(ems[1]),

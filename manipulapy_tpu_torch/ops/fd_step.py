@@ -456,6 +456,7 @@ def build_fd_step_jvp_group_source(
     seeds: int = 3,
     clip_limits: bool = True,
     clip_velocity: bool = False,
+    emitter=None,
 ):
     """C source of ``__device__ void fd_step_jvp_group(const float x[2n],
     const float u[n], int k0, float x_next[2n], float col[G * 2n])``: one
@@ -467,7 +468,7 @@ def build_fd_step_jvp_group_source(
     run-time values, ``(k0 + j == i) ? 1 : 0``, as there. The step is
     emitted ``lean`` (``_emit_dynamics``): the same values in an order that
     holds fewer at once, since each is held once per seed. Returns ``(n,
-    source, statement count)``."""
+    source, statement count)``; ``emitter``, a list, receives the emitter."""
     n, step_jvp = build_fd_step_jvp_planes(
         model, dt, g=g, clip_limits=clip_limits, clip_velocity=clip_velocity, lean=True
     )
@@ -489,7 +490,7 @@ def build_fd_step_jvp_group_source(
 
     source, ops = cg.c_function(
         "fd_step_jvp_group", [("x", nx), ("u", n)], [], [("x_next", nx), ("col", seeds * nx)], body,
-        preamble=[("int k0", seed_vars)],
+        preamble=[("int k0", seed_vars)], emitter=emitter,
     )
     return n, cg.KEEP_SOURCE + source, ops
 

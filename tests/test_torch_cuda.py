@@ -10,10 +10,12 @@ GPU. The module imports no JAX, so it also runs on a machine without JAX:
 Tolerances: 1e-4 on q, 1e-3 on dq and 2e-1 on ddq (float32) for the
 rollout, and max |d| = 0 for its staged kernel at B off the block and N
 around the chunk (``-k bitwise``); 1e-5 of each
-output's largest magnitude for K2-K8 (the same
+output's largest magnitude for K3 (the same
 operations in the same order with --fmad=false, so 0 is expected; K3's
-own tests alone: ``-k "backward_kernel and not single"``; K7's, bit for
-bit: ``-k "single and backward"``; K2's, bit for bit with NaN where the
+own tests alone: ``-k "backward_kernel and not single"``); every other MPC
+kernel bit for bit: K7's ``-k "single and backward"``; K6's, with NaN where
+the plain version has NaN, both of its designs, a 12-joint chain and an
+8-joint solve: ``-k single_problem_linearize``; K2's, with NaN where the
 plain version has NaN: ``-k linearize_kernel``; K5's and K8's, the same:
 ``-k "replay or forward_kernel"``; K4's with its trajectories and the
 12-joint solve: ``-k "linesearch or serial_chain_12"``); the JAX test's bars (cost rtol 1e-5,
@@ -22,6 +24,8 @@ whole MPC solves against the plain solvers; for K9 2e-6 / 2e-5 / 2e-4 on pos
 / vel / acc and for K10 rtol 1e-4 with atol 1e-5 on U and 1e-4 on its
 gradient, the JAX kernel tests' bars (0 is expected here too).
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -613,7 +617,7 @@ def test_single_mpc_kernels_match_plain_versions(cuda_device):
         _close_to_scale(g, r)
     sd_x = torch.cat([x0[None], xs0[0][0, :-1]]).contiguous()
     AB = K.linearize(sd_x, us)
-    _close_to_scale(AB, P.linearize(sd_x, us))
+    _assert_bits_and_nans(AB, P.linearize(sd_x, us))
     two_wT = torch.tensor([200.0] * n + [20.0] * n, device=cuda_device)
     Vx = two_wT * (xs0[0][0, -1] - torch.cat([goal, zeros(n)]))
     args = (AB, sd_x, us, goal, torch.cat([torch.diag(two_wT), Vx[None]]).contiguous(),
@@ -626,6 +630,153 @@ def test_single_mpc_kernels_match_plain_versions(cuda_device):
     torch.cuda.synchronize()
     after = SingleMPCKernels.launch_count
     assert {k: after[k] - before[k] for k in after} == {"linearize": 1, "backward": 1, "forward": 2}
+
+
+# K6 alone: the lean one-seed body, one thread a (step, seed) lane or split
+# over a team of warps per 32 lanes (``LIN_WARPS``); "default" is the unit
+# as built, "other" the other design (a team of 4 warps, or one thread a
+# lane where the default is a team).
+_K6_SETS = {}
+
+
+def _k6(robot, design, device):
+    default = SingleMPCKernels.LIN_WARPS
+    warps = default if design == "default" else (0 if default else 4)
+    if (robot, warps) not in _K6_SETS:
+        model = catalog.get_robot(robot, device=device)
+        cls = type("K6", (SingleMPCKernels,), {"LIN_WARPS": warps, "UNITS": {"lin": ("linearize",)}})
+        _K6_SETS[robot, warps] = (model, cls(model, 0.01, u_lim=[float(v) for v in model.torque_limit.cpu()]))
+    return _K6_SETS[robot, warps]
+
+
+def _single_lin_states(model, H, device, seed):
+    xs, us = _lin_states(model, 1, H, device, seed)
+    return xs[..., 0].contiguous(), us[..., 0].contiguous()
+
+
+@pytest.mark.parametrize("H", [1, 37, 50, 128])
+@pytest.mark.parametrize("design", ["default", "other"])
+@pytest.mark.parametrize("robot", ["ur5", "panda"])
+def test_single_problem_linearize_is_bitwise(cuda_device, robot, design, H):
+    """Bit for bit, NaN where the plain version has NaN; H*m lanes end
+    mid-team at H = 1, 37 and 50 for the Panda (21, 777, 1050)."""
+    model, K = _k6(robot, design, cuda_device)
+    n = model.num_joints
+    xs, us = _single_lin_states(model, H, cuda_device, seed=H)
+    before = SingleMPCKernels.launch_count["linearize"]
+    AB = K.linearize(xs, us)
+    torch.cuda.synchronize()
+    assert SingleMPCKernels.launch_count["linearize"] == before + 1
+    assert AB.shape == (H, 2 * n, 3 * n)
+    ref = K.linearize_plain(xs, us)
+    assert bool(torch.isfinite(ref).all())
+    _assert_bits_and_nans(AB, ref)
+
+
+@pytest.mark.parametrize("design", ["default", "other"])
+def test_single_problem_linearize_keeps_a_nan_step_to_itself(cuda_device, design):
+    """Step 3 of 8 has a NaN velocity of joint 0: its Jacobian goes NaN
+    where the plain version's does, every other step keeps the clean run's
+    bits. No local bytes; a team's dynamic shared bytes are its layout's."""
+    model, K = _k6("panda", design, cuda_device)
+    xs, us = _single_lin_states(model, 8, cuda_device, seed=5)
+    clean = K.linearize(xs, us)
+    xs[3, 7] = float("nan")
+    dirty = K.linearize(xs, us)
+    torch.cuda.synchronize()
+    _assert_bits_and_nans(dirty, K.linearize_plain(xs, us))
+    assert bool(torch.isnan(dirty[3]).any())
+    others = torch.arange(8, device=cuda_device) != 3
+    assert torch.equal(dirty[others].view(torch.int32), clean[others].view(torch.int32))
+    attrs = K.kernel_attributes()["linearize"]
+    assert 0 < attrs["num_regs"] <= 255
+    _assert_no_spills(K)
+    if K.lin_team is None:
+        assert attrs["max_threads"] == 32 and "linearize_team" not in K.layout_bytes()
+    else:
+        team = K.team_attributes("linearize")
+        assert team["warps"] == K.LIN_WARPS and attrs["max_threads"] == 32 * K.LIN_WARPS
+        assert team["phases"] == K.lin_team.partition.phases and team["slots"] == max(K.lin_team.slots, 1)
+        assert _team_lanes(K) == 32 and team["dynamic_smem_bytes"] > 48 * 1024
+
+
+def _assert_no_spills(K):
+    """K6's unit spills nothing (ptxas's report of its one kernel); its local
+    bytes are at most the 32-byte frame of sinf's and cosf's slow path."""
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", K.build()["lin"].log)
+    assert spills and all(st == ld == "0" for st, ld in spills)
+    assert K.kernel_attributes()["linearize"]["local_bytes"] <= 32
+
+
+def _team_lanes(K):
+    """K6's team's lanes: 32, or the most (halving) whose storage fits a
+    block; its dynamic shared bytes are its layout's."""
+    team = K.team_attributes("linearize")
+    lane_bytes = (2 * K.nx + K.n + K.m + max(K.lin_team.slots, 1)) * 4  # x, u, s, the column, the slots
+    lanes = team["scenarios"]
+    assert team["dynamic_smem_bytes"] == lanes * lane_bytes == K.layout_bytes()["linearize_team"] <= 232448
+    assert lanes == 32 or 2 * lanes * lane_bytes > 232448
+    return lanes
+
+
+def test_single_problem_linearize_of_serial_chain_12_and_its_stages_are_bitwise(cuda_device):
+    """A 12-joint chain, one problem, H=10 (past the solver's n <= 8, the
+    JAX package's limit, so the stages are driven as the solve drives
+    them): all three units build, K6's team halves its lanes until its
+    slots fit a block (16 at 8 warps), and each of K6-K8 gives its plain
+    version's bits on the open loop of random torques and K7's gains."""
+    n, H = 12, 10
+    model = catalog.serial_chain(n, device=cuda_device)
+    K = SingleMPCKernels(model, 0.01, u_lim=[20.0] * n)
+    P = K.plain()
+    rng = np.random.default_rng(12)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32)).to(cuda_device).contiguous()
+    x0 = f32(np.concatenate([rng.uniform(-0.5, 0.5, n), np.zeros(n)]))
+    us, goal = f32(rng.uniform(-5.0, 5.0, (H, n))), f32(rng.uniform(-0.5, 0.5, n))
+    zeros = lambda *shape: torch.zeros(shape, device=cuda_device)
+    init = (x0, zeros(H, 2 * n), us, zeros(H, n, 1 + 2 * n), goal, zeros(1))
+    xs0 = K.forward(*init)
+    for g, r in zip(xs0, P.forward(*init)):
+        _assert_bits_and_nans(g, r)
+    sd_x = torch.cat([x0[None], xs0[0][0, :-1]]).contiguous()
+    AB = K.linearize(sd_x, us)
+    _assert_bits_and_nans(AB, P.linearize(sd_x, us))
+    two_wT = torch.tensor([2.0 * w for w in K.P.wT], device=cuda_device)
+    Vx = two_wT * (xs0[0][0, -1] - torch.cat([goal, zeros(n)]))
+    bwd = (AB, sd_x, us, goal, torch.cat([torch.diag(two_wT), Vx[None]]).contiguous(),
+           torch.tensor(1e-3, device=cuda_device))
+    kK = K.backward(*bwd)
+    _assert_bits_and_nans(kK, P.backward(*bwd))
+    fwd = (x0, sd_x, us, kK, goal, 0.5 ** torch.arange(6, device=cuda_device, dtype=torch.float32))
+    for g, r in zip(K.forward(*fwd), P.forward(*fwd)):
+        _assert_bits_and_nans(g, r)
+    assert bool(torch.isfinite(AB).all()) and bool(torch.isfinite(kK).all())
+    if K.lin_team is not None:
+        assert _team_lanes(K) < 32
+
+
+def test_single_problem_linearize_in_an_8_joint_solve(cuda_device):
+    """n = 8, the largest the solver takes (K6's team's storage the most
+    lanes that fit a block): the solve launches 2/2/3 kernels and meets the
+    plain solver at the JAX test's bars."""
+    n, H = 8, 10
+    model = catalog.serial_chain(n, device=cuda_device)
+    rng = np.random.default_rng(8)
+    goal = rng.uniform(-0.5, 0.5, n)
+    mpc = build_tracking_mpc(model, goal, H, 0.01, iterations=2, u_limit=[20.0] * n)
+    x0 = torch.from_numpy(np.concatenate([rng.uniform(-0.3, 0.3, n), np.zeros(n)]).astype(np.float32)).to(cuda_device)
+    us0 = torch.zeros((H, n), device=cuda_device)
+    SingleMPCKernels.reset_launch_count()
+    us, xs, cost = mpc.solve(x0, us0)
+    torch.cuda.synchronize()
+    assert SingleMPCKernels.launch_count == {"linearize": 2, "backward": 2, "forward": 3}
+    us_p, xs_p, cost_p = mpc.solve_plain(x0, us0)
+    assert all(bool(torch.isfinite(v).all()) for v in (us, xs, cost))
+    assert float((cost - cost_p).abs() / cost_p.abs()) <= 1e-5
+    assert float((xs[-1] - xs_p[-1]).abs().max()) <= 5e-4
+    assert float((us - us_p).abs().max()) <= 5e-3
+    if mpc.kernels.lin_team is not None:
+        _team_lanes(mpc.kernels)
 
 
 @pytest.fixture(scope="module")

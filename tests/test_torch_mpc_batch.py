@@ -754,15 +754,23 @@ def test_lin_group_body_keeps_a_nan_scenario_to_itself(lin_units, robot, which):
 
 
 def test_single_lin_unit_keeps_the_one_seed_body():
-    """K6 keeps ``fd_step_jvp``: its unit holds the one-seed body as emitted,
-    which K2's unit does not: it runs the group body, three seeds a thread
-    for the UR5 and one for the Panda."""
+    """K6 keeps one seed a lane: its one-thread unit holds the lean group
+    body at one seed (K2's for the Panda), and its team unit the same
+    statements split over the warps; the emitted one-seed ``fd_step_jvp``
+    is in neither K6's nor K2's unit, but the host tests' reference of
+    both. K2 runs the group body, three seeds a thread for the UR5 and one
+    for the Panda."""
     model = port_catalog.get_robot("ur5", device="cpu")
     _, one_seed, _ = tfd.build_fd_step_jvp_source(model, 0.01, g=tfd.DEFAULT_G)
-    single = SingleMPCKernels(model, 0.01, u_lim=[10.0] * 6)
+    _, group1, group_ops = tfd.build_fd_step_jvp_group_source(model, 0.01, g=tfd.DEFAULT_G, seeds=1)
+    single = type("OneThread", (SingleMPCKernels,), {"LIN_WARPS": 0})(model, 0.01, u_lim=[10.0] * 6)
+    team = type("Team", (SingleMPCKernels,), {"LIN_WARPS": 4})(model, 0.01, u_lim=[10.0] * 6)
     batch = BatchMPCKernels(model, 0.01, u_lim=[10.0] * 6)
-    assert one_seed in single.sources["lin"] and "fd_step_jvp_group" not in single.sources["lin"]
-    assert one_seed == batch.linearize_seed_source and one_seed not in batch.sources["lin"]
+    assert group1 in single.sources["lin"] and "#define MPT_LIN_SEEDS 1\n" in single.sources["lin"]
+    assert single.lin_team is None and team.lin_team.statements == group_ops
+    assert group1 == single.linearize_group_source == team.linearize_group_source
+    assert one_seed == single.linearize_seed_source == batch.linearize_seed_source
+    assert all(one_seed not in k.sources["lin"] for k in (single, team, batch))
     assert batch.LIN_SEEDS == 3 and f"#define MPT_LIN_SEEDS 3\n" in batch.sources["lin"]
     panda = BatchMPCKernels(port_catalog.get_robot("panda", device="cpu"), 0.01, u_lim=[10.0] * 7)
     assert panda.LIN_SEEDS == 1 and f"#define MPT_LIN_SEEDS 1\n" in panda.sources["lin"]
@@ -777,12 +785,12 @@ def test_single_lin_unit_keeps_the_one_seed_body():
 # sin, cos and sqrt routed through PyTorch's own as for K2.
 
 
-def check_team_partition(team, statements: int) -> None:
-    """The invariants of a team step (``cg.TeamStep``): every statement runs
-    once; each read follows its write (the same warp, earlier in the phase,
-    or an earlier phase); a value crosses warps through its slot (or its
-    output), which no other value overwrites before its last first read;
-    P - 1 barriers a warp."""
+def check_team_partition(team, statements: int, prefix: str = "mpt_fwd_team") -> None:
+    """The invariants of a team step (``cg.TeamStep``, its warp programs
+    ``{prefix}_w<w>``): every statement runs once; each read follows its
+    write (the same warp, earlier in the phase, or an earlier phase); a
+    value crosses warps through its slot (or its output), which no other
+    value overwrites before its last first read; P - 1 barriers a warp."""
     part = team.partition
     W, P = part.warps, part.phases
     assert team.statements == statements == len(part.place) == len(team.reads)
@@ -810,7 +818,7 @@ def check_team_partition(team, statements: int) -> None:
         assert all(b[0] > a[1] for a, b in zip(spans, spans[1:]))
     assert team.source.count("mpt_team_sync(bar, ") == W * (P - 1)
     for w in range(W):
-        assert f"void mpt_fwd_team_w{w}(" in team.source
+        assert f"void {prefix}_w{w}(" in team.source
 
 
 TEAM_WARPS = [1, 4, 8]
@@ -1365,9 +1373,11 @@ extern "C" void run_bwd(const float** in, float** out, int B, int H) {
 
 
 # The dynamic shared bytes a block of each kernel whose storage grows with n
-# takes (K1's tiles, K3's warps, K5's team variant), computed by the
-# kernels' own macros and types: the template compiled on the host with its
-# generated bodies stubbed, for every n a chain may have up to 16.
+# takes (K1's tiles, K3's warps, K5's team variant, K6's team), computed by
+# the kernels' own macros and types: the template compiled on the host with
+# its generated bodies stubbed, for every n a chain may have up to 16. K6's
+# team needs its partition's slots: the Python partition of the n = 16 body
+# (66k statements) takes ~5 s.
 _LAYOUT_SHIM = """\
 #include <math.h>
 #include <stddef.h>
@@ -1380,6 +1390,7 @@ extern "C" void mpt_host_yield(void) {}
 #define mpc_fwd_step(...) ((void)0)
 #define mpc_terminal(...) ((void)0)
 #define mpt_fwd_team(...) ((void)0)
+#define mpt_lin_team(...) ((void)0)
 """
 SMEM_DYNAMIC_MAX = 232448  # a block's shared memory on an H100 (dynamic, after the attribute is raised)
 
@@ -1415,7 +1426,17 @@ def test_shared_bytes_fit_a_block_for_every_joint_count(n, tmp_path):
                  f"#define MPT_REPLAY_TEAM 1\n#define MPT_TEAM_S_MAX {team.TEAM_S}\n"
                  f"#define MPT_TEAM_PER_BLOCK {team.TEAM_PER_BLOCK}\n#define MPT_TS MPT_TEAM_S\n{defines}",
                  TEAM_SOURCE + batch, "mpt_layout_replay_team")
-    for name, got in (("K1", k1), ("K3", k3), ("K5 team", k5)):
+    from manipulapy_tpu_torch.ops import cuda_mpc_single
+
+    lin_team = cuda_mpc_single.lin_team_step(model, 0.01, tfd.DEFAULT_G, cuda_mpc_single.LIN_WARPS or 4)
+    defines = "".join(f"{line}\n" for line in lin_team.source.splitlines() if line.startswith("#define MPT_LIN_TEAM_"))
+    k6 = _layout(tmp_path, "k6", f"#define MPT_NJ {n}\n#define MPT_UNIT_LIN 1\n#define MPT_LIN_TEAM 1\n{defines}",
+                 TEAM_SOURCE + cuda_mpc_single.TEMPLATE.read_text(), "mpt_layout_linearize_team")
+    for name, got in (("K1", k1), ("K3", k3), ("K5 team", k5), ("K6 team", k6)):
         assert 0 < got <= SMEM_DYNAMIC_MAX, (name, n, got)
+    lane_floats = 2 * 2 * n + n + 3 * n + max(lin_team.slots, 1)  # x, u, s, the column, the slots
+    lanes = k6 // (4 * lane_floats)
+    assert k6 == 4 * lanes * lane_floats and lanes in (1, 2, 4, 8, 16, 32)
+    assert lanes == 32 or 2 * k6 > SMEM_DYNAMIC_MAX  # halved only as far as it must
     assert k1 == 5 * cuda_rollout.BLOCK * ((3 * n) | 1) * 4
     assert (k3 > 48 * 1024) == (n >= 12)  # past the 48 KB a block may declare statically

@@ -39,6 +39,7 @@ from manipulapy_tpu.models.robot import host_arrays as jax_host_arrays
 from manipulapy_tpu.mpc.fused import build_tracking_mpc as jax_build
 from manipulapy_tpu_torch.models import catalog, from_host_arrays
 from manipulapy_tpu_torch.mpc import ILQRParams, build_tracking_mpc, ilqr, make_step_fn, make_tracking_costs
+from manipulapy_tpu_torch.ops import cgen as cg
 from manipulapy_tpu_torch.ops import fd_step as tfd
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import STAGES, SingleMPCKernels
@@ -366,14 +367,39 @@ extern "C" int run_ref(const float** in, float** out, int H, int A) {{
 #endif
 """
 
+# K6's team on the host: every team of S lanes in turn, its storage
+# NaN-filled first, every thread a coroutine; inputs xs, us; output AB.
+LIN_TEAMS = """
+#if defined(MPT_UNIT_LIN) && defined(MPT_LIN_TEAM)
+struct mpt_lin_args {{ const float** in; float** out; int HM, idx0; float* tm; }};
+static void mpt_lin_thread(int tid, void* p) {{
+  const mpt_lin_args* a = (const mpt_lin_args*)p;
+  lin_team(tid, a->tm, a->in[0], a->in[1], a->out[0], a->HM, a->idx0);
+}}
+extern "C" int run_lin_team(const float** in, float** out, int H, int A) {{
+  float* tm = (float*)malloc(MPT_L_BYTES);
+  int bad = 0;
+  for (int idx0 = 0; idx0 < H * MPT_M; idx0 += MPT_LIN_S) {{
+    for (int i = 0; i < MPT_L_FLOATS; ++i) tm[i] = NAN;
+    mpt_lin_args a = {{in, out, H * MPT_M, idx0, tm}};
+    bad |= mpt_run_team(MPT_LIN_THREADS, mpt_lin_thread, &a);
+  }}
+  free(tm);
+  return bad;
+}}
+#endif
+"""
+
 _HARNESS = _braced(TEAM_RUNNER) + """\
 #define __device__
 #define __forceinline__ inline
 #define MPT_HOST_TEAM 1
 {src}
-""" + FWD_TEAMS + """
+""" + FWD_TEAMS + LIN_TEAMS + """
 extern "C" void run(const float** in, float** out, int H, int A) {{
-#if defined(MPT_UNIT_LIN)
+#if defined(MPT_UNIT_LIN) && defined(MPT_LIN_TEAM)
+  if (run_lin_team(in, out, H, A)) abort();
+#elif defined(MPT_UNIT_LIN)
   for (int idx = 0; idx < H * MPT_M; ++idx) lin_thread(in[0], in[1], out[0], idx);
 #elif defined(MPT_UNIT_BWD)
   // K7: the block's storage, a host array; under MPT_HOST_TEAM each phase of
@@ -653,3 +679,129 @@ def test_forward_team_keeps_a_nan_alpha_to_itself(forward_units, robot):
         assert torch.equal(_bits(got)[~nan], _bits(pl)[~nan])
         assert bool(torch.isnan(got[2]).any())
         assert torch.equal(_bits(got[[0, 1, 3, 4, 5]]), _bits(cl[[0, 1, 3, 4, 5]]))
+
+
+# K6 as a team of W warps per 32 (step, seed) lanes (``lin_team_step``): the
+# lean one-seed body partitioned over the warps, the seed an input column.
+# The partition's invariants, then every team on the host, its threads as
+# coroutines, bit for bit against the emitted one-thread body of the
+# default unit (``fd_step_jvp_group`` at one seed, in the same unit) and
+# against ``linearize_plain`` (sin, cos and sqrt PyTorch's own).
+LIN_TEAM_WARPS = [2, 4, 8]
+LIN_TEAM_ROBOTS = ("ur5", "panda")
+_LIN_REFERENCE = """
+{group}
+extern "C" int run_ref(const float** in, float** out, int H, int A) {{
+  for (int idx = 0; idx < H * MPT_M; ++idx) {{
+    const int t = idx / MPT_M, k = idx % MPT_M;
+    float x[MPT_NX], u[MPT_NJ], x_next[MPT_NX], col[MPT_NX];
+    for (int i = 0; i < MPT_NX; ++i) x[i] = in[0][t * MPT_NX + i];
+    for (int j = 0; j < MPT_NJ; ++j) u[j] = in[1][t * MPT_NJ + j];
+    fd_step_jvp_group(x, u, k, x_next, col);
+    for (int i = 0; i < MPT_NX; ++i) out[0][((size_t)t * MPT_NX + i) * MPT_M + k] = col[i];
+  }}
+  return 0;
+}}
+"""
+
+
+def _lin_team_kernels(model, warps):
+    return type("LinTeam", (SingleMPCKernels,), {"LIN_WARPS": warps})(model, 0.01, u_lim=[10.0] * model.num_joints)
+
+
+@pytest.mark.parametrize("warps", LIN_TEAM_WARPS)
+@pytest.mark.parametrize("robot", LIN_TEAM_ROBOTS)
+def test_lin_team_partition_invariants(robot, warps):
+    """Every statement of the one-seed body in one warp's program, the seed
+    an input: the same statements and chain as the default unit's body."""
+    k = _lin_team_kernels(catalog.get_robot(robot, device="cpu"), warps)
+    check_team_partition(k.lin_team, k.statements["linearize_group"], prefix="mpt_lin_team")
+    assert k.chains["linearize"] == k.lin_team.chain
+    assert k.lin_team.partition.critical < k.statements["linearize_group"]
+    assert "#define MPT_LIN_TEAM 1\n" in k.sources["lin"] and "void fd_step_jvp_group(" not in k.sources["lin"]
+
+
+@pytest.fixture(scope="module")
+def lin_team_units(tmp_path_factory):
+    """Per (robot, W) on first use: K6's team unit on the host, with the
+    default unit's one-thread body beside it."""
+    if shutil.which("g++") is None:
+        pytest.skip("the host has no g++ to compile the emitted C")
+    units = {}
+
+    def get(robot, warps):
+        if (robot, warps) not in units:
+            model = catalog.serial_chain(8, device="cpu") if robot == "serial_chain_8" else \
+                catalog.get_robot(robot, device="cpu")
+            k = _lin_team_kernels(model, warps)
+            group = k.linearize_group_source.replace(cg.KEEP_SOURCE, "")  # mpt_keep: the team unit has it
+            lib = compile_team_unit(k.sources["lin"] + LIN_TEAMS.format() + _LIN_REFERENCE.format(group=group),
+                                    tmp_path_factory.mktemp(f"lin_{robot}_W{warps}"), "lin", ("run_lin_team", "run_ref"))
+            layout = lib.mpt_layout_linearize_team
+            layout.restype = ctypes.c_longlong
+            units[(robot, warps)] = SimpleNamespace(k=k, lib=lib, model=model, smem=int(layout()))
+        return units[(robot, warps)]
+
+    return get
+
+
+def _lin_team_problem(model, H, seed):
+    """xs (H, 2n) inside the joint limits, us (H, n) within 30% of 10."""
+    n = model.num_joints
+    rng = np.random.default_rng(seed)
+    lo, hi = model.joint_lower.double().numpy(), model.joint_upper.double().numpy()
+    lo, hi = np.maximum(lo, -np.pi), np.minimum(hi, np.pi)
+    q = (lo + hi) / 2 + rng.uniform(-0.8, 0.8, (H, n)) * (hi - lo) / 2
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).contiguous()
+    return f32(np.concatenate([q, rng.uniform(-0.5, 0.5, (H, n))], 1)), f32(rng.uniform(-3.0, 3.0, (H, n)))
+
+
+def _lin_team_host(u, xs, us):
+    """(the team's AB, the one-thread body's), NaN-filled first."""
+    H = xs.shape[0]
+    runs = []
+    for entry in ("run_lin_team", "run_ref"):
+        AB = torch.full((H, u.k.nx, u.k.m), float("nan"))
+        ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+        assert getattr(u.lib, entry)(ptrs([xs, us]), ptrs([AB]), H, 0) == 0  # the team's threads met equally often
+        runs.append(AB)
+    return runs
+
+
+@pytest.mark.parametrize("robot, warps, H", [
+    *[(r, w, H) for r in LIN_TEAM_ROBOTS for w in LIN_TEAM_WARPS for H in (1, 3)],
+    ("serial_chain_8", 4, 1), ("serial_chain_8", 4, 3),
+])
+def test_lin_team_matches_one_thread_body_bitwise(lin_team_units, robot, warps, H):
+    """H*m lanes end mid-team at every H here (m = 18, 21, 24); a chain of
+    8 joints has more slots than 32 lanes fit a block, so its team takes 16
+    lanes, each repeated by a second lane."""
+    u = lin_team_units(robot, warps)
+    xs, us = _lin_team_problem(u.model, H, seed=H + warps)
+    team, one = _lin_team_host(u, xs, us)
+    ref = u.k.linearize_plain(xs, us)
+    assert bool(torch.isfinite(ref).all())
+    assert torch.equal(_bits(team), _bits(one)) and torch.equal(_bits(team), _bits(ref))
+    lanes = 16 if robot == "serial_chain_8" else 32
+    lane_bytes = (2 * u.k.nx + u.k.n + u.k.m + u.k.lin_team.slots) * 4  # x, u, s, the column, the slots
+    assert u.smem == lanes * lane_bytes <= 232448
+    assert lanes == 32 or 2 * lanes * lane_bytes > 232448  # the most lanes that fit a block
+
+
+@pytest.mark.parametrize("robot", LIN_TEAM_ROBOTS)
+def test_lin_team_keeps_a_nan_step_to_itself(lin_team_units, robot):
+    """Step 1 of 3 has a NaN velocity of joint 0: its Jacobian goes NaN
+    where the plain version's does (in the lanes of both of its teams), and
+    steps 0 and 2 keep the clean run's bits."""
+    u = lin_team_units(robot, 4)
+    xs, us = _lin_team_problem(u.model, 3, seed=9)
+    clean, _ = _lin_team_host(u, xs, us)
+    xs[1, u.k.n] = float("nan")
+    team, one = _lin_team_host(u, xs, us)
+    ref = u.k.linearize_plain(xs, us)
+    for got in (team, one):
+        nan = torch.isnan(ref)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(_bits(got)[~nan], _bits(ref)[~nan])
+    assert bool(torch.isnan(team[1]).any())
+    assert torch.equal(_bits(team[[0, 2]]), _bits(clean[[0, 2]]))
