@@ -122,6 +122,32 @@ Phases, one line each (or one line per case):
     at 174763 x 4096 x 6 (past 2**32 elements; its first and last 64
     rows).
 
+Between phases 17 and 18, the closed loop and the fleet layer, on a
+one-device mesh (``parallel.make_mesh(1)``):
+
+19. ``fleet_fused``: one ``parallel.fleet_mpc_round(solver="fused_batch")``
+    of a Panda and a UR5 padded to 7 joints, S=1024 scenarios each, H=50,
+    4 iterations, 6 alphas; K2-K5 launched per robot (launch counts read
+    just after the round); each robot's controls and costs bitwise its own
+    ``build_batch_tracking_mpc(...).solve`` on the same inputs, the UR5's
+    padded joint 0, the fleet cost the mean; the round's time (CUDA
+    events) beside the two solves';
+20. ``distributed_rollout``: ``parallel.distributed_rollout`` at UR5
+    B=131072 N=50, one K1 launch, bitwise the public rollout; its time
+    beside K1's;
+21. ``ik``: UR5 ``ik.solve_ik_batch`` at B=1000, 150 iterations, FK targets
+    of q in U[-1.5, 1.5] from q + N(0, 0.3): float64 success rate at least
+    0.9 and every success within 1e-5 m, float32's rate reported; ms a
+    solve and device launches an iteration (two ``torch.profiler``
+    traces); then ``TracIKSolver.solve`` and ``ik_cache.smart_ik`` on 64
+    targets each;
+22. ``sim``: the Panda ``Simulation`` (dt 0.01, 4 substeps) tracking a
+    500-waypoint quintic by ``run_controller``, with joint damping 0.1
+    (error reported) and without (final error within 0.05 rad); ms a step;
+23. ``pscan``: the generic iLQR on Panda, H=50, float64, one iteration,
+    with the associative-scan and the sequential Riccati pass at reg 0
+    (gains within 1e-6 relative), and both backward passes timed.
+
 Then one JSON line of every kernel, the card's name and power limit, and
 the result line. Any failure raises, so the script exits nonzero before its
 last line. It needs one card and imports no JAX. Run from the repository
@@ -142,9 +168,15 @@ import time
 
 import numpy as np
 import torch
+from torch.func import grad, hessian, jacfwd, vmap
 
-from manipulapy_tpu_torch import control, create_planner, potential_field, singularity, trajectory
+from manipulapy_tpu_torch import control, create_planner, ik, ik_cache, parallel, potential_field, singularity, trajectory
 from manipulapy_tpu_torch.kinematics import forward_kinematics
+from manipulapy_tpu_torch.mpc.costs import make_tracking_costs
+from manipulapy_tpu_torch.mpc.ilqr import ILQRParams, ilqr, make_step_fn, riccati_sweep
+from manipulapy_tpu_torch.mpc.pscan import parallel_riccati
+from manipulapy_tpu_torch.sim import Simulation
+from manipulapy_tpu_torch.trac_ik import TracIKSolver
 from manipulapy_tpu_torch.models import catalog
 from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
@@ -225,6 +257,24 @@ CTRL_STEPS, CTRL_KP, CTRL_KD = 200, 100.0, 20.0
 TRAJ_OPS = {3: 23, 5: 30, 1: 8}
 POT_OPS_POINT, POT_OPS_OBSTACLE = 9, 28
 ELEMENTWISE_SOURCE = "manipulapy_tpu_torch/csrc/elementwise.cuh"
+# The closed loop and the fleet layer (phases 19-23), at widths the repo
+# already uses: the fleet at the batched solve's (a Panda and a UR5 padded
+# to 7 joints, S scenarios each, on a one-device mesh), the distributed
+# rollout at the rollout's, IK at the README's batch (targets the FK poses
+# of q in U[-1.5, 1.5], guesses q + N(0, 0.3), the JAX test's protocol), the
+# plant over a 500-waypoint quintic, the associative-scan Riccati pass at
+# the single solve's horizon.
+IK_B, IK_ITERS, IK_SUCCESS_BAR, IK_TRANS_BAR = 1000, 150, 0.9, 1e-5
+# The strategy layers answer one target a call and are bound by the host's
+# launches (~29 ms an iteration of 8 lanes on an H100 machine), so each of
+# their 64 calls runs 30 iterations a family.
+IK_STRATEGY_TARGETS, IK_STRATEGY_ITERS = 64, 30
+SIM_WAYPOINTS, SIM_SUBSTEPS, SIM_DAMPING, SIM_TRACK_BAR = 500, 4, 0.1, 0.05
+# The damped run against the CPU's: float32 and float64 plants differ by
+# 1.5e-6 rad over the 500 waypoints on a CPU, and the damping moves the
+# last position by 0.08 rad.
+SIM_CPU_ATOL = 1e-4
+PSCAN_REL_BAR = 1e-6
 
 
 def phase(name: str, **fields) -> None:
@@ -1058,14 +1108,287 @@ def planning_time(ur5, gen: torch.Generator, inputs_on_path: dict, card: str):
               chain_bound_ms=f"{chain_ms:.4f}", clocks_max_sm=f"{mhz:.0f}", us_per_step=f"{ms * 1e3 / N:.2f}")
     return out
 
+# ---------------------------------------------------------------------------
+# The closed loop and the fleet layer (phases 19-23)
+# ---------------------------------------------------------------------------
 
-def planning(ur5, card: str, attrs: dict, k1_record: dict) -> list:
-    """Phases 14-18; returns the records of K9 and K10, and adds the planning
-    path's launches and errors of K1 to its record."""
+
+def fleet_problem(gen: torch.Generator, robots, S: int, H: int):
+    """Fleet-shaped inputs: each robot's ``panda_problem`` in the first n_r
+    joints of (R, S, 2 n_max) states and (R, S, n_max) goals, zero warm
+    starts."""
+    n_max = max(m.num_joints for m in robots)
+    f32 = dict(dtype=torch.float32, device=DEV)
+    x0 = torch.zeros((len(robots), S, 2 * n_max), **f32)
+    goals = torch.zeros((len(robots), S, n_max), **f32)
+    for r, m in enumerate(robots):
+        n = m.num_joints
+        x0_r, goals_r = panda_problem(gen, m, S)
+        x0[r, :, :n], x0[r, :, n_max:n_max + n], goals[r, :, :n] = x0_r[:, :n], x0_r[:, n:], goals_r
+    return x0, torch.zeros((len(robots), S, H, n_max), **f32), goals
+
+
+def fleet_fused(panda, ur5, mesh, card: str) -> dict:
+    """Phase 19: one fleet-MPC round of a Panda and a UR5 (padded to 7) on
+    the batched fused solver, through ``parallel.fleet_mpc_round``; each
+    robot's controls and costs bitwise its own solver's, the UR5's padded
+    joint 0, the fleet cost the mean. The UR5's units (K2 at its own seeds a
+    thread, K3-K5 for 6 joints) are held against their plain versions at
+    the round's shapes, from the round's own controls, as the Panda's are in
+    phase 7. Returns the round's launches and the UR5 stages' max |d|."""
+    robots = (panda, ur5)
+    S, H = B_MPC, H_MPC
+    fleet = parallel.stack_models(list(robots))
+    x0, us0, goals = fleet_problem(torch.Generator(DEV).manual_seed(19), robots, S, H)
+    params = ILQRParams(horizon=H, dt=DT, iterations=ITERS, line_search_steps=ALPHAS)
+    fused = parallel.build_fleet_fused_mpc(fleet, mesh, S, H, DT, iterations=ITERS, line_search_steps=ALPHAS)
+
+    def round_():
+        return parallel.fleet_mpc_round(fleet, mesh, x0, us0, goals, params, solver="fused_batch", fused_mpc=fused)
+
+    BatchMPCKernels.reset_launch_count()
+    us, costs, fleet_cost = round_()
+    torch.cuda.synchronize()
+    launches = dict(BatchMPCKernels.launch_count)
+    expected = {"linearize": 2 * ITERS, "backward": 2 * ITERS, "linesearch_costs": 0, "linesearch": 2 * ITERS,
+                "replay": 2}
+    if launches != expected:
+        raise AssertionError(f"the fleet round launched {launches}, expected {expected}")
+    if tuple(us.shape) != (2, S, H, 7) or not bool(torch.isfinite(us).all() and torch.isfinite(costs).all()):
+        raise AssertionError(f"fleet round: shape {tuple(us.shape)} or non-finite values")
+    own, d_us, d_cost = [], 0.0, 0.0
+    for r, m in enumerate(robots):
+        n = m.num_joints
+        solver = build_batch_tracking_mpc(m, goals[r, :, :n], S, H, DT, iterations=ITERS, line_search_steps=ALPHAS)
+        x0_r = torch.cat([x0[r, :, :n], x0[r, :, 7:7 + n]], dim=1)
+        us0_r = torch.zeros((S, H, n), device=DEV)
+        us_r, _, cost_r = solver.solve(x0_r, us0_r)
+        d_us = max(d_us, float((us[r, :, :, :n] - us_r).abs().max()))
+        d_cost = max(d_cost, float((costs[r] - cost_r).abs().max()))
+        own.append(lambda solver=solver, x0_r=x0_r, us0_r=us0_r: solver.solve(x0_r, us0_r))
+    pad = float(us[1, :, :, 6].abs().max())
+    mean_rel = abs(float(fleet_cost) - float(costs.mean())) / abs(float(costs.mean()))
+    if d_us != 0.0 or d_cost != 0.0 or pad != 0.0 or not mean_rel <= 1e-6:
+        raise AssertionError(f"fleet round: max |d us| {d_us}, |d cost| {d_cost} against each robot's own "
+                             f"solver, padded joint {pad}, fleet cost against the mean {mean_rel}")
+    # The UR5's kernels, the round ran them, against their plain versions.
+    K_ur5 = fused.solvers[1].local[0].kernels
+    x0_ur5 = torch.cat([x0[1, :, :6], x0[1, :, 7:13]], dim=1)
+    us_ur5 = us[1, :, :, :6].permute(1, 2, 0).contiguous()
+    ur5_errs = mpc_stage_parity(K_ur5, x0_ur5, goals[1, :, :6], us_ur5, f"fleet ur5 B={S} H={H}", False)[0]
+    for stage in BITWISE_STAGES:
+        if ur5_errs[stage] != 0.0:
+            raise AssertionError(f"fleet ur5 B={S} H={H} {stage}: max |d| = {ur5_errs[stage]}, not 0")
+    phase("mpc_parity", robot="ur5 (fleet)", B=S, H=H, reg=1e-6, nominal=repr("the fleet round's controls"),
+          lin_seeds=K_ur5.LIN_SEEDS, **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in ur5_errs.items()})
+    round_ms = time_ms(round_)
+    own_ms = [time_ms(f) for f in own]
+    round_ms_2 = time_ms(round_)
+    phase("fleet_fused", card=repr(card), robots="panda,ur5(7)", S=S, H=H, iterations=ITERS, alphas=ALPHAS,
+          mesh_devices=mesh.size, launches_round=json.dumps(launches).replace(" ", ""),
+          max_abs_diff_us=d_us, max_abs_diff_cost=d_cost, padded_joint_max_abs_u=pad,
+          fleet_cost=f"{float(fleet_cost):.6e}", fleet_cost_rel_to_mean=f"{mean_rel:.3e}",
+          round_ms=f"{round_ms:.4f},{round_ms_2:.4f}", solve_ms_panda=f"{own_ms[0]:.4f}",
+          solve_ms_ur5=f"{own_ms[1]:.4f}", solves_sum_ms=f"{sum(own_ms):.4f}")
+    return {"launches": launches, "round_ms": min(round_ms, round_ms_2), "solves_sum_ms": sum(own_ms),
+            "ur5_errs": ur5_errs}
+
+
+def distributed_rollout_phase(ur5, mesh, engine, card: str) -> dict:
+    """Phase 20: ``parallel.distributed_rollout`` at the rollout's shape on
+    the one-device mesh: one K1 launch, bitwise the unsharded public call."""
+    q0, dq0, tau = inputs(torch.Generator(DEV).manual_seed(20), B_FULL, N_FULL, 6)
+    CudaRollout.reset_launch_count()
+    got = parallel.distributed_rollout(ur5, mesh, q0, dq0, tau, dt=DT)
+    torch.cuda.synchronize()
+    launches = CudaRollout.launch_count
+    if launches != mesh.size:
+        raise AssertionError(f"distributed_rollout launched K1 {launches} times on {mesh.size} device(s)")
+    ref = trajectory.forward_dynamics_trajectory(ur5, q0, dq0, tau, dt=DT)
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        raise AssertionError("distributed_rollout differs from forward_dynamics_trajectory")
+    k1 = lambda: engine(q0, dq0, tau)
+    dist = lambda: parallel.distributed_rollout(ur5, mesh, q0, dq0, tau, dt=DT)
+    k1_ms, dist_ms, dist_ms_2, k1_ms_2 = time_ms(k1), time_ms(dist), time_ms(dist), time_ms(k1)
+    phase("distributed_rollout", card=repr(card), robot="ur5", B=B_FULL, N=N_FULL, mesh_devices=mesh.size,
+          launches=launches, bitwise=True, ms=f"{dist_ms:.4f},{dist_ms_2:.4f}", k1_ms=f"{k1_ms:.4f},{k1_ms_2:.4f}")
+    return {"launches": launches, "ms": min(dist_ms, dist_ms_2), "k1_ms": min(k1_ms, k1_ms_2)}
+
+
+def ik_launches_per_iteration(model, T, guesses) -> float:
+    """Device launches of one solve iteration: the difference of two
+    ``torch.profiler`` traces, 20 and 10 iterations, over 10."""
+    counts = {}
+    for iters in (10, 20):
+        trace = device_profile(lambda: ik.solve_ik_batch(model, T, guesses, max_iterations=iters), reps=1)
+        counts[iters] = trace.get("launches", float("nan"))
+    return (counts[20] - counts[10]) / 10
+
+
+def ik_phase(ur5, card: str) -> None:
+    """Phase 21: UR5 ``solve_ik_batch`` at B = 1000 in float64 (success
+    rate at least 0.9, every success within 1e-5 m when its FK is taken
+    again) and float32 (success rate reported); ms a solve and launches an
+    iteration; then ``TracIKSolver.solve`` and ``smart_ik`` on 64 targets."""
+    rng = np.random.default_rng(21)
+    q_np = rng.uniform(-1.5, 1.5, (IK_B, 6))
+    guess_np = q_np + rng.normal(0.0, 0.3, (IK_B, 6))
+    for dtype in (torch.float64, torch.float32):
+        model = ur5.to(dtype=dtype)
+        q, guesses = (torch.tensor(a, dtype=dtype, device=DEV) for a in (q_np, guess_np))
+        T = forward_kinematics(model, q)
+        solve = lambda: ik.solve_ik_batch(model, T, guesses, max_iterations=IK_ITERS)
+        res = solve()
+        _, _, trans = ik.geometric_error(forward_kinematics(model, res.theta), T)
+        rate = float(res.success.double().mean())
+        worst = float(trans[res.success].max()) if bool(res.success.any()) else float("nan")
+        if dtype == torch.float64 and not (rate >= IK_SUCCESS_BAR and worst < IK_TRANS_BAR):
+            raise AssertionError(f"IK f64: success rate {rate}, worst success trans_err {worst}")
+        ms = time_ms(solve, warmup=0, reps=2)
+        per_iter = ik_launches_per_iteration(model, T, guesses)
+        phase("ik", card=repr(card), robot="ur5", dtype=str(dtype).split(".")[1], B=IK_B, max_iterations=IK_ITERS,
+              success_rate=rate, worst_success_trans_err=f"{worst:.3e}",
+              mean_iterations=f"{float(res.iterations.double().mean()):.2f}", ms_per_solve=f"{ms:.2f}",
+              launches_per_iteration=per_iter)
+    model = ur5.to(dtype=torch.float64)
+    T = forward_kinematics(model, torch.tensor(q_np[:IK_STRATEGY_TARGETS], dtype=torch.float64, device=DEV))
+    solver = TracIKSolver(model, timeout=0.0, dls_iterations=IK_STRATEGY_ITERS, sqp_iterations=IK_STRATEGY_ITERS)
+    cache = ik_cache.IKInitialGuessCache()
+    for name, call in (("trac_ik", lambda T_i: solver.solve(T_i)),
+                       ("smart_ik", lambda T_i: ik_cache.smart_ik(model, T_i, cache=cache,
+                                                                  max_iterations=IK_STRATEGY_ITERS))):
+        t0 = time.perf_counter()
+        ok = [bool(call(T_i).success) for T_i in T]
+        wall = time.perf_counter() - t0
+        phase("ik_strategy", card=repr(card), robot="ur5", solver=name, targets=len(ok), iterations=IK_STRATEGY_ITERS,
+              success_rate=sum(ok) / len(ok), ms_per_call=f"{wall * 1e3 / len(ok):.2f}")
+
+
+def sim_phase(panda, card: str) -> None:
+    """Phase 22: the Panda plant (dt 0.01, 4 substeps) tracking a
+    500-waypoint quintic by computed torque, with viscous joint damping 0.1
+    and without. Undamped, the last achieved position must lie within 0.05
+    rad of the plan's end (the JAX test's bar, set on an undamped plant).
+    Damped, computed torque does not model the damping and the wrist's small
+    inertia leaves its last joint behind (0.082 rad), so that bar cannot
+    hold; there every achieved position must agree within
+    ``SIM_CPU_ATOL`` rad with the same plant, on the same plan, run on the
+    host's CPU, which holds the damped substep on the card."""
+    start = mid_rest(panda)[:7]
+    end = torch.tensor(Q_GOAL7, dtype=torch.float32, device=DEV)
+    plan = trajectory.joint_trajectory(panda, start, end, Tf=(SIM_WAYPOINTS - 1) * DT, N=SIM_WAYPOINTS)
+    for damping in (SIM_DAMPING, 0.0):
+        sim = Simulation(panda, dt=DT, substeps=SIM_SUBSTEPS, joint_damping=damping)
+        sim.reset(q=start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        achieved = sim.run_controller(plan.position, plan.velocity, plan.acceleration)
+        wall = time.perf_counter() - t0
+        err = float(np.abs(achieved[-1] - end.cpu().numpy()).max())
+        track = float(np.abs(achieved - plan.position.cpu().numpy()).max())
+        if achieved.shape != (SIM_WAYPOINTS, 7) or not np.isfinite(achieved).all() or len(sim.history) != SIM_WAYPOINTS:
+            raise AssertionError(f"sim damping {damping}: shape {achieved.shape} or non-finite positions")
+        if damping == 0.0:
+            gate = {"final_error_bar_rad": SIM_TRACK_BAR}
+            if not err <= SIM_TRACK_BAR:
+                raise AssertionError(f"sim: final error {err} (bar {SIM_TRACK_BAR})")
+        else:
+            host = Simulation(panda.to(device="cpu"), dt=DT, substeps=SIM_SUBSTEPS, joint_damping=damping)
+            host.reset(q=start.cpu())
+            t0 = time.perf_counter()
+            ref = host.run_controller(plan.position.cpu(), plan.velocity.cpu(), plan.acceleration.cpu())
+            d_cpu = float(np.abs(achieved - ref).max())
+            gate = {"max_abs_diff_cpu_rad": f"{d_cpu:.3e}", "cpu_atol_rad": SIM_CPU_ATOL,
+                    "cpu_ms_per_step": f"{(time.perf_counter() - t0) * 1e3 / SIM_WAYPOINTS:.3f}"}
+            if not d_cpu <= SIM_CPU_ATOL:
+                raise AssertionError(f"sim damping {damping}: achieved positions differ from the CPU plant's by "
+                                     f"{d_cpu} rad (atol {SIM_CPU_ATOL})")
+        phase("sim", card=repr(card), robot="panda", waypoints=SIM_WAYPOINTS, substeps=SIM_SUBSTEPS,
+              joint_damping=damping, final_error_rad=f"{err:.3e}", max_tracking_error_rad=f"{track:.3e}",
+              **gate, ms_per_step=f"{wall * 1e3 / SIM_WAYPOINTS:.3f}")
+
+
+def pscan_phase(panda, card: str) -> None:
+    """Phase 23: the generic iLQR on Panda, H = 50, float64, one iteration,
+    with the sequential Riccati sweep and with the associative scan, at
+    ``reg_init = 0`` (the scan bakes reg into the whole value recursion and
+    the sweep into the factorised Quu only, so only without it are they the
+    same function); the gains within 1e-6 relative. Then both backward
+    passes timed on the same derivatives, and the gains' distance at the
+    default reg of 1e-6."""
+    model = panda.to(dtype=torch.float64)
+    f64 = dict(dtype=torch.float64, device=DEV)
+    step = make_step_fn(model, DT, fused=False)
+    running, terminal = make_tracking_costs(model, torch.tensor(Q_GOAL7, **f64))
+    x0 = mid_rest(model)
+    us0 = torch.zeros((H_MPC, 7), **f64)
+    limits = dict(u_min=-model.torque_limit, u_max=model.torque_limit)
+    gains = {}
+    for par in (True, False):
+        params = ILQRParams(horizon=H_MPC, dt=DT, iterations=1, reg_init=0.0, parallel_riccati=par)
+        gains[par] = ilqr(step, running, terminal, x0, us0, params, **limits).gains_K
+    rel = float((gains[True] - gains[False]).abs().max() / gains[False].abs().max())
+    if not rel <= PSCAN_REL_BAR:
+        raise AssertionError(f"pscan: the gains differ by {rel} relative")
+    # The derivatives along the zero-control rollout, as ilqr forms them.
+    xs = [x0]
+    for t in range(H_MPC):
+        xs.append(step(xs[-1], us0[t]))
+    x, ts = torch.stack(xs[:-1]), torch.arange(H_MPC, device=DEV)
+    A, B = vmap(jacfwd(step, argnums=0))(x, us0), vmap(jacfwd(step, argnums=1))(x, us0)
+    lx, lu = vmap(grad(running, argnums=0))(x, us0, ts), vmap(grad(running, argnums=1))(x, us0, ts)
+    lxx, luu = vmap(hessian(running, argnums=0))(x, us0, ts), vmap(hessian(running, argnums=1))(x, us0, ts)
+    lux = vmap(jacfwd(grad(running, argnums=1), argnums=0))(x, us0, ts)
+    Vx, Vxx = grad(terminal)(xs[-1]), hessian(terminal)(xs[-1])
+    eye = torch.eye(7, **f64)
+    seq = lambda reg: riccati_sweep(A, B, lx, lu, lxx, luu, lux, Vx, Vxx, reg)
+    par = lambda reg: parallel_riccati(A, B, lx, lu, lxx, luu + reg * eye, lux, Vx, Vxx)
+    rel_default = float((par(1e-6)[1] - seq(1e-6)[1]).abs().max() / seq(1e-6)[1].abs().max())
+    seq_ms, par_ms, par_ms_2, seq_ms_2 = (time_ms(lambda f=f: f(1e-6)) for f in (seq, par, par, seq))
+    phase("pscan", card=repr(card), robot="panda", H=H_MPC, dtype="float64", gains_rel_diff_reg0=f"{rel:.3e}",
+          gains_rel_diff_default_reg=f"{rel_default:.3e}", sequential_backward_ms=f"{seq_ms:.3f},{seq_ms_2:.3f}",
+          parallel_backward_ms=f"{par_ms:.3f},{par_ms_2:.3f}", scan_levels=int(np.ceil(np.log2(H_MPC + 1))))
+
+
+def closed_loop(ur5, panda, engine, card: str, records: list) -> None:
+    """Phases 19-23 on a one-device mesh; the fleet round's launches of K2-K5
+    and the distributed rollout's of K1 go into their kernels' records."""
+    mesh = parallel.make_mesh(1)
+    if mesh.devices[0].type != "cuda":
+        raise AssertionError(f"make_mesh() chose {mesh.devices}")
+    fleet = fleet_fused(panda, ur5, mesh, card)
+    rollout = distributed_rollout_phase(ur5, mesh, engine, card)
+    records[0].update(launches_distributed_rollout=rollout["launches"], distributed_rollout_ms=rollout["ms"],
+                      distributed_rollout_k1_ms=rollout["k1_ms"])
+    for rec in records[1:]:
+        stage = next((s for s, (name, _) in MPC_KERNELS.items() if rec["name"] == name), None)
+        if stage is not None:
+            err = fleet["ur5_errs"][stage]
+            if stage == "linesearch":  # K4 serves both stages
+                err = max(err, fleet["ur5_errs"]["linesearch_costs"])
+            rec.update(launches_fleet_round=fleet["launches"][stage], fleet_round_ms=fleet["round_ms"],
+                       fleet_solves_sum_ms=fleet["solves_sum_ms"], max_abs_err_fleet_ur5=err,
+                       max_abs_err=max(rec["max_abs_err"], err))
+    ik_phase(ur5, card)
+    sim_phase(panda, card)
+    pscan_phase(panda, card)
+
+
+def planning_timed(ur5, card: str) -> dict:
+    """Phases 14-17: the planning kernels' parity, the planning path and its
+    times; returns what ``planning_records`` needs."""
     gen = torch.Generator(DEV).manual_seed(0)
     worst = planning_parity(gen)
     launches, inputs_on_path = planning_path(ur5, gen)
     times = planning_time(ur5, gen, inputs_on_path, card)
+    return {"worst": worst, "launches": launches, "inputs_on_path": inputs_on_path, "times": times}
+
+
+def planning_records(ur5, attrs: dict, k1_record: dict, timed: dict) -> list:
+    """Phase 18, the planning path's long plain versions; returns the
+    records of K9 and K10, and adds the planning path's launches and errors
+    of K1 to its record."""
+    worst, launches, inputs_on_path, times = (timed[k] for k in ("worst", "launches", "inputs_on_path", "times"))
     # After the timings: the plain rollout is a hundred thousand launches.
     on_path = planning_path_parity(ur5, inputs_on_path)
     worst = {stage: max(worst[stage], on_path[stage]) for stage in worst}
@@ -1461,7 +1784,9 @@ def main() -> int:
                                backward_Gops_per_s=bo["backward"][1] / (stage_ms["backward"] * 1e6))
 
     records += single_path(panda, single, mpc_attrs["panda single"], card, built["mpc", "panda single"])
-    records += planning(ur5, card, ew_attrs, records[0])
+    plan_timed = planning_timed(ur5, card)
+    closed_loop(ur5, panda, engines["ur5"], card, records)
+    records += planning_records(ur5, ew_attrs, records[0], plan_timed)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

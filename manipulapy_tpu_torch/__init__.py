@@ -20,7 +20,13 @@ Idiom:
   checks of ``singularity``;
 * the batched fused MPC solver (``mpc/fused_batch.py``) over four
   hand-written CUDA kernels (``ops/cuda_mpc_batch.py``), each with its
-  plain PyTorch version, and the generic iLQR (``mpc/ilqr.py``);
+  plain PyTorch version, and the generic iLQR (``mpc/ilqr.py``) with its
+  sequential or associative-scan (``mpc/pscan.py``) Riccati pass;
+* the closed loop and the fleet: the simulated plant (``sim``), the IK
+  family (``ik``, ``ik_cache``, ``trac_ik``) as masked batched loops, and
+  ``parallel``, a mesh of devices that splits the scenario axis of the
+  rollout (K1), IK and the batched fused solver (K2-K5) over a fleet of
+  robots;
 * models and entry points on the CUDA card unless the caller names the
   CPU.
 
@@ -48,9 +54,14 @@ _SUBMODULES = (
     "potential_field",
     "planner",
     "control",
+    "ik",
+    "ik_cache",
+    "trac_ik",
     "singularity",
-    "ops",
     "mpc",
+    "parallel",
+    "ops",
+    "sim",
 )
 
 _LAZY_ATTRS = {

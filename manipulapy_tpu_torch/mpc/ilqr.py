@@ -27,14 +27,16 @@ from ..dynamics import forward_dynamics_fast
 from ..models.robot import RobotModel
 from ..ops.smallinalg import chol_factor_small, chol_solve_small, chol_solve_small_mat
 
-__all__ = ["ILQRParams", "ILQRResult", "make_step_fn", "ilqr", "mpc_step"]
+__all__ = ["ILQRParams", "ILQRResult", "make_step_fn", "riccati_sweep", "ilqr", "mpc_step"]
 
 
 class ILQRParams(NamedTuple):
     """Solver configuration. ``unroll`` is kept for the JAX signature and
     has no effect here (there is no scan to unroll). ``parallel_riccati``
-    (the associative-scan backward pass, ``mpc/pscan.py`` of the JAX
-    package) is not ported yet and raises."""
+    runs the associative-scan backward pass (``mpc/pscan.py``) in place of
+    the sequential sweep; it bakes ``reg`` into the whole value recursion,
+    so the two agree at ``reg_init`` and part once ``reg`` grows after a
+    rejected step."""
 
     horizon: int
     dt: float
@@ -92,6 +94,35 @@ def _rollout(step_fn, x0, us):
     return torch.stack(xs)
 
 
+def riccati_sweep(A, B, lx, lu, lxx, luu, lux, Vx, Vxx, reg):
+    """The sequential Riccati backward sweep over (H, ...) derivatives, the
+    Levenberg term ``reg`` on the factorised Quu only. Returns ``(ks, Ks,
+    expected improvement, every factorisation finite?)``."""
+    H, n_u = B.shape[0], B.shape[-1]
+    eye_u = torch.eye(n_u, dtype=B.dtype, device=B.device)
+    dV = torch.zeros((), dtype=B.dtype, device=B.device)
+    ok = torch.ones((), dtype=torch.bool, device=B.device)
+    ks, Ks = [None] * H, [None] * H
+    for t in range(H - 1, -1, -1):
+        A_t, B_t = A[t], B[t]
+        Qx = lx[t] + A_t.T @ Vx
+        Qu = lu[t] + B_t.T @ Vx
+        Qxx = lxx[t] + A_t.T @ Vxx @ A_t
+        Quu = luu[t] + B_t.T @ Vxx @ B_t
+        Qux = lux[t] + B_t.T @ Vxx @ A_t
+        # A failed factorisation (sqrt of a negative) flags divergence.
+        L = chol_factor_small(Quu + reg * eye_u)
+        ok = ok & torch.isfinite(torch.stack([L[i][i] for i in range(n_u)])).all()
+        k_t = -chol_solve_small(L, Qu)
+        K_t = -chol_solve_small_mat(L, Qux)
+        Vx = Qx + K_t.T @ Quu @ k_t + K_t.T @ Qu + Qux.T @ k_t
+        Vxx = Qxx + K_t.T @ Quu @ K_t + K_t.T @ Qux + Qux.T @ K_t
+        Vxx = 0.5 * (Vxx + Vxx.T)
+        dV = dV + k_t @ Qu + 0.5 * k_t @ (Quu @ k_t)
+        ks[t], Ks[t] = k_t, K_t
+    return torch.stack(ks), torch.stack(Ks), dV, ok
+
+
 def ilqr(
     step_fn: Callable,
     cost_fn: Callable,
@@ -116,10 +147,6 @@ def ilqr(
             pass.
         linearize_step_fn: a step to differentiate in place of ``step_fn``.
     """
-    if params.parallel_riccati:
-        raise NotImplementedError(
-            "parallel_riccati (mpc/pscan.py) is not ported yet; see ROADMAP.md, Queue 1"
-        )
     H = params.horizon
     dtype, device = us_init.dtype, us_init.device
     ts = torch.arange(H, device=device)
@@ -159,27 +186,11 @@ def ilqr(
         lxx, luu, lux = (f(x, u, ts).to(dtype) for f in (lxx_fn, luu_fn, lux_fn))
         Vx = grad(final_cost_fn)(xs[-1])
         Vxx = hessian(final_cost_fn)(xs[-1]).to(dtype)
-        dV = torch.zeros((), dtype=dtype, device=device)
-        ok = torch.ones((), dtype=torch.bool, device=device)
-        ks, Ks = [None] * H, [None] * H
-        for t in range(H - 1, -1, -1):
-            A_t, B_t = A[t], B[t]
-            Qx = lx[t] + A_t.T @ Vx
-            Qu = lu[t] + B_t.T @ Vx
-            Qxx = lxx[t] + A_t.T @ Vxx @ A_t
-            Quu = luu[t] + B_t.T @ Vxx @ B_t
-            Qux = lux[t] + B_t.T @ Vxx @ A_t
-            # A failed factorisation (sqrt of a negative) flags divergence.
-            L = chol_factor_small(Quu + reg * eye_u)
-            ok = ok & torch.isfinite(torch.stack([L[i][i] for i in range(n_u)])).all()
-            k_t = -chol_solve_small(L, Qu)
-            K_t = -chol_solve_small_mat(L, Qux)
-            Vx = Qx + K_t.T @ Quu @ k_t + K_t.T @ Qu + Qux.T @ k_t
-            Vxx = Qxx + K_t.T @ Quu @ K_t + K_t.T @ Qux + Qux.T @ K_t
-            Vxx = 0.5 * (Vxx + Vxx.T)
-            dV = dV + k_t @ Qu + 0.5 * k_t @ (Quu @ k_t)
-            ks[t], Ks[t] = k_t, K_t
-        return torch.stack(ks), torch.stack(Ks), dV, ok
+        if params.parallel_riccati:
+            from .pscan import parallel_riccati
+
+            return parallel_riccati(A, B, lx, lu, lxx, luu + reg * eye_u, lux, Vx, Vxx)
+        return riccati_sweep(A, B, lx, lu, lxx, luu, lux, Vx, Vxx, reg)
 
     def forward(xs, us, ks, Ks, alphas):
         """Closed-loop rollouts of every alpha at once, with the control

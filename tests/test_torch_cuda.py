@@ -1031,3 +1031,54 @@ def test_forward_kernel_is_bitwise_the_plain_version(cuda_device, H, A):
         _assert_bits_and_nans(g, r)
     team = K.team_attributes()
     assert team["warps"] == K.FWD_WARPS and team["phases"] == K.team.partition.phases
+
+
+# The fleet layer on the card (parallel/): the rollout split over a mesh
+# runs K1 a chunk, bit for bit the unsharded call; the fleet round on the
+# fused solver runs K2-K5 a robot, bit for bit each robot's own solver.
+def test_distributed_rollout_runs_k1_and_is_bitwise(cuda_device):
+    from manipulapy_tpu_torch import parallel
+
+    model = catalog.ur5(device=cuda_device)
+    x = _inputs(6, 1031, 12, cuda_device, seed=4)
+    mesh = parallel.make_mesh(devices=[cuda_device] * 2)  # two chunks on one card, B padded to 1032
+    before = CudaRollout.launch_count
+    got = parallel.distributed_rollout(model, mesh, *x, dt=0.01)
+    torch.cuda.synchronize()
+    assert CudaRollout.launch_count == before + 2
+    ref = trajectory.forward_dynamics_trajectory(model, *x, dt=0.01)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (1031, 12, 6) and torch.equal(g, r)
+
+
+def test_fleet_round_on_the_fused_solver_is_bitwise_each_robots_own(cuda_device):
+    from manipulapy_tpu_torch import parallel
+    from manipulapy_tpu_torch.mpc.ilqr import ILQRParams
+
+    ur5, panda = catalog.ur5(device=cuda_device), catalog.panda(device=cuda_device)
+    fleet = parallel.stack_models([panda, ur5])
+    S, H, n_max = 64, 10, 7
+    x0 = torch.zeros((2, S, 2 * n_max), device=cuda_device)
+    goals = torch.zeros((2, S, n_max), device=cuda_device)
+    for r, m in enumerate((panda, ur5)):
+        x0_r, goals_r, _ = _mpc_problem(m, S, H, cuda_device, seed=r)
+        n = m.num_joints
+        x0[r, :, :n], x0[r, :, n_max:n_max + n], goals[r, :, :n] = x0_r[:, :n], x0_r[:, n:], goals_r
+    us0 = torch.zeros((2, S, H, n_max), device=cuda_device)
+    params = ILQRParams(horizon=H, dt=0.01, iterations=2, line_search_steps=6)
+    mesh = parallel.make_mesh()
+    fused = parallel.build_fleet_fused_mpc(fleet, mesh, S, H, 0.01, iterations=2, line_search_steps=6)
+    BatchMPCKernels.reset_launch_count()
+    us, costs, fleet_cost = parallel.fleet_mpc_round(fleet, mesh, x0, us0, goals, params, solver="fused_batch",
+                                                     fused_mpc=fused)
+    torch.cuda.synchronize()
+    assert BatchMPCKernels.launch_count == {"linearize": 4, "backward": 4, "linesearch_costs": 0,
+                                            "linesearch": 4, "replay": 2}
+    for r, m in enumerate((panda, ur5)):
+        n = m.num_joints
+        own = build_batch_tracking_mpc(m, goals[r, :, :n], S, H, 0.01, iterations=2, line_search_steps=6)
+        x0_r = torch.cat([x0[r, :, :n], x0[r, :, n_max:n_max + n]], dim=1)
+        us_r, _, cost_r = own.solve(x0_r, torch.zeros((S, H, n), device=cuda_device))
+        assert torch.equal(us[r, :, :, :n], us_r) and torch.equal(costs[r], cost_r)
+    assert not us[1, :, :, 6].any()  # UR5's padded joint
+    assert torch.isclose(fleet_cost, costs.mean(), rtol=1e-6)

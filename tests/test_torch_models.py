@@ -77,6 +77,10 @@ def test_import_never_loads_jax():
         "from manipulapy_tpu_torch.mpc import costs, ilqr, fused_batch, fused\n"
         "from manipulapy_tpu_torch.ops import elementwise\n"
         "from manipulapy_tpu_torch import potential_field, planner, control, singularity\n"
+        "from manipulapy_tpu_torch import sim, ik, ik_cache, trac_ik, parallel\n"
+        "from manipulapy_tpu_torch.mpc import pscan\n"
+        "from manipulapy_tpu_torch.parallel import mesh, fleet, fused_fleet\n"
+        "assert m.parallel is parallel and m.sim is sim and m.ik is ik\n"
         "assert m.create_planner is planner.create_planner and m.TrajectoryPlanner is planner.TrajectoryPlanner\n"
         "import torch\n"
         "catalog.ur5(device='cpu')\n"

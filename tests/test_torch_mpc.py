@@ -24,10 +24,12 @@ from manipulapy_tpu.models import catalog as jax_catalog
 from manipulapy_tpu.models.robot import host_arrays as jax_host_arrays
 from manipulapy_tpu.mpc import costs as jcosts
 from manipulapy_tpu.mpc.ilqr import ILQRParams as JParams, ilqr as jax_ilqr, make_step_fn as jax_step_fn
+from manipulapy_tpu.mpc.pscan import parallel_riccati as jax_pscan
 from manipulapy_tpu.ops import smallinalg as jsl
 from manipulapy_tpu_torch.models import from_host_arrays
 from manipulapy_tpu_torch.mpc import costs as tcosts
-from manipulapy_tpu_torch.mpc.ilqr import ILQRParams, ilqr, make_step_fn, mpc_step
+from manipulapy_tpu_torch.mpc.ilqr import ILQRParams, ilqr, make_step_fn, mpc_step, riccati_sweep
+from manipulapy_tpu_torch.mpc.pscan import parallel_riccati
 from manipulapy_tpu_torch.ops import cgen as cg
 from manipulapy_tpu_torch.ops import smallinalg as tsl
 
@@ -229,13 +231,74 @@ def test_ilqr_matches_jax(planar_pair, variant):
         assert np.all(np.abs(us[:, 0]) <= 3.0 + 1e-12) and np.all(np.abs(us[:, 1]) <= 2.0 + 1e-12)
 
 
-def test_ilqr_parallel_riccati_is_not_ported(planar_pair):
-    _, tm = planar_pair
-    run, term = tcosts.make_tracking_costs(tm, torch.zeros(2, dtype=torch.float64))
-    params = ILQRParams(horizon=4, dt=0.05, parallel_riccati=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ilqr(make_step_fn(tm, 0.05), run, term, torch.zeros(4, dtype=torch.float64),
-                   torch.zeros((4, 2), dtype=torch.float64), params)
+def _lqr_problem(seed, H=10, nx=6, nu=3):
+    """A random well-posed LQR subproblem (the JAX test's generator), f64."""
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((H, nx, nx))
+    Wu = rng.standard_normal((H, nu, nu))
+    WT = rng.standard_normal((nx, nx))
+    return (
+        np.eye(nx) + 0.01 * rng.standard_normal((H, nx, nx)),  # A
+        0.1 * rng.standard_normal((H, nx, nu)),  # B
+        rng.standard_normal((H, nx)),  # lx
+        rng.standard_normal((H, nu)),  # lu
+        np.eye(nx) + 0.1 * (W @ W.transpose(0, 2, 1)),  # lxx
+        np.eye(nu) + 0.1 * (Wu @ Wu.transpose(0, 2, 1)),  # luu
+        0.05 * rng.standard_normal((H, nu, nx)),  # lux
+        rng.standard_normal(nx),  # Vx_T
+        np.eye(nx) + 0.1 * (WT @ WT.T),  # Vxx_T
+    )
+
+
+@pytest.mark.parametrize("H", [1, 7, 10])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_parallel_riccati_matches_jax(seed, H):
+    """The log-depth suffix scan against JAX's ``associative_scan``, and
+    against the port's own sequential sweep at reg 0; f64, atol 1e-9."""
+    prob = _lqr_problem(seed, H=H)
+    ks, Ks, dV, ok = parallel_riccati(*(torch.from_numpy(a) for a in prob))
+    ks_j, Ks_j, dV_j, ok_j = jax_pscan(*(jnp.asarray(a) for a in prob))
+    assert bool(ok) and bool(ok_j)
+    close(ks.numpy(), ks_j, 1e-9)
+    close(Ks.numpy(), Ks_j, 1e-9)
+    close(dV.numpy(), dV_j, 1e-9)
+    ks_s, Ks_s, dV_s, ok_s = riccati_sweep(*(torch.from_numpy(a) for a in prob), reg=0.0)
+    assert bool(ok_s)
+    close(ks.numpy(), ks_s.numpy(), 1e-9)
+    close(Ks.numpy(), Ks_s.numpy(), 1e-9)
+    close(dV.numpy(), dV_s.numpy(), 1e-9)
+
+
+def test_parallel_riccati_flags_an_indefinite_quu():
+    prob = [torch.from_numpy(a) for a in _lqr_problem(0)]
+    prob[5] = -prob[5]  # luu negative definite: Quu loses definiteness
+    assert not bool(parallel_riccati(*prob)[3])
+
+
+def test_ilqr_parallel_riccati_matches_jax(planar_pair):
+    """``ILQRParams(parallel_riccati=True)`` against JAX's on the 2R arm,
+    three iterations from ``reg_init``; f64, the cost to 1e-9 relative.
+    The scan bakes reg into the whole value recursion and the sequential
+    sweep puts it on the factorised Quu only, so the two backends give the
+    same gains only without it: one iteration of each at ``reg_init=0``."""
+    jm, tm = planar_pair
+    H, q_goal = 15, [0.6, -0.4]
+    t_run, t_term = tcosts.make_tracking_costs(tm, torch.tensor(q_goal, dtype=torch.float64), w_terminal=300.0)
+    j_run, j_term = jcosts.make_tracking_costs(jm, jnp.asarray(q_goal), w_terminal=300.0)
+    x0 = np.array([0.1, -0.2, 0.0, 0.3])
+    res_t = ilqr(make_step_fn(tm, 0.05, g=G0), t_run, t_term, torch.from_numpy(x0),
+                 torch.zeros((H, 2), dtype=torch.float64),
+                 ILQRParams(horizon=H, dt=0.05, iterations=3, parallel_riccati=True))
+    res_j = jax_ilqr(jax_step_fn(jm, 0.05, g=jnp.zeros(3)), j_run, j_term, jnp.asarray(x0),
+                     jnp.zeros((H, 2)), JParams(horizon=H, dt=0.05, iterations=3, parallel_riccati=True))
+    np.testing.assert_allclose(float(res_t.cost), float(res_j.cost), rtol=1e-9)
+    for name in ("xs", "us", "gains_K"):
+        close(getattr(res_t, name).numpy(), getattr(res_j, name), 1e-7)
+    one = [ilqr(make_step_fn(tm, 0.05, g=G0), t_run, t_term, torch.from_numpy(x0),
+                torch.zeros((H, 2), dtype=torch.float64),
+                ILQRParams(horizon=H, dt=0.05, iterations=1, reg_init=0.0, parallel_riccati=par))
+           for par in (True, False)]
+    close(one[0].gains_K.numpy(), one[1].gains_K.numpy(), 1e-9)
 
 
 def test_mpc_step_tracks_goal(planar_pair):
