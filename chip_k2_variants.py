@@ -114,7 +114,7 @@ def main() -> int:
     print("card", card, flush=True)
     sets = {}
     for robot in args.robots.split(","):
-        model = catalog.get_robot(robot)
+        model = catalog.get_robot(robot, source="programmatic")
         for variant in args.variants.split(","):
             K = kernel_set(model, variant)
             if K is not None:

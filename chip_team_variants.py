@@ -158,7 +158,7 @@ def main() -> int:
             report(f"barrier_cycles_{name}", float(ticks[:max(cluster, 1)].double().mean()) / 10000)
 
     # K8 on three robots.
-    robots = {r: catalog.get_robot(r) for r in ("two_link_planar", "ur5", "panda")}
+    robots = {r: catalog.get_robot(r, source="programmatic") for r in ("two_link_planar", "ur5", "panda")}
     sets = {}
     for name, model in robots.items():
         lim = [10.0] * model.num_joints

@@ -27,6 +27,13 @@ Idiom:
   ``parallel``, a mesh of devices that splits the scenario axis of the
   rollout (K1), IK and the batched fused solver (K2-K5) over a fleet of
   robots;
+* the robot catalogs and the URDF layer: ``models.catalog.get_robot(name,
+  source=...)`` over the textbook factories, the calibrated robots of the
+  package's own copy of the vendored reference URDFs (``data/robots/``,
+  ``models.robot_data``) and the DH-generated catalog (``models.data``);
+  ``urdf`` (parser, kinematic tree, screw extraction, modifiers,
+  validation, xacro, scenes), ``native`` (the C++ mesh loader) and
+  ``pybullet_bridge``, host-side NumPy copied from the JAX package;
 * models and entry points on the CUDA card unless the caller names the
   CPU.
 
@@ -58,10 +65,13 @@ _SUBMODULES = (
     "ik_cache",
     "trac_ik",
     "singularity",
+    "urdf",
     "mpc",
     "parallel",
     "ops",
+    "native",
     "sim",
+    "pybullet_bridge",
 )
 
 _LAZY_ATTRS = {

@@ -1,12 +1,13 @@
-"""Programmatic robot catalog.
+"""Programmatic robot catalog, and the name resolution of all three.
 
 NumPy copies of the factories in ``manipulapy_tpu/models/catalog.py``
 (``ur5``, ``panda``, ``two_link_planar``, ``serial_chain``), built from the
 same public kinematic and inertial specifications with the same f64
-arithmetic, so every field equals the JAX catalog's host arrays. The
-URDF-backed and DH-generated catalogs of the JAX package wait for the port
-of ``urdf/``. Every factory builds on the CUDA card unless ``device`` names
-another device (``device="cpu"``).
+arithmetic, so every field equals the JAX catalog's host arrays.
+:func:`get_robot` resolves a name as the JAX package's does, over these
+factories, the calibrated URDFs (``robot_data``) and the DH-generated
+catalog (``data``). Every factory builds on the CUDA card unless
+``device`` names another device (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ __all__ = [
     "panda",
     "two_link_planar",
     "serial_chain",
+    "register_robot",
     "list_robots",
     "get_robot",
 ]
@@ -202,13 +204,53 @@ _REGISTRY: Dict[str, Callable[..., RobotModel]] = {
 }
 
 
+def register_robot(name: str, factory: Callable[..., RobotModel]) -> None:
+    """Add a robot factory to the catalog (reference analogue:
+    ``ManipulaPy_data/__init__.py`` registry)."""
+    _REGISTRY[name.lower()] = factory
+
+
 def list_robots() -> List[str]:
-    return sorted(_REGISTRY)
+    from . import data, robot_data
+
+    return sorted(set(_REGISTRY) | set(data.list_robots()) | set(robot_data.list_robots()))
 
 
-def get_robot(name: str, **kwargs) -> RobotModel:
-    """The catalog robot called ``name`` (case-insensitive)."""
+def get_robot(name: str, source: str = "auto", **kwargs) -> RobotModel:
+    """Resolve a robot by name (case-insensitive).
+
+    ``source`` selects the backing data:
+
+    - ``"calibrated"`` — the vendored reference URDFs with real inertial
+      calibration (:mod:`manipulapy_tpu_torch.models.robot_data`).
+    - ``"programmatic"`` — textbook screw-parameter factories in this
+      module (``ur5()``, ``panda()``, ...).
+    - ``"dh"`` — the DH-table generated catalog (``models/data.py``,
+      nominal rod/sphere inertias).
+    - ``"auto"`` (default) — calibrated if the name is in the calibrated
+      database, then programmatic, then DH.
+
+    ``kwargs`` go to the source's loader (``dtype``, ``device``, and for
+    the calibrated robots ``tip_link`` and ``chain_joints_only``).
+    """
     key = name.lower()
-    if key not in _REGISTRY:
-        raise KeyError(f"Unknown robot {name!r}. Available: {list_robots()}")
-    return _REGISTRY[key](**kwargs)
+    from . import data, robot_data
+
+    if source == "calibrated":
+        return robot_data.load_robot(key, **kwargs)
+    if source == "programmatic":
+        return _REGISTRY[key](**kwargs)
+    if source == "dh":
+        return data.load_robot(key, **kwargs)
+    if source != "auto":
+        raise ValueError(f"Unknown source {source!r}")
+    if key in robot_data.ROBOT_DATABASE:
+        try:
+            return robot_data.load_robot(key, **kwargs)
+        except FileNotFoundError:
+            pass  # vendored data absent: fall through to generated models
+    if key in _REGISTRY:
+        return _REGISTRY[key](**kwargs)
+    if key in data.ROBOT_SPECS:
+        return data.load_robot(key, **kwargs)
+    raise KeyError(f"Unknown robot {name!r}. Available: {list_robots()}")

@@ -12,18 +12,20 @@ Counterpart of ``manipulapy_tpu/potential_field.py``:
   clearances (:func:`self_collision_distances`, :func:`obstacle_clearance`)
   and the waypoint-nudging avoidance pass
   (:func:`apply_collision_avoidance`);
-* the :class:`PotentialField` facade and :func:`build_link_adjacency`.
+* the :class:`PotentialField` facade, :func:`build_link_adjacency` and
+  :class:`CollisionChecker`, the host-side NumPy check over a URDF's own
+  collision geometry (the JAX package's, copied).
 
 Every function takes configurations ``q`` of shape (..., n). The minima are
 ``torch.amin`` and ``torch.minimum``, whose gradients split evenly among
-ties, as ``jnp.min``'s and ``jnp.minimum``'s do. The URDF-geometry
-``CollisionChecker`` of the JAX package comes with the port's ``urdf/``.
+ties, as ``jnp.min``'s and ``jnp.minimum``'s do.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .kinematics import clip_to_limits, com_transforms
@@ -37,6 +39,7 @@ __all__ = [
     "cartesian_potential_field",
     "PotentialField",
     "build_link_adjacency",
+    "CollisionChecker",
     "LinkSpheres",
     "default_link_spheres",
     "link_positions",
@@ -295,3 +298,141 @@ def build_link_adjacency(urdf) -> dict:
             allowed[child].add(grand)
             allowed[grand].add(child)
     return allowed
+
+
+class CollisionChecker:
+    """Self-collision checker over the URDF's *actual* collision geometry
+    (behaviour of the reference ``CollisionChecker``,
+    ``potential_field.py:156-347``): per-link convex point sets from the
+    collision geometry (visual fallback with a one-shot warning), the
+    ``<origin>`` transform applied, multi-geometry links aggregated, and
+    a pairwise AABB overlap test gated by the allowed-collision matrix.
+
+    For batched, differentiable collision costs use the sphere-based
+    functions above; this class is the host-side exact-geometry oracle,
+    NumPy f64 as in the JAX package.
+    """
+
+    #: vertex budget per link; meshes are reduced to their convex hull and
+    #: then subsampled to at most this many points.
+    MAX_POINTS_PER_LINK = 256
+
+    def __init__(self, urdf, use_visual_fallback: bool = True):
+        self.urdf = urdf
+        self.use_visual_fallback = use_visual_fallback
+        self.allowed = build_link_adjacency(urdf)
+        self._warned_visual = set()
+        self.link_points = self._build_link_points()
+
+    # -- geometry -> point sets ------------------------------------------
+
+    def _warn_visual_fallback_once(self, link_name: str) -> None:
+        if link_name not in self._warned_visual:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "link %r has no collision geometry; using visual geometry",
+                link_name,
+            )
+            self._warned_visual.add(link_name)
+
+    def _geometry_points(self, geometry) -> Optional[np.ndarray]:
+        from .urdf import geometry as geom
+        from .urdf.types import Box, Cylinder, Mesh, Sphere
+
+        if isinstance(geometry, Box):
+            s = np.asarray(geometry.size, dtype=np.float64) / 2.0
+            corners = np.array(
+                [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
+                dtype=np.float64,
+            )
+            return corners * s
+        if isinstance(geometry, Sphere):
+            r = float(geometry.radius)
+            return r * np.array(
+                [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
+                dtype=np.float64,
+            )
+        if isinstance(geometry, Cylinder):
+            r, h = float(geometry.radius), float(geometry.length) / 2.0
+            ang = np.linspace(0.0, 2.0 * np.pi, 8, endpoint=False)
+            ring = np.stack([r * np.cos(ang), r * np.sin(ang)], axis=1)
+            top = np.concatenate([ring, np.full((8, 1), h)], axis=1)
+            bot = np.concatenate([ring, np.full((8, 1), -h)], axis=1)
+            return np.concatenate([top, bot], axis=0)
+        if isinstance(geometry, Mesh):
+            try:
+                mesh = geom.load_mesh(geometry.filename, scale=geometry.scale)
+            except Exception:
+                return None
+            pts = np.asarray(mesh.vertices, dtype=np.float64)
+            if pts.shape[0] > self.MAX_POINTS_PER_LINK:
+                try:
+                    from scipy.spatial import ConvexHull
+
+                    pts = pts[ConvexHull(pts).vertices]
+                except Exception:
+                    pass
+                if pts.shape[0] > self.MAX_POINTS_PER_LINK:
+                    idx = np.linspace(0, pts.shape[0] - 1, self.MAX_POINTS_PER_LINK).astype(int)
+                    pts = pts[idx]
+            return pts
+        return None
+
+    def _build_link_points(self) -> dict:
+        """{link_name: (P, 3) local-frame points} for links with geometry."""
+        out = {}
+        for link in self.urdf.links:
+            elements = link.collisions
+            if not elements and self.use_visual_fallback and link.visuals:
+                self._warn_visual_fallback_once(link.name)
+                elements = link.visuals
+            pieces = []
+            for el in elements:
+                pts = self._geometry_points(el.geometry)
+                if pts is None or len(pts) == 0:
+                    continue
+                T = el.origin.matrix
+                pieces.append(pts @ T[:3, :3].T + T[:3, 3])
+            if pieces:
+                out[link.name] = np.concatenate(pieces, axis=0)
+        return out
+
+    # -- queries ----------------------------------------------------------
+
+    @staticmethod
+    def _aabb(points) -> tuple:
+        return points.min(axis=0), points.max(axis=0)
+
+    def check_collision(self, thetalist) -> bool:
+        """True if any non-allowed link pair's world AABBs overlap at
+        configuration ``thetalist`` (reference ``check_collision``,
+        ``potential_field.py:284-330``; the AABB test is the reference's
+        own documented conservative placeholder, ``ARCHITECTURE.md:84-85``).
+        """
+        return len(self.colliding_pairs(thetalist)) > 0
+
+    def colliding_pairs(self, thetalist) -> list:
+        thetalist = np.asarray(thetalist, dtype=np.float64).reshape(-1)
+        cfg = {
+            j.name: float(v)
+            for j, v in zip(self.urdf.actuated_joints, thetalist)
+        }
+        fk = self.urdf.link_fk(cfg)
+        boxes = {}
+        for name, pts in self.link_points.items():
+            T = fk.get(name)
+            if T is None:
+                continue
+            world = pts @ T[:3, :3].T + T[:3, 3]
+            boxes[name] = self._aabb(world)
+        names = sorted(boxes)
+        hits = []
+        for i, a in enumerate(names):
+            for b in names[i + 1 :]:
+                if b in self.allowed.get(a, ()):
+                    continue
+                (amin, amax), (bmin, bmax) = boxes[a], boxes[b]
+                if bool((amin <= bmax).all() and (bmin <= amax).all()):
+                    hits.append((a, b))
+        return hits

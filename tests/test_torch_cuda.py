@@ -67,7 +67,7 @@ def _inputs(n, B, N, device, seed=0):
     "robot,int_res,B,N", [("ur5", 1, 1031, 20), ("ur5", 3, 257, 6), ("panda", 1, 515, 10)]
 )
 def test_kernel_matches_plain_version(cuda_device, robot, int_res, B, N):
-    model = catalog.get_robot(robot, device=cuda_device)
+    model = catalog.get_robot(robot, source="programmatic", device=cuda_device)
     x = _inputs(model.num_joints, B, N, cuda_device)
     engine = build_cuda_rollout(model, dt=0.01, intRes=int_res)
     got = engine(*x)
@@ -134,7 +134,7 @@ def test_kernel_is_bitwise_off_the_block_and_chunk(cuda_device, B, N):
 
 @pytest.mark.parametrize("robot,int_res", [("panda", 1), ("ur5", 3)])
 def test_kernel_is_bitwise_for_panda_and_substeps(cuda_device, robot, int_res):
-    model = catalog.get_robot(robot, device=cuda_device)
+    model = catalog.get_robot(robot, source="programmatic", device=cuda_device)
     n, B, N = model.num_joints, 2 * BLOCK + 5, 2 * CHUNK + 3
     x = _inputs(n, B, N, cuda_device, seed=int_res)
     got = build_cuda_rollout(model, intRes=int_res)(*x)
@@ -148,7 +148,7 @@ def test_kernel_reports_shared_bytes_and_keeps_its_occupancy(cuda_device, robot)
     """The tiles in dynamic shared memory, none static; no more local
     bytes than the 32 of sinf/cosf's reduction frame; and the tiles cost no
     block an SM."""
-    model = catalog.get_robot(robot, device=cuda_device)
+    model = catalog.get_robot(robot, source="programmatic", device=cuda_device)
     a = build_cuda_rollout(model).kernel_attributes()
     # five tiles (tau twice, q, dq, ddq), a row of CHUNK * n floats made odd
     assert a["dynamic_smem_bytes"] == 5 * BLOCK * ((CHUNK * model.num_joints) | 1) * 4
@@ -187,7 +187,7 @@ def _close_to_scale(got, ref):
 def test_mpc_kernels_match_plain_versions(cuda_device, robot):
     """B=257 (not a multiple of the block), H=8; K2 and K3 fed from a real
     nominal trajectory, K4 and K5 from K3's gains."""
-    model = catalog.get_robot(robot, device=cuda_device)
+    model = catalog.get_robot(robot, source="programmatic", device=cuda_device)
     n, nx, B, H = model.num_joints, 2 * model.num_joints, 257, 8
     x0, goals, us = _mpc_problem(model, B, H, cuda_device)
     K = build_batch_tracking_mpc(model, goals, B, H, 0.01).kernels
@@ -233,7 +233,7 @@ def _k2(robot, device, g=(0.0, 0.0, -9.81)):
     """K2-K5 for a robot at dt 0.01 with its own torque limits (one build a
     robot and g for the whole module)."""
     if (robot, g) not in _K2_SETS:
-        model = catalog.get_robot(robot, device=device)
+        model = catalog.get_robot(robot, source="programmatic", device=device)
         u_lim = [float(v) for v in model.torque_limit.cpu()]
         _K2_SETS[robot, g] = (model, BatchMPCKernels(model, 0.01, g=g, u_lim=u_lim))
     return _K2_SETS[robot, g]
@@ -451,7 +451,7 @@ def _team(robot, device):
     """K5's team variant (8 warps per 32 scenarios, 2 teams a block) for a
     robot, its fwd unit alone."""
     if robot not in _TEAMS:
-        model = catalog.get_robot(robot, device=device)
+        model = catalog.get_robot(robot, source="programmatic", device=device)
         cls = type("Team", (BatchMPCKernels,), {"TEAM_WARPS": 8, "UNITS": {"fwd": BatchMPCKernels.UNITS["fwd"]}})
         _TEAMS[robot] = (model, cls(model, 0.01, u_lim=[float(v) for v in model.torque_limit.cpu()]))
     return _TEAMS[robot]
@@ -643,7 +643,7 @@ def _k6(robot, design, device):
     default = SingleMPCKernels.LIN_WARPS
     warps = default if design == "default" else (0 if default else 4)
     if (robot, warps) not in _K6_SETS:
-        model = catalog.get_robot(robot, device=device)
+        model = catalog.get_robot(robot, source="programmatic", device=device)
         cls = type("K6", (SingleMPCKernels,), {"LIN_WARPS": warps, "UNITS": {"lin": ("linearize",)}})
         _K6_SETS[robot, warps] = (model, cls(model, 0.01, u_lim=[float(v) for v in model.torque_limit.cpu()]))
     return _K6_SETS[robot, warps]
@@ -1082,3 +1082,86 @@ def test_fleet_round_on_the_fused_solver_is_bitwise_each_robots_own(cuda_device)
         assert torch.equal(us[r, :, :, :n], us_r) and torch.equal(costs[r], cost_r)
     assert not us[1, :, :, 6].any()  # UR5's padded joint
     assert torch.isclose(fleet_cost, costs.mean(), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The calibrated URDF robots: K1 and K2-K5 on the robots a user loads
+# ---------------------------------------------------------------------------
+
+URDF_ROLLOUT = {"ur5": {}, "gen3": {}, "panda": {}}  # the 8-joint Panda: its finger prismatic
+PANDA_ARM = dict(tip_link="panda_hand", chain_joints_only=True)
+
+
+def _urdf_inputs(model, B, N, device, seed):
+    """q0 uniform within each joint's limits clipped to [-1, 1], dq0 in
+    [-0.5, 0.5], tau in [-10, 10], from numpy."""
+    rng = np.random.default_rng(seed)
+    n = model.num_joints
+    lo = np.maximum(model.joint_lower.cpu().double().numpy(), -1.0)
+    hi = np.minimum(model.joint_upper.cpu().double().numpy(), 1.0)
+    arrays = (rng.uniform(lo, hi, (B, n)), rng.uniform(-0.5, 0.5, (B, n)), rng.uniform(-10.0, 10.0, (B, N, n)))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("B", [1, 257])
+@pytest.mark.parametrize("robot", sorted(URDF_ROLLOUT))
+def test_kernel_is_bitwise_on_calibrated_urdf_robots(cuda_device, robot, B):
+    """K1 through the public route on the calibrated UR5, the Gen3 (no
+    position limit on joints 1, 3, 5, 7) and the 8-joint Panda (a prismatic
+    finger), N=50: one launch, the plain version's bits."""
+    from manipulapy_tpu_torch.models import robot_data
+
+    model = robot_data.load_robot(robot, device=cuda_device)
+    n, N = model.num_joints, 50
+    x = _urdf_inputs(model, B, N, cuda_device, seed=B)
+    before = CudaRollout.launch_count
+    got = trajectory.forward_dynamics_trajectory(model, *x)
+    ref = build_rollout(model, dt=0.01)(*x)
+    torch.cuda.synchronize()
+    assert CudaRollout.launch_count == before + 1
+    for a, b in zip(got, ref):
+        assert a.shape == (B, N, n) and bool(torch.isfinite(a).all())
+        _assert_bits_and_nans(a, b)
+    if robot == "panda":
+        assert n == 8 and bool((got[0][:, 1:, 7] <= 0.04).all() and (got[1][:, 1:, 7].abs() <= 0.2).all())
+
+
+def test_mpc_kernels_are_bitwise_on_the_calibrated_panda_arm(cuda_device):
+    """K2-K5 on the calibrated Panda arm (7 joints, its own torque limits),
+    B=257 H=8, fed a 2-iteration solve's own controls: K2, K4 and K5 the
+    plain versions' bits (NaN where theirs is NaN), K3 within 1e-5 of each
+    output's scale; the solve launches each kernel as the Panda's does."""
+    model = catalog.get_robot("panda", source="calibrated", device=cuda_device, **PANDA_ARM)
+    n, B, H = 7, 257, 8
+    x0, goals, _ = _mpc_problem(model, B, H, cuda_device, seed=14)
+    mpc = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2)
+    K, P = mpc.kernels, mpc.kernels.plain()
+    assert K.P.u_lim == [float(v) for v in model.torque_limit.cpu()]
+    BatchMPCKernels.reset_launch_count()
+    us_k, xs_k, cost_k = mpc.solve(x0, torch.zeros((B, H, n), device=cuda_device))
+    torch.cuda.synchronize()
+    assert BatchMPCKernels.launch_count == {"linearize": 2, "backward": 2, "linesearch_costs": 0, "linesearch": 2,
+                                            "replay": 1}
+    assert all(bool(torch.isfinite(v).all()) for v in (us_k, xs_k, cost_k))
+    assert bool((us_k.abs() <= model.torque_limit).all())
+    x0_t, goal_t = x0.T.contiguous(), goals.T.contiguous()
+    us = us_k.permute(1, 2, 0).contiguous()
+    zeros = lambda *shape: torch.zeros(shape, device=cuda_device)
+    init = (x0_t, zeros(H, 2 * n, B), us, zeros(H, n, 1 + 2 * n, B), goal_t, zeros(B))
+    xs0 = K.replay(*init)
+    for g, r in zip(xs0, P.replay(*init)):
+        _assert_bits_and_nans(g, r)
+    sd_x = torch.cat([x0_t[None], xs0[0][:-1]]).contiguous()
+    AB = K.linearize(sd_x, us)
+    _assert_bits_and_nans(AB, P.linearize(sd_x, us))
+    bwd = (AB, sd_x, us, xs0[0][-1].contiguous(), goal_t, torch.full((B,), 1e-6, device=cuda_device))
+    _close_to_scale(K.backward(*bwd), P.backward(*bwd))
+    kK = K.backward(*bwd)
+    alphas = 0.5 ** torch.arange(6, device=cuda_device, dtype=torch.float32)
+    ls = (x0_t, sd_x, us, kK, goal_t, alphas)
+    _assert_bits_and_nans(K.linesearch_costs(*ls), P.linesearch_costs(*ls))
+    for g, r in zip(K.linesearch(*ls), P.linesearch(*ls)):
+        _assert_bits_and_nans(g, r)
+    rep = (x0_t, sd_x, us, kK, goal_t, alphas[torch.arange(B, device=cuda_device) % 6].contiguous())
+    for g, r in zip(K.replay(*rep), P.replay(*rep)):
+        _assert_bits_and_nans(g, r)

@@ -80,10 +80,17 @@ def test_import_never_loads_jax():
         "from manipulapy_tpu_torch import sim, ik, ik_cache, trac_ik, parallel\n"
         "from manipulapy_tpu_torch.mpc import pscan\n"
         "from manipulapy_tpu_torch.parallel import mesh, fleet, fused_fleet\n"
+        "from manipulapy_tpu_torch import urdf, native, pybullet_bridge\n"
+        "from manipulapy_tpu_torch.urdf import core, geometry, modifiers, parser, processor, scene, types\n"
+        "from manipulapy_tpu_torch.urdf import validation, visualization, xacro\n"
+        "from manipulapy_tpu_torch.models import robot_data, data\n"
         "assert m.parallel is parallel and m.sim is sim and m.ik is ik\n"
+        "assert m.urdf is urdf and m.native is native and m.pybullet_bridge is pybullet_bridge\n"
         "assert m.create_planner is planner.create_planner and m.TrajectoryPlanner is planner.TrajectoryPlanner\n"
         "import torch\n"
         "catalog.ur5(device='cpu')\n"
+        "catalog.get_robot('panda', device='cpu'); catalog.get_robot('irb120', source='dh', device='cpu')\n"
+        "urdf.URDFToRobotModel('ur5', device='cpu').batch_forward_kinematics([[0.0] * 6])\n"
         "assert torch.get_float32_matmul_precision() == 'highest'\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "assert 'manipulapy_tpu' not in sys.modules\n"
@@ -113,7 +120,9 @@ def test_factories_default_to_the_card():
     host = jax_host_arrays(jax_catalog.ur5(dtype=jnp.float64))
     factories = (
         catalog.ur5,
+        lambda: catalog.get_robot("panda", source="programmatic"),
         lambda: catalog.get_robot("panda"),
+        lambda: catalog.get_robot("irb120", source="dh"),
         lambda: from_host_arrays(host),
         lambda: make_robot_model(np.eye(4), np.eye(6)[:2]),
     )
@@ -174,7 +183,7 @@ def test_make_robot_model_layout_and_defaults():
 
 
 def test_get_robot_and_list():
-    assert catalog.list_robots() == ["panda", "two_link_planar", "ur5"]
+    assert catalog.list_robots() == jax_catalog.list_robots()
     assert catalog.get_robot("UR5", device=CPU).num_joints == 6
     with pytest.raises(KeyError):
         catalog.get_robot("no_such_robot")

@@ -518,7 +518,7 @@ def team_units(tmp_path_factory):
 
     def get(robot):
         if robot not in units:
-            model = port_catalog.get_robot(robot, device="cpu")
+            model = port_catalog.get_robot(robot, source="programmatic", device="cpu")
             n = model.num_joints
             k = BatchMPCKernels(model, 0.01, u_lim=[10.0] * n)
             tmp = tmp_path_factory.mktemp(robot)
@@ -646,7 +646,7 @@ def lin_units(tmp_path_factory):
     def get(robot, seeds, g=tfd.DEFAULT_G):
         key = (robot, seeds, g)
         if key not in units:
-            model = port_catalog.get_robot(robot, device="cpu")
+            model = port_catalog.get_robot(robot, source="programmatic", device="cpu")
             n = model.num_joints
             cls = type("Seeds", (BatchMPCKernels,), {"LIN_SEEDS": seeds})
             k = cls(model, 0.01, g=g, u_lim=[10.0] * n)
@@ -668,7 +668,7 @@ def lin_units(tmp_path_factory):
 
 
 def _lin_seeds(robot, which):
-    return int(which) if which in ("1", "3") else port_catalog.get_robot(robot, device="cpu").num_joints
+    return int(which) if which in ("1", "3") else port_catalog.get_robot(robot, source="programmatic", device="cpu").num_joints
 
 
 def _lin_problem(model, B, H, seed=0):
@@ -760,7 +760,7 @@ def test_single_lin_unit_keeps_the_one_seed_body():
     is in neither K6's nor K2's unit, but the host tests' reference of
     both. K2 runs the group body, three seeds a thread for the UR5 and one
     for the Panda."""
-    model = port_catalog.get_robot("ur5", device="cpu")
+    model = port_catalog.get_robot("ur5", source="programmatic", device="cpu")
     _, one_seed, _ = tfd.build_fd_step_jvp_source(model, 0.01, g=tfd.DEFAULT_G)
     _, group1, group_ops = tfd.build_fd_step_jvp_group_source(model, 0.01, g=tfd.DEFAULT_G, seeds=1)
     single = type("OneThread", (SingleMPCKernels,), {"LIN_WARPS": 0})(model, 0.01, u_lim=[10.0] * 6)
@@ -772,7 +772,7 @@ def test_single_lin_unit_keeps_the_one_seed_body():
     assert one_seed == single.linearize_seed_source == batch.linearize_seed_source
     assert all(one_seed not in k.sources["lin"] for k in (single, team, batch))
     assert batch.LIN_SEEDS == 3 and f"#define MPT_LIN_SEEDS 3\n" in batch.sources["lin"]
-    panda = BatchMPCKernels(port_catalog.get_robot("panda", device="cpu"), 0.01, u_lim=[10.0] * 7)
+    panda = BatchMPCKernels(port_catalog.get_robot("panda", source="programmatic", device="cpu"), 0.01, u_lim=[10.0] * 7)
     assert panda.LIN_SEEDS == 1 and f"#define MPT_LIN_SEEDS 1\n" in panda.sources["lin"]
 
 
@@ -827,7 +827,7 @@ TEAM_WARPS = [1, 4, 8]
 @pytest.mark.parametrize("warps", TEAM_WARPS)
 @pytest.mark.parametrize("robot", TEAM_ROBOTS)
 def test_replay_team_partition_invariants(robot, warps):
-    model = port_catalog.get_robot(robot, device="cpu")
+    model = port_catalog.get_robot(robot, source="programmatic", device="cpu")
     cls = type("Team", (BatchMPCKernels,), {"TEAM_WARPS": warps})
     k = cls(model, 0.01, u_lim=[10.0] * model.num_joints)
     check_team_partition(k.team, k.statements["replay"])
@@ -879,7 +879,7 @@ def replay_units(tmp_path_factory):
     def get(robot, warps, scenarios=32):
         key = (robot, warps, scenarios)
         if key not in units:
-            model = port_catalog.get_robot(robot, device="cpu")
+            model = port_catalog.get_robot(robot, source="programmatic", device="cpu")
             cls = type("Team", (BatchMPCKernels,), {"TEAM_WARPS": warps, "TEAM_S": scenarios})
             k = cls(model, 0.01, u_lim=[10.0] * model.num_joints)
             src = k.sources["fwd"] + REPLAY_TEAMS.format() + _REPLAY_REFERENCE
@@ -1165,7 +1165,7 @@ SELECT_ROBOTS = {"two_link_planar": (5, 6, 3), "ur5": (4, 5, 2), "panda": (3, 4,
 def _select_problem(robot):
     """A robot from the port's catalog on the CPU, states at rest inside its
     limits, goals near them and a random warm start, from numpy."""
-    model = port_catalog.get_robot(robot, device="cpu")
+    model = port_catalog.get_robot(robot, source="programmatic", device="cpu")
     B, H, iters = SELECT_ROBOTS[robot]
     n = model.num_joints
     rng = np.random.default_rng(len(robot))
@@ -1307,7 +1307,7 @@ def fwd_units(tmp_path_factory):
 
     def get(robot):
         if robot not in units:
-            model = port_catalog.get_robot(robot, device="cpu")
+            model = port_catalog.get_robot(robot, source="programmatic", device="cpu")
             k = BatchMPCKernels(model, 0.01, u_lim=[10.0] * model.num_joints)
             lib = compile_team_unit(k.sources["fwd"] + _LINESEARCH_ENTRIES, tmp_path_factory.mktemp(f"{robot}_fwd"),
                                     "fwd", ())

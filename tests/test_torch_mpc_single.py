@@ -502,7 +502,7 @@ def team_units(tmp_path_factory):
 
     def get(robot):
         if robot not in units:
-            model = catalog.get_robot(robot, device="cpu")
+            model = catalog.get_robot(robot, source="programmatic", device="cpu")
             n = model.num_joints
             k = SingleMPCKernels(model, 0.01, u_lim=[10.0] * n)
             tmp = tmp_path_factory.mktemp(robot)
@@ -593,7 +593,7 @@ FWD_WARPS = [1, 4, 8]
 @pytest.mark.parametrize("warps", FWD_WARPS)
 @pytest.mark.parametrize("robot", TEAM_ROBOTS)
 def test_forward_team_partition_invariants(robot, warps):
-    model = catalog.get_robot(robot, device="cpu")
+    model = catalog.get_robot(robot, source="programmatic", device="cpu")
     k = type("Team", (SingleMPCKernels,), {"FWD_WARPS": warps})(model, 0.01, u_lim=[10.0] * model.num_joints)
     check_team_partition(k.team, k.statements["forward"])
     assert k.chains["forward"] == k.team.chain
@@ -609,7 +609,7 @@ def forward_units(tmp_path_factory):
 
     def get(robot, warps):
         if (robot, warps) not in units:
-            model = catalog.get_robot(robot, device="cpu")
+            model = catalog.get_robot(robot, source="programmatic", device="cpu")
             k = type("Team", (SingleMPCKernels,), {"FWD_WARPS": warps})(model, 0.01, u_lim=[10.0] * model.num_joints)
             lib = compile_team_unit(k.sources["fwd"] + FWD_TEAMS.format(), tmp_path_factory.mktemp(f"{robot}_W{warps}"),
                                     "fwd", ("run_forward", "run_ref"))
@@ -714,7 +714,7 @@ def _lin_team_kernels(model, warps):
 def test_lin_team_partition_invariants(robot, warps):
     """Every statement of the one-seed body in one warp's program, the seed
     an input: the same statements and chain as the default unit's body."""
-    k = _lin_team_kernels(catalog.get_robot(robot, device="cpu"), warps)
+    k = _lin_team_kernels(catalog.get_robot(robot, source="programmatic", device="cpu"), warps)
     check_team_partition(k.lin_team, k.statements["linearize_group"], prefix="mpt_lin_team")
     assert k.chains["linearize"] == k.lin_team.chain
     assert k.lin_team.partition.critical < k.statements["linearize_group"]
@@ -732,7 +732,7 @@ def lin_team_units(tmp_path_factory):
     def get(robot, warps):
         if (robot, warps) not in units:
             model = catalog.serial_chain(8, device="cpu") if robot == "serial_chain_8" else \
-                catalog.get_robot(robot, device="cpu")
+                catalog.get_robot(robot, source="programmatic", device="cpu")
             k = _lin_team_kernels(model, warps)
             group = k.linearize_group_source.replace(cg.KEEP_SOURCE, "")  # mpt_keep: the team unit has it
             lib = compile_team_unit(k.sources["lin"] + LIN_TEAMS.format() + _LIN_REFERENCE.format(group=group),

@@ -350,4 +350,4 @@ def test_build_link_adjacency_matches_jax():
     got = tpf.build_link_adjacency(urdf)
     assert got == jpf.build_link_adjacency(urdf)
     assert got["c"] == {"c", "b", "a"} and got["base"] == {"base", "a", "b"} and got["loose"] == {"loose"}
-    assert not hasattr(tpf, "CollisionChecker")
+    assert tpf.CollisionChecker.MAX_POINTS_PER_LINK == jpf.CollisionChecker.MAX_POINTS_PER_LINK  # the URDF checker is ported

@@ -316,7 +316,7 @@ def team_units(tmp_path_factory):
     def get(unit):
         if unit not in libs:
             robot, int_res = TEAM_UNITS[unit]
-            src = rollout_source(catalog.get_robot(robot, device=CPU), 0.01, int_res)[0]
+            src = rollout_source(catalog.get_robot(robot, source="programmatic", device=CPU), 0.01, int_res)[0]
             cpp, so = tmp / f"{unit}.cpp", tmp / f"{unit}.so"
             cpp.write_text(_TEAM_HARNESS.format(src=src))
             subprocess.run(["g++", "-O1", "-shared", "-fPIC", "-o", str(so), str(cpp)], check=True, timeout=300)
