@@ -172,8 +172,46 @@ units join phase 2's build):
     versions fed the solver's own controls (K2, K4, K5 bitwise, K3 within
     1e-5 of scale); the solve's time beside the programmatic Panda's.
 
+Right after phase 2's build, before any long eager plain version (one left
+``torch.profiler`` blind in PR 4), the runtime layer on the units built
+there (``utils``, ``vision``, ``perception``):
+
+27. ``features``: ``utils.get_available_features()`` ("cuda" must be
+    true) and ``utils.test_installation()`` on the card, true with one K1
+    launch;
+28. ``profile_trace``: one Panda batched solve (B=1024, H=50, 4
+    iterations) under ``utils.profile_trace``; its Chrome trace must hold
+    K2-K5's device events by kernel name, 4/4/4/1, with their device ms;
+    ``utils.benchmark_fn`` of the solve beside its CUDA-event median;
+29. ``checkpoint_resume``: 3 rounds of ``batch_mpc_step`` at that shape (a
+    disturbance from a CUDA generator each round), a
+    ``utils.CheckpointManager`` save of the state, warm start, round,
+    generator state and a bf16 copy of the warm start, a restore onto the
+    card into a freshly built solver and 2 more rounds: x, the warm start,
+    us, xs and cost bitwise 5 uninterrupted rounds, the bf16 leaf bitwise,
+    launches 4/4/4/1 a solve;
+30. ``aot_first_solve``: ``utils.aot.save_batch_mpc`` (that solver) and
+    ``save_tracking_mpc`` (the Panda single-problem solver, H=50), loaded
+    in a fresh process with no nvcc on PATH, no CUDA_HOME or CUDA_PATH, an
+    empty build root and ``nvcc_path`` made to raise: its seconds to import
+    torch, to load each and to its first solve; every unit's
+    ``compile_seconds`` 0; its solves bitwise the in-process ones; an
+    artifact whose meta names another card refused;
+31. ``perception_plan``: a 640 x 480 depth frame of three boxes (the
+    perception example's, at twice its size) seen by a camera looking at
+    the UR5's workspace, through ``Perception(Vision(...))``: 3 detections
+    with cv2, 1 on the NumPy fallback, within 1e-5 m of the f64 pinhole
+    truth; ``pixel_to_camera`` + ``camera_to_world`` over 64 whole frames
+    (19.7 M pixels) timed beside their bytes bound and traced, within 1e-6
+    of scale of the f64 formula; the perceived positions as the obstacle
+    cloud of the planning path at phase 16's shape (K9, link positions,
+    K10, inverse dynamics, K1: one launch each), K10 timed on it; then K9,
+    K10 and K1 (its first 50 steps) against their plain versions on those
+    tensors.
+
 Then one JSON line of every kernel (K1's record also names the URDF robots
-it was held on, K2-K5's the Panda arm), the card's name and power limit,
+it was held on, K2-K5's the Panda arm; every record its launches and
+errors in phases 27-31), the card's name and power limit,
 and the result line. Any failure raises, so the script exits nonzero before its
 last line. It needs one card and imports no JAX. Run from the repository
 root:
@@ -185,10 +223,13 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
+import pickle
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -196,6 +237,10 @@ import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
 from manipulapy_tpu_torch import control, create_planner, ik, ik_cache, parallel, potential_field, singularity, trajectory
+from manipulapy_tpu_torch import utils, vision
+from manipulapy_tpu_torch.perception import Perception
+from manipulapy_tpu_torch.utils import CheckpointManager, aot
+from manipulapy_tpu_torch.vision import CameraConfig, Vision
 from manipulapy_tpu_torch.kinematics import forward_kinematics
 from manipulapy_tpu_torch.mpc.costs import make_tracking_costs
 from manipulapy_tpu_torch.mpc.ilqr import ILQRParams, ilqr, make_step_fn, riccati_sweep
@@ -306,6 +351,7 @@ PSCAN_REL_BAR = 1e-6
 # the 8-joint Panda (its finger prismatic); K2-K5 on the Panda arm.
 URDF_ROLLOUT = ("ur5", "gen3", "panda")
 PANDA_ARM = dict(tip_link="panda_hand", chain_joints_only=True)
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def phase(name: str, **fields) -> None:
@@ -1647,6 +1693,426 @@ def urdf_records(records: list, rollout: dict, mpc: dict) -> None:
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
 
 
+# ---------------------------------------------------------------------------
+# The runtime layer (phases 27-31): utils, vision, perception
+# ---------------------------------------------------------------------------
+
+# A depth frame at the default CameraConfig (640 x 480, fx = fy = 500): the
+# three boxes of examples/intermediate/perception_demo.py at twice its
+# 320 x 240, (rows, cols, depth) over a 5 m background; the camera at
+# CAM_POSITION looks along -x at the UR5's workspace, image down = world down.
+SCENE_BOXES = (((120, 200), (100, 180), 1.2), ((280, 400), (400, 520), 2.0), ((60, 140), (480, 580), 2.6))
+SCENE_BACKGROUND, SCENE_THRESHOLD, SCENE_MIN_AREA = 5.0, 3.0, 100
+CAM_POSITION = (1.8, 0.0, 0.4)
+CAM_AXES = ((0.0, 0.0, -1.0), (1.0, 0.0, 0.0), (0.0, -1.0, 0.0))  # rows of R: columns x_c, y_c, z_c in world
+PERCEIVED_ATOL = 1e-5  # m, against the f64 pinhole truth
+UNPROJECT_FRAMES, UNPROJECT_RTOL = 64, 1e-6
+PERCEIVED_STEPS_CHECKED = 50  # of the plans' rollout against its plain version (a rollout is causal)
+FIELD_GOAL = (0.4, 0.1, 0.3)
+# The AOT load runs in a fresh process: no nvcc on PATH, no CUDA_HOME or
+# CUDA_PATH, an empty build root; nvcc_path also looks in /usr/local/cuda,
+# which an environment cannot hide, so the child makes it raise.
+AOT_CHILD = r'''
+import time
+t_start = time.perf_counter()
+import json, os, shutil, sys
+import torch
+t_torch = time.perf_counter() - t_start
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t_cuda = time.perf_counter() - t_start - t_torch
+from manipulapy_tpu_torch.ops import _build
+
+
+def no_nvcc():
+    raise RuntimeError("an AOT load called nvcc")
+
+
+_build.nvcc_path = no_nvcc
+from manipulapy_tpu_torch.utils import aot
+
+t_port = time.perf_counter() - t_start - t_torch - t_cuda
+work = sys.argv[1]
+inputs = torch.load(os.path.join(work, "inputs.pt"))
+report = {"import_torch_s": t_torch, "cuda_init_s": t_cuda, "import_port_s": t_port,
+          "nvcc_on_path": shutil.which("nvcc"), "build_root": str(_build.build_root())}
+outputs = {}
+for kind, load in (("batch", aot.load_batch_mpc), ("tracking", aot.load_tracking_mpc)):
+    t0 = time.perf_counter()
+    solve = load(os.path.join(work, kind + ".aot"))
+    load_s = time.perf_counter() - t0
+    if solve is None:
+        raise SystemExit(kind + ": the artifact was refused")
+    x0, us = inputs[kind]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outputs[kind] = solve(x0, us)
+    torch.cuda.synchronize()
+    report[kind] = {"load_s": load_s, "first_solve_s": time.perf_counter() - t0,
+                    "compile_seconds": {u: b.compile_seconds for u, b in solve.handle.kernels.build().items()}}
+torch.save(outputs, os.path.join(work, "outputs.pt"))
+print(json.dumps(report))
+'''
+
+
+def scene_camera() -> CameraConfig:
+    T = np.eye(4)
+    T[:3, :3] = np.asarray(CAM_AXES).T
+    T[:3, 3] = CAM_POSITION
+    return CameraConfig(extrinsic=T)
+
+
+def scene_depth(cam: CameraConfig) -> np.ndarray:
+    d = np.full((cam.height, cam.width), SCENE_BACKGROUND, dtype=np.float32)
+    for (r0, r1), (c0, c1), z in SCENE_BOXES:
+        d[r0:r1, c0:c1] = z
+    return d
+
+
+def scene_truth(cam: CameraConfig, depth: np.ndarray, one_box: bool) -> np.ndarray:
+    """The world positions the detector must report, f64 in NumPy: each
+    box's centre at its depth (cv2's components), or without cv2 the one box
+    around every near pixel at their median depth (the JAX fallback)."""
+    if one_box:
+        rows = [r for r, _, _ in SCENE_BOXES]
+        cols = [c for _, c, _ in SCENE_BOXES]
+        r0, r1, c0, c1 = min(r[0] for r in rows), max(r[1] for r in rows), min(c[0] for c in cols), max(c[1] for c in cols)
+        roi = depth[r0:r1, c0:c1].astype(np.float64)
+        boxes = [((r0, r1), (c0, c1), float(np.median(roi[roi < SCENE_THRESHOLD])))]
+    else:
+        boxes = SCENE_BOXES
+    T = np.asarray(cam.extrinsic, dtype=np.float64)
+    out = []
+    for (r0, r1), (c0, c1), z in boxes:
+        u, v = (c0 + c1) / 2.0, (r0 + r1) / 2.0
+        p = np.array([(u - cam.cx) / cam.fx * z, (v - cam.cy) / cam.fy * z, z])
+        out.append(T[:3, :3] @ p + T[:3, 3])
+    return np.stack(out)
+
+
+def features_phase(card: str) -> dict:
+    """Phase 27: the feature table, and ``test_installation`` on the card,
+    whose rollout is one K1 launch."""
+    feats = utils.get_available_features(refresh=True)
+    if not feats["cuda"]:
+        raise AssertionError(f"the 'cuda' feature is not available: {feats}")
+    CudaRollout.reset_launch_count()
+    t0 = time.perf_counter()
+    ok = utils.test_installation()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if ok is not True or CudaRollout.launch_count != 1:
+        raise AssertionError(f"test_installation() = {ok} with {CudaRollout.launch_count} K1 launches, expected True and 1")
+    phase("features", card=repr(card), features=json.dumps(feats).replace(" ", ""), test_installation=ok,
+          k1_launches=CudaRollout.launch_count, seconds=f"{seconds:.4f}")
+    return {"test_installation_launches": CudaRollout.launch_count}
+
+
+def profile_trace_phase(mpc, x0, card: str) -> dict:
+    """Phase 28: one batched solve under ``utils.profile_trace``; its Chrome
+    trace must hold K2-K5's device events. Then ``benchmark_fn`` beside the
+    CUDA-event median of the same solve (a report)."""
+    us0 = torch.zeros((B_MPC, H_MPC, mpc.n), device=DEV)
+    mpc.solve(x0, us0)  # warm
+    torch.cuda.synchronize()
+    names = {"K2": "mpt_lin_kernel", "K3": "mpt_bwd_warp_kernel", "K4": "mpt_cost_kernel", "K5": "mpt_replay_kernel"}
+    with tempfile.TemporaryDirectory() as work:
+        with utils.profile_trace(os.path.join(work, "trace")) as log_dir:
+            mpc.solve(x0, us0)
+        path = os.path.join(log_dir, "trace.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(path)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {}
+    for k, name in names.items():
+        hits = [e for e in kernels if name in e.get("name", "")]
+        if not hits:
+            raise AssertionError(f"the trace holds no device event of {k} ({name}); kernels: "
+                                 f"{sorted({e.get('name', '')[:60] for e in kernels})}")
+        found[k] = {"name": hits[0]["name"], "events": len(hits), "device_ms": sum(e["dur"] for e in hits) / 1e3}
+    if [found[k]["events"] for k in names] != [ITERS, ITERS, ITERS, 1]:
+        raise AssertionError(f"the trace's K2-K5 events {found}, expected {ITERS}/{ITERS}/{ITERS}/1")
+    bench = utils.benchmark_fn(mpc.solve, x0, us0, warmup=2, iters=10)
+    median = time_ms(lambda: mpc.solve(x0, us0))
+    phase("profile_trace", card=repr(card), robot="panda", B=B_MPC, H=H_MPC, trace_bytes=trace_bytes,
+          device_events=len(kernels), **{f"{k}_name": repr(v["name"]) for k, v in found.items()},
+          **{f"{k}_device_ms": f"{v['device_ms']:.4f}" for k, v in found.items()},
+          benchmark_fn=json.dumps({k: round(v, 4) for k, v in bench.items()}).replace(" ", ""),
+          cuda_event_median_ms=f"{median:.4f}")
+    return {"trace": found, "benchmark_fn": bench, "cuda_event_median_ms": median}
+
+
+def checkpoint_phase(panda, goals, x0, card: str) -> dict:
+    """Phase 29: 3 rounds of ``batch_mpc_step`` (a disturbance drawn from a
+    CUDA generator each round), a ``CheckpointManager`` save of the state,
+    the warm start, the round, the generator's state and a bf16 copy of the
+    warm start, a restore into a freshly built solver and 2 more rounds:
+    bitwise 5 rounds in one go, 4/4/4/1 launches a solve."""
+    build = lambda: build_batch_tracking_mpc(panda, goals, B_MPC, H_MPC, DT, iterations=ITERS)
+    us0 = torch.zeros((B_MPC, H_MPC, panda.num_joints), device=DEV)
+
+    def rounds(mpc, x, us_warm, g, count):
+        for _ in range(count):
+            _, us_warm, (us, xs, cost) = batch_mpc_step(mpc, x, us_warm)
+            x = xs[:, 1] + 1e-4 * torch.randn(x.shape, generator=g, device=DEV)
+        return x, us_warm, (us, xs, cost)
+
+    ref = rounds(build(), x0, us0, torch.Generator(DEV).manual_seed(7), 5)
+    gen = torch.Generator(DEV).manual_seed(7)
+    x, us_warm, _ = rounds(build(), x0, us0, gen, 3)
+    with tempfile.TemporaryDirectory() as work:
+        mgr = CheckpointManager(work)
+        t0 = time.perf_counter()
+        path = mgr.save(3, {"x": x, "us_warm": us_warm, "round": 3, "gen": gen.get_state(),
+                            "us_bf16": us_warm.to(torch.bfloat16)}, meta={"robot": "panda"})
+        save_s, size = time.perf_counter() - t0, os.path.getsize(path)
+        t0 = time.perf_counter()
+        step, state = mgr.restore_latest(device=DEV)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    if step != 3 or int(state["round"]) != 3 or state["x"].device.type != DEV:
+        raise AssertionError(f"restored step {step}, round {state['round']}, on {state['x'].device}")
+    bf16_bits = torch.equal(state["us_bf16"].view(torch.int16), us_warm.to(torch.bfloat16).view(torch.int16))
+    if not bf16_bits or state["us_bf16"].dtype != torch.bfloat16:
+        raise AssertionError("the bf16 leaf did not round-trip bit for bit")
+    resumed = torch.Generator(DEV)
+    resumed.set_state(state["gen"].cpu())
+    fresh = build()
+    BatchMPCKernels.reset_launch_count()
+    got = rounds(fresh, state["x"], state["us_warm"], resumed, 2)
+    torch.cuda.synchronize()
+    launches = dict(BatchMPCKernels.launch_count)
+    expected = {"linearize": 2 * ITERS, "backward": 2 * ITERS, "linesearch_costs": 0, "linesearch": 2 * ITERS, "replay": 2}
+    if launches != expected:
+        raise AssertionError(f"the resumed rounds launched {launches}, expected {expected}")
+    names = ("x", "us_warm", "us", "xs", "cost")
+    for name, g, r in zip(names, [got[0], got[1], *got[2]], [ref[0], ref[1], *ref[2]]):
+        if not torch.equal(g, r):
+            raise AssertionError(f"resumed {name} differs from the uninterrupted run by {float((g - r).abs().max())}")
+    phase("checkpoint_resume", card=repr(card), robot="panda", B=B_MPC, H=H_MPC, iterations=ITERS, rounds="3+2",
+          bitwise=",".join(names), bf16_leaf_bitwise=bf16_bits, file_bytes=size, save_s=f"{save_s:.4f}",
+          restore_s=f"{restore_s:.4f}", launches_2_solves=json.dumps(launches).replace(" ", ""))
+    return {"launches": launches}
+
+
+def aot_phase(mpc, single, panda, x0, card: str) -> dict:
+    """Phase 30: both solvers saved as AOT artifacts, loaded in a fresh
+    process without nvcc and with an empty build root; its solves bitwise
+    the in-process ones, every unit's compile_seconds 0; an artifact naming
+    another card refused."""
+    n = mpc.n
+    x0_s = mid_rest(panda)
+    inputs = {"batch": (x0.contiguous(), torch.zeros((B_MPC, H_MPC, n), device=DEV)),
+              "tracking": (x0_s, torch.zeros((H_MPC, n), device=DEV))}
+    refs = {"batch": mpc.solve(*inputs["batch"]), "tracking": single.solve(*inputs["tracking"])}
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        paths = {"batch": aot.save_batch_mpc(mpc, os.path.join(work, "batch.aot")),
+                 "tracking": aot.save_tracking_mpc(single, os.path.join(work, "tracking.aot"))}
+        save_s = time.perf_counter() - t0
+        sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+        torch.save(inputs, os.path.join(work, "inputs.pt"))
+        # An artifact whose meta names another card is refused.
+        with open(paths["batch"], "rb") as f:
+            header, blob = f.readline(), pickle.load(f)
+        blob["meta"]["device_name"] = "another card"
+        other = os.path.join(work, "other.aot")
+        with open(other, "wb") as f:
+            f.write(header)
+            pickle.dump(blob, f)
+        if aot.load_batch_mpc(other) is not None:
+            raise AssertionError("an artifact naming another card was loaded")
+        root = os.path.join(work, "empty_root")
+        os.makedirs(root)
+        env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+        env["PATH"] = os.pathsep.join(p for p in env.get("PATH", "").split(os.pathsep)
+                                      if p and not os.path.exists(os.path.join(p, "nvcc")))
+        env.update(MANIPULAPY_TPU_CACHE_DIR=root, PYTHONPATH=REPO_ROOT)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", AOT_CHILD, work], env=env, cwd=REPO_ROOT,
+                              capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the AOT load process failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        outputs = torch.load(os.path.join(work, "outputs.pt"))
+        unpacked = sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+    if report["nvcc_on_path"] is not None or report["build_root"] != root:
+        raise AssertionError(f"the load process saw nvcc at {report['nvcc_on_path']} or the root {report['build_root']}")
+    for kind in ("batch", "tracking"):
+        seconds = report[kind]["compile_seconds"]
+        if len(seconds) != 3 or any(s != 0.0 for s in seconds.values()):
+            raise AssertionError(f"{kind}: the loaded units compiled: {seconds}")
+        for name, g, r in zip(("us", "xs", "cost"), outputs[kind], refs[kind]):
+            if not torch.equal(g, r):
+                raise AssertionError(f"{kind}: the loaded solve's {name} differs by {float((g - r).abs().max())}")
+    phase("aot_first_solve", card=repr(card), robot="panda", batch=f"B={B_MPC} H={H_MPC}",
+          tracking=f"H={H_MPC} iterations={ITERS}", artifact_bytes=json.dumps(sizes).replace(" ", ""),
+          save_s=f"{save_s:.4f}", child_process_s=f"{child_s:.3f}",
+          import_torch_s=f"{report['import_torch_s']:.3f}", cuda_init_s=f"{report['cuda_init_s']:.3f}",
+          import_port_s=f"{report['import_port_s']:.3f}",
+          **{f"{k}_load_s": f"{report[k]['load_s']:.4f}" for k in ("batch", "tracking")},
+          **{f"{k}_first_solve_s": f"{report[k]['first_solve_s']:.4f}" for k in ("batch", "tracking")},
+          compile_seconds=json.dumps({k: report[k]["compile_seconds"] for k in ("batch", "tracking")}).replace(" ", ""),
+          unpacked=len(unpacked), bitwise="us,xs,cost", other_card_refused=True)
+    return {k: {"load_s": report[k]["load_s"], "first_solve_s": report[k]["first_solve_s"]} for k in ("batch", "tracking")}
+
+
+def perception_plan_phase(ur5, gen: torch.Generator, card: str) -> dict:
+    """Phase 31: a depth frame -> ``Perception(Vision(...))`` -> the
+    perceived positions as the obstacle cloud of the UR5 planning path
+    (K9, link positions, K10, inverse dynamics, K1), one launch each; the
+    positions against the f64 pinhole truth; the unprojection of 64 frames
+    timed against its bytes bound; then K9, K10 and K1 against their plain
+    versions on the very tensors the path gave them."""
+    cam = scene_camera()
+    depth = scene_depth(cam)
+    rgb = np.zeros((cam.height, cam.width, 3), np.uint8)
+    has_cv2 = vision._HAS_CV2
+    per = Perception(Vision([cam], device=DEV))
+    t0 = time.perf_counter()
+    positions, labels = per.detect_and_cluster_obstacles(rgb, depth, depth_threshold=SCENE_THRESHOLD,
+                                                         min_blob_area=SCENE_MIN_AREA, eps=0.5, min_samples=1)
+    detect_s = time.perf_counter() - t0
+    expected = 3 if has_cv2 else 1
+    if positions.shape != (expected, 3) or positions.dtype != np.float32:
+        raise AssertionError(f"detected {positions.shape} {positions.dtype}, expected ({expected}, 3) float32 "
+                             f"({'cv2' if has_cv2 else 'the NumPy one-box fallback'})")
+    truth = scene_truth(cam, depth, one_box=not has_cv2)
+    order = lambda p: p[np.argsort(p[:, 0])]  # cv2 numbers components in raster order; the boxes differ in x
+    pos_err = float(np.abs(order(positions.astype(np.float64)) - order(truth)).max())
+    if not pos_err <= PERCEIVED_ATOL:
+        raise AssertionError(f"perceived positions off the pinhole truth by {pos_err} m")
+
+    # The unprojection of whole frames: 64 noisy copies of the scene.
+    f32 = dict(dtype=torch.float32, device=DEV)
+    frames = torch.from_numpy(depth).to(DEV)[None] + 0.01 * torch.rand((UNPROJECT_FRAMES, cam.height, cam.width),
+                                                                       generator=gen, **f32)
+    u = torch.arange(cam.width, **f32).expand(cam.height, cam.width)
+    v = torch.arange(cam.height, **f32)[:, None].expand(cam.height, cam.width)
+    unproject = lambda: vision.camera_to_world(vision.pixel_to_camera(u, v, frames, cam), cam)
+    with torch.no_grad():
+        world = unproject()
+        un_ms = time_ms(unproject)
+        un_trace = {}  # where the eager ops' time goes, by the first 48 characters of each kernel's name
+        for name, ms in device_profile(unproject).get("by_name", {}).items():
+            un_trace[name[:48]] = un_trace.get(name[:48], 0.0) + ms
+    pixels = frames.numel()
+    un_bound = pixels * (4 + 12) / HBM_BYTES_PER_S * 1e3
+    T = np.asarray(cam.extrinsic, dtype=np.float64)
+    uu, vv = np.meshgrid(np.arange(cam.width, dtype=np.float64), np.arange(cam.height, dtype=np.float64))
+    worst, scale = 0.0, 0.0
+    for i in range(UNPROJECT_FRAMES):
+        z = frames[i].double().cpu().numpy()
+        p = np.stack([(uu - cam.cx) / cam.fx * z, (vv - cam.cy) / cam.fy * z, z], -1) @ T[:3, :3].T + T[:3, 3]
+        worst = max(worst, float(np.abs(world[i].double().cpu().numpy() - p).max()))
+        scale = max(scale, float(np.abs(p).max()))
+    un_rel = worst / scale
+    if not un_rel <= UNPROJECT_RTOL:
+        raise AssertionError(f"unprojection: max |d| {worst} over max |ref| {scale} = {un_rel} > {UNPROJECT_RTOL}")
+    del world
+
+    # The planning path against the perceived cloud.
+    cloud = torch.as_tensor(positions, **f32).contiguous()
+    rand = lambda *shape: torch.rand(shape, generator=gen, **f32) * 2 - 1
+    lo, hi = ur5.joint_lower, ur5.joint_upper
+    start = rand(B_PLAN, 6)
+    goal = torch.clamp(start + rand(B_PLAN, 6) * 0.8, lo, hi)
+    field_goal = torch.tensor(FIELD_GOAL, **f32)
+    planner = create_planner(ur5, obstacle_points=cloud)
+    ew.ElementwiseKernels.reset_launch_count()
+    CudaRollout.reset_launch_count()
+    stage_ms = {}
+    with torch.no_grad():
+        plan, stage_ms["batch_joint_trajectory"] = timed(lambda: planner.batch_joint_trajectory(start, goal, TF_PLAN, N_PLAN))
+        points, stage_ms["link_positions"] = timed(lambda: potential_field.link_positions(ur5, plan.position))
+        (U, grad_U), stage_ms["cartesian_potential_field"] = timed(
+            lambda: potential_field.cartesian_potential_field(points, field_goal, cloud, D0_PLAN))
+        tau, stage_ms["inverse_dynamics_trajectory"] = timed(lambda: planner.inverse_dynamics_trajectory(*plan))
+        (sim_q, sim_dq, sim_ddq), stage_ms["forward_dynamics_trajectory"] = timed(
+            lambda: planner.forward_dynamics_trajectory(plan.position[:, 0], plan.velocity[:, 0], tau, dt=DT_PLAN))
+    torch.cuda.synchronize()
+    launches = {**ew.ElementwiseKernels.launch_count, "rollout": CudaRollout.launch_count}
+    if launches != {"trajectory": 1, "potential": 1, "rollout": 1}:
+        raise AssertionError(f"the perceived planning path launched {launches}, expected one launch per kernel")
+    for name, x in (("U", U), ("grad", grad_U), ("sim_q", sim_q), ("tau", tau)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"perception_plan: non-finite {name}")
+    pts = points.reshape(-1, 3).contiguous()
+    with torch.no_grad():
+        k10_ms = per_call_ms(lambda: ew.cartesian_potential_kernel(pts, field_goal, cloud, D0_PLAN), calls=5)
+    k10_bound, k10_by = potential_bound(pts.shape[0], cloud.shape[0])
+
+    # The kernels against their plain versions on these tensors (after the
+    # timings: the plain rollout is thousands of launches a step).
+    errs = {}
+    with torch.no_grad():
+        errs["K9"] = traj_errors("perceived path", ew.trajectory_kernel(start, goal, TF_PLAN, N_PLAN, 5),
+                                 ew.trajectory_plain(start, goal, TF_PLAN, N_PLAN, 5))
+        errs["K10"] = potential_errors("perceived cloud", ew.cartesian_potential_kernel(pts, field_goal, cloud, D0_PLAN),
+                                       ew.cartesian_potential_plain(pts, field_goal, cloud, D0_PLAN))
+        steps = PERCEIVED_STEPS_CHECKED
+        q0, dq0 = plan.position[:, 0].contiguous(), plan.velocity[:, 0].contiguous()
+        ref = build_rollout(ur5, dt=DT_PLAN)(q0, dq0, tau[:, :steps].contiguous())
+        errs["K1"] = max_errors([x[:, :steps] for x in (sim_q, sim_dq, sim_ddq)], ref)
+        check_close("K1 on the perceived planning path", errs["K1"])
+    phase("perception_plan", card=repr(card), cv2=has_cv2, detections=positions.shape[0], labels=labels.tolist(),
+          max_abs_err_positions_m=f"{pos_err:.3e}", detect_and_cluster_s=f"{detect_s:.4f}",
+          unproject_frames=UNPROJECT_FRAMES, unproject_pixels=pixels, unproject_ms=f"{un_ms:.4f}",
+          unproject_bound_ms=f"{un_bound:.4f}", unproject_rel_err=f"{un_rel:.3e}",
+          unproject_device_ms=f"{sum(un_trace.values()):.4f}" if un_trace else "not measured",
+          unproject_kernels=json.dumps({k: round(v, 4) for k, v in sorted(un_trace.items(), key=lambda kv: -kv[1])}
+                                       ).replace(" ", ""),
+          plan=f"B={B_PLAN} N={N_PLAN} O={cloud.shape[0]} d0={D0_PLAN}",
+          launches=json.dumps(launches).replace(" ", ""), **{f"{k}_ms": f"{v:.3f}" for k, v in stage_ms.items()},
+          k10_ms=f"{k10_ms:.4f}", k10_bound_ms=f"{k10_bound:.4f}", k10_bound_by=k10_by, k1_steps_checked=steps,
+          **{f"{k}_{fmt}": v for k, e in errs.items() for fmt, v in fmt_errs(e).items()})
+    return {"launches": launches, "errs": errs, "k10_ms": k10_ms, "k10_bound_ms": k10_bound, "O": cloud.shape[0],
+            "unproject_ms": un_ms, "unproject_bound_ms": un_bound}
+
+
+def runtime_phases(ur5, panda, single, card: str) -> dict:
+    """Phases 27-31, right after the build: before any long eager plain
+    version, which left ``torch.profiler`` blind once (PR 4)."""
+    gen = torch.Generator(DEV).manual_seed(15)
+    x0, goals = panda_problem(gen, panda, B_MPC)
+    mpc = build_batch_tracking_mpc(panda, goals, B_MPC, H_MPC, DT, iterations=ITERS)
+    out = {"features": features_phase(card), "profile_trace": profile_trace_phase(mpc, x0, card),
+           "checkpoint": checkpoint_phase(panda, goals, x0, card), "aot": aot_phase(mpc, single, panda, x0, card)}
+    out["perception"] = perception_plan_phase(ur5, gen, card)
+    return out
+
+
+def runtime_records(records: list, runtime: dict) -> None:
+    """Add each kernel's launches and errors in phases 27-31 to its record."""
+    per = runtime["perception"]
+    by_name = {rec["name"]: rec for rec in records}
+    k1 = records[0]
+    k1["runtime_phases"] = {"test_installation_launches": runtime["features"]["test_installation_launches"],
+                            "perception_plan_launches": per["launches"]["rollout"],
+                            "perception_plan_max_abs_err_per_output": per["errs"]["K1"]}
+    k1["max_abs_err"] = max(k1["max_abs_err"], *per["errs"]["K1"].values())
+    for stage, (name, _) in MPC_KERNELS.items():
+        launches = runtime["checkpoint"]["launches"][stage]
+        if stage == "linesearch":
+            launches += runtime["checkpoint"]["launches"]["linesearch_costs"]
+        by_name[name]["runtime_phases"] = {"checkpoint_resume_launches_2_solves": launches,
+                                           "profile_trace_device_ms": runtime["profile_trace"]["trace"][name[:2]]["device_ms"],
+                                           "aot_loaded_solve": "bitwise"}
+    for stage, (name, _, _) in SINGLE_KERNELS.items():
+        by_name[name]["runtime_phases"] = {"aot_loaded_solve": "bitwise"}
+    for key, prefix in (("K9", "K9 "), ("K10", "K10 ")):
+        rec = next(r for r in records if r["name"].startswith(prefix))
+        rec["runtime_phases"] = {"perception_plan_launches": per["launches"]["trajectory" if key == "K9" else "potential"],
+                                 "perception_plan_errs": per["errs"][key]}
+        rec["max_abs_err"] = max(rec["max_abs_err"], *per["errs"][key].values())
+    k10 = next(r for r in records if r["name"].startswith("K10 "))
+    k10["runtime_phases"].update(perceived_obstacles=per["O"], perceived_ms=per["k10_ms"],
+                                 perceived_bound_ms=per["k10_bound_ms"])
+
+
 def main() -> int:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1728,6 +2194,10 @@ def main() -> int:
         phase("elementwise_build", unit=unit, seconds=f"{b.compile_seconds:.2f}", ptxas=repr(ptxas_lines(b.log)),
               **{f"{stage}_{k}": v for stage, a in ew_attrs.items() for k, v in a.items()})
     phase("build", wall_seconds=f"{build_wall:.2f}", units=len(engines) + 1 + sum(len(b) for k, b in built.items() if k[0] == "mpc"))
+
+    # 27-31. The runtime layer, on the units just built, before any long
+    # eager plain version.
+    runtime = runtime_phases(ur5, panda, single, card)
 
     # 3. Rollout kernel vs plain version, both on the card.
     worst = {"q": 0.0, "dq": 0.0, "ddq": 0.0}
@@ -2015,6 +2485,7 @@ def main() -> int:
     records += planning_records(ur5, ew_attrs, records[0], plan_timed)
     urdf_models_phase()
     urdf_records(records, urdf_rollout_phase(robots, ur5, attrs, card), urdf_mpc_phase(robots["panda_arm"], panda, card))
+    runtime_records(records, runtime)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

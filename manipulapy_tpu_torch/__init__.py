@@ -34,6 +34,12 @@ Idiom:
   ``urdf`` (parser, kinematic tree, screw extraction, modifiers,
   validation, xacro, scenes), ``native`` (the C++ mesh loader) and
   ``pybullet_bridge``, host-side NumPy copied from the JAX package;
+* the runtime layer: ``utils`` (config flags and the kernels' build root,
+  feature probing, profiling, checkpoints of solver state, and AOT
+  artifacts of built solvers that load without nvcc), ``vision`` (pinhole
+  unprojection on the card, the depth-blob detector, stereo over OpenCV),
+  ``perception`` (detection and DBSCAN) and ``plotting`` (matplotlib,
+  imported at first use);
 * models and entry points on the CUDA card unless the caller names the
   CPU.
 
@@ -72,6 +78,10 @@ _SUBMODULES = (
     "native",
     "sim",
     "pybullet_bridge",
+    "utils",
+    "vision",
+    "perception",
+    "plotting",
 )
 
 _LAZY_ATTRS = {
@@ -80,6 +90,12 @@ _LAZY_ATTRS = {
     "from_host_arrays": ("models", "from_host_arrays"),
     "TrajectoryPlanner": ("planner", "TrajectoryPlanner"),
     "create_planner": ("planner", "create_planner"),
+    # Dependency/feature surface.
+    "check_dependencies": ("utils", "check_dependencies"),
+    "get_available_features": ("utils", "get_available_features"),
+    "get_installation_command": ("utils", "get_installation_command"),
+    "require_feature": ("utils", "require_feature"),
+    "test_installation": ("utils", "test_installation"),
 }
 
 

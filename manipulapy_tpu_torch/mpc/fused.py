@@ -56,7 +56,10 @@ class TrackingMPC(NamedTuple):
     time-major layout of ``ops/cuda_mpc_single.py``; ``kernels`` is their
     :class:`~manipulapy_tpu_torch.ops.cuda_mpc_single.SingleMPCKernels`;
     ``solve_plain`` is ``solve`` through the plain versions on any device,
-    the reference the kernels are held against."""
+    the reference the kernels are held against. ``build_args`` are the
+    arguments it was built from, host-side (the model as its f64 host
+    arrays and its device type, the goal as float32 NumPy), which
+    ``utils/aot.py`` stores to rebuild it in another process."""
 
     solve: Callable
     horizon: int
@@ -66,6 +69,7 @@ class TrackingMPC(NamedTuple):
     forward: Callable
     kernels: SingleMPCKernels
     solve_plain: Callable
+    build_args: dict
 
 
 def build_tracking_mpc(
@@ -188,8 +192,13 @@ def build_tracking_mpc(
     def solve_plain(x0: torch.Tensor, us_init: torch.Tensor, q_goal_new=None):
         return solve_with(plain, x0, us_init, q_goal_new)
 
+    build_args = dict(
+        host_arrays=host_arrays(model), q_goal=goal_default, horizon=H, dt=float(dt), iterations=int(iterations),
+        line_search_steps=A, w_q=w_q, w_dq=w_dq, w_u=w_u, w_terminal=w_terminal, reg=float(reg), u_limit=u_lim,
+        g=tuple(float(v) for v in g), device=model.device.type,
+    )
     return TrackingMPC(
         solve=solve, horizon=H, n=n,
         linearize=kernels.linearize, backward=kernels.backward, forward=kernels.forward,
-        kernels=kernels, solve_plain=solve_plain,
+        kernels=kernels, solve_plain=solve_plain, build_args=build_args,
     )

@@ -52,7 +52,10 @@ class BatchTrackingMPC(NamedTuple):
     are the stages in the scenario-minor layout; ``kernels`` is their
     :class:`~manipulapy_tpu_torch.ops.cuda_mpc_batch.BatchMPCKernels`;
     ``solve_plain`` is ``solve`` through the plain versions on any device,
-    the reference the kernels are held against."""
+    the reference the kernels are held against. ``build_args`` are the
+    arguments it was built from, host-side (the model as its f64 host
+    arrays and its device type, the goals as float32 NumPy), which
+    ``utils/aot.py`` stores to rebuild it in another process."""
 
     solve: Callable
     horizon: int
@@ -65,6 +68,7 @@ class BatchTrackingMPC(NamedTuple):
     replay: Callable
     kernels: BatchMPCKernels
     solve_plain: Callable
+    build_args: dict
 
 
 def _host_vector(v, n: int, name: str) -> np.ndarray:
@@ -194,11 +198,16 @@ def build_batch_tracking_mpc(
     def solve_plain(x0: torch.Tensor, us_init: torch.Tensor, q_goal_new=None):
         return solve_with(plain, x0, us_init, q_goal_new)
 
+    build_args = dict(
+        host_arrays=host_arrays(model), q_goal=goal_default.T.cpu().numpy().copy(), batch=B, horizon=H, dt=float(dt),
+        iterations=int(iterations), line_search_steps=A, w_q=w_q, w_dq=w_dq, w_u=w_u, w_terminal=w_terminal,
+        reg=float(reg), u_limit=u_lim, g=tuple(float(v) for v in g), device=model.device.type,
+    )
     return BatchTrackingMPC(
         solve=solve, horizon=H, n=n, batch=B,
         linearize=kernels.linearize, backward=kernels.backward,
         linesearch_costs=kernels.linesearch_costs, linesearch=kernels.linesearch, replay=kernels.replay,
-        kernels=kernels, solve_plain=solve_plain,
+        kernels=kernels, solve_plain=solve_plain, build_args=build_args,
     )
 
 

@@ -2,9 +2,13 @@
 
 The library has a plain C interface and is loaded with ``ctypes``; its
 source includes no PyTorch header, so ``nvcc`` takes seconds, not minutes.
-Builds go to ``build/manipulapy_tpu_torch/<sha256 of source and flags>/``
-beside the package, are written atomically (a temporary file, then
-``os.replace``) and are reused by content. A missing ``nvcc`` or a failed
+Builds go to ``<root>/<sha256 of source and flags>/<name>.so``, are written
+atomically (a temporary file, then ``os.replace``) and are reused by
+content. The root is read at each build (:func:`build_root`): the one
+``utils.config.configure_cache`` set, else ``$MANIPULAPY_TPU_CACHE_DIR``,
+else ``build/manipulapy_tpu_torch/`` beside the package. A library already
+under the root is loaded without ``nvcc``, which is how an AOT artifact
+(``utils/aot.py``) ships built kernels. A missing ``nvcc`` or a failed
 build raises: nothing falls back to a plain version.
 
 :class:`KernelSet` is what the MPC kernel sets share: their units built
@@ -27,7 +31,7 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "BuiltLibrary", "KernelSet", "build_library", "nvcc_path"]
+__all__ = ["NVCC_FLAGS", "BuiltLibrary", "KernelSet", "build_library", "build_root", "library_key", "nvcc_path"]
 
 # --fmad=false: no multiply-add contraction, so every emitted operation
 # rounds once, as each eager op of the plain PyTorch version does. With
@@ -50,7 +54,22 @@ NVCC_FLAGS = (
 )
 
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "manipulapy_tpu_torch"
+_CACHE_DIR = None  # set by utils.config.configure_cache
 _LOADED: dict = {}
+
+
+def build_root() -> Path:
+    """Where kernels build into and load from: the directory
+    ``utils.config.configure_cache`` set, else ``$MANIPULAPY_TPU_CACHE_DIR``,
+    else ``build/manipulapy_tpu_torch/`` beside the package."""
+    return Path(_CACHE_DIR or os.environ.get("MANIPULAPY_TPU_CACHE_DIR") or _BUILD_ROOT)
+
+
+def library_key(source: str, name: str, flags: Tuple[str, ...] = ()) -> str:
+    """``<sha256>/<name>.so``: where :func:`build_library` puts the library
+    of ``source`` built with ``NVCC_FLAGS`` and ``flags``, under the root."""
+    digest = hashlib.sha256((source + "\0" + " ".join(NVCC_FLAGS + tuple(flags))).encode()).hexdigest()
+    return f"{digest}/{name}.so"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,13 +104,13 @@ def build_library(source: str, name: str, flags: Tuple[str, ...] = ()) -> BuiltL
     """Compile ``source`` with ``nvcc`` for sm_90a (once per content and
     flags: ``NVCC_FLAGS``, then the unit's own ``flags``) and load the
     shared library."""
+    key = library_key(source, name, flags)
     flags = NVCC_FLAGS + tuple(flags)
-    digest = hashlib.sha256((source + "\0" + " ".join(flags)).encode()).hexdigest()
-    hit = _LOADED.get(digest)
+    so_path = build_root() / key
+    hit = _LOADED.get(so_path)
     if hit is not None:
         return hit
-    out_dir = _BUILD_ROOT / digest
-    so_path = out_dir / f"{name}.so"
+    out_dir = so_path.parent
     log_path = out_dir / f"{name}.log"
     seconds = 0.0
     if not so_path.exists():
@@ -114,7 +133,7 @@ def build_library(source: str, name: str, flags: Tuple[str, ...] = ()) -> BuiltL
         os.replace(tmp_so, so_path)
     log = log_path.read_text() if log_path.exists() else ""
     built = BuiltLibrary(ctypes.CDLL(str(so_path)), so_path, seconds, log)
-    _LOADED[digest] = built
+    _LOADED[so_path] = built
     return built
 
 
@@ -163,6 +182,11 @@ class KernelSet:
                     attrs.restype = ctypes.c_int
             self._libs = built
         return self._libs
+
+    def unit_keys(self) -> Dict[str, str]:
+        """Per unit, the :func:`library_key` its build has under the root."""
+        return {unit: library_key(self.sources[unit], f"{self.LIB_PREFIX}_{unit}", self.UNIT_FLAGS.get(unit, ()))
+                for unit in self.UNITS}
 
     def _lib(self, stage: str) -> ctypes.CDLL:
         libs = self.build()

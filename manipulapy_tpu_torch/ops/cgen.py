@@ -80,6 +80,7 @@ __all__ = [
     "mat_T",
     "cross",
     "compose",
+    "transform_inv_const",
     "adjoint_apply",
     "adjoint_T_apply",
     "ad_apply",
@@ -486,6 +487,13 @@ def compose(T1: Transform, T2: Transform) -> Transform:
     R1, p1 = T1
     R2, p2 = T2
     return mat_mul(R1, R2), [add(x, y) for x, y in zip(mat_vec(R1, p2), p1)]
+
+
+def transform_inv_const(T: Transform) -> Transform:
+    """Inverse of a constant transform (host-side folding)."""
+    R, p = T
+    Rt = mat_T(R)
+    return Rt, [neg(x) for x in mat_vec(Rt, p)]
 
 
 def adjoint_apply(T: Transform, V: Sequence[Value]) -> List[Value]:

@@ -22,9 +22,14 @@ plain version has NaN: ``-k linearize_kernel``; K5's and K8's, the same:
 final state atol 5e-4, controls atol 5e-3) for the
 whole MPC solves against the plain solvers; for K9 2e-6 / 2e-5 / 2e-4 on pos
 / vel / acc and for K10 rtol 1e-4 with atol 1e-5 on U and 1e-4 on its
-gradient, the JAX kernel tests' bars (0 is expected here too).
+gradient, the JAX kernel tests' bars (0 is expected here too). The runtime
+layer: AOT artifacts loaded in a process without nvcc, bitwise and with
+nothing compiled; a checkpointed batched solve resumed bitwise; the
+unprojection's division; ``test_installation`` through K1:
+``-k "aot or checkpoint or pixel_to_camera or test_installation"``.
 """
 
+import json
 import re
 
 import numpy as np
@@ -1165,3 +1170,137 @@ def test_mpc_kernels_are_bitwise_on_the_calibrated_panda_arm(cuda_device):
     rep = (x0_t, sd_x, us, kK, goal_t, alphas[torch.arange(B, device=cuda_device) % 6].contiguous())
     for g, r in zip(K.replay(*rep), P.replay(*rep)):
         _assert_bits_and_nans(g, r)
+
+
+# ---------------------------------------------------------------------------
+# The runtime layer: checkpoints, AOT artifacts, vision, test_installation
+# ---------------------------------------------------------------------------
+
+_AOT_LOAD = r'''
+import json, os, sys
+import torch
+from manipulapy_tpu_torch.ops import _build
+
+
+def no_nvcc():
+    raise RuntimeError("an AOT load called nvcc")
+
+
+_build.nvcc_path = no_nvcc  # it also looks in /usr/local/cuda, which no environment hides
+from manipulapy_tpu_torch.utils import aot
+
+work = sys.argv[1]
+inputs = torch.load(os.path.join(work, "inputs.pt"))
+outputs, seconds = {}, {}
+for kind, load in (("batch", aot.load_batch_mpc), ("tracking", aot.load_tracking_mpc)):
+    solve = load(os.path.join(work, kind + ".aot"))
+    outputs[kind] = solve(*inputs[kind])
+    seconds[kind] = [b.compile_seconds for b in solve.handle.kernels.build().values()]
+torch.save(outputs, os.path.join(work, "outputs.pt"))
+print(json.dumps({"seconds": seconds, "root": str(_build.build_root())}))
+'''
+
+
+def test_aot_artifacts_load_without_nvcc_and_solve_bitwise(cuda_device, tmp_path):
+    """Both solvers (UR5, B=64 H=10; H=10) saved, then loaded in a fresh
+    process with no nvcc on PATH, no CUDA_HOME and an empty build root:
+    every unit loads with compile_seconds 0, and the solves are the
+    in-process solves' bits."""
+    import os
+    import subprocess
+    import sys
+
+    from manipulapy_tpu_torch.utils import aot
+
+    model = catalog.ur5(device=cuda_device)
+    B, H = 64, 10
+    x0, goals, _ = _mpc_problem(model, B, H, cuda_device, seed=15)
+    batch = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2)
+    single = build_tracking_mpc(model, goals[0], H, 0.01, iterations=2)
+    inputs = {"batch": (x0, torch.zeros((B, H, 6), device=cuda_device)),
+              "tracking": (x0[0].contiguous(), torch.zeros((H, 6), device=cuda_device))}
+    refs = {"batch": batch.solve(*inputs["batch"]), "tracking": single.solve(*inputs["tracking"])}
+    aot.save_batch_mpc(batch, str(tmp_path / "batch.aot"))
+    aot.save_tracking_mpc(single, str(tmp_path / "tracking.aot"))
+    libraries, meta = aot.load_executable(str(tmp_path / "batch.aot"))
+    assert sorted(libraries) == sorted(batch.kernels.unit_keys().values())
+    assert meta["device_name"] == torch.cuda.get_device_name()
+    torch.save(inputs, str(tmp_path / "inputs.pt"))
+    root = tmp_path / "empty_root"
+    root.mkdir()
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = os.pathsep.join(p for p in env.get("PATH", "").split(os.pathsep)
+                                  if p and not os.path.exists(os.path.join(p, "nvcc")))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env.update(MANIPULAPY_TPU_CACHE_DIR=str(root), PYTHONPATH=repo)
+    proc = subprocess.run([sys.executable, "-c", _AOT_LOAD, str(tmp_path)], env=env, cwd=repo,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["root"] == str(root)
+    assert report["seconds"] == {"batch": [0.0] * 3, "tracking": [0.0] * 3}
+    outputs = torch.load(str(tmp_path / "outputs.pt"))
+    for kind in refs:
+        for g, r in zip(outputs[kind], refs[kind]):
+            assert torch.equal(g, r), kind
+
+
+def test_checkpoint_resume_of_the_batched_kernels_is_bitwise(cuda_device, tmp_path):
+    """Panda, B=257 H=8: 3 rounds of batch_mpc_step, a checkpoint (with a
+    CUDA generator's state and a bf16 leaf), a freshly built solver, 2 more
+    rounds: bitwise 5 rounds in one go, K2-K5 launched 2/2/2/1 a solve."""
+    from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step
+    from manipulapy_tpu_torch.utils import CheckpointManager
+
+    model = catalog.panda(device=cuda_device)
+    B, H = 257, 8
+    x0, goals, _ = _mpc_problem(model, B, H, cuda_device, seed=16)
+    build = lambda: build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2)
+
+    def rounds(mpc, x, us_warm, gen, count):
+        for _ in range(count):
+            _, us_warm, (us, xs, cost) = batch_mpc_step(mpc, x, us_warm)
+            x = xs[:, 1] + 1e-4 * torch.randn(x.shape, generator=gen, device=cuda_device)
+        return [x, us_warm, us, xs, cost]
+
+    us0 = torch.zeros((B, H, 7), device=cuda_device)
+    ref = rounds(build(), x0, us0, torch.Generator(cuda_device).manual_seed(3), 5)
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    x, us_warm = rounds(build(), x0, us0, gen, 3)[:2]
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, {"x": x, "us_warm": us_warm, "gen": gen.get_state(), "bf16": us_warm.to(torch.bfloat16)})
+    _, state = mgr.restore_latest()
+    assert state["x"].device.type == "cuda" and state["bf16"].dtype == torch.bfloat16
+    assert torch.equal(state["bf16"].view(torch.int16), us_warm.to(torch.bfloat16).view(torch.int16))
+    resumed = torch.Generator(cuda_device)
+    resumed.set_state(state["gen"].cpu())
+    BatchMPCKernels.reset_launch_count()
+    got = rounds(build(), state["x"], state["us_warm"], resumed, 2)
+    torch.cuda.synchronize()
+    assert BatchMPCKernels.launch_count == {"linearize": 4, "backward": 4, "linesearch_costs": 0, "linesearch": 4,
+                                            "replay": 2}
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_pixel_to_camera_rounds_as_division(cuda_device):
+    """On the card ``x / 3.0`` multiplies by the reciprocal; the
+    unprojection divides by a tensor, so each x is the correctly rounded
+    quotient."""
+    from manipulapy_tpu_torch import vision
+
+    cam = vision.CameraConfig(fx=3.0, fy=7.0, cx=160.0, cy=120.0)
+    u = torch.arange(0.0, 640.0, device=cuda_device)
+    p = vision.pixel_to_camera(u, u, torch.ones(640, device=cuda_device), cam)
+    assert p.device.type == "cuda"
+    assert torch.equal(p[:, 0].cpu(), ((u.cpu().double() - 160.0) / 3.0).float())
+    assert torch.equal(p[:, 1].cpu(), ((u.cpu().double() - 120.0) / 7.0).float())
+
+
+def test_test_installation_launches_the_rollout_kernel(cuda_device):
+    from manipulapy_tpu_torch import utils
+
+    CudaRollout.reset_launch_count()
+    assert utils.test_installation() is True
+    assert CudaRollout.launch_count == 1
+    assert utils.get_available_features(refresh=True)["cuda"] is True

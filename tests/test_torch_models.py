@@ -84,6 +84,10 @@ def test_import_never_loads_jax():
         "from manipulapy_tpu_torch.urdf import core, geometry, modifiers, parser, processor, scene, types\n"
         "from manipulapy_tpu_torch.urdf import validation, visualization, xacro\n"
         "from manipulapy_tpu_torch.models import robot_data, data\n"
+        "from manipulapy_tpu_torch import utils, vision, perception, plotting\n"
+        "from manipulapy_tpu_torch.utils import aot, checkpoint, config, features, profiling\n"
+        "assert m.utils is utils and m.vision is vision and m.perception is perception and m.plotting is plotting\n"
+        "assert m.test_installation is features.test_installation and m.require_feature is features.require_feature\n"
         "assert m.parallel is parallel and m.sim is sim and m.ik is ik\n"
         "assert m.urdf is urdf and m.native is native and m.pybullet_bridge is pybullet_bridge\n"
         "assert m.create_planner is planner.create_planner and m.TrajectoryPlanner is planner.TrajectoryPlanner\n"
