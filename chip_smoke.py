@@ -29,8 +29,10 @@ kernels built from ``manipulapy_tpu_torch/csrc`` with nvcc for sm_90a:
 Phases, one line each (or one line per case):
 
 1. device: the card, its power limit, CUDA, matmul precision "highest";
-2. build: every kernel at once, one nvcc per translation unit, all started
-   together (the rollout for UR5 with intRes 1 and 3, at the planning
+2. build: every kernel through one bounded pool of nvcc processes
+   (``os.cpu_count() - 1``, fewer where memory is short; each unit once),
+   phase 32's units queued behind these and built while phases 27-31 and
+   3-26 run (the rollout for UR5 with intRes 1 and 3, at the planning
    path's dt, and for Panda; K2-K5 for Panda and UR5; K6-K8 for Panda; the
    static unit of K9 and K10), with build seconds, registers, spill
    bytes and static shared bytes per block (K3, one warp per scenario, and
@@ -139,10 +141,10 @@ one-device mesh (``parallel.make_mesh(1)``):
     of q in U[-1.5, 1.5] from q + N(0, 0.3): float64 success rate at least
     0.9 and every success within 1e-5 m, float32's rate reported; ms a
     solve and device launches an iteration (two ``torch.profiler``
-    traces); then ``TracIKSolver.solve`` and ``ik_cache.smart_ik`` on 64
+    traces); then ``TracIKSolver.solve`` and ``ik_cache.smart_ik`` on 16
     targets each;
 22. ``sim``: the Panda ``Simulation`` (dt 0.01, 4 substeps) tracking a
-    500-waypoint quintic by ``run_controller``, with joint damping 0.1
+    200-waypoint quintic by ``run_controller``, with joint damping 0.1
     (error reported) and without (final error within 0.05 rad); ms a step;
 23. ``pscan``: the generic iLQR on Panda, H=50, float64, one iteration,
     with the associative-scan and the sequential Riccati pass at reg 0
@@ -209,10 +211,39 @@ there (``utils``, ``vision``, ``perception``):
     K10 and K1 (its first 50 steps) against their plain versions on those
     tensors.
 
+After phase 26, the calibrated fleet (``benchmarks/fleet_benchmark.py``'s
+robots: the first key of each vendored URDF, 25 root-to-tip chains of 1 to
+8 joints, and the fully actuated 10-joint Jaco besides):
+
+32. ``fleet``: the pool's wall seconds for the fleet's units, its workers
+    and slowest unit; per model, at B=1024, H=50, 4 iterations, 6 alphas
+    with the benchmark's draws (one ``default_rng(0)`` in the fleet's
+    order: goals mid +- 0.3 half, q0 mid +- 0.2 half of the limits clipped
+    to +-pi), ``build_batch_tracking_mpc(...).solve`` and 3 rounds of
+    ``batch_mpc_step``: launches 4/4/4/1 a solve; per scenario finite
+    outputs, |u| <= u_lim and a cost at most its zero-control cost (a
+    round's: its warm start's rollout's), wherever that rollout is finite
+    (the Jaco's overflows f32 in a few scenarios; their count is printed);
+    the cost equal to it and every control +0.0 on the three robots whose
+    URDFs give effort="0";
+    K2, K4 and K5 bitwise against their plain versions on the solver's own
+    controls (K4's and K5's is one ``replay_plain`` call), K3 within 1e-5 of
+    scale (its plain version once per joint count, the robots' inputs side
+    by side); the solve's and each launch's CUDA-event medians, registers,
+    local bytes, K3's shared bytes, K2's seeds a thread; the mean cost
+    beside the one ``benchmarks/fleet_results.json`` records; the
+    multiplexed round (the 25 chains' solves back to back, one
+    synchronisation) beside the sum of their solves; K1 on each chain at
+    B=131072, N=50 through the public route, one launch, its first 4096
+    rows bitwise, timed right after its own launch (phase 25's three
+    robots are reused); K6-K8 on ``robotiq_2f_85`` and the Jaco's chain at
+    H=50: launches 4/4/5, each stage bitwise on the solver's own controls,
+    the solve timed.
+
 Then one JSON line of every kernel (K1's record also names the URDF robots
 it was held on, K2-K5's the Panda arm; every record its launches and
-errors in phases 27-31), the card's name and power limit,
-and the result line. Any failure raises, so the script exits nonzero before its
+errors in phases 27-31; a record per fleet model and kernel), the card's
+name and power limit, and the result line. Any failure raises, so the script exits nonzero before its
 last line. It needs one card and imports no JAX. Run from the repository
 root:
 
@@ -253,7 +284,8 @@ from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BLOCK as BLOCK_MPC, LIN_BLOCK, BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
-from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, CudaRollout, build_cuda_rollout
+from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, CudaRollout, build_cuda_rollout, rollout_source
+from manipulapy_tpu_torch.ops._build import build_library, library_key
 from manipulapy_tpu_torch.ops import elementwise as ew
 from manipulapy_tpu_torch.ops.fd_step import DEFAULT_G, build_rollout
 
@@ -333,17 +365,20 @@ ELEMENTWISE_SOURCE = "manipulapy_tpu_torch/csrc/elementwise.cuh"
 # to 7 joints, S scenarios each, on a one-device mesh), the distributed
 # rollout at the rollout's, IK at the README's batch (targets the FK poses
 # of q in U[-1.5, 1.5], guesses q + N(0, 0.3), the JAX test's protocol), the
-# plant over a 500-waypoint quintic, the associative-scan Riccati pass at
+# plant over a 200-waypoint quintic, the associative-scan Riccati pass at
 # the single solve's horizon.
 IK_B, IK_ITERS, IK_SUCCESS_BAR, IK_TRANS_BAR = 1000, 150, 0.9, 1e-5
 # The strategy layers answer one target a call and are bound by the host's
 # launches (~29 ms an iteration of 8 lanes on an H100 machine), so each of
-# their 64 calls runs 30 iterations a family.
-IK_STRATEGY_TARGETS, IK_STRATEGY_ITERS = 64, 30
-SIM_WAYPOINTS, SIM_SUBSTEPS, SIM_DAMPING, SIM_TRACK_BAR = 500, 4, 0.1, 0.05
+# their 16 calls runs 30 iterations a family. The strategy layers' targets
+# (once 64) and the plant's waypoints (once 500) were cut to make room for
+# phase 32 in the smoke's time: both are host-bound, ~140 s and ~197 s of a
+# 764 s smoke on an H100 machine.
+IK_STRATEGY_TARGETS, IK_STRATEGY_ITERS = 16, 30
+SIM_WAYPOINTS, SIM_SUBSTEPS, SIM_DAMPING, SIM_TRACK_BAR = 200, 4, 0.1, 0.05
 # The damped run against the CPU's: float32 and float64 plants differ by
-# 1.5e-6 rad over the 500 waypoints on a CPU, and the damping moves the
-# last position by 0.08 rad.
+# 1.5e-6 rad over 500 waypoints on a CPU, and the damping moves the last
+# position by 0.08 rad.
 SIM_CPU_ATOL = 1e-4
 PSCAN_REL_BAR = 1e-6
 # The calibrated URDF robots a user gets from the catalogs (phases 24-26):
@@ -352,6 +387,20 @@ PSCAN_REL_BAR = 1e-6
 URDF_ROLLOUT = ("ur5", "gen3", "panda")
 PANDA_ARM = dict(tip_link="panda_hand", chain_joints_only=True)
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+# The bounded pool of nvcc processes: the resident memory one nvcc of the
+# largest units may take (K2's unit for the 10-joint Jaco).
+NVCC_GIB = 2.0
+# The calibrated fleet (phase 32): benchmarks/fleet_benchmark.py's robots,
+# the first key of each vendored URDF, each as its root-to-tip chain, and the
+# fully actuated Jaco (10 joints, its fingers off the chain) besides; K6-K8
+# on the narrowest and the widest chain; the three robots whose URDFs give
+# every joint effort="0", so their controls are clamped to 0.
+FLEET_FULL = "jaco_7dof"
+FLEET_SINGLE = ("robotiq_2f_85", "jaco_7dof")
+FLEET_ZERO_U = ("abb_irb2400", "fanuc_lrmate", "fanuc_m16ib")
+FLEET_ROUNDS = 3
+FLEET_STAGES = ("linearize", "backward", "linesearch", "replay")  # the solve's K2-K5
+FLEET_RESULTS = os.path.join(REPO_ROOT, "benchmarks", "fleet_results.json")
 
 
 def phase(name: str, **fields) -> None:
@@ -440,17 +489,85 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def build_all(rollouts: dict, mpc_kernels: dict, planning: ew.ElementwiseKernels) -> dict:
-    """Start every build at once; each MPC kernel set (K2-K5 or K6-K8)
-    starts its three units in parallel itself."""
-    jobs = {**{("rollout", k): e.build for k, e in rollouts.items()},
-            **{("mpc", k): m.build for k, m in mpc_kernels.items()},
-            ("planning", "elementwise"): planning.build}
+def nvcc_workers() -> int:
+    """The size of the one pool every nvcc of the run goes through: a CPU
+    each, less one for the phases that run while it builds, and no more
+    than the available memory holds at NVCC_GIB each."""
+    cpus = os.cpu_count() or 1
+    try:
+        with open("/proc/meminfo") as f:
+            avail = next(int(line.split()[1]) for line in f if line.startswith("MemAvailable:")) / 2**20
+    except (OSError, StopIteration):
+        avail = float("inf")
+    return max(1, min(cpus - 1, int(avail // NVCC_GIB)))
+
+
+def unit_specs(obj) -> dict:
+    """unit: (source, library name, nvcc flags besides NVCC_FLAGS) of a
+    kernel object, or of a rollout unit's source."""
+    if isinstance(obj, str):
+        return {"rollout": (obj, "rollout", ())}
+    if isinstance(obj, CudaRollout):
+        return {"rollout": (obj.source, "rollout", ())}
+    return {u: (obj.sources[u], f"{obj.LIB_PREFIX}_{u}", obj.UNIT_FLAGS.get(u, ())) for u in obj.UNITS}
+
+
+class UnitPool:
+    """Every translation unit of the run through one bounded pool of
+    ``nvcc_workers()`` threads, each unit once (by its library key): a
+    kernel object's ``build()`` then loads its libraries without nvcc."""
+
+    def __init__(self):
+        self.workers = nvcc_workers()
+        self.pool = concurrent.futures.ThreadPoolExecutor(self.workers)
+        self.futures, self.names = {}, {}
+
+    def _build(self, source, name, flags):
+        built = build_library(source, name, flags)
+        return built, time.perf_counter()
+
+    def submit(self, objects: dict) -> dict:
+        """key -> {unit: future of (BuiltLibrary, the time it was done)}."""
+        out = {}
+        for key, obj in objects.items():
+            out[key] = {}
+            for unit, spec in unit_specs(obj).items():
+                lib_key = library_key(spec[0], spec[1], spec[2])
+                if lib_key not in self.futures:
+                    self.futures[lib_key] = self.pool.submit(self._build, *spec)
+                    self.names[lib_key] = f"{key} {unit}"
+                out[key][unit] = self.futures[lib_key]
+        return out
+
+    @staticmethod
+    def wait(futures: dict):
+        """(key -> {unit: BuiltLibrary}, the time the last was done)."""
+        done = {key: {u: f.result() for u, f in units.items()} for key, units in futures.items()}
+        last = max(t for units in done.values() for _, t in units.values())
+        return {key: {u: b for u, (b, _) in units.items()} for key, units in done.items()}, last
+
+    @staticmethod
+    def slowest(built: dict):
+        """(key and unit, nvcc seconds) of the slowest unit built."""
+        return max(((f"{key} {u}", b.compile_seconds) for key, units in built.items() for u, b in units.items()),
+                   key=lambda kv: kv[1])
+
+
+def build_all(pool: UnitPool, rollouts: dict, mpc_kernels: dict, planning: ew.ElementwiseKernels, meanwhile):
+    """Phase 2's units through the pool, and ``meanwhile()`` while they
+    build; returns ``built`` (per rollout its BuiltLibrary, per kernel set
+    {unit: BuiltLibrary}), the wall seconds and what ``meanwhile``
+    returned."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        futures = {key: pool.submit(fn) for key, fn in jobs.items()}
-        built = {key: f.result() for key, f in futures.items()}
-    return built, time.perf_counter() - t0
+    futures = pool.submit({**{("rollout", k): e for k, e in rollouts.items()},
+                           **{("mpc", k): m for k, m in mpc_kernels.items()},
+                           ("planning", "elementwise"): planning})
+    later = meanwhile()
+    done, last = UnitPool.wait(futures)
+    for obj in (*rollouts.values(), *mpc_kernels.values(), planning):
+        obj.build()  # from disk: the pool built every unit
+    built = {key: (units["rollout"] if key[0] == "rollout" else units) for key, units in done.items()}
+    return built, last - t0, later
 
 
 def ptxas_lines(log: str) -> str:
@@ -1319,7 +1436,7 @@ def ik_phase(ur5, card: str) -> None:
     """Phase 21: UR5 ``solve_ik_batch`` at B = 1000 in float64 (success
     rate at least 0.9, every success within 1e-5 m when its FK is taken
     again) and float32 (success rate reported); ms a solve and launches an
-    iteration; then ``TracIKSolver.solve`` and ``smart_ik`` on 64 targets."""
+    iteration; then ``TracIKSolver.solve`` and ``smart_ik`` on 16 targets."""
     rng = np.random.default_rng(21)
     q_np = rng.uniform(-1.5, 1.5, (IK_B, 6))
     guess_np = q_np + rng.normal(0.0, 0.3, (IK_B, 6))
@@ -1356,7 +1473,7 @@ def ik_phase(ur5, card: str) -> None:
 
 def sim_phase(panda, card: str) -> None:
     """Phase 22: the Panda plant (dt 0.01, 4 substeps) tracking a
-    500-waypoint quintic by computed torque, with viscous joint damping 0.1
+    200-waypoint quintic by computed torque, with viscous joint damping 0.1
     and without. Undamped, the last achieved position must lie within 0.05
     rad of the plan's end (the JAX test's bar, set on an undamped plant).
     Damped, computed torque does not model the damping and the wrist's small
@@ -1434,7 +1551,7 @@ def pscan_phase(panda, card: str) -> None:
     seq = lambda reg: riccati_sweep(A, B, lx, lu, lxx, luu, lux, Vx, Vxx, reg)
     par = lambda reg: parallel_riccati(A, B, lx, lu, lxx, luu + reg * eye, lux, Vx, Vxx)
     rel_default = float((par(1e-6)[1] - seq(1e-6)[1]).abs().max() / seq(1e-6)[1].abs().max())
-    seq_ms, par_ms, par_ms_2, seq_ms_2 = (time_ms(lambda f=f: f(1e-6)) for f in (seq, par, par, seq))
+    seq_ms, par_ms, par_ms_2, seq_ms_2 = (time_ms(lambda f=f: f(1e-6), warmup=1, reps=3) for f in (seq, par, par, seq))
     phase("pscan", card=repr(card), robot="panda", H=H_MPC, dtype="float64", gains_rel_diff_reg0=f"{rel:.3e}",
           gains_rel_diff_default_reg=f"{rel_default:.3e}", sequential_backward_ms=f"{seq_ms:.3f},{seq_ms_2:.3f}",
           parallel_backward_ms=f"{par_ms:.3f},{par_ms_2:.3f}", scan_levels=int(np.ceil(np.log2(H_MPC + 1))))
@@ -1583,7 +1700,7 @@ def urdf_rollout_phase(robots: dict, ur5, attrs: dict, card: str) -> dict:
             if tuple(x.shape) != (B_FULL, N_FULL, n) or not bool(torch.isfinite(x).all()):
                 raise AssertionError(f"urdf {name} {label}: shape {tuple(x.shape)} or non-finite values")
         rows = ROWS_CHECKED
-        ref = build_rollout(model, dt=DT)(q0[:rows], dq0[:rows], tau[:rows])
+        ref, plain_ms = timed(lambda: build_rollout(model, dt=DT)(q0[:rows], dq0[:rows], tau[:rows]))
         errs = {k: bit_diff(g, r) for k, g, r in zip(TOL, (qs[:rows], dqs[:rows], ddqs[:rows]), ref)}
         if any(v != 0.0 for v in errs.values()):
             raise AssertionError(f"urdf {name}: K1 against its plain version {errs}, not 0")
@@ -1600,7 +1717,7 @@ def urdf_rollout_phase(robots: dict, ur5, attrs: dict, card: str) -> dict:
         a = attrs[f"urdf {name}"]
         b_ms, b_by = bound((2 * B_FULL * n + 4 * B_FULL * N_FULL * n) * 4, engine.statements * B_FULL * N_FULL)
         out[name] = {"joints": n, "launches": launches, "max_abs_err": max(errs.values()), "ms": ms,
-                     "programmatic_ur5_ms": ur5_ms, "bound_ms": b_ms, "bound_by": b_by, "statements": engine.statements,
+                     "plain_ms": plain_ms, "programmatic_ur5_ms": ur5_ms, "bound_ms": b_ms, "bound_by": b_by, "statements": engine.statements,
                      "num_regs": a["num_regs"], "local_bytes": a["local_bytes"], "blocks_per_sm": a["blocks_per_sm"]}
         phase("urdf_rollout", card=repr(card), robot=name, joints=n, B=B_FULL, N=N_FULL, kernel_launches=launches,
               **{f"max_abs_err_{k}_first{rows}": f"{v:.3e}" for k, v in errs.items()}, kernel_ms=f"{ms:.4f}",
@@ -2113,6 +2230,419 @@ def runtime_records(records: list, runtime: dict) -> None:
                                  perceived_bound_ms=per["k10_bound_ms"])
 
 
+# ---------------------------------------------------------------------------
+# The calibrated fleet (phase 32)
+# ---------------------------------------------------------------------------
+
+
+def fleet_keys() -> list:
+    """The fleet benchmark's robots (fleet_benchmark.py:185-197): the first
+    key of each URDF in ``robot_data.list_robots()``."""
+    seen, keys = set(), []
+    for key in robot_data.list_robots():
+        urdf = robot_data.ROBOT_DATABASE[key].urdf
+        if urdf not in seen:
+            seen.add(urdf)
+            keys.append(key)
+    return keys
+
+
+def fleet_draws(models: dict) -> dict:
+    """fleet_benchmark.py:67-81, one ``default_rng(0)`` drawn in the
+    fleet's order: the limits without inf, clipped to +-pi; goals mid +-
+    0.3 half, q0 mid +- 0.2 half, at rest. label -> (x0 (B, 2n), goals
+    (B, n)), float32 on the card."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for label, model in models.items():
+        host = host_arrays(model)
+        lo = np.clip(np.nan_to_num(host["joint_lower"], neginf=-np.pi, posinf=np.pi), -np.pi, np.pi)
+        hi = np.clip(np.nan_to_num(host["joint_upper"], neginf=-np.pi, posinf=np.pi), -np.pi, np.pi)
+        lo, hi = np.minimum(lo, hi), np.maximum(lo, hi)
+        mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+        n = model.num_joints
+        goals = (mid + rng.uniform(-0.3, 0.3, (B_MPC, n)) * half).astype(np.float32)
+        q0 = (mid + rng.uniform(-0.2, 0.2, (B_MPC, n)) * half).astype(np.float32)
+        x0 = np.concatenate([q0, np.zeros_like(q0)], axis=1)
+        out[label] = tuple(torch.from_numpy(a).to(DEV).contiguous() for a in (x0, goals))
+    return out
+
+
+def fleet_setup(pool: UnitPool) -> dict:
+    """Phase 32's models, problem, solvers and units, made at phase 2: the
+    units go into the pool behind phase 2's and build while phases 27-31
+    and 3-26 run. K1 for the 25 chains (the public route's unit), K2-K5 for
+    all 26 models, K6-K8 for the two of FLEET_SINGLE."""
+    t0 = time.perf_counter()
+    models = {key: robot_data.load_robot(key, chain_joints_only=True) for key in fleet_keys()}
+    models[f"{FLEET_FULL} (10 joints)"] = robot_data.load_robot(FLEET_FULL)
+    problem = fleet_draws(models)
+    handles = {label: build_batch_tracking_mpc(m, problem[label][1], B_MPC, H_MPC, DT, iterations=ITERS,
+                                               line_search_steps=ALPHAS) for label, m in models.items()}
+    singles = {key: build_tracking_mpc(models[key], problem[key][1][0], H_MPC, DT, iterations=ITERS,
+                                       line_search_steps=ALPHAS) for key in FLEET_SINGLE}
+    chains = [label for label in models if label in fleet_keys()]
+    units = {**{("K1", label): rollout_source(models[label], DT, 1)[0] for label in chains},
+             **{("K2-K5", label): h.kernels for label, h in handles.items()},
+             **{("K6-K8", key): s.kernels for key, s in singles.items()}}
+    emit_s = time.perf_counter() - t0
+    t_submit = time.perf_counter()
+    futures = pool.submit(units)
+    return {"models": models, "problem": problem, "handles": handles, "singles": singles, "chains": chains,
+            "futures": futures, "t_submit": t_submit, "emit_s": emit_s}
+
+
+def fleet_jax_costs() -> dict:
+    """Per robot, the mean cost ``benchmarks/fleet_results.json`` records
+    (the JAX package's solve of the same problem; its speeds are another
+    device's and are not read) and whether its draws were this run's: the
+    stream of default_rng(0) reached the robot at the same place (that
+    run's order put the Panda, then keyed franka_panda, before the Gen3)."""
+    try:
+        with open(FLEET_RESULTS) as f:
+            rows = json.load(f)["robots"]
+    except (OSError, KeyError, ValueError):
+        return {}
+    key = lambda k: "panda" if k == "franka_panda" else k
+    theirs, at = {}, 0
+    for k, row in rows.items():
+        theirs[key(k)] = at
+        at += 2 * row.get("batch", B_MPC) * row.get("n_joints", 0)
+    ours, at = {}, 0
+    for k in fleet_keys():
+        ours[k] = at
+        at += 2 * B_MPC * robot_data.load_robot(k, chain_joints_only=True).num_joints
+    return {key(k): {"mean_cost": row.get("mean_cost"), "same_draws": theirs[key(k)] == ours.get(key(k))}
+            for k, row in rows.items()}
+
+
+def fleet_stage_records(label: str, r: dict) -> list:
+    """One record per K2-K5 kernel of one fleet robot (``fleet_robot``'s
+    result)."""
+    K, attrs = r["K"], r["attrs"]
+    bo = stage_bytes_ops(K, B_MPC, H_MPC, ALPHAS)
+    unit_of = {s: u for u, stages in K.UNITS.items() for s in stages}
+    records = []
+    for stage in FLEET_STAGES:
+        name, replaces = MPC_KERNELS[stage]
+        b_ms, b_by = bound(*bo[stage])
+        rec = {"name": f"{name} [{label}]", "route": "cuda", "source": MPC_SOURCE, "replaces": replaces,
+               "launches": r["launches"][stage], "max_abs_err": r["errs"][stage],
+               "tolerance": "0" if stage in BITWISE_STAGES else f"{MPC_RTOL} x max|plain|",
+               "ms": r["ms"][stage], "plain_ms": r["plain_ms"][stage], "plain_scope": r["scope"][stage],
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "robot": label, "joints": K.n,
+               "statements": K.statements[stage], "num_regs": attrs[stage]["num_regs"],
+               "local_bytes": attrs[stage]["local_bytes"], "smem_bytes": attrs[stage]["smem_bytes"],
+               "nvcc_seconds": r["nvcc_s"][unit_of[stage]], "solve_ms": r["solve_ms"]}
+        if stage == "linearize":
+            rec.update(seeds_per_thread=K.LIN_SEEDS, thread_statements=K.statements["linearize_group"])
+        if stage == "backward":
+            rec.update(dynamic_smem_bytes=K.layout_bytes()["backward"])
+        records.append(rec)
+    return records
+
+
+def fleet_held(us, xs, cost, ref_cost, u_lim) -> torch.Tensor:
+    """Per scenario (B,): finite controls inside the torque limits, finite
+    states, and a finite cost at most ``ref_cost``, the cost of the
+    rollout the solve starts from. A scenario may fail this only where that
+    rollout overflows f32 (the Jaco's fingers, grams under 2000 N m limits:
+    JAX's solve of the Jaco chain reports an infinite mean cost): its
+    replayed controls go NaN past the overflow (the zero gains times an
+    infinite state), as JAX's do, and no alpha need bring it back."""
+    inside = (torch.isfinite(us) & (us.abs() <= u_lim)).flatten(1).all(dim=1)
+    return inside & torch.isfinite(xs).flatten(1).all(dim=1) & torch.isfinite(cost) & (cost <= ref_cost)
+
+
+def fleet_robot(label: str, mpc, x0, goals, built: dict, card: str, jax_costs: dict) -> dict:
+    """One fleet robot through the batched solver: one solve and
+    FLEET_ROUNDS receding rounds (launches 4/4/4/1 a solve); per scenario
+    (``fleet_held``) finite outputs, |u| <= u_lim and a cost at most its
+    zero-control cost (a round's: its warm start's), wherever that rollout
+    is finite; the cost equal to it and every control +0.0 where the limits
+    are 0; K2, K4 and K5 against their plain versions fed the solver's own controls, bit
+    for bit (K4's and K5's plain version is one function, ``replay_plain``:
+    one call over every alpha of every scenario and, as a last row, each
+    scenario's own alpha computes both); K3's inputs and outputs for its
+    plain version, which runs once per joint count; CUDA-event medians."""
+    t0 = time.perf_counter()
+    K = mpc.kernels
+    n, nx, B, H, A = K.n, K.nx, B_MPC, H_MPC, ALPHAS
+    f32 = dict(dtype=torch.float32, device=DEV)
+    zeros = lambda *shape: torch.zeros(shape, **f32)
+    u_lim = torch.tensor(K.P.u_lim, **f32)
+    x0_t, goal_t = x0.T.contiguous(), goals.T.contiguous()
+    cost_zero = mpc.replay(x0_t, zeros(H, nx, B), zeros(H, n, B), zeros(H, n, 1 + nx, B), goal_t, zeros(B))[2]
+    BatchMPCKernels.reset_launch_count()
+    us, xs, cost = mpc.solve(x0, zeros(B, H, n))
+    torch.cuda.synchronize()
+    per_solve = dict(BatchMPCKernels.launch_count)
+    expected = {"linearize": ITERS, "backward": ITERS, "linesearch_costs": 0, "linesearch": ITERS, "replay": 1}
+    if per_solve != expected:
+        raise AssertionError(f"fleet {label}: launches per solve {per_solve}, expected {expected}")
+    if tuple(us.shape) != (B, H, n) or tuple(xs.shape) != (B, H + 1, nx) or tuple(cost.shape) != (B,):
+        raise AssertionError(f"fleet {label}: shapes {tuple(us.shape)}, {tuple(xs.shape)}, {tuple(cost.shape)}")
+    held = fleet_held(us, xs, cost, cost_zero, u_lim)
+    if not bool((held | ~torch.isfinite(cost_zero)).all()):
+        raise AssertionError(f"fleet {label}: a scenario whose zero-control rollout is finite has a non-finite "
+                             "control, state or cost, a control past its limit, or a cost above it")
+    overflow_solve = int((~held).sum())
+    if label in FLEET_ZERO_U:
+        plus_zero = torch.equal(us.view(torch.int32), torch.zeros_like(us).view(torch.int32))
+        if not (torch.equal(cost, cost_zero) and plus_zero):
+            raise AssertionError(f"fleet {label}: torque limits of 0, yet the controls are not all +0.0 "
+                                 f"({plus_zero}) or the cost is not the zero-control cost")
+    x, us_warm = xs[:, 1].contiguous(), torch.cat([us[:, 1:], us[:, -1:]], dim=1)
+    rounds = []
+    for r in range(FLEET_ROUNDS):
+        x_r, warm_r = x, us_warm
+        _, us_warm, (us_r, xs_r, cost_r) = batch_mpc_step(mpc, x, us_warm)
+        rounds.append((x_r, warm_r, us_r, xs_r, cost_r))
+        x = xs_r[:, 1].contiguous()
+    torch.cuda.synchronize()
+    launches = dict(BatchMPCKernels.launch_count)
+    if launches != {k: (1 + FLEET_ROUNDS) * v for k, v in per_solve.items()}:
+        raise AssertionError(f"fleet {label}: launches over {1 + FLEET_ROUNDS} solves {launches}")
+    launches["linesearch"] += launches["linesearch_costs"]
+    # Each round against its warm start's own rollout, the solve's first
+    # (K5 again, after the launches were read), as the solve against the
+    # zero-control rollout.
+    overflow = 0
+    for r, (x_r, warm_r, us_r, xs_r, cost_r) in enumerate(rounds):
+        warm_cost = mpc.replay(x_r.T.contiguous(), zeros(H, nx, B), warm_r.permute(1, 2, 0).contiguous(),
+                               zeros(H, n, 1 + nx, B), goal_t, zeros(B))[2]
+        held = fleet_held(us_r, xs_r, cost_r, warm_cost, u_lim)
+        if not bool((held | ~torch.isfinite(warm_cost)).all()):
+            raise AssertionError(f"fleet {label} round {r}: a scenario whose warm start's rollout is finite has "
+                                 "a non-finite control, state or cost, a control past its limit, or a cost above it")
+        overflow += int((~held).sum())
+
+    # The stages on the solver's own controls: K2 and K4 + K5 against their
+    # plain versions here, K3's plain version later (once per joint count).
+    _, args, _ = mpc_stage_parity(K, x0, goals, us.permute(1, 2, 0).contiguous(), f"fleet {label}", False,
+                                  check=False)
+    errs, plain_ms, scope = {}, {}, {}
+    got = K.linearize(*args["linearize"])
+    ref, plain_ms["linearize"] = timed(lambda: K.linearize_plain(*args["linearize"]))
+    errs["linearize"], scope["linearize"] = bit_diff(got, ref), "this robot"
+    ls, rep = args["linesearch"], args["replay"]
+    both_alpha = torch.cat([ls[5][:, None].expand(A, B), rep[5][None]]).contiguous()
+    (xs_p, us_p, cost_p), both_ms = timed(lambda: K.replay_plain(*ls[:5], both_alpha))
+    costs_k, xs_all_k, us_all_k = K.linesearch(*ls)
+    errs["linesearch"] = max(bit_diff(costs_k, cost_p[:A]), bit_diff(xs_all_k, xs_p[:, :, :A].contiguous()),
+                             bit_diff(us_all_k, us_p[:, :, :A].contiguous()))
+    xs_k, us_k, c_k = K.replay(*rep)
+    errs["replay"] = max(bit_diff(xs_k, xs_p[:, :, A].contiguous()), bit_diff(us_k, us_p[:, :, A].contiguous()),
+                         bit_diff(c_k, cost_p[A].contiguous()))
+    plain_ms["linesearch"] = plain_ms["replay"] = both_ms
+    scope["linesearch"] = scope["replay"] = "one replay_plain call of A + 1 rows (K4's alphas, K5's own)"
+    for stage in ("linearize", "linesearch", "replay"):
+        if errs[stage] != 0.0:
+            raise AssertionError(f"fleet {label} {stage}: max |d| = {errs[stage]}, not 0")
+    if label in FLEET_ZERO_U and not torch.equal(us_all_k.view(torch.int32), torch.zeros_like(us_all_k).view(torch.int32)):
+        raise AssertionError(f"fleet {label}: K4 has an alpha's control that is not +0.0")
+    kK = K.backward(*args["backward"])
+
+    ms = {s: time_ms(lambda s=s: getattr(K, s)(*args[s])) for s in FLEET_STAGES}
+    solve_ms = time_ms(lambda: mpc.solve(x0, zeros(B, H, n)))
+    attrs = K.kernel_attributes()
+    nvcc_s = {u: b.compile_seconds for u, b in built[("K2-K5", label)].items()}
+    jax = jax_costs.get(label, {})  # none for the fully actuated Jaco
+    phase("fleet", card=repr(card), robot=label, joints=n, B=B, H=H, iterations=ITERS, alphas=A,
+          launches_per_solve=json.dumps(per_solve).replace(" ", ""),
+          launches_run=json.dumps({k: v for k, v in launches.items() if k != "linesearch_costs"}).replace(" ", ""),
+          **{f"max_abs_err_{s}": f"{v:.3e}" for s, v in errs.items()}, finite=True,
+          overflowing_scenarios=overflow_solve, round_overflowing_scenarios=overflow,
+          cost_le_zero_control=True, zero_u_lim=label in FLEET_ZERO_U,
+          mean_cost=f"{float(cost.mean()):.6e}", mean_zero_control_cost=f"{float(cost_zero.mean()):.6e}",
+          jax_mean_cost=jax.get("mean_cost", "none"), jax_same_draws=jax.get("same_draws", "none"),
+          solve_ms=f"{solve_ms:.4f}", **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()},
+          step_statements=K.statements["step"], lin_seeds=K.LIN_SEEDS,
+          **{f"{s}_regs": attrs[s]["num_regs"] for s in FLEET_STAGES},
+          **{f"{s}_local_bytes": attrs[s]["local_bytes"] for s in FLEET_STAGES},
+          backward_dynamic_smem_bytes=K.layout_bytes()["backward"],
+          phase_s=f"{time.perf_counter() - t0:.2f}")
+    return {"K": K, "errs": errs, "ms": ms, "plain_ms": plain_ms, "scope": scope, "attrs": attrs, "nvcc_s": nvcc_s,
+            "launches": launches, "solve_ms": solve_ms, "bwd_args": args["backward"], "kK": kK, "n": n,
+            "mean_cost": float(cost.mean()), "solve": lambda: mpc.solve(x0, zeros(B, H, n))}
+
+
+def compare_nan(got: torch.Tensor, ref: torch.Tensor, label: str) -> float:
+    """K3's gate where a scenario's inputs went NaN: NaN and infinities
+    where the plain version has them, and over the entries both hold finite
+    max |d| within MPC_RTOL of their largest magnitude; returns that max."""
+    if not (torch.equal(torch.isnan(got), torch.isnan(ref)) and torch.equal(torch.isinf(got), torch.isinf(ref))):
+        raise AssertionError(f"{label}: NaN or infinities where the plain version has none")
+    both = torch.isfinite(ref)
+    err, scale = float((got - ref)[both].abs().max()), float(ref[both].abs().max())
+    if not err <= MPC_RTOL * scale:
+        raise AssertionError(f"{label}: max |d| = {err} exceeds {MPC_RTOL} x {scale}")
+    return err
+
+
+def fleet_backward_plain(robots: dict) -> None:
+    """K3 against its plain version on every fleet robot, within MPC_RTOL of
+    each output's scale. The plain Riccati sweep reads the robot only
+    through its Jacobians (inputs) and the cost weights, the same for the
+    whole fleet, so one call per joint count serves every robot of it: the
+    robots' inputs side by side along the scenario axis (an elementwise
+    function, so each scenario's bits are those of a call of its own)."""
+    groups = {}
+    for label, r in robots.items():
+        groups.setdefault(r["n"], []).append(label)
+    for n, labels in sorted(groups.items()):
+        Ks = [robots[label]["K"] for label in labels]
+        weights = {(tuple(K.P.w_x), K.P.w_u, tuple(K.P.wT)) for K in Ks}
+        if len(weights) != 1:
+            raise AssertionError(f"fleet K3 n={n}: the robots' cost weights differ ({len(weights)})")
+        cat = [torch.cat([robots[label]["bwd_args"][i] for label in labels], dim=-1).contiguous() for i in range(6)]
+        ref, ms = timed(lambda: Ks[0].backward_plain(*cat))
+        for j, label in enumerate(labels):
+            part = ref[..., j * B_MPC:(j + 1) * B_MPC]
+            err = compare_nan(robots[label]["kK"], part, f"fleet {label} backward")
+            robots[label]["errs"]["backward"] = err
+            robots[label]["plain_ms"]["backward"] = ms
+            robots[label]["scope"]["backward"] = f"one backward_plain call for the {len(labels)} robots of {n} joints"
+        phase("fleet_backward_plain", joints=n, robots=",".join(labels), scenarios=len(labels) * B_MPC,
+              plain_ms=f"{ms:.1f}", max_abs_err=f"{max(robots[l]['errs']['backward'] for l in labels):.3e}")
+
+
+def fleet_rollout(fleet: dict, urdf_rollout: dict, card: str) -> list:
+    """K1 on each of the 25 chains at the rollout's shape, through
+    ``trajectory.forward_dynamics_trajectory``: one launch, the first
+    ROWS_CHECKED rows the plain version's bits, the kernel's time right
+    after its own launch (the engine cache holds 16). Phase 25's three
+    robots are the same models (their digests) and are not run twice."""
+    gen = torch.Generator(DEV).manual_seed(32)
+    records = []
+    for label in fleet["chains"]:
+        model = fleet["models"][label]
+        n = model.num_joints
+        if label in urdf_rollout:
+            r = dict(urdf_rollout[label], reused="phase 25",
+                     nvcc_seconds=fleet["built"][("K1", label)]["rollout"].compile_seconds)
+        else:
+            t0 = time.perf_counter()
+            q0, dq0, tau = urdf_inputs(gen, model, B_FULL, N_FULL)
+            CudaRollout.reset_launch_count()
+            qs, dqs, ddqs = trajectory.forward_dynamics_trajectory(model, q0, dq0, tau, dt=DT)
+            torch.cuda.synchronize()
+            launches = CudaRollout.launch_count
+            if launches != 1:
+                raise AssertionError(f"fleet {label}: {launches} K1 launches, not 1")
+            for x in (qs, dqs, ddqs):
+                if tuple(x.shape) != (B_FULL, N_FULL, n) or not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"fleet {label} K1: shape {tuple(x.shape)} or non-finite values")
+            rows = ROWS_CHECKED
+            ref, plain_ms = timed(lambda: build_rollout(model, dt=DT)(q0[:rows], dq0[:rows], tau[:rows]))
+            errs = {k: bit_diff(g, r) for k, g, r in zip(TOL, (qs[:rows], dqs[:rows], ddqs[:rows]), ref)}
+            if any(v != 0.0 for v in errs.values()):
+                raise AssertionError(f"fleet {label}: K1 against its plain version {errs}, not 0")
+            engine = public_engine(model)
+            ms = time_ms(lambda: engine(q0, dq0, tau))
+            a = engine.kernel_attributes()
+            b_ms, b_by = bound((2 * B_FULL * n + 4 * B_FULL * N_FULL * n) * 4, engine.statements * B_FULL * N_FULL)
+            r = {"joints": n, "launches": launches, "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "statements": engine.statements, "num_regs": a["num_regs"],
+                 "local_bytes": a["local_bytes"], "blocks_per_sm": a["blocks_per_sm"],
+                 "nvcc_seconds": fleet["built"][("K1", label)]["rollout"].compile_seconds}
+            phase("fleet_rollout", card=repr(card), robot=label, joints=n, B=B_FULL, N=N_FULL, kernel_launches=launches,
+                  max_abs_err_first_rows=f"{r['max_abs_err']:.3e}", kernel_ms=f"{ms:.4f}", bound_ms=f"{b_ms:.4f}",
+                  bound_by=b_by, statements=engine.statements, num_regs=a["num_regs"], local_bytes=a["local_bytes"],
+                  blocks_per_sm=a["blocks_per_sm"], plain_ms_first_rows=f"{plain_ms:.1f}",
+                  phase_s=f"{time.perf_counter() - t0:.2f}")
+        records.append({"name": f"K1 rollout (step program K0 inlined) [{label}]", "route": "cuda",
+                        "source": ROLLOUT_SOURCE, "replaces": "manipulapy_tpu/ops/pallas_rollout.py:219",
+                        "tolerance": "0 (first rows)", "library_ms": None, "robot": label,
+                        "plain_scope": f"the first {ROWS_CHECKED} rows", **r})
+    return records
+
+
+def fleet_single(fleet: dict, card: str) -> list:
+    """K6-K8 on the narrowest and the widest chain: one solve from the
+    fleet's first scenario (H=50, 4 iterations, 6 alphas; launches
+    4/4/5), finite, |u| <= u_lim, the cost at most the zero-control cost;
+    each stage against its plain version on the solver's own controls, bit
+    for bit; a launch's device time and the solve's (CUDA events)."""
+    records = []
+    for key in FLEET_SINGLE:
+        t0 = time.perf_counter()
+        single, S = fleet["singles"][key], fleet["singles"][key].kernels
+        n, nx, H = S.n, S.nx, H_MPC
+        f32 = dict(dtype=torch.float32, device=DEV)
+        x0, goal = fleet["problem"][key][0][0].contiguous(), fleet["problem"][key][1][0].contiguous()
+        u_lim = torch.tensor(S.P.u_lim, **f32)
+        cost_zero = single.forward(x0, torch.zeros((H, nx), **f32), torch.zeros((H, n), **f32),
+                                   torch.zeros((H, n, 1 + nx), **f32), goal, torch.zeros((1,), **f32))[2][0]
+        SingleMPCKernels.reset_launch_count()
+        us, xs, cost = single.solve(x0, torch.zeros((H, n), **f32))
+        torch.cuda.synchronize()
+        launches = dict(SingleMPCKernels.launch_count)
+        if launches != {"linearize": ITERS, "backward": ITERS, "forward": ITERS + 1}:
+            raise AssertionError(f"fleet single {key}: launches {launches}")
+        if not all(bool(torch.isfinite(v).all()) for v in (us, xs, cost)) or not bool((us.abs() <= u_lim).all()):
+            raise AssertionError(f"fleet single {key}: non-finite outputs or a control past its limit")
+        if not float(cost) <= float(cost_zero):
+            raise AssertionError(f"fleet single {key}: cost {float(cost)} above the zero-control {float(cost_zero)}")
+        errs, args, plain_ms = single_stage_parity(S, x0, goal, us.contiguous(), f"fleet single {key}", 1)
+        for stage, v in errs.items():
+            if v != 0.0:
+                raise AssertionError(f"fleet single {key} {stage}: max |d| = {v}, not 0")
+        ms = {s: per_call_ms(lambda s=s: getattr(S, s)(*args[s])) for s in SINGLE_KERNELS}
+        solve_ms = time_ms(lambda: single.solve(x0, torch.zeros((H, n), **f32)))
+        attrs, bo = S.kernel_attributes(), single_bytes_ops(S, H, ALPHAS)
+        phase("fleet_single", card=repr(card), robot=key, joints=n, H=H, iterations=ITERS, alphas=ALPHAS,
+              launches_per_solve=json.dumps(launches).replace(" ", ""), cost=f"{float(cost):.6e}",
+              zero_control_cost=f"{float(cost_zero):.6e}", **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
+              **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()}, solve_ms=f"{solve_ms:.4f}",
+              **{f"{s}_plain_ms": f"{v:.1f}" for s, v in plain_ms.items()},
+              phase_s=f"{time.perf_counter() - t0:.2f}")
+        for stage, (name, replaces, _) in SINGLE_KERNELS.items():
+            b_ms, b_by = bound(*bo[stage])
+            records.append({"name": f"{name} [{key}]", "route": "cuda", "source": SINGLE_SOURCE, "replaces": replaces,
+                            "launches": launches[stage], "max_abs_err": errs[stage], "tolerance": "0",
+                            "ms": ms[stage], "plain_ms": plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": None, "robot": key, "joints": n, "solve_ms": solve_ms,
+                            "num_regs": attrs[stage]["num_regs"], "local_bytes": attrs[stage]["local_bytes"],
+                            "smem_bytes": attrs[stage]["smem_bytes"]})
+    return records
+
+
+def fleet_phase(fleet: dict, pool: UnitPool, urdf_rollout: dict, card: str) -> list:
+    """Phase 32: the calibrated fleet through K1, K2-K5 and K6-K8; returns
+    its kernels' records."""
+    t0 = time.perf_counter()
+    built, last = UnitPool.wait(fleet["futures"])
+    fleet["built"] = built
+    slowest = UnitPool.slowest(built)
+    phase("fleet_build", cpu_count=os.cpu_count(), nvcc_workers=pool.workers, units=sum(len(u) for u in built.values()),
+          wall_seconds=f"{last - fleet['t_submit']:.2f}", waited_s=f"{time.perf_counter() - t0:.2f}",
+          emit_s=f"{fleet['emit_s']:.2f}", slowest_unit=repr(slowest[0]), slowest_seconds=f"{slowest[1]:.2f}")
+    jax_costs = fleet_jax_costs()
+    robots = {}
+    for label, mpc in fleet["handles"].items():
+        x0, goals = fleet["problem"][label]
+        robots[label] = fleet_robot(label, mpc, x0, goals, built, card, jax_costs)
+    fleet_backward_plain(robots)
+    records = []
+    for label, r in robots.items():
+        records += fleet_stage_records(label, r)
+    # The multiplexed round: the 25 chains' solves back to back, one
+    # synchronization, against the sum of their own solves' times.
+    solves = [robots[label]["solve"] for label in fleet["chains"]]
+    round_ms = time_ms(lambda: [s() for s in solves])
+    own_sum = sum(robots[label]["solve_ms"] for label in fleet["chains"])
+    scenarios = len(solves) * B_MPC
+    phase("fleet_multiplexed", card=repr(card), robots=len(solves), scenarios=scenarios, round_ms=f"{round_ms:.4f}",
+          scenarios_per_s=f"{scenarios / (round_ms * 1e-3):.4e}", solves_sum_ms=f"{own_sum:.4f}",
+          round_over_sum=f"{round_ms / own_sum:.4f}")
+    for rec in records:
+        rec.update(fleet_round_ms=round_ms, fleet_round_scenarios_per_s=scenarios / (round_ms * 1e-3))
+    records = fleet_rollout(fleet, urdf_rollout, card) + records + fleet_single(fleet, card)
+    phase("fleet_done", robots=len(robots), records=len(records), phase_s=f"{time.perf_counter() - t0:.2f}")
+    return records
+
+
 def main() -> int:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -2150,7 +2680,10 @@ def main() -> int:
     mpc_kernels = {"panda": K_panda, "ur5": build_batch_tracking_mpc(ur5, np.zeros(6), 1, H_MPC, DT).kernels,
                    "panda single": single.kernels, **{f"panda K4 T{t}": V for t, V in k4_blocks.items()},
                    "urdf panda arm": build_batch_tracking_mpc(robots["panda_arm"], np.zeros(7), 1, H_MPC, DT).kernels}
-    built, build_wall = build_all(engines, mpc_kernels, ew.kernels())
+    # Phase 32's units queue behind phase 2's in the same pool and build
+    # while phases 27-31 and 3-26 run.
+    pool = UnitPool()
+    built, build_wall, fleet = build_all(pool, engines, mpc_kernels, ew.kernels(), lambda: fleet_setup(pool))
     attrs = {}
     for name, eng in engines.items():
         b = built["rollout", name]
@@ -2193,7 +2726,10 @@ def main() -> int:
     for unit, b in built["planning", "elementwise"].items():
         phase("elementwise_build", unit=unit, seconds=f"{b.compile_seconds:.2f}", ptxas=repr(ptxas_lines(b.log)),
               **{f"{stage}_{k}": v for stage, a in ew_attrs.items() for k, v in a.items()})
-    phase("build", wall_seconds=f"{build_wall:.2f}", units=len(engines) + 1 + sum(len(b) for k, b in built.items() if k[0] == "mpc"))
+    slowest = UnitPool.slowest({k: (v if isinstance(v, dict) else {"rollout": v}) for k, v in built.items()})
+    phase("build", wall_seconds=f"{build_wall:.2f}", units=len(engines) + 1 + sum(len(b) for k, b in built.items() if k[0] == "mpc"),
+          cpu_count=os.cpu_count(), nvcc_workers=pool.workers, slowest_unit=repr(slowest[0]),
+          slowest_seconds=f"{slowest[1]:.2f}")
 
     # 27-31. The runtime layer, on the units just built, before any long
     # eager plain version.
@@ -2484,8 +3020,11 @@ def main() -> int:
     closed_loop(ur5, panda, engines["ur5"], card, records)
     records += planning_records(ur5, ew_attrs, records[0], plan_timed)
     urdf_models_phase()
-    urdf_records(records, urdf_rollout_phase(robots, ur5, attrs, card), urdf_mpc_phase(robots["panda_arm"], panda, card))
+    urdf_rollout = urdf_rollout_phase(robots, ur5, attrs, card)
+    urdf_records(records, urdf_rollout, urdf_mpc_phase(robots["panda_arm"], panda, card))
     runtime_records(records, runtime)
+    # 32. The calibrated fleet.
+    records += fleet_phase(fleet, pool, urdf_rollout, card)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

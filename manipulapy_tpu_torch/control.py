@@ -300,7 +300,7 @@ def find_ultimate_gain_and_period(
     half = steps // 2
     amp_first = errs[:, :half].abs().amax(dim=1)
     amp_second = errs[:, half:].abs().amax(dim=1)
-    sustained = amp_second >= 0.1 * torch.clamp(amp_first, min=1e-12)
+    sustained = amp_second >= 0.1 * torch.maximum(amp_first, amp_first.new_tensor(1e-12))
     oscillates = (crossings >= 4) & sustained
     idx = torch.argmax(oscillates.to(torch.int32))  # the first True
     found = oscillates.any()
@@ -332,7 +332,8 @@ def step_response_metrics(t: torch.Tensor, y: torch.Tensor, setpoint, tol: float
         return torch.where(mask.any(dim=0), t[idx], nan)
 
     rise_time = first_time(frac >= 0.9) - first_time(frac >= 0.1)
-    overshoot = torch.clamp(frac.amax(dim=0) - 1.0, min=0.0) * 100.0
+    over = frac.amax(dim=0) - 1.0
+    overshoot = torch.maximum(over, over.new_tensor(0.0)) * 100.0
 
     err = (y - sp).abs() / span.abs()
     outside = err > tol

@@ -101,7 +101,8 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     antisymmetric part) branches, as in the reference.
     """
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
-    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    c = (trace - 1.0) * 0.5
+    cos_theta = torch.minimum(torch.maximum(c, c.new_tensor(-1.0)), c.new_tensor(1.0))
     u = 1.0 - cos_theta
     small = u < (_EPS * _EPS)
     theta = torch.acos(torch.where(small, torch.zeros_like(cos_theta), cos_theta))
@@ -247,7 +248,8 @@ def rotation_to_rpy(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> URDF roll/pitch/yaw (ZYX Euler). At gimbal lock
     (``|pitch| ~ pi/2``) yaw is folded into roll and reported as 0."""
     sp = -R[..., 2, 0]
-    cp = torch.sqrt(torch.clamp(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2, min=1e-24))
+    cp2 = R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2
+    cp = torch.sqrt(torch.maximum(cp2, cp2.new_tensor(1e-24)))
     pitch = torch.atan2(sp, cp)
     roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
     yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])

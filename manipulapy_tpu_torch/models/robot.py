@@ -99,6 +99,16 @@ class RobotModel:
             _register(moved, host)
         return moved
 
+    def astype(self, dtype) -> "RobotModel":
+        """The same robot with every field cast to ``dtype`` (the JAX
+        package's name for ``to(dtype=...)``); it keeps the digest."""
+        return self.to(dtype=dtype)
+
+    @property
+    def joint_limits(self) -> torch.Tensor:
+        """(n, 2) stacked [lower, upper] limits."""
+        return torch.stack([self.joint_lower, self.joint_upper], dim=-1)
+
 
 _HOST_ARRAYS: dict = {}
 

@@ -59,7 +59,10 @@ class TrackingMPC(NamedTuple):
     the reference the kernels are held against. ``build_args`` are the
     arguments it was built from, host-side (the model as its f64 host
     arrays and its device type, the goal as float32 NumPy), which
-    ``utils/aot.py`` stores to rebuild it in another process."""
+    ``utils/aot.py`` stores to rebuild it in another process.
+    ``solve_impl(x0, us_warm, goal)`` is the solve with its goal a float32
+    (n,) tensor on the inputs' device (the JAX package's AOT entry);
+    ``goal_default`` is the build-time goal, float32 NumPy."""
 
     solve: Callable
     horizon: int
@@ -70,6 +73,8 @@ class TrackingMPC(NamedTuple):
     kernels: SingleMPCKernels
     solve_plain: Callable
     build_args: dict
+    solve_impl: Callable = None
+    goal_default: np.ndarray = None
 
 
 def build_tracking_mpc(
@@ -141,20 +146,21 @@ def build_tracking_mpc(
 
     on(model.device)
 
-    def solve_with(stages, x0, us_init, q_goal_new):
+    def goal_on(q_goal_new, dev) -> torch.Tensor:
+        if q_goal_new is None:
+            return on(dev).goal
+        goal = torch.as_tensor(q_goal_new, dtype=torch.float32, device=dev)
+        if tuple(goal.shape) != (n,):
+            raise ValueError(f"q_goal_new must be ({n},), got {tuple(goal.shape)}")
+        return goal.contiguous()
+
+    def solve_with(stages, x0, us_init, goal):
         if tuple(x0.shape) != (nx,) or tuple(us_init.shape) != (H, n):
             raise ValueError(
                 f"x0 must be ({nx},) and us_warm ({H}, {n}), got {tuple(x0.shape)} and {tuple(us_init.shape)}"
             )
         dev = x0.device
         c = on(dev)
-        if q_goal_new is None:
-            goal = c.goal
-        else:
-            goal = torch.as_tensor(q_goal_new, dtype=torch.float32, device=dev)
-            if tuple(goal.shape) != (n,):
-                raise ValueError(f"q_goal_new must be ({n},), got {tuple(goal.shape)}")
-            goal = goal.contiguous()
         x_goal = torch.cat([goal, c.zero_dq])
         x0_t = x0.to(dtype=torch.float32).contiguous()
         us_cur = torch.clamp(us_init.to(dtype=torch.float32), -c.u_lim, c.u_lim).contiguous()
@@ -187,10 +193,13 @@ def build_tracking_mpc(
     def solve(x0: torch.Tensor, us_init: torch.Tensor, q_goal_new=None):
         """Solve; ``q_goal_new`` (n,) re-targets without a rebuild (pass a
         tensor on the inputs' device to keep the call free of copies)."""
-        return solve_with(kernels, x0, us_init, q_goal_new)
+        return solve_with(kernels, x0, us_init, goal_on(q_goal_new, x0.device))
 
     def solve_plain(x0: torch.Tensor, us_init: torch.Tensor, q_goal_new=None):
-        return solve_with(plain, x0, us_init, q_goal_new)
+        return solve_with(plain, x0, us_init, goal_on(q_goal_new, x0.device))
+
+    def solve_impl(x0: torch.Tensor, us_init: torch.Tensor, goal: torch.Tensor):
+        return solve_with(kernels, x0, us_init, goal)
 
     build_args = dict(
         host_arrays=host_arrays(model), q_goal=goal_default, horizon=H, dt=float(dt), iterations=int(iterations),
@@ -200,5 +209,6 @@ def build_tracking_mpc(
     return TrackingMPC(
         solve=solve, horizon=H, n=n,
         linearize=kernels.linearize, backward=kernels.backward, forward=kernels.forward,
-        kernels=kernels, solve_plain=solve_plain, build_args=build_args,
+        kernels=kernels, solve_plain=solve_plain, build_args=build_args, solve_impl=solve_impl,
+        goal_default=goal_default,
     )

@@ -55,7 +55,11 @@ class BatchTrackingMPC(NamedTuple):
     the reference the kernels are held against. ``build_args`` are the
     arguments it was built from, host-side (the model as its f64 host
     arrays and its device type, the goals as float32 NumPy), which
-    ``utils/aot.py`` stores to rebuild it in another process."""
+    ``utils/aot.py`` stores to rebuild it in another process.
+    ``solve_impl(x0, us_warm, goal)`` is the solve with its goals already in
+    the kernels' layout, ``goal`` (n, B) on the inputs' device (the JAX
+    package's AOT entry); ``goal_default`` is the build-time goals so laid
+    out, on the model's device."""
 
     solve: Callable
     horizon: int
@@ -69,6 +73,8 @@ class BatchTrackingMPC(NamedTuple):
     kernels: BatchMPCKernels
     solve_plain: Callable
     build_args: dict
+    solve_impl: Callable = None
+    goal_default: torch.Tensor = None
 
 
 def _host_vector(v, n: int, name: str) -> np.ndarray:
@@ -133,7 +139,7 @@ def build_batch_tracking_mpc(
     )
     alphas_np = 0.5 ** np.arange(A, dtype=np.float32)
 
-    def solve_with(stages, x0, us_init, q_goal_new):
+    def solve_with(stages, x0, us_init, goal_t):
         if x0.dim() != 2 or x0.shape[0] != B:
             raise ValueError(f"x0 batch {x0.shape[0] if x0.dim() else '?'} != declared batch {B}")
         if tuple(x0.shape) != (B, nx) or tuple(us_init.shape) != (B, H, n):
@@ -143,10 +149,6 @@ def build_batch_tracking_mpc(
             )
         dev = x0.device
         f32 = dict(dtype=torch.float32, device=dev)
-        if q_goal_new is None:
-            goal_t = goal_default.to(dev)
-        else:
-            goal_t = goal_tensor(q_goal_new, dev)
         u_lim_t = torch.as_tensor(u_lim, **f32)
         us0 = torch.clamp(us_init.to(**f32), -u_lim_t, u_lim_t)
         x0_t = x0.to(**f32).T.contiguous()  # (nx, B)
@@ -190,13 +192,19 @@ def build_batch_tracking_mpc(
 
     plain = kernels.plain()
 
+    def goal_on(q_goal_new, dev) -> torch.Tensor:
+        return goal_default.to(dev) if q_goal_new is None else goal_tensor(q_goal_new, dev)
+
     def solve(x0: torch.Tensor, us_init: torch.Tensor, q_goal_new=None):
         """Solve the batch; ``q_goal_new`` (n,) or (B, n) re-targets every
         scenario."""
-        return solve_with(kernels, x0, us_init, q_goal_new)
+        return solve_with(kernels, x0, us_init, goal_on(q_goal_new, x0.device))
 
     def solve_plain(x0: torch.Tensor, us_init: torch.Tensor, q_goal_new=None):
-        return solve_with(plain, x0, us_init, q_goal_new)
+        return solve_with(plain, x0, us_init, goal_on(q_goal_new, x0.device))
+
+    def solve_impl(x0: torch.Tensor, us_init: torch.Tensor, goal: torch.Tensor):
+        return solve_with(kernels, x0, us_init, goal)
 
     build_args = dict(
         host_arrays=host_arrays(model), q_goal=goal_default.T.cpu().numpy().copy(), batch=B, horizon=H, dt=float(dt),
@@ -207,7 +215,8 @@ def build_batch_tracking_mpc(
         solve=solve, horizon=H, n=n, batch=B,
         linearize=kernels.linearize, backward=kernels.backward,
         linesearch_costs=kernels.linesearch_costs, linesearch=kernels.linesearch, replay=kernels.replay,
-        kernels=kernels, solve_plain=solve_plain, build_args=build_args,
+        kernels=kernels, solve_plain=solve_plain, build_args=build_args, solve_impl=solve_impl,
+        goal_default=goal_default,
     )
 
 

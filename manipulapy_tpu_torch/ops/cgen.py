@@ -39,7 +39,8 @@ Emission rules for C (each keeps the C program equal to the twin):
   bare double literal would promote the arithmetic to f64;
 * a clamp is ``x < lo ? lo : (x > hi ? hi : x)``, which keeps a NaN (as
   ``torch.maximum``/``torch.minimum`` do) where ``fminf``/``fmaxf`` would drop it; an
-  infinite bound is left out, which gives the same result;
+  infinite bound is left out, which gives the same result; a clamp of zero
+  width is ``x != x ? x : bound``, the bound +0.0 where it is zero;
 * maths functions are ``sinf``, ``cosf`` and ``sqrtf``, never the fast
   intrinsics.
 
@@ -432,6 +433,17 @@ def clip(x: Value, lo: float, hi: float) -> Value:
     NaN stays NaN on every backend."""
     if isinstance(x, Dual):
         return dual(clip(x.p, lo, hi), _clip_tangent(x.p, x.t, lo, hi))
+    if lo == hi:
+        # A bound of zero width (a torque limit of 0 gives [-0, 0]): every
+        # number becomes the bound, as +0.0 where it is zero, and NaN stays
+        # NaN. The general form gave -0.0 below -0.0 in C and whichever zero
+        # torch.minimum picks in a tie.
+        v = float(hi) + 0.0
+        if is_const(x):
+            return x if math.isnan(x) else v
+        if isinstance(x, CVar):
+            return x.em.var(f"({x.name} != {x.name} ? {x.name} : {c_literal(v)})", x)
+        return torch.where(torch.isnan(x), x, x.new_tensor(v))
     if is_const(x):
         return float(np.clip(x, lo, hi))
     if isinstance(x, CVar):

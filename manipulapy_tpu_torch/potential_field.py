@@ -66,7 +66,7 @@ def repulsive_potential(
     """``U_rep = 20 k sum_i (1/d_i - 1/d0)^2`` over the (O, n) obstacles
     inside the influence distance ``d0``."""
     d = _norm(q[..., None, :] - obstacles)  # (..., O)
-    d_safe = torch.clamp(d, min=1e-9)
+    d_safe = torch.maximum(d, d.new_tensor(1e-9))
     term = (1.0 / d_safe - 1.0 / d0) ** 2
     return 20.0 * k_rep * torch.sum(torch.where(d < d0, term, torch.zeros_like(term)), dim=-1)
 
@@ -87,7 +87,7 @@ def potential_gradient(
     if obstacles is not None and obstacles.shape[-2] > 0:
         diff = q[..., None, :] - obstacles  # (..., O, n)
         d = _norm(diff)  # (..., O)
-        d_safe = torch.clamp(d, min=1e-9)
+        d_safe = torch.maximum(d, d.new_tensor(1e-9))
         # dU/dq = -40 k (1/d - 1/d0) (1/d^2) (diff/d)
         coeff = -40.0 * k_rep * (1.0 / d_safe - 1.0 / d0) / (d_safe * d_safe)
         push = coeff[..., None] * (diff / d_safe[..., None])
@@ -139,7 +139,7 @@ def _cartesian_potential_field_generic(positions, goal, obstacles, influence_dis
 
     diff = positions[..., None, :] - obstacles  # (..., O, 3)
     d = _norm(diff)
-    d_safe = torch.clamp(d, min=1e-9)
+    d_safe = torch.maximum(d, d.new_tensor(1e-9))
     inside = d < influence_distance
     inv_d = 1.0 / d_safe
     inv_d0 = 1.0 / influence_distance

@@ -61,7 +61,7 @@ def near_singularity(model: RobotModel, q: torch.Tensor, threshold: float = 1e-2
 def condition_number(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
     """``sigma_max / sigma_min`` of the task Jacobian."""
     s = torch.linalg.svdvals(_measure_jacobian(model, q))
-    return s[..., 0] / torch.clamp(s[..., -1], min=1e-30)
+    return s[..., 0] / torch.maximum(s[..., -1], s.new_tensor(1e-30))
 
 
 class Ellipsoid(NamedTuple):

@@ -97,7 +97,9 @@ def _joint_trajectory_generic(model, theta_start, theta_end, Tf, N, method, clip
     vel = s_dot[:, None] * delta[..., None, :]
     acc = s_ddot[:, None] * delta[..., None, :]
     if clip_to_limits:
-        pos = torch.clamp(pos, model.joint_lower, model.joint_upper)
+        # maximum, then minimum, as jnp.clip: a tie splits the derivative
+        # evenly (torch.clamp's is 1 at a bound).
+        pos = torch.minimum(torch.maximum(pos, model.joint_lower), model.joint_upper)
     return Trajectory(pos, vel, acc)
 
 
@@ -152,7 +154,7 @@ def inverse_dynamics_trajectory(
         f = torch.as_tensor(Ftip, dtype=thetamat.dtype, device=thetamat.device)
         f = torch.broadcast_to(f, thetamat.shape[:-1] + (6,))
     tau = fn(model, thetamat, dthetamat, ddthetamat, g, f)
-    return torch.clamp(tau, -model.torque_limit, model.torque_limit)
+    return torch.minimum(torch.maximum(tau, -model.torque_limit), model.torque_limit)
 
 
 _ENGINE_CACHE: dict = {}
@@ -250,7 +252,7 @@ def _forward_dynamics_trajectory_generic(
             ddq = forward_dynamics_fast(model, q, dq, tau, g, f)
             dq = dq + ddq * sub_dt
             q = q + dq * sub_dt
-            q = torch.clamp(q, model.joint_lower, model.joint_upper)
-            dq = torch.clamp(dq, -model.velocity_limit, model.velocity_limit)
+            q = torch.minimum(torch.maximum(q, model.joint_lower), model.joint_upper)
+            dq = torch.minimum(torch.maximum(dq, -model.velocity_limit), model.velocity_limit)
         ddqs.append(ddq)
     return torch.stack(qs, dim=-2), torch.stack(dqs, dim=-2), torch.stack(ddqs, dim=-2)

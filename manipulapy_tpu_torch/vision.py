@@ -97,7 +97,7 @@ def pixel_to_camera(u, v, depth, cam: CameraConfig, device=None) -> torch.Tensor
 def camera_to_pixel(points, cam: CameraConfig, device=None) -> torch.Tensor:
     """Camera-frame xyz -> (u, v) pixels (..., 2), float32; batched."""
     p = torch.as_tensor(points, dtype=torch.float32, device=_device(device, points))
-    z = torch.clamp(p[..., 2], min=1e-6)
+    z = torch.maximum(p[..., 2], p.new_tensor(1e-6))
     u = p[..., 0] / z * cam.fx + cam.cx
     v = p[..., 1] / z * cam.fy + cam.cy
     return torch.stack([u, v], dim=-1)

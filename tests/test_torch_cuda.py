@@ -1131,19 +1131,18 @@ def test_kernel_is_bitwise_on_calibrated_urdf_robots(cuda_device, robot, B):
         assert n == 8 and bool((got[0][:, 1:, 7] <= 0.04).all() and (got[1][:, 1:, 7].abs() <= 0.2).all())
 
 
-def test_mpc_kernels_are_bitwise_on_the_calibrated_panda_arm(cuda_device):
-    """K2-K5 on the calibrated Panda arm (7 joints, its own torque limits),
-    B=257 H=8, fed a 2-iteration solve's own controls: K2, K4 and K5 the
-    plain versions' bits (NaN where theirs is NaN), K3 within 1e-5 of each
-    output's scale; the solve launches each kernel as the Panda's does."""
-    model = catalog.get_robot("panda", source="calibrated", device=cuda_device, **PANDA_ARM)
-    n, B, H = 7, 257, 8
-    x0, goals, _ = _mpc_problem(model, B, H, cuda_device, seed=14)
+def _calibrated_mpc_kernels_bitwise(model, device, B=257, H=8, seed=14):
+    """K2-K5 fed a 2-iteration solve's own controls: K2, K4 and K5 the plain
+    versions' bits (NaN where theirs is NaN), K3 within 1e-5 of each
+    output's scale; the solve launches each kernel as the Panda's does.
+    Returns the solve."""
+    n = model.num_joints
+    x0, goals, _ = _mpc_problem(model, B, H, device, seed=seed)
     mpc = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2)
     K, P = mpc.kernels, mpc.kernels.plain()
     assert K.P.u_lim == [float(v) for v in model.torque_limit.cpu()]
     BatchMPCKernels.reset_launch_count()
-    us_k, xs_k, cost_k = mpc.solve(x0, torch.zeros((B, H, n), device=cuda_device))
+    us_k, xs_k, cost_k = mpc.solve(x0, torch.zeros((B, H, n), device=device))
     torch.cuda.synchronize()
     assert BatchMPCKernels.launch_count == {"linearize": 2, "backward": 2, "linesearch_costs": 0, "linesearch": 2,
                                             "replay": 1}
@@ -1151,7 +1150,7 @@ def test_mpc_kernels_are_bitwise_on_the_calibrated_panda_arm(cuda_device):
     assert bool((us_k.abs() <= model.torque_limit).all())
     x0_t, goal_t = x0.T.contiguous(), goals.T.contiguous()
     us = us_k.permute(1, 2, 0).contiguous()
-    zeros = lambda *shape: torch.zeros(shape, device=cuda_device)
+    zeros = lambda *shape: torch.zeros(shape, device=device)
     init = (x0_t, zeros(H, 2 * n, B), us, zeros(H, n, 1 + 2 * n, B), goal_t, zeros(B))
     xs0 = K.replay(*init)
     for g, r in zip(xs0, P.replay(*init)):
@@ -1159,17 +1158,54 @@ def test_mpc_kernels_are_bitwise_on_the_calibrated_panda_arm(cuda_device):
     sd_x = torch.cat([x0_t[None], xs0[0][:-1]]).contiguous()
     AB = K.linearize(sd_x, us)
     _assert_bits_and_nans(AB, P.linearize(sd_x, us))
-    bwd = (AB, sd_x, us, xs0[0][-1].contiguous(), goal_t, torch.full((B,), 1e-6, device=cuda_device))
+    bwd = (AB, sd_x, us, xs0[0][-1].contiguous(), goal_t, torch.full((B,), 1e-6, device=device))
     _close_to_scale(K.backward(*bwd), P.backward(*bwd))
     kK = K.backward(*bwd)
-    alphas = 0.5 ** torch.arange(6, device=cuda_device, dtype=torch.float32)
+    alphas = 0.5 ** torch.arange(6, device=device, dtype=torch.float32)
     ls = (x0_t, sd_x, us, kK, goal_t, alphas)
     _assert_bits_and_nans(K.linesearch_costs(*ls), P.linesearch_costs(*ls))
     for g, r in zip(K.linesearch(*ls), P.linesearch(*ls)):
         _assert_bits_and_nans(g, r)
-    rep = (x0_t, sd_x, us, kK, goal_t, alphas[torch.arange(B, device=cuda_device) % 6].contiguous())
+    rep = (x0_t, sd_x, us, kK, goal_t, alphas[torch.arange(B, device=device) % 6].contiguous())
     for g, r in zip(K.replay(*rep), P.replay(*rep)):
         _assert_bits_and_nans(g, r)
+    return mpc, x0, goals, (us_k, xs_k, cost_k), K.linesearch(*ls)
+
+
+def test_mpc_kernels_are_bitwise_on_the_calibrated_panda_arm(cuda_device):
+    """K2-K5 on the calibrated Panda arm (7 joints, its own torque limits),
+    B=257 H=8, fed a 2-iteration solve's own controls."""
+    model = catalog.get_robot("panda", source="calibrated", device=cuda_device, **PANDA_ARM)
+    _calibrated_mpc_kernels_bitwise(model, cuda_device)
+
+
+@pytest.mark.parametrize("robot", ["robotiq_2f_85", "jaco_7dof"])
+def test_mpc_kernels_are_bitwise_at_the_fleets_extremes(cuda_device, robot):
+    """K2-K5 on the calibrated fleet's narrowest and widest chains: one
+    revolute finger joint (K2's 3 seeds in one thread, 30 of K3's 32 lanes
+    idle) and the Jaco's 8 joints."""
+    from manipulapy_tpu_torch.models import robot_data
+
+    model = robot_data.load_robot(robot, chain_joints_only=True, device=cuda_device)
+    assert model.num_joints == (1 if robot == "robotiq_2f_85" else 8)
+    _calibrated_mpc_kernels_bitwise(model, cuda_device)
+
+
+def test_zero_torque_limits_give_plus_zero_controls_on_the_card(cuda_device):
+    """``abb_irb2400`` (effort="0" in its URDF): the solve's controls and
+    every alpha's in K4 are +0.0, bit for bit, and the cost is the
+    zero-control rollout's."""
+    from manipulapy_tpu_torch.models import robot_data
+
+    model = robot_data.load_robot("abb_irb2400", chain_joints_only=True, device=cuda_device)
+    mpc, x0, goals, (us, _, cost), (_, _, us_all) = _calibrated_mpc_kernels_bitwise(model, cuda_device)
+    B, H, n = us.shape
+    for u in (us, us_all):
+        assert torch.equal(u.view(torch.int32), torch.zeros_like(u).view(torch.int32))
+    zeros = lambda *shape: torch.zeros(shape, device=cuda_device)
+    zero = mpc.replay(x0.T.contiguous(), zeros(H, 2 * n, B), zeros(H, n, B), zeros(H, n, 1 + 2 * n, B),
+                      goals.T.contiguous(), zeros(B))[2]
+    assert torch.equal(cost, zero)
 
 
 # ---------------------------------------------------------------------------

@@ -226,3 +226,36 @@ def test_cgen_folds_constants_on_every_backend():
     assert (2.0 - x).name == "t1" and em.lines[-1] == "const float t1 = 2.000000000e+00f - x;"
     with pytest.raises(TypeError):
         em.ref(t)
+
+
+_CLIP_HARNESS = """\
+#include <math.h>
+#define __device__
+#define __forceinline__ inline
+{fn}
+extern "C" void clip_batch(const float* x, float* y, int B) {{
+  for (int b = 0; b < B; ++b) clip_zero(x + b, y + b);
+}}
+"""
+
+
+def test_clip_of_zero_width_is_plus_zero_or_nan(tmp_path):
+    """A torque limit of 0 clamps to [-0, 0]: every number becomes +0.0 and
+    NaN stays NaN, in the emitted C, the tensor form and the folded
+    constants alike (the general form gave -0.0 below -0.0)."""
+    x = np.array([-3.0, 3.0, -0.0, 0.0, np.inf, -np.inf, np.nan, -1e-30, 1e-30], dtype=np.float32)
+    src, _ = cg.c_function("clip_zero", [("x", 1)], [], [("y", 1)], lambda x: [[cg.clip(x[0], -0.0, 0.0)]])
+    if shutil.which("g++") is None:
+        pytest.skip("the host has no g++ to compile the emitted C")
+    cpp, so = tmp_path / "clip.cpp", tmp_path / "clip.so"
+    cpp.write_text(_CLIP_HARNESS.format(fn=src))
+    subprocess.run(["g++", "-O1", "-shared", "-fPIC", "-o", str(so), str(cpp)], check=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    y = np.empty_like(x)
+    lib.clip_batch(x.ctypes.data_as(ctypes.c_void_p), y.ctypes.data_as(ctypes.c_void_p), len(x))
+    tensor = cg.clip(torch.from_numpy(x), -0.0, 0.0).numpy()
+    consts = np.array([cg.clip(float(v), -0.0, 0.0) for v in x], dtype=np.float32)
+    expect = np.where(np.isnan(x), x, np.float32(0.0)).view(np.int32)
+    for got in (y, tensor, consts):
+        assert np.array_equal(got.view(np.int32)[~np.isnan(x)], expect[~np.isnan(x)])
+        assert np.isnan(got[np.isnan(x)]).all()

@@ -191,3 +191,25 @@ def test_get_robot_and_list():
     assert catalog.get_robot("UR5", device=CPU).num_joints == 6
     with pytest.raises(KeyError):
         catalog.get_robot("no_such_robot")
+
+
+@pytest.mark.parametrize("name", sorted(CATALOG))
+def test_joint_limits_equal_jax(name):
+    jm, tm = (f() for f in CATALOG[name])
+    got = tm.joint_limits
+    assert tuple(got.shape) == (tm.num_joints, 2)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jm.joint_limits))
+
+
+@pytest.mark.parametrize("name", sorted(CATALOG))
+def test_astype_equals_jax_and_keeps_the_registry(name):
+    """``from_host_arrays`` -> ``astype(float32)``: the JAX cast's values,
+    and the same host-array digest as before the cast."""
+    jm, _ = (f() for f in CATALOG[name])
+    tm = from_host_arrays(jax_host_arrays(jm), dtype=torch.float64, device=CPU)
+    cast = tm.astype(torch.float32)
+    ref = jm.astype(jnp.float32)
+    assert cast.dtype == torch.float32 and cast.device == CPU
+    for f in dataclasses.fields(cast):
+        np.testing.assert_array_equal(getattr(cast, f.name).numpy(), np.asarray(getattr(ref, f.name)))
+    assert host_arrays(cast)["digest"] == host_arrays(tm)["digest"] == jax_host_arrays(jm)["digest"]

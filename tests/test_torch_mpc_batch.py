@@ -38,11 +38,12 @@ import pytest
 import torch
 
 from manipulapy_tpu.models import catalog as jax_catalog
+from manipulapy_tpu.models import robot_data as jax_robot_data
 from manipulapy_tpu.models.robot import host_arrays as jax_host_arrays
 from manipulapy_tpu.mpc.fused_batch import build_batch_tracking_mpc as jax_build_batch
 from manipulapy_tpu.ops import fd_step as jfd
 from manipulapy_tpu_torch.models import catalog as port_catalog
-from manipulapy_tpu_torch.models import from_host_arrays
+from manipulapy_tpu_torch.models import from_host_arrays, robot_data
 from manipulapy_tpu_torch.mpc import ILQRParams, ilqr, make_step_fn, make_tracking_costs
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops import fd_step as tfd
@@ -57,11 +58,29 @@ def _port_model(jax_model, dtype=torch.float32):
     return from_host_arrays(jax_host_arrays(jax_model), dtype=dtype, device=CPU)
 
 
+# The calibrated fleet's extremes, each robot's root-to-tip chain: one
+# revolute finger joint (3 tangent seeds, most of K3's lanes idle) and the
+# Kinova Jaco's 8-joint chain (the widest calibrated chain of the fleet).
+CALIBRATED = {"robotiq_2f_85": "robotiq_2f_85", "jaco_7dof_chain": "jaco_7dof"}
+
+
+def _model(robot, dtype=torch.float32):
+    """The port's model of a test robot on the CPU: a calibrated chain of
+    ``CALIBRATED``, else the programmatic catalog arm."""
+    if robot in CALIBRATED:
+        return robot_data.load_robot(CALIBRATED[robot], dtype=dtype, chain_joints_only=True, device="cpu")
+    return port_catalog.get_robot(robot, source="programmatic", dtype=dtype, device="cpu")
+
+
 # ---------------------------------------------------------------------------
 # K2: the linearization
 # ---------------------------------------------------------------------------
 
 _ARMS = {"ur5": jax_catalog.ur5, "panda": jax_catalog.panda}
+# The calibrated chains' JAX models (``tests/test_torch_mpc_calibrated.py``
+# runs the tests below on them).
+CALIBRATED_ARMS = {name: (lambda key: lambda dtype: jax_robot_data.load_robot(key, dtype=dtype, chain_joints_only=True))(key)
+                   for name, key in CALIBRATED.items()}
 
 
 LIN_CASES = {
@@ -96,16 +115,20 @@ def _lin_inputs(tm, case, B=5, H=2, seed=0):
     return np.concatenate([q, dq], axis=-1).astype(np_dtype), tau.astype(np_dtype), g
 
 
-@pytest.fixture(scope="module")
-def arms():
+def arm_pairs(makers: dict) -> dict:
     """Per arm and dtype: the JAX model and the port's, from one set of
     f64 host arrays."""
     out = {}
-    for name, make in _ARMS.items():
+    for name, make in makers.items():
         host = jax_host_arrays(make(dtype=jnp.float64))
         for _, jdt, tdt in LIN_CASES.values():
             out[name, tdt] = (make(dtype=jdt), from_host_arrays(host, dtype=tdt, device=CPU))
     return out
+
+
+@pytest.fixture(scope="module")
+def arms():
+    return arm_pairs(_ARMS)
 
 
 def _jax_jacobians(jm, x, u, dt, g):
@@ -142,7 +165,13 @@ def test_linearize_plain_matches_jax_jacfwd(arms, robot, case):
     ref = _jax_jacobians(jm, x.reshape(H * B, 2 * n), u.reshape(H * B, n), dt, g)
     tol_q, tol_dq = (1e-9, 1e-9) if tdt == torch.float64 else (1e-4, 1e-3)
     np.testing.assert_allclose(got[:, :n], ref[:, :n], rtol=0, atol=tol_q)
-    np.testing.assert_allclose(got[:, n:], ref[:, n:], rtol=0, atol=tol_dq)
+    if robot in CALIBRATED and tdt == torch.float32:
+        # The Jaco's finger weighs grams: its dq' row reaches dt M^-1 ~ 43,
+        # and f32 rounding, amplified there, is held to each row's scale.
+        scale = np.maximum(1.0, np.abs(ref[:, n:]).max(axis=-1, keepdims=True))
+        assert float((np.abs(got[:, n:] - ref[:, n:]) / scale).max()) <= tol_dq
+    else:
+        np.testing.assert_allclose(got[:, n:], ref[:, n:], rtol=0, atol=tol_dq)
     if case.startswith("random"):
         assert np.all(got[1, 0] == 0.0)  # past the limit: q'_0 is clamped, tangent 0
     else:
@@ -499,7 +528,8 @@ extern "C" void run_ref(const float** in, float** out, int B, int H, int A) {{
   }}
 }}
 """
-TEAM_ROBOTS = ("two_link_planar", "ur5", "panda")  # n = 2 leaves most lanes idle
+_TORCH_SQRT = 'extern "C" { float (*mpt_host_fn[3])(float); }\n#define sqrtf(v) mpt_host_fn[2](v)\n'
+TEAM_ROBOTS = ("two_link_planar", "ur5", "panda")  # n = 2 leaves most lanes idle; n = 1 in test_torch_mpc_calibrated
 TEAM_B, TEAM_H = 5, 8
 TEAM_SHAPES = [(3, 1), (3, 8), (5, 1), (5, 8)]  # (B, H): never a whole block of 4 warps
 TEAM_REGS = [1e-6, 1e-3, 10.0]
@@ -518,15 +548,23 @@ def team_units(tmp_path_factory):
 
     def get(robot):
         if robot not in units:
-            model = port_catalog.get_robot(robot, source="programmatic", device="cpu")
+            model = _model(robot)
             n = model.num_joints
             k = BatchMPCKernels(model, 0.01, u_lim=[10.0] * n)
             tmp = tmp_path_factory.mktemp(robot)
             cpp, so = tmp / "bwd.cpp", tmp / "bwd.so"
-            cpp.write_text(_HARNESS.format(src=k.sources["bwd"]) + _BWD_REFERENCE.format(step=k.riccati_step_source))
+            # The calibrated chains' Riccati steps amplify the last bit of a
+            # sqrt past 1e-5 of scale, so there the unit's sqrtf is PyTorch's,
+            # as the plain version's is (the host's libm and PyTorch's CPU
+            # sqrt differ in the last bit for some inputs; on the card they
+            # are one function).
+            src = (_TORCH_SQRT if robot in CALIBRATED else "") + k.sources["bwd"]
+            cpp.write_text(_HARNESS.format(src=src) + _BWD_REFERENCE.format(step=k.riccati_step_source))
             subprocess.run(["g++", "-O0", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(so), str(cpp)],
                            check=True, timeout=300)
             lib = ctypes.CDLL(str(so))
+            if robot in CALIBRATED:
+                (ctypes.c_void_p * 3).in_dll(lib, "mpt_host_fn")[2] = ctypes.cast(_TORCH_FNS[2], ctypes.c_void_p)
             for fn in (lib.run, lib.run_ref):
                 fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_int] * 3
             rng = np.random.default_rng(7)
@@ -535,6 +573,8 @@ def team_units(tmp_path_factory):
             q0 = (lo + hi) / 2 + rng.uniform(-0.5, 0.5, (TEAM_B, n)) * (hi - lo) / 2
             x0 = torch.from_numpy(np.concatenate([q0, np.zeros_like(q0)], 1).T.astype(np.float32)).contiguous()
             us = torch.from_numpy(rng.uniform(-3.0, 3.0, (TEAM_H, n, TEAM_B)).astype(np.float32))
+            if robot in CALIBRATED:  # under +-3 N m the Jaco's finger (grams) leaves f32 within 8 steps
+                us = us * 0.1
             goal = torch.from_numpy(rng.uniform(-1.0, 1.0, (n, TEAM_B)).astype(np.float32))
             xs, _, _ = k.replay(x0, torch.zeros(TEAM_H, 2 * n, TEAM_B), us, torch.zeros(TEAM_H, n, 1 + 2 * n, TEAM_B),
                                 goal, torch.zeros(TEAM_B))
@@ -646,7 +686,7 @@ def lin_units(tmp_path_factory):
     def get(robot, seeds, g=tfd.DEFAULT_G):
         key = (robot, seeds, g)
         if key not in units:
-            model = port_catalog.get_robot(robot, source="programmatic", device="cpu")
+            model = _model(robot)
             n = model.num_joints
             cls = type("Seeds", (BatchMPCKernels,), {"LIN_SEEDS": seeds})
             k = cls(model, 0.01, g=g, u_lim=[10.0] * n)
@@ -668,7 +708,7 @@ def lin_units(tmp_path_factory):
 
 
 def _lin_seeds(robot, which):
-    return int(which) if which in ("1", "3") else port_catalog.get_robot(robot, source="programmatic", device="cpu").num_joints
+    return int(which) if which in ("1", "3") else _model(robot).num_joints
 
 
 def _lin_problem(model, B, H, seed=0):
@@ -731,7 +771,18 @@ def test_lin_group_body_halves_the_tangent_on_a_limit(lin_units, robot, which):
     ref = u.k.linearize_plain(xs, us)
     assert torch.equal(_bits(got), _bits(ref)) and torch.equal(_bits(one_seed), _bits(ref))
     assert bool((got[:, 0, 0, 0] == 0.5).all())  # d q'_0 / d q_0 on the limit
-    assert bool((got[:, 0, 0, 1:] == 1.0).all())  # inside: the whole tangent
+    if robot in CALIBRATED:
+        # Inside: the whole tangent of the step without the limit clamp (a
+        # calibrated base joint's symmetry does not cancel to the last bit,
+        # so d q'_0 / d q_0 is 1 + O(dt^2 eps) there, not 1).
+        _, free = tfd.build_fd_step_jvp_planes(u.model, 0.01, g=(0.0, 0.0, 0.0), clip_limits=False)
+        eye = torch.eye(u.k.m).reshape(u.k.m, u.k.m, 1)
+        for t in range(H):
+            _, tans = free([xs[t, i, 1:] for i in range(u.k.nx)], [us[t, j, 1:] for j in range(u.k.n)],
+                           [eye[i] for i in range(u.k.nx)], [eye[u.k.nx + j] for j in range(u.k.n)])
+            assert torch.equal(_bits(got[t, 0, :, 1:]), _bits(torch.stack([tans[0][k] for k in range(u.k.m)])))
+    else:
+        assert bool((got[:, 0, 0, 1:] == 1.0).all())  # inside: the whole tangent
 
 
 @pytest.mark.parametrize("which", ["1", "3", "n"])
@@ -744,7 +795,9 @@ def test_lin_group_body_keeps_a_nan_scenario_to_itself(lin_units, robot, which):
     B, H = 3, 8
     xs, us = _lin_problem(u.model, B, H, seed=2)
     clean, _ = _lin_host(u, xs, us)
-    xs[:, u.k.n, 1] = float("nan")
+    # A one-joint arm has no Coriolis term, so its Jacobian never reads the
+    # velocity: its NaN goes on the position.
+    xs[:, u.k.n if u.k.n > 1 else 0, 1] = float("nan")
     got, one_seed = _lin_host(u, xs, us)
     ref = u.k.linearize_plain(xs, us)
     _assert_same_bits(got, ref)
@@ -822,12 +875,13 @@ def check_team_partition(team, statements: int, prefix: str = "mpt_fwd_team") ->
 
 
 TEAM_WARPS = [1, 4, 8]
+REPLAY_ROBOTS = ("two_link_planar", "ur5", "panda")  # K5's team is a variant unit, off the solve's path
 
 
 @pytest.mark.parametrize("warps", TEAM_WARPS)
-@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+@pytest.mark.parametrize("robot", REPLAY_ROBOTS)
 def test_replay_team_partition_invariants(robot, warps):
-    model = port_catalog.get_robot(robot, source="programmatic", device="cpu")
+    model = _model(robot)
     cls = type("Team", (BatchMPCKernels,), {"TEAM_WARPS": warps})
     k = cls(model, 0.01, u_lim=[10.0] * model.num_joints)
     check_team_partition(k.team, k.statements["replay"])
@@ -879,7 +933,7 @@ def replay_units(tmp_path_factory):
     def get(robot, warps, scenarios=32):
         key = (robot, warps, scenarios)
         if key not in units:
-            model = port_catalog.get_robot(robot, source="programmatic", device="cpu")
+            model = _model(robot)
             cls = type("Team", (BatchMPCKernels,), {"TEAM_WARPS": warps, "TEAM_S": scenarios})
             k = cls(model, 0.01, u_lim=[10.0] * model.num_joints)
             src = k.sources["fwd"] + REPLAY_TEAMS.format() + _REPLAY_REFERENCE
@@ -926,7 +980,7 @@ def _replay_host(u, ins):
 
 @pytest.mark.parametrize("B", [1, 31, 33, 64])
 @pytest.mark.parametrize("warps", TEAM_WARPS)
-@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+@pytest.mark.parametrize("robot", REPLAY_ROBOTS)
 def test_replay_team_matches_emitted_step_bitwise(replay_units, robot, warps, B):
     """B = 64 takes the rows four scenarios a copy (B % 4 == 0), the others
     one at a time."""
@@ -953,7 +1007,7 @@ def test_replay_team_with_idle_lanes_matches_plain_bitwise(replay_units, robot, 
         assert torch.equal(_bits(got), _bits(pl)) and torch.equal(_bits(ref), _bits(pl))
 
 
-@pytest.mark.parametrize("robot", TEAM_ROBOTS)
+@pytest.mark.parametrize("robot", REPLAY_ROBOTS)
 def test_replay_team_keeps_a_nan_scenario_to_itself(replay_units, robot):
     """Scenario 1's gains all NaN: its rollout goes NaN where the plain
     version's does, and every other scenario of its team keeps the clean
@@ -1307,7 +1361,7 @@ def fwd_units(tmp_path_factory):
 
     def get(robot):
         if robot not in units:
-            model = port_catalog.get_robot(robot, source="programmatic", device="cpu")
+            model = _model(robot)
             k = BatchMPCKernels(model, 0.01, u_lim=[10.0] * model.num_joints)
             lib = compile_team_unit(k.sources["fwd"] + _LINESEARCH_ENTRIES, tmp_path_factory.mktemp(f"{robot}_fwd"),
                                     "fwd", ())
@@ -1404,7 +1458,7 @@ def _layout(tmp, name, head, template, entry):
     return int(fn())
 
 
-@pytest.mark.parametrize("n", range(2, 17))
+@pytest.mark.parametrize("n", range(1, 17))
 def test_shared_bytes_fit_a_block_for_every_joint_count(n, tmp_path):
     if shutil.which("g++") is None:
         pytest.skip("the host has no g++ to compile the templates")

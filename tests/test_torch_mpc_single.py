@@ -43,7 +43,7 @@ from manipulapy_tpu_torch.ops import cgen as cg
 from manipulapy_tpu_torch.ops import fd_step as tfd
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import STAGES, SingleMPCKernels
-from test_torch_mpc_batch import TEAM_RUNNER, _braced, check_team_partition, compile_team_unit
+from test_torch_mpc_batch import TEAM_RUNNER, _braced, _model, check_team_partition, compile_team_unit
 
 CPU = torch.device("cpu")
 STAGE_RTOL = 2e-4  # of each output's largest magnitude
@@ -481,7 +481,7 @@ extern "C" void run_ref(const float** in, float** out, int H, int A) {{
   }}
 }}
 """
-TEAM_ROBOTS = ("two_link_planar", "ur5", "panda")  # n = 2 leaves most threads idle
+TEAM_ROBOTS = ("two_link_planar", "ur5", "panda", "robotiq_2f_85")  # n = 1, 2 leave most threads idle
 TEAM_H = 8
 TEAM_HS = [1, 8]
 TEAM_REGS = [1e-6, 1e-3, 10.0]
@@ -502,7 +502,7 @@ def team_units(tmp_path_factory):
 
     def get(robot):
         if robot not in units:
-            model = catalog.get_robot(robot, source="programmatic", device="cpu")
+            model = _model(robot)
             n = model.num_joints
             k = SingleMPCKernels(model, 0.01, u_lim=[10.0] * n)
             tmp = tmp_path_factory.mktemp(robot)
@@ -593,7 +593,7 @@ FWD_WARPS = [1, 4, 8]
 @pytest.mark.parametrize("warps", FWD_WARPS)
 @pytest.mark.parametrize("robot", TEAM_ROBOTS)
 def test_forward_team_partition_invariants(robot, warps):
-    model = catalog.get_robot(robot, source="programmatic", device="cpu")
+    model = _model(robot)
     k = type("Team", (SingleMPCKernels,), {"FWD_WARPS": warps})(model, 0.01, u_lim=[10.0] * model.num_joints)
     check_team_partition(k.team, k.statements["forward"])
     assert k.chains["forward"] == k.team.chain
@@ -609,7 +609,7 @@ def forward_units(tmp_path_factory):
 
     def get(robot, warps):
         if (robot, warps) not in units:
-            model = catalog.get_robot(robot, source="programmatic", device="cpu")
+            model = _model(robot)
             k = type("Team", (SingleMPCKernels,), {"FWD_WARPS": warps})(model, 0.01, u_lim=[10.0] * model.num_joints)
             lib = compile_team_unit(k.sources["fwd"] + FWD_TEAMS.format(), tmp_path_factory.mktemp(f"{robot}_W{warps}"),
                                     "fwd", ("run_forward", "run_ref"))
@@ -688,7 +688,7 @@ def test_forward_team_keeps_a_nan_alpha_to_itself(forward_units, robot):
 # default unit (``fd_step_jvp_group`` at one seed, in the same unit) and
 # against ``linearize_plain`` (sin, cos and sqrt PyTorch's own).
 LIN_TEAM_WARPS = [2, 4, 8]
-LIN_TEAM_ROBOTS = ("ur5", "panda")
+LIN_TEAM_ROBOTS = ("ur5", "panda", "robotiq_2f_85")  # m = 18, 21, 3 lanes a step
 _LIN_REFERENCE = """
 {group}
 extern "C" int run_ref(const float** in, float** out, int H, int A) {{
@@ -714,7 +714,7 @@ def _lin_team_kernels(model, warps):
 def test_lin_team_partition_invariants(robot, warps):
     """Every statement of the one-seed body in one warp's program, the seed
     an input: the same statements and chain as the default unit's body."""
-    k = _lin_team_kernels(catalog.get_robot(robot, source="programmatic", device="cpu"), warps)
+    k = _lin_team_kernels(_model(robot), warps)
     check_team_partition(k.lin_team, k.statements["linearize_group"], prefix="mpt_lin_team")
     assert k.chains["linearize"] == k.lin_team.chain
     assert k.lin_team.partition.critical < k.statements["linearize_group"]
@@ -731,8 +731,7 @@ def lin_team_units(tmp_path_factory):
 
     def get(robot, warps):
         if (robot, warps) not in units:
-            model = catalog.serial_chain(8, device="cpu") if robot == "serial_chain_8" else \
-                catalog.get_robot(robot, source="programmatic", device="cpu")
+            model = catalog.serial_chain(8, device="cpu") if robot == "serial_chain_8" else _model(robot)
             k = _lin_team_kernels(model, warps)
             group = k.linearize_group_source.replace(cg.KEEP_SOURCE, "")  # mpt_keep: the team unit has it
             lib = compile_team_unit(k.sources["lin"] + LIN_TEAMS.format() + _LIN_REFERENCE.format(group=group),
@@ -796,7 +795,7 @@ def test_lin_team_keeps_a_nan_step_to_itself(lin_team_units, robot):
     u = lin_team_units(robot, 4)
     xs, us = _lin_team_problem(u.model, 3, seed=9)
     clean, _ = _lin_team_host(u, xs, us)
-    xs[1, u.k.n] = float("nan")
+    xs[1, u.k.n if u.k.n > 1 else 0] = float("nan")  # a one-joint arm's Jacobian never reads its velocity
     team, one = _lin_team_host(u, xs, us)
     ref = u.k.linearize_plain(xs, us)
     for got in (team, one):
