@@ -50,6 +50,11 @@ Phases, one line each (or one line per case):
 6. rollout time, kernel vs plain version (CUDA events), the DRAM rate the
    kernel achieves (the bytes of its bound over its time) and its us a
    waypoint;
+6b. ``looped_time``: K1 on the looped step (``csrc/fd_step_loop.cuh``, the
+   robot in a table; one unit per joint count) at that shape on the
+   programmatic UR5 and Panda: the first 4096 rows bitwise ``LoopRollout``
+   on the card, both forms timed in turns, registers, local bytes, blocks
+   an SM and each form's SASS instructions;
 7. MPC parity: each of K2-K5 against its plain version on the card, fed
    from a nominal trajectory (K2 and K3) and from K3's gains (K4, with and
    without every alpha's trajectory, and K5), at Panda B=257 H=8 (not a
@@ -163,9 +168,13 @@ units join phase 2's build):
     limit on joints 1, 3, 5 and 7) and the 8-joint Panda (its finger
     prismatic, [0, 0.04] m at 0.2 m/s): q0 uniform within the limits
     clipped to [-1, 1], dq0 in [-0.5, 0.5], tau in [-10, 10]; one launch
-    each, the first 4096 rows bitwise the plain version's, the finger
-    inside its clamps; the kernel's time (CUDA events, median of 5 after 2
-    warm-ups) beside the programmatic UR5's, registers and local bytes;
+    each, of the form the route gives the robot; then both forms (the
+    emitted step and the looped one), each its first 4096 rows bitwise its
+    own plain version's, timed in turns (CUDA events, medians of 5 after 2
+    warm-ups), their registers, local bytes, blocks an SM and SASS
+    instructions, and whether the route's form is within 5% of the other;
+    the finger inside its clamps; the route's time beside the programmatic
+    UR5's;
 26. ``urdf_mpc``: ``build_batch_tracking_mpc(...).solve`` and 3 rounds of
     ``batch_mpc_step`` on the calibrated Panda arm (``tip_link="panda_hand",
     chain_joints_only=True``, 7 joints, its own torque limits) at phase 8's
@@ -234,14 +243,16 @@ robots: the first key of each vendored URDF, 25 root-to-tip chains of 1 to
     beside the one ``benchmarks/fleet_results.json`` records; the
     multiplexed round (the 25 chains' solves back to back, one
     synchronisation) beside the sum of their solves; K1 on each chain at
-    B=131072, N=50 through the public route, one launch, its first 4096
-    rows bitwise, timed right after its own launch (phase 25's three
-    robots are reused); K6-K8 on ``robotiq_2f_85`` and the Jaco's chain at
+    B=131072, N=50 as in phase 25 (``k1_forms``: the public route's one
+    launch, both forms bitwise and timed in turns; phase 25's three robots
+    are reused), and the robots whose route is outside the 5% rule (a
+    line, not a gate: timings); K6-K8 on ``robotiq_2f_85`` and the Jaco's chain at
     H=50: launches 4/4/5, each stage bitwise on the solver's own controls,
     the solve timed.
 
 Then one JSON line of every kernel (K1's record also names the URDF robots
-it was held on, K2-K5's the Panda arm; every record its launches and
+it was held on, and K1 on the looped step has a record of its own, its
+launches the public route's on the robots it serves; K2-K5's the Panda arm; every record its launches and
 errors in phases 27-31; a record per fleet model and kernel), the card's
 name and power limit, and the result line. Any failure raises, so the script exits nonzero before its
 last line. It needs one card and imports no JAX. Run from the repository
@@ -284,10 +295,10 @@ from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BLOCK as BLOCK_MPC, LIN_BLOCK, BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
-from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, CudaRollout, build_cuda_rollout, rollout_source
-from manipulapy_tpu_torch.ops._build import build_library, library_key
+from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, FORMS, CudaRollout, build_cuda_rollout
+from manipulapy_tpu_torch.ops._build import build_library, library_key, nvcc_path
 from manipulapy_tpu_torch.ops import elementwise as ew
-from manipulapy_tpu_torch.ops.fd_step import DEFAULT_G, build_rollout
+from manipulapy_tpu_torch.ops.fd_step import DEFAULT_G, build_rollout, loop_rollout_plain
 
 # Per-output float32 tolerances (tests/test_pallas.py of the JAX package):
 # ddq reaches ~1e3 on the wrist joints, so each quantity has its own scale.
@@ -320,6 +331,13 @@ F32_OPS_PER_S = 33.5e12
 # single-problem kernel's least time along its longest chain of statements.
 CHAIN_CYCLES = 4
 ROLLOUT_SOURCE = "manipulapy_tpu_torch/csrc/rollout.cuh"
+LOOP_SOURCE = "manipulapy_tpu_torch/csrc/fd_step_loop.cuh"
+# The route's rule (PERF.md §2): a robot's default form may be no more than
+# this much slower than its other form in the same call.
+ROUTE_SLACK = 1.05
+K1_NAMES = {"emitted": "K1 rollout (step program K0 inlined)",
+            "looped": "K1 rollout, looped step (K0 as a loop over links, the robot in a table)"}
+K1_SOURCES = {"emitted": ROLLOUT_SOURCE, "looped": LOOP_SOURCE}
 MPC_SOURCE = "manipulapy_tpu_torch/csrc/mpc_batch.cuh"
 MPC_KERNELS = {  # the main path's stage of each kernel: (id and name, the TPU kernel's pallas_call)
     "linearize": ("K2 linearize (forward mode over K0)", "manipulapy_tpu/mpc/fused_batch.py:249"),
@@ -1629,6 +1647,72 @@ def planning_records(ur5, attrs: dict, k1_record: dict, timed: dict) -> list:
 # ---------------------------------------------------------------------------
 
 
+def looped_bench_phase(ur5, panda, engines: dict, card: str) -> dict:
+    """Phase 6b: the looped K1 (csrc/fd_step_loop.cuh) at the main path's
+    shape, B=131072, N=50, on the programmatic UR5 and Panda: its first
+    ROWS_CHECKED rows bitwise ``LoopRollout``'s on the card, and both
+    forms timed in turns (emitted, looped, looped, emitted). Its inputs come
+    from its own generator: the later phases' draws do not depend on it."""
+    gen = torch.Generator(DEV).manual_seed(6)
+    out = {}
+    for name, model in (("ur5", ur5), ("panda", panda)):
+        t0 = time.perf_counter()
+        forms = {"emitted": engines[name], "looped": engines[f"{name} looped"]}
+        n, rows = model.num_joints, ROWS_CHECKED
+        q0, dq0, tau = inputs(gen, B_FULL, N_FULL, n)
+        got = forms["looped"](q0, dq0, tau)
+        ref, plain_ms = timed(lambda: forms["looped"].plain(q0[:rows], dq0[:rows], tau[:rows]))
+        errs = {k: bit_diff(g[:rows], r) for k, g, r in zip(TOL, got, ref)}
+        if any(v != 0.0 for v in errs.values()) or not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"looped K1 {name}: against LoopRollout {errs}, not 0, or non-finite outputs")
+        turns = {f: [] for f in FORMS}
+        for form in ("emitted", "looped", "looped", "emitted"):
+            turns[form].append(time_ms(lambda: forms[form](q0, dq0, tau)))
+        a = forms["looped"].kernel_attributes()
+        b_ms, b_by = bound((2 * B_FULL * n + 4 * B_FULL * N_FULL * n) * 4, forms["looped"].statements * B_FULL * N_FULL)
+        out[name] = {"joints": n, "max_abs_err": max(errs.values()), "ms": min(turns["looped"]),
+                     "emitted_ms": min(turns["emitted"]), "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "statements": forms["looped"].statements, "loop_ops": forms["looped"].loop_ops,
+                     "num_regs": a["num_regs"], "local_bytes": a["local_bytes"], "blocks_per_sm": a["blocks_per_sm"],
+                     "sass_instructions": sass_instructions(forms["looped"]),
+                     "emitted_sass_instructions": sass_instructions(forms["emitted"])}
+        phase("looped_time", card=repr(card), robot=name, B=B_FULL, N=N_FULL,
+              **{f"max_abs_err_{k}_first{rows}": f"{v:.3e}" for k, v in errs.items()},
+              **{f"{f}_ms": ",".join(f"{t:.4f}" for t in turns[f]) for f in FORMS}, plain_ms=f"{plain_ms:.1f}",
+              bound_ms=f"{b_ms:.4f}", statements=out[name]["statements"], loop_ops=out[name]["loop_ops"],
+              num_regs=a["num_regs"], local_bytes=a["local_bytes"], blocks_per_sm=a["blocks_per_sm"],
+              sass_instructions=out[name]["sass_instructions"],
+              emitted_sass_instructions=out[name]["emitted_sass_instructions"], phase_s=f"{time.perf_counter() - t0:.2f}")
+    return out
+
+
+def looped_record(bench: dict, urdf_rollout: dict, fleet_records: list) -> dict:
+    """The kernels line's record of K1 on the looped step: its launches on
+    the public route (phases 25 and 32, the robots the route gives the
+    looped form), its largest |d| against ``LoopRollout`` anywhere, and the
+    Gen3's figures (phase 25) as its time, plain version and bound."""
+    launches = sum(r["launches"]["looped"] for r in urdf_rollout.values())
+    launches += sum(r["launches"] for r in fleet_records
+                    if r["name"].startswith(K1_NAMES["looped"]) and r.get("reused") is None)
+    looped_figures = [r["looped"] for r in urdf_rollout.values()] + [
+        r if r["route_form"] == "looped" else r["other_form"] for r in fleet_records
+        if r["name"].startswith((K1_NAMES["looped"], K1_NAMES["emitted"])) and r.get("reused") is None]
+    if launches < 1:
+        raise AssertionError("the public route launched the looped K1 on no robot")
+    gen3 = urdf_rollout["gen3"]["looped"]
+    return {
+        "name": K1_NAMES["looped"], "route": "cuda", "source": LOOP_SOURCE,
+        "replaces": "manipulapy_tpu/ops/pallas_rollout.py:219", "step_replaces": "manipulapy_tpu/ops/fd_step.py:274",
+        "launches": launches, "max_abs_err": max([b["max_abs_err"] for b in bench.values()]
+                                                 + [f["max_abs_err"] for f in looped_figures]),
+        "tolerance": "0 (first rows)", "robot": "gen3", "ms": gen3["ms"], "plain_ms": gen3["plain_ms"],
+        "bound_ms": gen3["bound_ms"], "bound_by": gen3["bound_by"], "library_ms": None,
+        "loop_ops": gen3["loop_ops"], "loop_ops_bound_ms": gen3["loop_ops_bound_ms"],
+        "num_regs": gen3["num_regs"], "local_bytes": gen3["local_bytes"], "blocks_per_sm": gen3["blocks_per_sm"],
+        "bench_shape": bench, "block": BLOCK, "chunk": CHUNK,
+    }
+
+
 def urdf_robots() -> dict:
     """The models of phases 25 and 26, float32 on the card, from the
     catalogs as a user loads them."""
@@ -1679,51 +1763,135 @@ def public_engine(model):
     return trajectory._rollout_engine_for(model, DT, 1, DEFAULT_G, torch.device(DEV), torch.float32, True)
 
 
-def urdf_rollout_phase(robots: dict, ur5, attrs: dict, card: str) -> dict:
+_SASS_COUNTS: dict = {}
+
+
+def sass_instructions(engine: CudaRollout):
+    """The SASS instructions of the rollout kernel in ``engine``'s library
+    (``cuobjdump -sass``, beside nvcc), or None where cuobjdump is missing."""
+    path = str(engine.build().path)
+    if path not in _SASS_COUNTS:
+        tool = os.path.join(os.path.dirname(os.path.realpath(nvcc_path())), "cuobjdump")
+        if not os.path.exists(tool):
+            return None
+        sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True, timeout=120).stdout
+        _SASS_COUNTS[path] = sum(1 for ln in sass.splitlines() if re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln))
+    return _SASS_COUNTS[path]
+
+
+def k1_forms(label: str, model, forms: dict, gen: torch.Generator, card: str, phase_name: str,
+             pending: list = None) -> dict:
+    """K1 on one robot at B=131072, N=50 in both forms (``forms``: form ->
+    CudaRollout, prebuilt). The public route first, its counts set to 0
+    just before: one launch, of the form the route gives the robot, finite
+    outputs. Then each form's outputs bitwise its own plain version's on
+    the first ROWS_CHECKED rows, both forms timed in turns (emitted, looped,
+    looped, emitted; CUDA-event medians of 5 after 2 warm-ups), each form's
+    registers, local bytes, blocks an SM and SASS instructions. With
+    ``pending`` the looped form's rows go there for ``looped_plain_grouped``
+    instead. Returns the route's form, its outputs and launches, and per
+    form its figures."""
+    t0 = time.perf_counter()
+    n = model.num_joints
+    q0, dq0, tau = urdf_inputs(gen, model, B_FULL, N_FULL)
+    CudaRollout.reset_launch_count()
+    outs = trajectory.forward_dynamics_trajectory(model, q0, dq0, tau, dt=DT)
+    torch.cuda.synchronize()
+    counts, engine = dict(CudaRollout.launch_counts), public_engine(model)
+    route = engine.form
+    if CudaRollout.launch_count != 1 or counts[route] != 1:
+        raise AssertionError(f"{label}: K1 launches {counts}, not one of the route's {route} form")
+    for name, x in zip(TOL, outs):
+        if tuple(x.shape) != (B_FULL, N_FULL, n) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{label} K1 {name}: shape {tuple(x.shape)} or non-finite values")
+    rows, out = ROWS_CHECKED, {}
+    if any(eng.form != form for form, eng in forms.items()) or forms[route].source != engine.source:
+        raise AssertionError(f"{label}: the engines are not the route's units")
+    for form, eng in forms.items():
+        got = outs if form == route else eng(q0, dq0, tau)
+        a = eng.kernel_attributes()
+        out[form] = {"num_regs": a["num_regs"], "local_bytes": a["local_bytes"], "blocks_per_sm": a["blocks_per_sm"],
+                     "sass_instructions": sass_instructions(eng), "ms_turns": []}
+        if form == "looped" and pending is not None:
+            pending.append((label, eng, [x[:rows].clone() for x in (q0, dq0, tau)], [g[:rows].clone() for g in got]))
+            continue
+        ref, plain_ms = timed(lambda: eng.plain(q0[:rows], dq0[:rows], tau[:rows]))
+        errs = {k: bit_diff(g[:rows], r) for k, g, r in zip(TOL, got, ref)}
+        if any(v != 0.0 for v in errs.values()):
+            raise AssertionError(f"{label}: K1 {form} against its plain version {errs}, not 0")
+        out[form].update(max_abs_err=max(errs.values()), plain_ms=plain_ms)
+    for form in ("emitted", "looped", "looped", "emitted"):
+        out[form]["ms_turns"].append(time_ms(lambda: forms[form](q0, dq0, tau)))
+    if public_engine(model) is not engine:
+        raise AssertionError(f"{label}: the engine left the cache during the timings")
+    statements = forms["emitted"].statements
+    b_ms, b_by = bound((2 * B_FULL * n + 4 * B_FULL * N_FULL * n) * 4, statements * B_FULL * N_FULL)
+    loop_ops = forms["looped"].loop_ops
+    for form in FORMS:
+        out[form].update(ms=min(out[form]["ms_turns"]), bound_ms=b_ms, bound_by=b_by)
+    out["looped"].update(loop_ops=loop_ops, loop_ops_bound_ms=bound(0, loop_ops * B_FULL * N_FULL)[0])
+    other = "looped" if route == "emitted" else "emitted"
+    route_ok = out[route]["ms"] <= ROUTE_SLACK * out[other]["ms"]
+    phase(phase_name, card=repr(card), robot=label, joints=n, B=B_FULL, N=N_FULL, route=route,
+          route_launches=counts[route], statements=statements, loop_ops=loop_ops,
+          **{f"{f}_ms": ",".join(f"{t:.4f}" for t in out[f]["ms_turns"]) for f in FORMS},
+          bound_ms=f"{b_ms:.4f}", bound_by=b_by, route_within_slack=route_ok,
+          **{f"{f}_{k}": out[f][k] for f in FORMS for k in ("num_regs", "local_bytes", "blocks_per_sm", "sass_instructions")},
+          **{f"{f}_max_abs_err_first{rows}": f"{out[f]['max_abs_err']:.3e}" for f in FORMS if "max_abs_err" in out[f]},
+          **{f"{f}_plain_ms_first{rows}": f"{out[f]['plain_ms']:.1f}" for f in FORMS if "plain_ms" in out[f]},
+          engine_cache=len(trajectory._ENGINE_CACHE), phase_s=f"{time.perf_counter() - t0:.2f}")
+    return {"joints": n, "route_form": route, "launches": counts, "route_within_slack": route_ok,
+            "statements": statements, "outputs": outs, **{f: out[f] for f in FORMS}}
+
+
+def looped_plain_grouped(pending: list, results: dict) -> None:
+    """The looped K1's rows of ``k1_forms`` (``pending``) against
+    ``LoopRollout``'s arithmetic, one plain call per joint count: the
+    robots' first rows side by side, each row with its robot's table
+    (``fd_step.loop_rollout_plain`` over a (T, rows) table), so the host's
+    launches are paid once a joint count and not once a robot. Each robot's
+    rows bitwise; its ``looped`` figures in ``results`` get the |d| and the
+    group's plain ms."""
+    groups = {}
+    for item in pending:
+        groups.setdefault(item[1].n, []).append(item)
+    for n, items in groups.items():
+        rows = [x[0].shape[0] for _, _, x, _ in items]
+        tab = torch.cat([eng.table[:, None].expand(-1, r) for (_, eng, _, _), r in zip(items, rows)], dim=1).to(DEV)
+        inputs_n = [torch.cat([x[i] for _, _, x, _ in items]) for i in range(3)]
+        ref, plain_ms = timed(lambda: loop_rollout_plain(tab, n, 1, *inputs_n))
+        at = 0
+        for (label, _, _, got), r in zip(items, rows):
+            errs = {k: bit_diff(g, x[at:at + r]) for k, g, x in zip(TOL, got, ref)}
+            if any(v != 0.0 for v in errs.values()):
+                raise AssertionError(f"{label}: K1 looped against its plain version {errs}, not 0")
+            results[label]["looped"].update(max_abs_err=max(errs.values()), plain_ms=plain_ms,
+                                            plain_scope=f"one LoopRollout call for the {len(items)} robots of {n} joints")
+            at += r
+        phase("fleet_looped_plain", joints=n, robots=",".join(i[0] for i in items), rows=sum(rows),
+              plain_ms=f"{plain_ms:.1f}", max_abs_err=f"{max(results[i[0]]['looped']['max_abs_err'] for i in items):.3e}")
+
+
+def urdf_rollout_phase(robots: dict, ur5, engines: dict, card: str) -> dict:
     """Phase 25: K1 at B=131072, N=50 on each calibrated robot through the
-    public entry point, one launch, its first ROWS_CHECKED rows bitwise the
-    plain version's; its time beside the programmatic UR5's."""
+    public entry point and in both forms (``k1_forms``); the Panda's finger
+    inside its clamps; the route's form's time beside the programmatic
+    UR5's."""
     gen = torch.Generator(DEV).manual_seed(0)
     out = {}
     for name in URDF_ROLLOUT:
-        t0 = time.perf_counter()
         model = robots[name]
-        q0, dq0, tau = urdf_inputs(gen, model, B_FULL, N_FULL)
-        CudaRollout.reset_launch_count()
-        qs, dqs, ddqs = trajectory.forward_dynamics_trajectory(model, q0, dq0, tau, dt=DT)
-        torch.cuda.synchronize()
-        launches = CudaRollout.launch_count
-        if launches != 1:
-            raise AssertionError(f"urdf {name}: {launches} K1 launches, not 1")
-        n = model.num_joints
-        for label, x in (("q", qs), ("dq", dqs), ("ddq", ddqs)):
-            if tuple(x.shape) != (B_FULL, N_FULL, n) or not bool(torch.isfinite(x).all()):
-                raise AssertionError(f"urdf {name} {label}: shape {tuple(x.shape)} or non-finite values")
-        rows = ROWS_CHECKED
-        ref, plain_ms = timed(lambda: build_rollout(model, dt=DT)(q0[:rows], dq0[:rows], tau[:rows]))
-        errs = {k: bit_diff(g, r) for k, g, r in zip(TOL, (qs[:rows], dqs[:rows], ddqs[:rows]), ref)}
-        if any(v != 0.0 for v in errs.values()):
-            raise AssertionError(f"urdf {name}: K1 against its plain version {errs}, not 0")
+        r = k1_forms(name, model, {f: engines[f"urdf {name} {f}"] for f in FORMS}, gen, card, "urdf_rollout")
+        qs, dqs, _ = r.pop("outputs")
         if name == "panda":  # the prismatic finger inside its clamps after the first row
             fq, fdq = qs[:, 1:, 7], dqs[:, 1:, 7]
             if not bool((fq >= 0).all() and (fq <= 0.04).all() and (fdq.abs() <= 0.2).all()):
                 raise AssertionError("urdf panda: the finger left its clamps")
-        engine, ur5_engine = public_engine(model), public_engine(ur5)
-        ur5_in = urdf_inputs(gen, ur5, B_FULL, N_FULL)
-        ms = time_ms(lambda: engine(q0, dq0, tau))
-        ur5_ms = time_ms(lambda: ur5_engine(*ur5_in))
-        if public_engine(model) is not engine:
-            raise AssertionError(f"urdf {name}: the engine left the cache during the timings")
-        a = attrs[f"urdf {name}"]
-        b_ms, b_by = bound((2 * B_FULL * n + 4 * B_FULL * N_FULL * n) * 4, engine.statements * B_FULL * N_FULL)
-        out[name] = {"joints": n, "launches": launches, "max_abs_err": max(errs.values()), "ms": ms,
-                     "plain_ms": plain_ms, "programmatic_ur5_ms": ur5_ms, "bound_ms": b_ms, "bound_by": b_by, "statements": engine.statements,
-                     "num_regs": a["num_regs"], "local_bytes": a["local_bytes"], "blocks_per_sm": a["blocks_per_sm"]}
-        phase("urdf_rollout", card=repr(card), robot=name, joints=n, B=B_FULL, N=N_FULL, kernel_launches=launches,
-              **{f"max_abs_err_{k}_first{rows}": f"{v:.3e}" for k, v in errs.items()}, kernel_ms=f"{ms:.4f}",
-              programmatic_ur5_kernel_ms=f"{ur5_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by, statements=engine.statements,
-              num_regs=a["num_regs"], local_bytes=a["local_bytes"], blocks_per_sm=a["blocks_per_sm"],
-              engine_cache=len(trajectory._ENGINE_CACHE), phase_s=f"{time.perf_counter() - t0:.2f}")
+        ur5_engine, ur5_in = public_engine(ur5), urdf_inputs(gen, ur5, B_FULL, N_FULL)
+        r["programmatic_ur5_ms"] = time_ms(lambda: ur5_engine(*ur5_in))
+        phase("urdf_rollout", robot=name, route=r["route_form"], route_ms=f"{r[r['route_form']]['ms']:.4f}",
+              programmatic_ur5_kernel_ms=f"{r['programmatic_ur5_ms']:.4f}")
+        out[name] = r
     return out
 
 
@@ -2271,8 +2439,9 @@ def fleet_draws(models: dict) -> dict:
 def fleet_setup(pool: UnitPool) -> dict:
     """Phase 32's models, problem, solvers and units, made at phase 2: the
     units go into the pool behind phase 2's and build while phases 27-31
-    and 3-26 run. K1 for the 25 chains (the public route's unit), K2-K5 for
-    all 26 models, K6-K8 for the two of FLEET_SINGLE."""
+    and 3-26 run. K1 in both forms for the 25 chains (the emitted unit a
+    robot, the looped one a joint count), K2-K5 for all 26 models, K6-K8
+    for the two of FLEET_SINGLE."""
     t0 = time.perf_counter()
     models = {key: robot_data.load_robot(key, chain_joints_only=True) for key in fleet_keys()}
     models[f"{FLEET_FULL} (10 joints)"] = robot_data.load_robot(FLEET_FULL)
@@ -2282,14 +2451,15 @@ def fleet_setup(pool: UnitPool) -> dict:
     singles = {key: build_tracking_mpc(models[key], problem[key][1][0], H_MPC, DT, iterations=ITERS,
                                        line_search_steps=ALPHAS) for key in FLEET_SINGLE}
     chains = [label for label in models if label in fleet_keys()]
-    units = {**{("K1", label): rollout_source(models[label], DT, 1)[0] for label in chains},
+    k1 = {label: {form: CudaRollout(models[label], DT, _form=form) for form in FORMS} for label in chains}
+    units = {**{("K1", label, form): e for label, forms in k1.items() for form, e in forms.items()},
              **{("K2-K5", label): h.kernels for label, h in handles.items()},
              **{("K6-K8", key): s.kernels for key, s in singles.items()}}
     emit_s = time.perf_counter() - t0
     t_submit = time.perf_counter()
     futures = pool.submit(units)
     return {"models": models, "problem": problem, "handles": handles, "singles": singles, "chains": chains,
-            "futures": futures, "t_submit": t_submit, "emit_s": emit_s}
+            "k1": k1, "futures": futures, "t_submit": t_submit, "emit_s": emit_s}
 
 
 def fleet_jax_costs() -> dict:
@@ -2508,53 +2678,39 @@ def fleet_backward_plain(robots: dict) -> None:
 
 
 def fleet_rollout(fleet: dict, urdf_rollout: dict, card: str) -> list:
-    """K1 on each of the 25 chains at the rollout's shape, through
-    ``trajectory.forward_dynamics_trajectory``: one launch, the first
-    ROWS_CHECKED rows the plain version's bits, the kernel's time right
-    after its own launch (the engine cache holds 16). Phase 25's three
-    robots are the same models (their digests) and are not run twice."""
+    """K1 on each of the 25 chains at the rollout's shape in both forms
+    (``k1_forms``: the public route's one launch, each form bitwise its
+    plain version on the first ROWS_CHECKED rows, the looped one once per
+    joint count, both timed in turns). Phase 25's three robots are the
+    same models (their digests) and are not run twice. One record per
+    chain, of its route's form, the other form's figures inside it."""
     gen = torch.Generator(DEV).manual_seed(32)
-    records = []
+    results, pending = {}, []
     for label in fleet["chains"]:
-        model = fleet["models"][label]
-        n = model.num_joints
         if label in urdf_rollout:
-            r = dict(urdf_rollout[label], reused="phase 25",
-                     nvcc_seconds=fleet["built"][("K1", label)]["rollout"].compile_seconds)
+            results[label] = dict(urdf_rollout[label], reused="phase 25")
         else:
-            t0 = time.perf_counter()
-            q0, dq0, tau = urdf_inputs(gen, model, B_FULL, N_FULL)
-            CudaRollout.reset_launch_count()
-            qs, dqs, ddqs = trajectory.forward_dynamics_trajectory(model, q0, dq0, tau, dt=DT)
-            torch.cuda.synchronize()
-            launches = CudaRollout.launch_count
-            if launches != 1:
-                raise AssertionError(f"fleet {label}: {launches} K1 launches, not 1")
-            for x in (qs, dqs, ddqs):
-                if tuple(x.shape) != (B_FULL, N_FULL, n) or not bool(torch.isfinite(x).all()):
-                    raise AssertionError(f"fleet {label} K1: shape {tuple(x.shape)} or non-finite values")
-            rows = ROWS_CHECKED
-            ref, plain_ms = timed(lambda: build_rollout(model, dt=DT)(q0[:rows], dq0[:rows], tau[:rows]))
-            errs = {k: bit_diff(g, r) for k, g, r in zip(TOL, (qs[:rows], dqs[:rows], ddqs[:rows]), ref)}
-            if any(v != 0.0 for v in errs.values()):
-                raise AssertionError(f"fleet {label}: K1 against its plain version {errs}, not 0")
-            engine = public_engine(model)
-            ms = time_ms(lambda: engine(q0, dq0, tau))
-            a = engine.kernel_attributes()
-            b_ms, b_by = bound((2 * B_FULL * n + 4 * B_FULL * N_FULL * n) * 4, engine.statements * B_FULL * N_FULL)
-            r = {"joints": n, "launches": launches, "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "statements": engine.statements, "num_regs": a["num_regs"],
-                 "local_bytes": a["local_bytes"], "blocks_per_sm": a["blocks_per_sm"],
-                 "nvcc_seconds": fleet["built"][("K1", label)]["rollout"].compile_seconds}
-            phase("fleet_rollout", card=repr(card), robot=label, joints=n, B=B_FULL, N=N_FULL, kernel_launches=launches,
-                  max_abs_err_first_rows=f"{r['max_abs_err']:.3e}", kernel_ms=f"{ms:.4f}", bound_ms=f"{b_ms:.4f}",
-                  bound_by=b_by, statements=engine.statements, num_regs=a["num_regs"], local_bytes=a["local_bytes"],
-                  blocks_per_sm=a["blocks_per_sm"], plain_ms_first_rows=f"{plain_ms:.1f}",
-                  phase_s=f"{time.perf_counter() - t0:.2f}")
-        records.append({"name": f"K1 rollout (step program K0 inlined) [{label}]", "route": "cuda",
-                        "source": ROLLOUT_SOURCE, "replaces": "manipulapy_tpu/ops/pallas_rollout.py:219",
-                        "tolerance": "0 (first rows)", "library_ms": None, "robot": label,
-                        "plain_scope": f"the first {ROWS_CHECKED} rows", **r})
+            results[label] = k1_forms(label, fleet["models"][label], fleet["k1"][label], gen, card, "fleet_rollout",
+                                      pending)
+            results[label].pop("outputs")
+    looped_plain_grouped(pending, results)
+    records, slack_misses, looped = [], [], []
+    for label, r in results.items():
+        if not r["route_within_slack"]:
+            slack_misses.append(label)
+        form = r["route_form"]
+        other = "looped" if form == "emitted" else "emitted"
+        if form == "looped":
+            looped.append(label)
+        nvcc = {f: fleet["built"][("K1", label, f)]["rollout"].compile_seconds for f in FORMS}
+        rec = {k: v for k, v in r.items() if k not in FORMS}
+        rec.update(r[form], launches=r["launches"][form], nvcc_seconds=nvcc[form],
+                   other_form={"form": other, **r[other], "nvcc_seconds": nvcc[other]})
+        records.append({"name": f"{K1_NAMES[form]} [{label}]", "route": "cuda", "source": K1_SOURCES[form],
+                        "replaces": "manipulapy_tpu/ops/pallas_rollout.py:219", "tolerance": "0 (first rows)",
+                        "library_ms": None, "robot": label, "plain_scope": f"the first {ROWS_CHECKED} rows", **rec})
+    phase("fleet_rollout_route", robots=len(fleet["chains"]), slack=ROUTE_SLACK, looped=",".join(looped) or "none",
+          outside_slack=",".join(slack_misses) or "none")
     return records
 
 
@@ -2667,9 +2823,12 @@ def main() -> int:
         "ur5_intres3": build_cuda_rollout(ur5, dt=DT, intRes=3),
         "panda": build_cuda_rollout(panda, dt=DT, intRes=1),
         "ur5_plan": build_cuda_rollout(ur5, dt=DT_PLAN, intRes=1),  # what the planning path's rollout builds
+        "ur5 looped": build_cuda_rollout(ur5, dt=DT, _form="looped"),  # phase 6's looped K1
+        "panda looped": build_cuda_rollout(panda, dt=DT, _form="looped"),
     }
     robots = urdf_robots()  # phases 24-26: their units join this build
-    engines.update({f"urdf {name}": build_cuda_rollout(robots[name], dt=DT, intRes=1) for name in URDF_ROLLOUT})
+    engines.update({f"urdf {name} {form}": build_cuda_rollout(robots[name], dt=DT, _form=form)
+                    for name in URDF_ROLLOUT for form in FORMS})
     mpc_panda = build_batch_tracking_mpc(panda, np.zeros(7), B_MPC, H_MPC, DT, iterations=ITERS)
     single = build_tracking_mpc(panda, Q_GOAL7, H_MPC, DT, iterations=ITERS, line_search_steps=ALPHAS)
     K_panda = mpc_panda.kernels
@@ -2688,7 +2847,7 @@ def main() -> int:
     for name, eng in engines.items():
         b = built["rollout", name]
         a = attrs[name] = eng.kernel_attributes()
-        phase("build", kernel="K1 rollout", robot=name, block=BLOCK, chunk=CHUNK,
+        phase("build", kernel="K1 rollout", robot=name, form=eng.form, block=BLOCK, chunk=CHUNK,
               seconds=f"{b.compile_seconds:.2f}", **a, ptxas=repr(ptxas_lines(b.log)))
         # The tiles live in dynamic shared memory and may cost no block an
         # SM; no more local bytes than sinf/cosf's 32-byte frame. The URDF
@@ -2827,6 +2986,7 @@ def main() -> int:
         "dram_GBps": k1_bytes / (k_ms * 1e6),
         "us_per_step": k_ms * 1e3 / N_FULL,
     }]
+    looped_bench = looped_bench_phase(ur5, panda, engines, card)
 
     # 7. MPC kernels vs their plain versions on the card.
     K = mpc_panda.kernels
@@ -3020,11 +3180,13 @@ def main() -> int:
     closed_loop(ur5, panda, engines["ur5"], card, records)
     records += planning_records(ur5, ew_attrs, records[0], plan_timed)
     urdf_models_phase()
-    urdf_rollout = urdf_rollout_phase(robots, ur5, attrs, card)
+    urdf_rollout = urdf_rollout_phase(robots, ur5, engines, card)
     urdf_records(records, urdf_rollout, urdf_mpc_phase(robots["panda_arm"], panda, card))
     runtime_records(records, runtime)
     # 32. The calibrated fleet.
-    records += fleet_phase(fleet, pool, urdf_rollout, card)
+    fleet_records = fleet_phase(fleet, pool, urdf_rollout, card)
+    records.insert(1, looped_record(looped_bench, urdf_rollout, fleet_records))
+    records += fleet_records
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -14,6 +14,12 @@
 //     (ops/fd_step.py::build_fd_step_source: ~3k straight-line f32 ops for
 //     a UR5, robot geometry folded in as constants)
 //   this file.
+// Or, with MPT_LOOP_STEP defined, one unit per (n, intRes) for every robot
+// of n joints: the table's layout and csrc/fd_step_loop.cuh in place of
+// the generated step, which then runs `fd_step_loop(q, dq, tau, ddq, tab)`
+// over the robot's table (ops/fd_step.py::link_table), passed to the
+// kernel by value as a __grid_constant__ MptTable and to `launch` as a
+// host pointer. Everything else is the same in both units.
 //
 // Design. One thread owns one scenario for the whole horizon: q and dq
 // stay in registers across all N waypoints and intRes substeps, which is
@@ -81,6 +87,14 @@
 #endif
 #ifndef MPT_BLOCK
 #error "MPT_BLOCK must be defined before rollout.cuh"
+#endif
+
+// The step each substep runs: the generated one, or the looped one over
+// the robot's table `tab` (unused by the generated step).
+#ifdef MPT_LOOP_STEP
+#define MPT_STEP(q, dq, t, ddq, tab) fd_step_loop(q, dq, t, ddq, tab)
+#else
+#define MPT_STEP(q, dq, t, ddq, tab) fd_step(q, dq, t, ddq)
 #endif
 
 #define MPT_CN (MPT_CHUNK * MPT_NJ)  // floats of one scenario's chunk
@@ -170,7 +184,7 @@ static __device__ __forceinline__ void rollout_load(
 template <int T>
 static __device__ __forceinline__ void rollout_steps(
     int tid, float* __restrict__ tiles, int buf, float* q, float* dq, int b,
-    int B, int c) {
+    int B, int c, const float* __restrict__ tab) {
   if (b < B) {
     const float* tau_row = tiles + (buf * T + tid) * MPT_ROW;
     float* q_row = tiles + (2 * T + tid) * MPT_ROW;
@@ -184,7 +198,7 @@ static __device__ __forceinline__ void rollout_steps(
         dq_row[w * MPT_NJ + j] = dq[j];
         t[j] = tau_row[w * MPT_NJ + j];
       }
-      for (int s = 0; s < MPT_INT_RES; ++s) fd_step(q, dq, t, ddq);
+      for (int s = 0; s < MPT_INT_RES; ++s) MPT_STEP(q, dq, t, ddq, tab);
 #pragma unroll
       for (int j = 0; j < MPT_NJ; ++j) ddq_row[w * MPT_NJ + j] = ddq[j];
     }
@@ -252,7 +266,8 @@ static __device__ __forceinline__ void rollout_store(
 #endif
 
 // The whole horizon of scenarios b0 .. b0+T-1, by the block whose thread
-// this is; every thread runs every phase. Chunk k's torques are in tile
+// this is; every thread runs every phase (`tab`: the looped step's table).
+// Chunk k's torques are in tile
 // k & 1: the load of chunk k+1 goes to the tile that chunk k-1's steps
 // read before the last barrier, and the barrier after rollout_wait also
 // keeps chunk k's steps from overwriting q, dq, ddq before chunk k-1's
@@ -262,7 +277,7 @@ static __device__ __forceinline__ void rollout_block(
     int my_tid, float* __restrict__ tiles, const float* __restrict__ q0,
     const float* __restrict__ dq0, const float* __restrict__ tau,
     float* __restrict__ qs, float* __restrict__ dqs, float* __restrict__ ddqs,
-    int b0, int B, int N) {
+    int b0, int B, int N, const float* __restrict__ tab = 0) {
   MPT_STATE_DECL;
   (void)my_tid;
   MPT_EACH(rollout_init(b0 + tid, B, q0, dq0, MPT_OWN(q), MPT_OWN(dq)));
@@ -273,7 +288,7 @@ static __device__ __forceinline__ void rollout_block(
     MPT_EACH(rollout_load<T>(tid, other, tau, b0, B, N, next,
                              N - next < MPT_CHUNK ? N - next : MPT_CHUNK));
     MPT_SYNC(rollout_wait());
-    MPT_PHASE(rollout_steps<T>(tid, tiles, k & 1, MPT_OWN(q), MPT_OWN(dq), b0 + tid, B, c));
+    MPT_PHASE(rollout_steps<T>(tid, tiles, k & 1, MPT_OWN(q), MPT_OWN(dq), b0 + tid, B, c, tab));
     MPT_EACH(rollout_store<T>(tid, tiles, qs, dqs, ddqs, b0, B, N, w0, c));
   }
 }
@@ -284,13 +299,27 @@ extern "C" long long mpt_layout_rollout(void) { return (long long)MPT_SMEM_BYTES
 
 #ifdef __CUDACC__
 
+#ifdef MPT_LOOP_STEP
+// The robot's table, by value: it lives in the launch's parameter space.
+struct MptTable {
+  float v[MPT_TAB_FLOATS];
+};
+#define MPT_TABLE_PARAM , const __grid_constant__ MptTable tab
+#define MPT_TABLE_ARG , tab.v
+#define MPT_TABLE_LAUNCH , tab
+#else
+#define MPT_TABLE_PARAM
+#define MPT_TABLE_ARG
+#define MPT_TABLE_LAUNCH
+#endif
+
 __global__ void __launch_bounds__(MPT_BLOCK) mpt_rollout_kernel(
     const float* __restrict__ q0, const float* __restrict__ dq0,
     const float* __restrict__ tau, float* __restrict__ qs,
-    float* __restrict__ dqs, float* __restrict__ ddqs, int B, int N) {
+    float* __restrict__ dqs, float* __restrict__ ddqs, int B, int N MPT_TABLE_PARAM) {
   extern __shared__ float mpt_tiles[];
   rollout_block<MPT_BLOCK>((int)threadIdx.x, mpt_tiles, q0, dq0, tau, qs, dqs,
-                           ddqs, (int)(blockIdx.x * MPT_BLOCK), B, N);
+                           ddqs, (int)(blockIdx.x * MPT_BLOCK), B, N MPT_TABLE_ARG);
 }
 
 // Lets the kernel take its tiles' dynamic shared bytes on the current
@@ -302,16 +331,34 @@ extern "C" int prepare() {
 }
 
 // q0, dq0: (B, n); tau, qs, dqs, ddqs: (B, N, n); all f32, contiguous, on
-// the current device, which `prepare` has seen. Launches on `stream` and
-// returns cudaGetLastError().
+// the current device, which `prepare` has seen. With MPT_LOOP_STEP, `table`
+// is the robot's table in host memory (MPT_TAB_FLOATS floats), copied into
+// the launch. Launches on `stream` and returns cudaGetLastError().
+#ifdef MPT_LOOP_STEP
+extern "C" int launch(const float* q0, const float* dq0, const float* tau,
+                      float* qs, float* dqs, float* ddqs, int B, int N,
+                      void* stream, const float* table) {
+  MptTable tab;
+  for (int i = 0; i < MPT_TAB_FLOATS; ++i) tab.v[i] = table[i];
+#else
 extern "C" int launch(const float* q0, const float* dq0, const float* tau,
                       float* qs, float* dqs, float* ddqs, int B, int N,
                       void* stream) {
+#endif
   if (B <= 0 || N <= 0) return 0;
   const unsigned int blocks = (unsigned int)((B + MPT_BLOCK - 1) / MPT_BLOCK);
   mpt_rollout_kernel<<<blocks, MPT_BLOCK, MPT_SMEM_BYTES, (cudaStream_t)stream>>>(
-      q0, dq0, tau, qs, dqs, ddqs, B, N);
+      q0, dq0, tau, qs, dqs, ddqs, B, N MPT_TABLE_LAUNCH);
   return (int)cudaGetLastError();
+}
+
+// The table's floats this unit takes (0 for the generated step's unit).
+extern "C" int table_floats(void) {
+#ifdef MPT_LOOP_STEP
+  return MPT_TAB_FLOATS;
+#else
+  return 0;
+#endif
 }
 
 // Registers per thread, local bytes per thread, the largest block, static

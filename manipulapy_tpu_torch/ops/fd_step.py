@@ -20,9 +20,16 @@ The same emitter runs on tensors (:func:`build_fd_step`,
 (:func:`build_fd_step_source`: the C source of the CUDA kernel's device
 function, ``ops/cuda_rollout.py``), so the kernel and its plain version
 compute the same thing by construction.
+
+The looped form (:func:`link_table`, :func:`fd_step_loop_planes`,
+:class:`LoopRollout`) is the same step written once as a loop over links,
+the robot's geometry read from a table: the plain version of
+``csrc/fd_step_loop.cuh``, whose code does not grow with the robot.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -41,6 +48,18 @@ __all__ = [
     "build_bias_mass_fn",
     "build_rollout",
     "Rollout",
+    "LINK_FIELDS",
+    "TABLE_HEAD",
+    "LINK_STRIDE",
+    "loop_supported",
+    "link_table",
+    "table_defines",
+    "fd_step_loop_planes",
+    "build_fd_step_loop",
+    "loop_step_ops",
+    "loop_rollout_plain",
+    "LoopRollout",
+    "build_loop_rollout",
 ]
 
 DEFAULT_G = (0.0, 0.0, -9.81)
@@ -541,3 +560,330 @@ class Rollout(nn.Module):
 def build_rollout(model: RobotModel, dt: float = 0.01, intRes: int = 1, g=DEFAULT_G) -> Rollout:
     """The plain PyTorch version of the rollout kernel (``ops/cuda_rollout``)."""
     return Rollout(model, dt=dt, intRes=intRes, g=g)
+
+
+# ---------------------------------------------------------------------------
+# The looped step: the robot's geometry as data
+# ---------------------------------------------------------------------------
+#
+# The table is one flat float array: TABLE_HEAD floats once, then
+# LINK_STRIDE floats for each link k in LINK_FIELDS' order. Everything is
+# computed in f64 as _emit_dynamics computes it and rounded once to the
+# table's dtype. A_k = Ad(Mc_k^-1) S_k is joint k's screw in link k's CoM
+# frame; exp(-[A_k] q) M_prev_k^-1, M_prev_k = Mc_{k-1}^-1 Mc_k, takes link
+# k-1's CoM frame to link k's (the RNEA's transform, _emit_dynamics'
+# `down`). W = [w] for A_k's rotation part w, so the transform's rotation
+# is I - sin(q) W + (1 - cos q) W^2 (_joint_exp at -q). G_k = [[I, 0], [0, m
+# 1]] in the CoM frame. A clamp not applied is an infinite bound: the
+# kernel's clamp then leaves the value as it is, NaN too. The space-frame
+# screws S_k and CoM homes Mc_k, which _emit_dynamics also folds, are not
+# in the table: the loop carries each CoM Jacobian column from link to link
+# with the RNEA's transform, so the space frame never appears.
+TABLE_HEAD = (("dt", 1), ("g", 3))
+LINK_FIELDS = (
+    ("A", 6),        # A_k = [w; v]
+    ("W2", 9),       # [w]^2, row-major
+    ("Wv", 3),       # [w] v
+    ("W2v", 3),      # [w]^2 v
+    ("Mprev_R", 9),  # M_prev_k^-1: rotation, row-major
+    ("Mprev_p", 3),  #   and translation
+    ("I", 9),        # G_k's rotational block, row-major
+    ("m", 1),        # G_k's mass
+    ("lower", 1),    # position limits (-inf, +inf: not clamped)
+    ("upper", 1),
+    ("vel", 1),      # velocity limit (+inf: not clamped)
+)
+
+
+def _offsets(fields):
+    out, at = {}, 0
+    for name, size in fields:
+        out[name] = at
+        at += size
+    return out, at
+
+
+HEAD_AT, HEAD_FLOATS = _offsets(TABLE_HEAD)
+LINK_AT, LINK_STRIDE = _offsets(LINK_FIELDS)
+
+
+def table_defines() -> str:
+    """The table's layout as C macros (``MPT_TAB_*``) for
+    ``csrc/fd_step_loop.cuh``: the one place the layout is written is
+    here."""
+    lines = [f"#define MPT_TAB_HEAD {HEAD_FLOATS}", f"#define MPT_TAB_STRIDE {LINK_STRIDE}"]
+    lines += [f"#define MPT_TAB_{name.upper()} {at}" for name, at in HEAD_AT.items()]
+    lines += [f"#define MPT_TAB_{name.upper()} {at}" for name, at in LINK_AT.items()]
+    return "\n".join(lines) + "\n"
+
+
+def loop_supported(model: RobotModel) -> bool:
+    """Whether the looped step takes this robot: every spatial inertia of
+    the form ``[[I, 0], [0, m 1]]`` (a CoM-frame inertia; every URDF and
+    catalog robot has it)."""
+    G = _np_model(model)[2]
+    m = G[:, 3, 3]
+    return bool(
+        not np.any(G[:, :3, 3:]) and not np.any(G[:, 3:, :3])
+        and np.array_equal(G[:, 3:, 3:], m[:, None, None] * np.eye(3))
+    )
+
+
+def link_table(
+    model: RobotModel,
+    dt: float,
+    g=DEFAULT_G,
+    clip_limits: bool = True,
+    clip_velocity: bool = True,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """The robot's geometry, dt and g as one flat tensor on the CPU (layout:
+    ``TABLE_HEAD``, then ``LINK_FIELDS`` for each link), the data of the
+    looped step (:func:`fd_step_loop_planes`, ``csrc/fd_step_loop.cuh``).
+    The values are those ``_emit_dynamics`` folds into the emitted code,
+    computed in f64 the same way and rounded once to ``dtype``."""
+    if not loop_supported(model):
+        raise ValueError("the looped step takes spatial inertias of the form [[I, 0], [0, m 1]] only")
+    S_np, Mc_np, G_np, lower, upper, vel = _np_model(model)
+    n = S_np.shape[0]
+    out = np.zeros(HEAD_FLOATS + n * LINK_STRIDE)
+    out[HEAD_AT["dt"]] = float(dt)
+    out[HEAD_AT["g"]:HEAD_AT["g"] + 3] = np.asarray(g, dtype=np.float64)
+    for k in range(n):
+        Mc_inv = np.linalg.inv(Mc_np[k])
+        A = _adjoint_np(Mc_inv) @ S_np[k]
+        prev = np.eye(4) if k == 0 else Mc_np[k - 1]
+        Mprev_inv = np.linalg.inv(np.linalg.inv(prev) @ Mc_np[k])
+        w, v = A[:3], A[3:]
+        W = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+        W2 = W @ W
+        row = {
+            "A": A, "W2": W2, "Wv": W @ v, "W2v": W2 @ v,
+            "Mprev_R": Mprev_inv[:3, :3], "Mprev_p": Mprev_inv[:3, 3],
+            "I": G_np[k][:3, :3], "m": G_np[k][3, 3],
+            "lower": lower[k] if clip_limits else -np.inf,
+            "upper": upper[k] if clip_limits else np.inf,
+            "vel": vel[k] if clip_velocity else np.inf,
+        }
+        base = HEAD_FLOATS + k * LINK_STRIDE
+        for name, size in LINK_FIELDS:
+            at = base + LINK_AT[name]
+            out[at:at + size] = np.ravel(row[name])
+    return torch.from_numpy(out).to(dtype)
+
+
+def _cross(a, b):
+    return [a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2], a[0] * b[1] - a[1] * b[0]]
+
+
+def _dot3(a, b):
+    return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
+
+
+def _dot6(a, b):
+    return ((((a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]) + a[3] * b[3]) + a[4] * b[4]) + a[5] * b[5]
+
+
+def _ad_transform(R, p, x):
+    """``Ad(T) x`` for T = (R, p) (9 and 3 values) and a twist x = [w; v]:
+    [R w; p x (R w) + R v]."""
+    w = [_dot3(R[3 * i:3 * i + 3], x[:3]) for i in range(3)]
+    Rv = [_dot3(R[3 * i:3 * i + 3], x[3:]) for i in range(3)]
+    return w + [c + r for c, r in zip(_cross(p, w), Rv)]
+
+
+def _inertia_apply(I, m, x):
+    """G x for G = [[I, 0], [0, m 1]]."""
+    return [_dot3(I[3 * i:3 * i + 3], x[:3]) for i in range(3)] + [m * x[3 + i] for i in range(3)]
+
+
+def _clamp(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``fd_step_loop.cuh``'s clamp: ``x < lo ? lo : (x > hi ? hi : x)``, and
+    for a clamp of zero width ``x != x ? x : hi + 0`` (+0.0 for a zero
+    bound), as ``cgen.clip``; an infinite bound leaves x, NaN too."""
+    inside = torch.where(x < lo, lo, torch.where(x > hi, hi, x))
+    return torch.where(lo == hi, torch.where(torch.isnan(x), x, hi + 0.0), inside)
+
+
+def fd_step_loop_planes(tab: torch.Tensor, n: int, q_vals, dq_vals, tau_vals):
+    """One step of the looped program over per-joint tensor lists: ``(q',
+    dq', ddq)``. ``tab`` is a :func:`link_table` in the values' dtype, on
+    their device: (T,) for one robot, or (T, ...) with trailing dimensions
+    that broadcast against the values, so that robots of n joints run side
+    by side, a column of the table a row. The operations, their operands
+    and their order are ``fd_step_loop`` 's in ``csrc/fd_step_loop.cuh``,
+    so on the card this is the kernel's value bit for bit.
+
+    One pass over the links, k = 0..n-1, carries the CoM-frame twist V and
+    its rate Vd (the RNEA's forward sweep, Vd starting at [0; -g] so that
+    gravity enters as the base's acceleration) and the columns JB_i, i <= k,
+    of link k's CoM Jacobian, moved from link k-1's frame by the same
+    transform. Link k adds JB_i . G_k JB_j to M[i][j] (i <= j <= k) and
+    JB_i . F_k to bias[i], F_k = G_k Vd - ad_V^T G_k V its wrench: the
+    RNEA's backward sweep written as the sum of J^T F over the links, so
+    nothing is kept for a second pass. Then ``_chol_solve_values``,
+    semi-implicit Euler and the clamps."""
+    dt = tab[HEAD_AT["dt"]]
+    g = tab[HEAD_AT["g"]:HEAD_AT["g"] + 3]
+    like = q_vals[0]
+    full = lambda v: torch.broadcast_to(v, like.shape)
+    zero = torch.zeros_like(like)
+    V = [zero] * 6
+    Vd = [zero] * 3 + [full(-g[i]) for i in range(3)]
+    JB = [None] * n
+    M = [[None] * n for _ in range(n)]
+    bias = [None] * n
+    for k in range(n):
+        base = HEAD_FLOATS + k * LINK_STRIDE
+        f = {name: tab[base + LINK_AT[name]:base + LINK_AT[name] + size] for name, size in LINK_FIELDS}
+        A, W2, Wv, W2v, I = f["A"], f["W2"], f["Wv"], f["W2v"], f["I"]
+        m = f["m"][0]
+        qk, dqk = q_vals[k], dq_vals[k]
+        s, c = torch.sin(qk), torch.cos(qk)
+        # Td = exp(-[A] qk) M_prev^-1.
+        th, sn, omc = -qk, -s, 1.0 - c
+        tms = th - sn
+        w0, w1, w2 = A[0], A[1], A[2]
+        W = (None, -w2, w1, w2, None, -w0, -w1, w0, None)
+        Re = [1.0 + omc * W2[i] if i in (0, 4, 8) else sn * W[i] + omc * W2[i] for i in range(9)]
+        pe = [th * A[3 + i] + (omc * Wv[i] + tms * W2v[i]) for i in range(3)]
+        Rc, pc = f["Mprev_R"], f["Mprev_p"]
+        R = [_dot3(Re[3 * i:3 * i + 3], Rc[j::3]) for i in range(3) for j in range(3)]
+        p = [_dot3(Re[3 * i:3 * i + 3], pc) + pe[i] for i in range(3)]
+        for i in range(k):
+            JB[i] = _ad_transform(R, p, JB[i])
+        JB[k] = [full(A[e]) for e in range(6)]
+        # The RNEA's forward sweep (ddq = 0).
+        Adq = [A[e] * dqk for e in range(6)]
+        AdV = _ad_transform(R, p, V)
+        V = [x + y for x, y in zip(AdV, Adq)]
+        AdVd = _ad_transform(R, p, Vd)
+        top = _cross(V[:3], Adq[:3])
+        bottom = [x + y for x, y in zip(_cross(V[3:], Adq[:3]), _cross(V[:3], Adq[3:]))]
+        Vd = [x + y for x, y in zip(AdVd, top + bottom)]
+        # F = G Vd - ad_V^T G V = G Vd + [w x Gw + v x Gv; w x Gv].
+        GV = _inertia_apply(I, m, V)
+        GVd = _inertia_apply(I, m, Vd)
+        adT_top = [x + y for x, y in zip(_cross(V[:3], GV[:3]), _cross(V[3:], GV[3:]))]
+        F = [x + y for x, y in zip(GVd, adT_top + _cross(V[:3], GV[3:]))]
+        for j in range(k + 1):
+            GJ = _inertia_apply(I, m, JB[j])
+            for i in range(j + 1):
+                d = _dot6(JB[i], GJ)
+                M[i][j] = d if k == j else M[i][j] + d
+            d = _dot6(JB[j], F)
+            bias[j] = d if k == j else bias[j] + d
+    for i in range(n):
+        for j in range(i):
+            M[i][j] = M[j][i]
+    rhs = [tau_vals[i] - bias[i] for i in range(n)]
+    ddq = _chol_solve_values(M, rhs)
+    dq_new, q_new = [], []
+    for i in range(n):
+        base = HEAD_FLOATS + i * LINK_STRIDE
+        lo, hi, vel = (tab[base + LINK_AT[k]] for k in ("lower", "upper", "vel"))
+        dq_i = dq_vals[i] + ddq[i] * dt
+        q_new.append(_clamp(q_vals[i] + dq_i * dt, lo, hi))
+        dq_new.append(_clamp(dq_i, -vel, vel))
+    return q_new, dq_new, ddq
+
+
+def build_fd_step_loop(
+    model: RobotModel,
+    dt: float,
+    g=DEFAULT_G,
+    clip_limits: bool = True,
+    clip_velocity: bool = True,
+    dtype=torch.float32,
+):
+    """The looped step ``step(q, dq, tau) -> (q', dq', ddq)`` over (..., n)
+    tensors of ``dtype`` (the table is rounded to it), the counterpart of
+    :func:`build_fd_step`."""
+    n = model.num_joints
+    table = link_table(model, dt, g, clip_limits, clip_velocity, dtype=dtype)
+
+    def step(q: torch.Tensor, dq: torch.Tensor, tau: torch.Tensor):
+        if q.dtype != dtype:
+            raise TypeError(f"this step's table is {dtype}; got {q.dtype}")
+        tab = table.to(q.device)
+        outs = fd_step_loop_planes(tab, n, *([x[..., i] for i in range(n)] for x in (q, dq, tau)))
+        return tuple(torch.stack(vals, dim=-1) for vals in outs)
+
+    return step
+
+
+@functools.lru_cache(maxsize=None)
+def loop_step_ops(n: int) -> int:
+    """The floating-point operations of one looped step for n joints: the
+    elementwise operations the plain version issues on one scenario
+    (``fd_step_loop.cuh`` does the same arithmetic, and one branch of each
+    clamp where the plain version evaluates both; its selects of the link's
+    registers and its branches on the link index are not counted)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    arithmetic = {"add", "sub", "rsub", "mul", "neg", "reciprocal", "div", "sqrt", "sin", "cos",
+                  "lt", "gt", "eq", "isnan", "where"}
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += func.overloadpacket.__name__ in arithmetic
+            return func(*args, **(kwargs or {}))
+
+    tab = torch.full((HEAD_FLOATS + n * LINK_STRIDE,), 0.5)
+    x = [torch.zeros(1) for _ in range(n)]
+    with Count():
+        fd_step_loop_planes(tab, n, x, x, x)
+    return Count.ops
+
+
+def loop_rollout_plain(tab: torch.Tensor, n: int, intRes: int, q0: torch.Tensor, dq0: torch.Tensor,
+                       taumat: torch.Tensor):
+    """The looped rollout's plain loop over the N waypoints and ``intRes``
+    substeps of :func:`fd_step_loop_planes` with the table ``tab`` (see
+    there: one robot's, or a column a row of the (B, n) states); outputs
+    as :class:`Rollout`'s."""
+    N = taumat.shape[-2]
+    q = [q0[..., i] for i in range(n)]
+    dq = [dq0[..., i] for i in range(n)]
+    qs, dqs, ddqs = [], [], []
+    for t in range(N):
+        tau = [taumat[..., t, i] for i in range(n)]
+        qs.append(q)
+        dqs.append(dq)
+        for _ in range(intRes):
+            q, dq, ddq = fd_step_loop_planes(tab, n, q, dq, tau)
+        ddqs.append(ddq)
+    stack = lambda rows: torch.stack([torch.stack(row, dim=-1) for row in rows], dim=-2)
+    return stack(qs), stack(dqs), stack(ddqs)
+
+
+class LoopRollout(nn.Module):
+    """The plain PyTorch version of the looped rollout kernel:
+    :func:`loop_rollout_plain` over the robot's link table (``table``,
+    float32 on the host: what the kernel gets; a float64 call uses the table
+    unrounded). Same contract as :class:`Rollout`."""
+
+    kind = "torch"
+
+    def __init__(self, model: RobotModel, dt: float = 0.01, intRes: int = 1, g=DEFAULT_G):
+        super().__init__()
+        if intRes < 1:
+            raise ValueError("intRes must be >= 1")
+        self.n, self.intRes = model.num_joints, int(intRes)
+        self.table = link_table(model, float(dt) / intRes, g)
+        self._tables = {torch.float32: self.table,
+                        torch.float64: link_table(model, float(dt) / intRes, g, dtype=torch.float64)}
+
+    def forward(self, q0: torch.Tensor, dq0: torch.Tensor, taumat: torch.Tensor):
+        tab = self._tables.get(q0.dtype)
+        if tab is None:
+            raise TypeError(f"the looped rollout takes float32 or float64, got {q0.dtype}")
+        return loop_rollout_plain(tab.to(q0.device), self.n, self.intRes, q0, dq0, taumat)
+
+
+def build_loop_rollout(model: RobotModel, dt: float = 0.01, intRes: int = 1, g=DEFAULT_G) -> LoopRollout:
+    """The plain PyTorch version of the looped rollout kernel
+    (``ops/cuda_rollout.py``, the looped form)."""
+    return LoopRollout(model, dt=dt, intRes=intRes, g=g)

@@ -26,7 +26,9 @@ gradient, the JAX kernel tests' bars (0 is expected here too). The runtime
 layer: AOT artifacts loaded in a process without nvcc, bitwise and with
 nothing compiled; a checkpointed batched solve resumed bitwise; the
 unprojection's division; ``test_installation`` through K1:
-``-k "aot or checkpoint or pixel_to_camera or test_installation"``.
+``-k "aot or checkpoint or pixel_to_camera or test_installation"``. K1 on
+the looped step (``csrc/fd_step_loop.cuh``) bit for bit ``LoopRollout`` on
+chains of 1, 7 and 8 joints, and the route's form: ``-k looped``.
 """
 
 import json
@@ -44,7 +46,7 @@ from manipulapy_tpu_torch.ops.cuda_mpc_batch import BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
 from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, CudaRollout, build_cuda_rollout
 from manipulapy_tpu_torch.ops import elementwise as ew
-from manipulapy_tpu_torch.ops.fd_step import build_rollout
+from manipulapy_tpu_torch.ops.fd_step import DEFAULT_G, build_loop_rollout, build_rollout
 
 pytestmark = pytest.mark.cuda
 
@@ -1113,7 +1115,8 @@ def _urdf_inputs(model, B, N, device, seed):
 def test_kernel_is_bitwise_on_calibrated_urdf_robots(cuda_device, robot, B):
     """K1 through the public route on the calibrated UR5, the Gen3 (no
     position limit on joints 1, 3, 5, 7) and the 8-joint Panda (a prismatic
-    finger), N=50: one launch, the plain version's bits."""
+    finger), N=50: one launch, the bits of the plain version of the form
+    the route gives the robot (the Gen3's is the looped step's)."""
     from manipulapy_tpu_torch.models import robot_data
 
     model = robot_data.load_robot(robot, device=cuda_device)
@@ -1121,7 +1124,8 @@ def test_kernel_is_bitwise_on_calibrated_urdf_robots(cuda_device, robot, B):
     x = _urdf_inputs(model, B, N, cuda_device, seed=B)
     before = CudaRollout.launch_count
     got = trajectory.forward_dynamics_trajectory(model, *x)
-    ref = build_rollout(model, dt=0.01)(*x)
+    engine = trajectory._rollout_engine_for(model, 0.01, 1, DEFAULT_G, cuda_device, torch.float32, True)
+    ref = engine.plain(*x)
     torch.cuda.synchronize()
     assert CudaRollout.launch_count == before + 1
     for a, b in zip(got, ref):
@@ -1129,6 +1133,65 @@ def test_kernel_is_bitwise_on_calibrated_urdf_robots(cuda_device, robot, B):
         _assert_bits_and_nans(a, b)
     if robot == "panda":
         assert n == 8 and bool((got[0][:, 1:, 7] <= 0.04).all() and (got[1][:, 1:, 7].abs() <= 0.2).all())
+
+
+LOOPED_ROBOTS = {"robotiq_2f_85": 1, "gen3": 7, "jaco_7dof": 8}  # chains of n = 1, 7 and 8 joints
+
+
+def _chain_inputs(model, B, N, device, seed):
+    """q0 uniform between each joint's limits clipped to [-1, 1] (the Jaco
+    chain has a joint whose lower limit is past 1: there q0 sits on it),
+    dq0 in [-0.5, 0.5], tau in [-10, 10], from numpy."""
+    rng = np.random.default_rng(seed)
+    n = model.num_joints
+    lo = np.maximum(model.joint_lower.cpu().double().numpy(), -1.0)
+    hi = np.maximum(np.minimum(model.joint_upper.cpu().double().numpy(), 1.0), lo)
+    arrays = (lo + rng.uniform(0.0, 1.0, (B, n)) * (hi - lo), rng.uniform(-0.5, 0.5, (B, n)),
+              rng.uniform(-10.0, 10.0, (B, N, n)))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("robot", sorted(LOOPED_ROBOTS))
+def test_looped_kernel_is_bitwise_against_loop_rollout(cuda_device, robot):
+    """K1 on the looped step (csrc/fd_step_loop.cuh, the robot in a table):
+    B off the block, N off the chunk, a NaN scenario, intRes 1 and 3; each
+    bit for bit ``LoopRollout``'s, one launch each, no local bytes past
+    sinf/cosf's 32-byte frame (reported)."""
+    from manipulapy_tpu_torch.models import robot_data
+
+    model = robot_data.load_robot(robot, chain_joints_only=True, device=cuda_device)
+    n, B, N = model.num_joints, 2 * BLOCK + 5, 2 * CHUNK + 1
+    assert n == LOOPED_ROBOTS[robot]
+    x = _chain_inputs(model, B, N, cuda_device, seed=n)
+    x[0][B - 2, 0] = float("nan")
+    for int_res in (1, 3):
+        engine = build_cuda_rollout(model, intRes=int_res, _form="looped")
+        got = engine(*x)
+        ref = build_loop_rollout(model, dt=0.01, intRes=int_res)(*x)
+        torch.cuda.synchronize()
+        assert engine.launches == 1 and engine.form == "looped"
+        for a, b in zip(got, ref):
+            assert a.shape == (B, N, n)
+            _assert_bits_and_nans(a, b)
+        assert bool(torch.isnan(got[0][B - 2, 1:]).all())
+        attrs = engine.kernel_attributes()
+        print(f"looped K1 {robot} intRes {int_res}: {attrs['num_regs']} registers, "
+              f"{attrs['local_bytes']} local bytes, {attrs['blocks_per_sm']} blocks an SM")
+        assert attrs["local_bytes"] <= 32 and attrs["blocks_per_sm"] == attrs["blocks_per_sm_without_tiles"]
+
+
+def test_route_launches_the_looped_kernel_past_the_threshold(cuda_device):
+    """The public route launches K1 once a call on either form: the
+    programmatic UR5 on the emitted step, the Jaco's chain on the looped."""
+    from manipulapy_tpu_torch.models import robot_data
+
+    for model, form in ((catalog.ur5(device=cuda_device), "emitted"),
+                        (robot_data.load_robot("jaco_7dof", chain_joints_only=True, device=cuda_device), "looped")):
+        x = _chain_inputs(model, 67, 6, cuda_device, seed=5)
+        CudaRollout.reset_launch_count()
+        trajectory.forward_dynamics_trajectory(model, *x)
+        torch.cuda.synchronize()
+        assert CudaRollout.launch_count == 1 and CudaRollout.launch_counts[form] == 1
 
 
 def _calibrated_mpc_kernels_bitwise(model, device, B=257, H=8, seed=14):
