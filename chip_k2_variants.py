@@ -9,7 +9,8 @@ ptxas report, its registers, local and shared bytes, holds it bitwise
 against the plain linearization at (B, H) = (257, 8), (1024, 50), (3, 1),
 and prints CUDA-event medians of K2 at H=50 for each B of ``--widths``.
 States lie inside the joint limits, velocities in [-0.5, 0.5], torques
-within 30% of the limits, from ``torch.Generator`` seed 0. A variant is
+within 30% of the limits (limits clipped to +-pi, 10 N m where none),
+from ``torch.Generator`` seed 0. A variant is
 the unit as ``BatchMPCKernels`` builds it, changed in one or more ways:
 
 * ``unit``: as built (G = ``lin_seeds(n)``, lean order, ptxas -O1, blocks of
@@ -21,11 +22,19 @@ the unit as ``BatchMPCKernels`` builds it, changed in one or more ways:
 * ``nokeep``: ``mpt_keep`` an identity the compiler sees through;
 * ``interleaved``: the step emitted in the plain order instead of the
   lean one (``ops/fd_step.py::_emit_dynamics``);
+* ``emitted``, ``looped``: the unit of that form of K2 whatever the route
+  (``_form``); ``loopG<k>``: the looped form with k q or dq seeds a thread
+  (k must divide n); ``O3``, ``T<k>`` and ``nosmem`` apply to it too;
 
-joined with ``+``, e.g. ``interleaved+O3+T128+nosmem``. The last line is
-one JSON object of every variant's numbers.
+joined with ``+``, e.g. ``interleaved+O3+T128+nosmem``. A robot is a
+programmatic catalog arm (``panda``, ``ur5``) or a calibrated one,
+``robot_data.load_robot(key, chain_joints_only=True)`` (``gen3``,
+``jaco_7dof``; ``jaco_7dof:full`` for all its joints). Each variant's
+record also has its kernel's SASS instructions (``cuobjdump -sass`` beside
+nvcc). The last line is one JSON object of every variant's numbers.
 
     python3 chip_k2_variants.py --variants unit,G7,interleaved+O3+T128+nosmem
+    python3 chip_k2_variants.py --robots panda,gen3 --variants emitted,looped,loopG7
 
 It needs one card and imports no JAX.
 """
@@ -35,6 +44,8 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -42,7 +53,7 @@ import time
 
 import torch
 
-from manipulapy_tpu_torch.models import catalog
+from manipulapy_tpu_torch.models import catalog, robot_data
 from manipulapy_tpu_torch.ops import _build
 from manipulapy_tpu_torch.ops import cuda_mpc_batch as cmb
 from manipulapy_tpu_torch.ops import fd_step
@@ -54,22 +65,28 @@ def kernel_set(model, variant: str):
     """K2-K5 for ``model`` at dt 0.01, its lin unit changed as ``variant``
     says; only the lin unit is built."""
     parts = set(variant.split("+")) - {"unit"}
-    attrs = {"UNITS": {"lin": ("linearize",)}}
-    for p in parts:
-        if p.startswith("G"):
-            attrs["LIN_SEEDS"] = int(p[1:])
-        elif p == "O3":
-            attrs["UNIT_FLAGS"] = {}
+    attrs, kw = {"UNITS": {"lin": ("linearize",)}}, {}
     n = model.num_joints
+    for p in parts:
+        if p.startswith("loopG"):
+            attrs["LIN_LOOP_SEEDS"], kw["_form"] = int(p[5:]), "looped"
+            if n % attrs["LIN_LOOP_SEEDS"]:
+                return None
+        elif p in ("emitted", "looped"):
+            kw["_form"] = p
+        elif p.startswith("G"):
+            attrs["LIN_SEEDS"] = int(p[1:])
     if (3 * n) % attrs.get("LIN_SEEDS", cmb.lin_seeds(n)):
         return None
     planes = fd_step.build_fd_step_jvp_planes
     if "interleaved" in parts:  # the group source asks for lean=True
         fd_step.build_fd_step_jvp_planes = lambda *a, **k: planes(*a, **{**k, "lean": False})
     try:
-        K = type("Variant", (cmb.BatchMPCKernels,), attrs)(model, 0.01, u_lim=[10.0] * n)
+        K = type("Variant", (cmb.BatchMPCKernels,), attrs)(model, 0.01, u_lim=[10.0] * n, **kw)
     finally:
         fd_step.build_fd_step_jvp_planes = planes
+    if "O3" in parts:
+        K.UNIT_FLAGS = {}
     src = K.sources["lin"]
     for p in parts:
         if p.startswith("T"):
@@ -80,6 +97,24 @@ def kernel_set(model, variant: str):
             src = src.replace('  asm volatile("" : "+f"(v));\n', "")
     K.sources["lin"] = src
     return K
+
+
+def load_model(name: str):
+    """A programmatic catalog arm, else a calibrated robot's chain (all its
+    joints with ``:full``), float32 on the card."""
+    if name in ("panda", "ur5"):
+        return catalog.get_robot(name, source="programmatic")
+    key, _, full = name.partition(":")
+    return robot_data.load_robot(key, chain_joints_only=full != "full")
+
+
+def sass_instructions(path: str):
+    """The SASS instructions in a built library (``cuobjdump -sass``)."""
+    tool = os.path.join(os.path.dirname(os.path.realpath(_build.nvcc_path())), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True, timeout=120).stdout
+    return sum(1 for ln in sass.splitlines() if re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln))
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -114,7 +149,7 @@ def main() -> int:
     print("card", card, flush=True)
     sets = {}
     for robot in args.robots.split(","):
-        model = catalog.get_robot(robot, source="programmatic")
+        model = load_model(robot)
         for variant in args.variants.split(","):
             K = kernel_set(model, variant)
             if K is not None:
@@ -134,16 +169,19 @@ def main() -> int:
         model, K = sets[robot, variant]
         n = model.num_joints
         gen = torch.Generator("cuda").manual_seed(0)
-        lo, hi = model.joint_lower[None, :, None], model.joint_upper[None, :, None]
-        u_lim = model.torque_limit[None, :, None]
+        lo, hi = (torch.clamp(x, -torch.pi, torch.pi)[None, :, None] for x in (model.joint_lower, model.joint_upper))
+        u_lim = torch.nan_to_num(model.torque_limit, posinf=10.0)[None, :, None]
 
         def states(B, H):
             r = lambda *s: torch.rand(s, generator=gen, device="cuda") * 2 - 1
             q = (lo + hi) / 2 + r(H, n, B) * 0.5 * (hi - lo) / 2
             return torch.cat([q, r(H, n, B) * 0.5], 1).contiguous(), (r(H, n, B) * 0.3 * u_lim).contiguous()
 
-        rec = out[f"{robot}:{variant}"] = {"seeds": K.LIN_SEEDS, "nvcc_s": lib.compile_seconds,
+        rec = out[f"{robot}:{variant}"] = {"form": K.form, "seeds": K.LIN_LOOP_SEEDS if K.form == "looped" else K.LIN_SEEDS,
+                                           "nvcc_s": lib.compile_seconds, "step_statements": K.statements["step"],
                                            "group_statements": K.statements["linearize_group"],
+                                           "loop_ops": (K.loop_ops or {}).get("total"),
+                                           "sass_instructions": sass_instructions(str(lib.path)),
                                            **K.kernel_attributes()["linearize"]}
         for B, H in PARITY:
             xs, us = states(B, H)

@@ -33,7 +33,8 @@ Phases, one line each (or one line per case):
    (``os.cpu_count() - 1``, fewer where memory is short; each unit once),
    phase 32's units queued behind these and built while phases 27-31 and
    3-26 run (the rollout for UR5 with intRes 1 and 3, at the planning
-   path's dt, and for Panda; K2-K5 for Panda and UR5; K6-K8 for Panda; the
+   path's dt, and for Panda; K2-K5 for Panda and UR5, and K2 alone in
+   both its forms for each; K6-K8 for Panda; the
    static unit of K9 and K10), with build seconds, registers, spill
    bytes and static shared bytes per block (K3, one warp per scenario, and
    K7, one block, keep their state there; K7 must have no local bytes,
@@ -47,25 +48,32 @@ Phases, one line each (or one line per case):
 4. rollout main path at full width, checked against the plain version on
    its first 4096 rows (launch count read just after it);
 5. the pipeline quintic trajectory -> inverse dynamics -> rollout;
-6. rollout time, kernel vs plain version (CUDA events), the DRAM rate the
+6. rollout time, kernel vs plain version (CUDA events; the plain version
+   one call a turn), the DRAM rate the
    kernel achieves (the bytes of its bound over its time) and its us a
    waypoint;
 6b. ``looped_time``: K1 on the looped step (``csrc/fd_step_loop.cuh``, the
    robot in a table; one unit per joint count) at that shape on the
-   programmatic UR5 and Panda: the first 4096 rows bitwise ``LoopRollout``
-   on the card, both forms timed in turns, registers, local bytes, blocks
+   programmatic UR5 and Panda: the first 4096 rows and 10 steps bitwise
+   ``LoopRollout`` on the card, both forms timed in turns, registers, local bytes, blocks
    an SM and each form's SASS instructions;
 7. MPC parity: each of K2-K5 against its plain version on the card, fed
    from a nominal trajectory (K2 and K3) and from K3's gains (K4, with and
    without every alpha's trajectory, and K5), at Panda B=257 H=8 (not a
    multiple of the block, so the ``b < B`` guard is exercised; random
    torques) and at the main path's shapes, B=1024 H=50 (the solver's own
-   controls), there also with a Levenberg-heavy ``reg`` of 10; max |d| per
+   controls), there also with a Levenberg-heavy ``reg`` of 10 (K3 held on
+   the sweep's last 10 steps); max |d| per
    output within 1e-5 of that output's largest magnitude for K3, and 0 for
    K2, K4 and K5 (the plain version's emitted operations in its order);
+   K2 in the form the route did not give the Panda at 0 on the same inputs,
+   and both forms of K2 on the programmatic UR5 at B=257 H=8 and at B=1024
+   H=50 on its solver's own controls (K2's looped form,
+   ``csrc/fd_step_loop_jvp.cuh``, against ``fd_step_loop_jvp_planes``);
 8. MPC main path: one solve and 3 rounds of ``batch_mpc_step`` with goals
    passed at run time, launch counts read just after (per solve K2 4, K3
-   4, K4 4 with the trajectories, K5 1: the initial rollout), finite
+   4, K4 4 with the trajectories, K5 1: the initial rollout; K2's by form,
+   all 4 of the form the route gives the Panda), finite
    outputs, costs below the zero-control rollout's, |u| <= u_lim; then the
    whole solve against the plain solver on the card at Panda B=64 H=10
    with 2 iterations;
@@ -74,17 +82,24 @@ Phases, one line each (or one line per case):
    B=1024, 4096 and 16384, with K2's and K3's achieved rates (their
    bounds' operations over their times; K2 also the statements it runs),
    K4 (with its trajectories, every alpha; NaN where the plain version has
-   NaN) and K5 against their plain versions at each width, max |d| = 0,
-   and K4 built with 32 and 64 threads a block (variant
-   units of the fwd unit, built with the others) held bitwise to the
+   NaN) and K5 against their plain versions at each width, max |d| = 0
+   (at B=1024 phase 7's check on the same inputs; at B = 4096 and 16384
+   on the solve of K2's emitted form, the nominal
+   they had before K2 had a looped form), and K4 built with 32 and 64
+   threads a block (variant units of the fwd unit, built with the others)
+   held bitwise to the
    default and timed at each width; K4's and K5's records carry an
    estimate of their dependent chains' least time (``chain_bound_ms``),
    K4's its trajectory bytes, costs-only time and block variants, K5's its
-   one thread a scenario;
+   one thread a scenario; ``mpc_time_k2_forms``: both forms of K2 timed in
+   turns (emitted, looped, looped, emitted) at each width, each form's
+   seeds a thread, registers, local bytes, blocks an SM and SASS
+   instructions (``cuobjdump``), and one solve on each form;
 10. single-problem parity: each of K6-K8 against its plain version on the
     card at Panda H=50 (the solver's own controls), H=37 (random torques
     within 30% of the limits; K6's H*m lanes end mid-block) and H=50
-    again with a Levenberg-heavy reg of 10, max |d| per output 0 for each:
+    again with a Levenberg-heavy reg of 10 (in these two K7 held on the
+    sweep's last 10 steps), max |d| per output 0 for each:
     K6 (the lean one-seed body, one thread a lane or split over a team of
     warps; its record carries its design), K7 (one block of threads whose
     phases do the plain version's operations in its order) and K8 (one
@@ -124,7 +139,7 @@ Phases, one line each (or one line per case):
 18. ``plan_path_parity``: K9, K10 and K1 (the unit built for the plans'
     dt) against their plain versions on the very tensors the path gave
     them: the 1024 start/goal pairs, the 6.144 M points and 32 obstacles,
-    the plans' torques (the rollout's first 250 steps of 1000) and the
+    the plans' torques (the rollout's first 100 steps of 1000) and the
     last control period; then one more ``traj_parity`` line, the quintic
     at 174763 x 4096 x 6 (past 2**32 elements; its first and last 64
     rows).
@@ -169,8 +184,8 @@ units join phase 2's build):
     prismatic, [0, 0.04] m at 0.2 m/s): q0 uniform within the limits
     clipped to [-1, 1], dq0 in [-0.5, 0.5], tau in [-10, 10]; one launch
     each, of the form the route gives the robot; then both forms (the
-    emitted step and the looped one), each its first 4096 rows bitwise its
-    own plain version's, timed in turns (CUDA events, medians of 5 after 2
+    emitted step and the looped one), each its first 4096 rows and 10
+    steps bitwise its own plain version's, timed in turns (CUDA events, medians of 5 after 2
     warm-ups), their registers, local bytes, blocks an SM and SASS
     instructions, and whether the route's form is within 5% of the other;
     the finger inside its clamps; the route's time beside the programmatic
@@ -181,7 +196,7 @@ units join phase 2's build):
     shape; launch counts 4/4/4/1 a solve, finite outputs, |u| <= u_lim,
     costs below the zero-control rollout's; K2-K5 against their plain
     versions fed the solver's own controls (K2, K4, K5 bitwise, K3 within
-    1e-5 of scale); the solve's time beside the programmatic Panda's.
+    1e-5 of scale on the sweep's last 10 steps); the solve's time beside the programmatic Panda's.
 
 Right after phase 2's build, before any long eager plain version (one left
 ``torch.profiler`` blind in PR 4), the runtime layer on the units built
@@ -207,7 +222,8 @@ there (``utils``, ``vision``, ``perception``):
     empty build root and ``nvcc_path`` made to raise: its seconds to import
     torch, to load each and to its first solve; every unit's
     ``compile_seconds`` 0; its solves bitwise the in-process ones; an
-    artifact whose meta names another card refused;
+    artifact whose meta names another card refused (the process runs
+    beside phase 7's Panda cases, and its line is printed after them);
 31. ``perception_plan``: a 640 x 480 depth frame of three boxes (the
     perception example's, at twice its size) seen by a camera looking at
     the UR5's workspace, through ``Perception(Vision(...))``: 3 detections
@@ -236,23 +252,28 @@ robots: the first key of each vendored URDF, 25 root-to-tip chains of 1 to
     the cost equal to it and every control +0.0 on the three robots whose
     URDFs give effort="0";
     K2, K4 and K5 bitwise against their plain versions on the solver's own
-    controls (K4's and K5's is one ``replay_plain`` call), K3 within 1e-5 of
+    controls (K4's and K5's is one ``replay_plain`` call on the first 10
+    steps; K2 in both forms,
+    each against its own plain version, then timed in turns with each
+    form's figures; the form the public solve took, 4 launches a solve), K3 within 1e-5 of
     scale (its plain version once per joint count, the robots' inputs side
-    by side); the solve's and each launch's CUDA-event medians, registers,
+    by side, on the sweep's last 10 steps); the solve's and each launch's CUDA-event medians, registers,
     local bytes, K3's shared bytes, K2's seeds a thread; the mean cost
     beside the one ``benchmarks/fleet_results.json`` records; the
     multiplexed round (the 25 chains' solves back to back, one
     synchronisation) beside the sum of their solves; K1 on each chain at
     B=131072, N=50 as in phase 25 (``k1_forms``: the public route's one
-    launch, both forms bitwise and timed in turns; phase 25's three robots
+    launch, both forms bitwise on their first 10 steps and timed in turns; phase 25's three robots
     are reused), and the robots whose route is outside the 5% rule (a
     line, not a gate: timings); K6-K8 on ``robotiq_2f_85`` and the Jaco's chain at
-    H=50: launches 4/4/5, each stage bitwise on the solver's own controls,
-    the solve timed.
+    H=50: launches 4/4/5, each stage bitwise on the solver's own controls
+    (K7 on the sweep's last 10 steps, K8 on the first 10), the solve timed.
 
 Then one JSON line of every kernel (K1's record also names the URDF robots
 it was held on, and K1 on the looped step has a record of its own, its
-launches the public route's on the robots it serves; K2-K5's the Panda arm; every record its launches and
+launches the public route's on the robots it serves; K2's two forms have a
+record each, its launches the public route's of that form (phase 8 and the
+fleet), each form launched at least once; K2-K5's the Panda arm; every record its launches and
 errors in phases 27-31; a record per fleet model and kernel), the card's
 name and power limit, and the result line. Any failure raises, so the script exits nonzero before its
 last line. It needs one card and imports no JAX. Run from the repository
@@ -263,11 +284,13 @@ root:
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import json
 import os
 import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -293,7 +316,7 @@ from manipulapy_tpu_torch.models import catalog, data, host_arrays, robot_data
 from manipulapy_tpu_torch.urdf import URDF
 from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
-from manipulapy_tpu_torch.ops.cuda_mpc_batch import BLOCK as BLOCK_MPC, LIN_BLOCK, BatchMPCKernels
+from manipulapy_tpu_torch.ops.cuda_mpc_batch import BLOCK as BLOCK_MPC, LIN_BLOCK, LIN_FORMS, BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
 from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, FORMS, CudaRollout, build_cuda_rollout
 from manipulapy_tpu_torch.ops._build import build_library, library_key, nvcc_path
@@ -320,7 +343,17 @@ Q_GOAL7_B = (-0.3, 0.2, -0.2, -2.0, -0.1, 1.8, -0.4)
 H_ODD, ODD_SEED, ROUNDS, RETARGET = 37, 2, 20, 10
 ROLLOUT_CASES = (("ur5", 1, 4097, 50), ("ur5_intres3", 3, 1000, 8), ("panda", 1, 2048, 20))
 ROWS_CHECKED, B_PIPELINE = 4096, 1024
-STEPS_CHECKED = 250  # of the plans' rollout: its plain version takes 70 ms of host time a step
+# The plain versions run on the host's clock, a launch a statement, so a
+# check's cost is its steps, not its rows. Phases 6b, 25 and 32 hold K1,
+# and phase 32 K4, K5 and K8, on the first FIRST_STEPS_CHECKED of their 50
+# steps (a rollout is causal; the costs from a launch on those steps), and
+# phases 19, 26 and 32 and the Levenberg-heavy and odd-horizon cases of
+# phases 7 and 10 hold K3 or K7 on the Riccati sweep's last
+# RICCATI_STEPS_CHECKED (a backward sweep: its last steps need no earlier
+# one); every kernel runs at full shape. Phase 7's first full-width case
+# and phase 10's first case hold K3 and K7 on the whole sweep.
+FIRST_STEPS_CHECKED, RICCATI_STEPS_CHECKED = 10, 10
+STEPS_CHECKED = 100  # of the plans' rollout: its plain version takes 70 ms of host time a step
 DEV = "cuda"
 # The least time: bytes over the HBM3 rate, and emitted f32 operations over
 # one non-FMA instruction per lane per clock (67 TFLOP/s counts an FMA as
@@ -346,6 +379,11 @@ MPC_KERNELS = {  # the main path's stage of each kernel: (id and name, the TPU k
                    "manipulapy_tpu/mpc/fused_batch.py:453"),
     "replay": ("K5 replay (K0 inlined)", "manipulapy_tpu/mpc/fused_batch.py:507"),
 }
+# K2's two forms: the emitted step's forward mode and the looped one.
+K2_NAMES = {"emitted": MPC_KERNELS["linearize"][0],
+            "looped": "K2 linearize, looped forward mode (K0 as a loop over links, the robot in a table)"}
+K2_SOURCES = {"emitted": "manipulapy_tpu_torch/csrc/mpc_batch.cuh",
+              "looped": "manipulapy_tpu_torch/csrc/fd_step_loop_jvp.cuh"}
 MPC_STAGES = ("linearize", "backward", "linesearch_costs", "linesearch", "replay")
 BITWISE_STAGES = ("linearize", "linesearch_costs", "linesearch", "replay")  # max |d| must be 0
 K4_BLOCKS = (32, 64)  # K4's block-shape variants besides the unit's BLOCK
@@ -421,7 +459,12 @@ FLEET_STAGES = ("linearize", "backward", "linesearch", "replay")  # the solve's 
 FLEET_RESULTS = os.path.join(REPO_ROOT, "benchmarks", "fleet_results.json")
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
+    """One line of ``fields``, ending with the run's seconds so far."""
+    fields["t_s"] = f"{time.perf_counter() - T_START:.1f}"
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -655,18 +698,24 @@ def bit_diff(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref)[both].abs().max()) if bool(both.any()) else float("inf")
 
 
-def stage_vs_plain(K, stage: str, args, label: str, errs, plain_ms: dict, plain_calls: int):
+def stage_vs_plain(K, stage: str, args, label: str, errs, plain_ms: dict, plain_calls: int, last: int = None):
     """Run one stage's kernel and, unless ``errs`` is None, its plain
     version on the same inputs: record the max |d| in ``errs`` and, for
     ``plain_calls`` of 1 or 2, the plain version's CUDA-event ms (the least
-    of that many calls) in ``plain_ms``. Returns the kernel's outputs."""
+    of that many calls) in ``plain_ms``. With ``last`` (a Riccati sweep,
+    its first three inputs by step) the plain version sweeps the last
+    ``last`` steps alone and is held to those rows of the kernel's.
+    Returns the kernel's outputs."""
     got = getattr(K, stage)(*args)
     got = got if isinstance(got, tuple) else (got,)
     if errs is None:
         return got
     plain = getattr(K.plain(), stage)
+    if last is not None:
+        args = tuple(x[-last:].contiguous() for x in args[:3]) + tuple(args[3:])
     ref, ms = timed(lambda: plain(*args))
-    e = compare(stage, got, ref if isinstance(ref, tuple) else (ref,), label)
+    e = compare(stage, got if last is None else tuple(g[-last:] for g in got),
+                ref if isinstance(ref, tuple) else (ref,), label)
     errs[stage] = max(errs.get(stage, 0.0), *e.values())
     if plain_calls:
         plain_ms[stage] = min([ms] + [timed(lambda: plain(*args))[1] for _ in range(plain_calls - 1)])
@@ -674,13 +723,14 @@ def stage_vs_plain(K, stage: str, args, label: str, errs, plain_ms: dict, plain_
 
 
 def mpc_stage_parity(K: BatchMPCKernels, x0, goals, us, label: str, time_plain: bool, check: bool = True,
-                     reg: float = 1e-6):
+                     reg: float = 1e-6, riccati_last: int = None):
     """Feed every stage, kernel and plain version alike, from a nominal
     trajectory (the torques ``us`` (H, n, B) from ``x0`` (B, 2n), rolled
     by K5 with zero gains) and K3's gains under the Levenberg term ``reg``.
     Returns per stage the max |d|, the stage's inputs (for timing the
     kernels) and, if asked, the plain version's CUDA-event ms at these
-    shapes. ``check=False`` runs the kernels alone, for their inputs."""
+    shapes. ``check=False`` runs the kernels alone, for their inputs;
+    ``riccati_last`` holds K3 on the sweep's last steps (``stage_vs_plain``)."""
     n, nx = K.n, K.nx
     H, B = us.shape[0], us.shape[2]
     x0_t, goal_t = x0.T.contiguous(), goals.T.contiguous()
@@ -693,7 +743,8 @@ def mpc_stage_parity(K: BatchMPCKernels, x0, goals, us, label: str, time_plain: 
     errs, plain_ms = ({} if check else None), {}
 
     def both(stage, args):
-        return stage_vs_plain(K, stage, args, label, errs, plain_ms, 1 if time_plain else 0)
+        return stage_vs_plain(K, stage, args, label, errs, plain_ms, 1 if time_plain else 0,
+                              riccati_last if stage == "backward" else None)
 
     xs0 = both("replay", init)[0]
     sd_x = torch.cat([x0_t[None], xs0[:-1]]).contiguous()
@@ -744,8 +795,100 @@ def stage_bytes_ops(K: BatchMPCKernels, B: int, H: int, A: int) -> dict:
 
 def lin_statements(K: BatchMPCKernels, B: int, H: int) -> int:
     """The statements K2 runs: its thread's body (one seed, or a group) once
-    per (scenario, seed or group of seeds, step)."""
+    per (scenario, seed or group of seeds, step); in the looped form its
+    operations (``loop_ops``)."""
+    if K.form == "looped":
+        return K.loop_ops["total"] * B * H
     return K.statements["linearize_group"] * (K.m // K.LIN_SEEDS) * B * H
+
+
+OTHER_FORM = {"emitted": "looped", "looped": "emitted"}
+
+
+def lin_only(model, form: str) -> BatchMPCKernels:
+    """K2 alone in ``form`` for ``model`` at the smoke's dt and g (its unit
+    reads neither the cost weights nor the torque limits)."""
+    cls = type("K2Form", (BatchMPCKernels,), {"UNITS": {"lin": ("linearize",)}})
+    return cls(model, DT, u_lim=[1.0] * model.num_joints, _form=form)
+
+
+def k2_figures(K: BatchMPCKernels) -> dict:
+    """K2's kernel as built: its form, seeds a thread, block, registers,
+    local bytes, blocks an SM, SASS instructions, nvcc seconds and, looped,
+    its operations a (scenario, step) (``fd_step.loop_jvp_ops``)."""
+    a, lib = K.kernel_attributes()["linearize"], K.build()["lin"]
+    looped = K.form == "looped"
+    return {"form": K.form, "seeds_per_thread": K.LIN_LOOP_SEEDS if looped else K.LIN_SEEDS,
+            "block": LIN_BLOCK, "num_regs": a["num_regs"],
+            "local_bytes": a["local_bytes"], "blocks_per_sm": K.lin_blocks_per_sm(),
+            "sass_instructions": sass_count(str(lib.path)), "nvcc_seconds": lib.compile_seconds,
+            "loop_ops": K.loop_ops if looped else None}
+
+
+def k2_forms(label: str, Ks: dict, args, check: bool = True) -> dict:
+    """K2 in both forms (``Ks``: form -> kernel set) on the same inputs: each
+    form bitwise its own plain version (``plain().linearize``, NaN where it
+    has NaN) unless ``check`` is False, then both timed in turns (emitted,
+    looped, looped, emitted; CUDA-event medians of 5 after 2 warm-ups).
+    Per form: ``k2_figures``, the times and their least, |d| and plain ms."""
+    out = {}
+    for form, K in Ks.items():
+        out[form] = {**k2_figures(K), "ms_turns": []}
+        if check:
+            got = K.linearize(*args)
+            ref, plain_ms = timed(lambda: K.plain().linearize(*args))
+            err = bit_diff(got, ref)
+            if err != 0.0:
+                raise AssertionError(f"{label}: K2 {form} against its plain version: max |d| = {err}, not 0")
+            out[form].update(max_abs_err=err, plain_ms=plain_ms)
+    for form in ("emitted", "looped", "looped", "emitted"):
+        out[form]["ms_turns"].append(time_ms(lambda: Ks[form].linearize(*args)))
+    for form in LIN_FORMS:
+        out[form]["ms"] = min(out[form]["ms_turns"])
+    return out
+
+
+def k2_fields(forms: dict) -> dict:
+    """A phase line's fields of ``k2_forms``' result."""
+    keys = ("seeds_per_thread", "num_regs", "local_bytes", "blocks_per_sm", "sass_instructions")
+    out = {f"{f}_ms": ",".join(f"{t:.4f}" for t in forms[f]["ms_turns"]) for f in LIN_FORMS}
+    out.update({f"{f}_{k}": forms[f][k] for f in LIN_FORMS for k in keys})
+    out.update({f"{f}_max_abs_err": f"{forms[f]['max_abs_err']:.3e}" for f in LIN_FORMS if "max_abs_err" in forms[f]})
+    out["looped_loop_ops"] = forms["looped"]["loop_ops"]["total"]
+    return out
+
+
+def k2_ur5_phase(ur5, forms: dict) -> dict:
+    """Phase 7 on the programmatic UR5: K2 in both forms (``forms``, K2
+    alone) bitwise its plain version at B=257 H=8 (random torques within
+    30% of the limits) and at the main path's B=1024 H=50 on the UR5
+    solver's own controls, there also both timed in turns. Its own
+    generator: the later phases' draws do not depend on it. Returns per B
+    the |d| of each form, and the timings (``k2_forms``) as "forms"."""
+    gen = torch.Generator(DEV).manual_seed(7)
+    mpc = build_batch_tracking_mpc(ur5, np.zeros(6), B_MPC, H_MPC, DT, iterations=ITERS)
+    K = mpc.kernels
+    u_lim = torch.tensor(K.P.u_lim, device=DEV)
+    x0_s, goals_s = panda_problem(gen, ur5, B_PARITY)
+    us_s = ((torch.rand((H_PARITY, 6, B_PARITY), generator=gen, device=DEV) * 2 - 1) * 0.3 * u_lim[:, None]).contiguous()
+    x0_f, goals_f = panda_problem(gen, ur5, B_MPC)
+    us_f = mpc.solve(x0_f, torch.zeros((B_MPC, H_MPC, 6), device=DEV), goals_f)[0].permute(1, 2, 0).contiguous()
+    out = {}
+    for nominal, x0_c, goals_c, us_c in (("random torques", x0_s, goals_s, us_s),
+                                         ("solver's controls", x0_f, goals_f, us_f)):
+        B, H = us_c.shape[2], us_c.shape[0]
+        args = mpc_stage_parity(K, x0_c, goals_c, us_c, f"ur5 B={B}", False, check=False)[1]["linearize"]
+        errs = {f: bit_diff(Kf.linearize(*args), Kf.plain().linearize(*args)) for f, Kf in forms.items()}
+        if any(v != 0.0 for v in errs.values()):
+            raise AssertionError(f"ur5 B={B} H={H}: K2 against its plain version {errs}, not 0")
+        phase("mpc_parity", robot="ur5", B=B, H=H, nominal=repr(nominal), k2_route_form=K.form,
+              **{f"max_abs_err_linearize_{f}": f"{v:.3e}" for f, v in errs.items()})
+        out[B] = errs
+    timing = k2_forms("ur5", forms, args, check=False)
+    route_ok = timing[K.form]["ms"] <= ROUTE_SLACK * timing[OTHER_FORM[K.form]]["ms"]
+    phase("mpc_time_k2_forms", robot="ur5", B=B_MPC, H=H_MPC, route=K.form, route_within_slack=route_ok,
+          **k2_fields(timing))
+    return out, timing
 
 
 def team_figures(K, stage: str = None) -> dict:
@@ -816,24 +959,41 @@ def terminal_value(S: SingleMPCKernels, x_last, goal) -> torch.Tensor:
     return torch.cat([torch.diag(two_wT), Vx[None]]).contiguous()
 
 
-def single_stage_parity(S: SingleMPCKernels, x0, goal, us, label: str, plain_calls: int, reg: float = 1e-6):
+def single_stage_parity(S: SingleMPCKernels, x0, goal, us, label: str, plain_calls: int, reg: float = 1e-6,
+                        riccati_last: int = None, first: int = None):
     """K6-K8 against their plain versions, fed from the open loop of ``us``
     (H, n) from ``x0`` (K8 with one alpha of 0 and zero gains) and K7's
     gains under the Levenberg term ``reg``. Returns per stage the max |d|,
     the stage's inputs and the plain versions' ms (for ``plain_calls`` >
-    0)."""
+    0). ``riccati_last`` holds K7 on the sweep's last steps
+    (``stage_vs_plain``), ``first`` K8 on the replay's first steps (its
+    trajectories at full horizon, its costs from a launch on those steps)."""
     n, nx, H = S.n, S.nx, us.shape[0]
     f32 = dict(dtype=torch.float32, device=DEV)
     errs, plain_ms = {}, {}
-    both = lambda stage, args: stage_vs_plain(S, stage, args, label, errs, plain_ms, plain_calls)
+    both = lambda stage, args: stage_vs_plain(S, stage, args, label, errs, plain_ms, plain_calls,
+                                              riccati_last if stage == "backward" else None)
+
+    def forward(args):
+        if first is None:
+            return both("forward", args)
+        got = S.forward(*args)
+        cut = (args[0], *(x[:first].contiguous() for x in args[1:4]), *args[4:])  # sd_x, sd_u, kK by step
+        ref, ms = timed(lambda: S.plain().forward(*cut))
+        e = compare("forward", (got[0][:, :first], got[1][:, :first], S.forward(*cut)[2]), ref, label)
+        errs["forward"] = max(errs.get("forward", 0.0), *e.values())
+        if plain_calls:
+            plain_ms["forward"] = ms
+        return got
+
     init = (x0, torch.zeros((H, nx), **f32), us, torch.zeros((H, n, 1 + nx), **f32), goal, torch.zeros((1,), **f32))
-    xs0 = both("forward", init)[0][0]
+    xs0 = forward(init)[0][0]
     sd_x = torch.cat([x0[None], xs0[:-1]]).contiguous()
     AB = both("linearize", (sd_x, us))[0]
     bwd_args = (AB, sd_x, us, goal, terminal_value(S, xs0[-1], goal), torch.tensor(reg, **f32))
     kK = both("backward", bwd_args)[0]
     fwd_args = (x0, sd_x, us, kK, goal, 0.5 ** torch.arange(ALPHAS, **f32))
-    both("forward", fwd_args)
+    forward(fwd_args)
     return errs, {"linearize": (sd_x, us), "backward": bwd_args, "forward": fwd_args}, plain_ms
 
 
@@ -880,7 +1040,8 @@ def single_path(panda, single, attrs: dict, card: str, built: dict) -> list:
 
     # 10. K6-K8 vs their plain versions: at H=50 on the solver's own
     # controls (plain versions timed there, once), at the odd horizon on
-    # random torques, and at H=50 with a Levenberg-heavy reg.
+    # random torques, and at H=50 with a Levenberg-heavy reg (K7 on the
+    # whole sweep in the first case, on its last steps in the others).
     us_nom = single.solve(x0, torch.zeros((H, 7), **f32))[0].contiguous()
     x0_r, goal_r, us_r = random_single_problem(panda, H_ODD, ODD_SEED)
     err = dict.fromkeys(SINGLE_KERNELS, 0.0)
@@ -889,7 +1050,8 @@ def single_path(panda, single, attrs: dict, card: str, built: dict) -> list:
         ("solver's controls", x0, goal_a, us_nom, 0, REG_HEAVY),
     ):
         label = f"panda single H={us_c.shape[0]} reg={reg}"
-        errs, args, ms = single_stage_parity(S, x0_c, goal_c, us_c, label, calls, reg)
+        errs, args, ms = single_stage_parity(S, x0_c, goal_c, us_c, label, calls, reg,
+                                             None if calls else RICCATI_STEPS_CHECKED)
         for stage in SINGLE_KERNELS:  # each does the plain version's operations in its order
             if errs[stage] != 0.0:
                 raise AssertionError(f"{label} {stage}: max |d| = {errs[stage]}, not 0")
@@ -1360,7 +1522,7 @@ def fleet_fused(panda, ur5, mesh, card: str) -> dict:
     joint 0, the fleet cost the mean. The UR5's units (K2 at its own seeds a
     thread, K3-K5 for 6 joints) are held against their plain versions at
     the round's shapes, from the round's own controls, as the Panda's are in
-    phase 7. Returns the round's launches and the UR5 stages' max |d|."""
+    phase 7 (K3 on the sweep's last RICCATI_STEPS_CHECKED steps). Returns the round's launches and the UR5 stages' max |d|."""
     robots = (panda, ur5)
     S, H = B_MPC, H_MPC
     fleet = parallel.stack_models(list(robots))
@@ -1400,12 +1562,13 @@ def fleet_fused(panda, ur5, mesh, card: str) -> dict:
     K_ur5 = fused.solvers[1].local[0].kernels
     x0_ur5 = torch.cat([x0[1, :, :6], x0[1, :, 7:13]], dim=1)
     us_ur5 = us[1, :, :, :6].permute(1, 2, 0).contiguous()
-    ur5_errs = mpc_stage_parity(K_ur5, x0_ur5, goals[1, :, :6], us_ur5, f"fleet ur5 B={S} H={H}", False)[0]
+    ur5_errs = mpc_stage_parity(K_ur5, x0_ur5, goals[1, :, :6], us_ur5, f"fleet ur5 B={S} H={H}", False,
+                                riccati_last=RICCATI_STEPS_CHECKED)[0]
     for stage in BITWISE_STAGES:
         if ur5_errs[stage] != 0.0:
             raise AssertionError(f"fleet ur5 B={S} H={H} {stage}: max |d| = {ur5_errs[stage]}, not 0")
     phase("mpc_parity", robot="ur5 (fleet)", B=S, H=H, reg=1e-6, nominal=repr("the fleet round's controls"),
-          lin_seeds=K_ur5.LIN_SEEDS, **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in ur5_errs.items()})
+          k2_form=K_ur5.form, **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in ur5_errs.items()})
     round_ms = time_ms(round_)
     own_ms = [time_ms(f) for f in own]
     round_ms_2 = time_ms(round_)
@@ -1442,12 +1605,12 @@ def distributed_rollout_phase(ur5, mesh, engine, card: str) -> dict:
 
 def ik_launches_per_iteration(model, T, guesses) -> float:
     """Device launches of one solve iteration: the difference of two
-    ``torch.profiler`` traces, 20 and 10 iterations, over 10."""
+    ``torch.profiler`` traces, 10 and 5 iterations, over 5."""
     counts = {}
-    for iters in (10, 20):
+    for iters in (5, 10):
         trace = device_profile(lambda: ik.solve_ik_batch(model, T, guesses, max_iterations=iters), reps=1)
         counts[iters] = trace.get("launches", float("nan"))
-    return (counts[20] - counts[10]) / 10
+    return (counts[10] - counts[5]) / 5
 
 
 def ik_phase(ur5, card: str) -> None:
@@ -1469,7 +1632,7 @@ def ik_phase(ur5, card: str) -> None:
         worst = float(trans[res.success].max()) if bool(res.success.any()) else float("nan")
         if dtype == torch.float64 and not (rate >= IK_SUCCESS_BAR and worst < IK_TRANS_BAR):
             raise AssertionError(f"IK f64: success rate {rate}, worst success trans_err {worst}")
-        ms = time_ms(solve, warmup=0, reps=2)
+        ms = time_ms(solve, warmup=0, reps=1)  # host-bound, ~5 s a solve
         per_iter = ik_launches_per_iteration(model, T, guesses)
         phase("ik", card=repr(card), robot="ur5", dtype=str(dtype).split(".")[1], B=IK_B, max_iterations=IK_ITERS,
               success_rate=rate, worst_success_trans_err=f"{worst:.3e}",
@@ -1650,7 +1813,8 @@ def planning_records(ur5, attrs: dict, k1_record: dict, timed: dict) -> list:
 def looped_bench_phase(ur5, panda, engines: dict, card: str) -> dict:
     """Phase 6b: the looped K1 (csrc/fd_step_loop.cuh) at the main path's
     shape, B=131072, N=50, on the programmatic UR5 and Panda: its first
-    ROWS_CHECKED rows bitwise ``LoopRollout``'s on the card, and both
+    ROWS_CHECKED rows and FIRST_STEPS_CHECKED steps bitwise
+    ``LoopRollout``'s on the card, and both
     forms timed in turns (emitted, looped, looped, emitted). Its inputs come
     from its own generator: the later phases' draws do not depend on it."""
     gen = torch.Generator(DEV).manual_seed(6)
@@ -1660,9 +1824,9 @@ def looped_bench_phase(ur5, panda, engines: dict, card: str) -> dict:
         forms = {"emitted": engines[name], "looped": engines[f"{name} looped"]}
         n, rows = model.num_joints, ROWS_CHECKED
         q0, dq0, tau = inputs(gen, B_FULL, N_FULL, n)
-        got = forms["looped"](q0, dq0, tau)
-        ref, plain_ms = timed(lambda: forms["looped"].plain(q0[:rows], dq0[:rows], tau[:rows]))
-        errs = {k: bit_diff(g[:rows], r) for k, g, r in zip(TOL, got, ref)}
+        got, steps = forms["looped"](q0, dq0, tau), FIRST_STEPS_CHECKED
+        ref, plain_ms = timed(lambda: forms["looped"].plain(q0[:rows], dq0[:rows], tau[:rows, :steps].contiguous()))
+        errs = {k: bit_diff(g[:rows, :steps], r) for k, g, r in zip(TOL, got, ref)}
         if any(v != 0.0 for v in errs.values()) or not all(bool(torch.isfinite(g).all()) for g in got):
             raise AssertionError(f"looped K1 {name}: against LoopRollout {errs}, not 0, or non-finite outputs")
         turns = {f: [] for f in FORMS}
@@ -1671,13 +1835,14 @@ def looped_bench_phase(ur5, panda, engines: dict, card: str) -> dict:
         a = forms["looped"].kernel_attributes()
         b_ms, b_by = bound((2 * B_FULL * n + 4 * B_FULL * N_FULL * n) * 4, forms["looped"].statements * B_FULL * N_FULL)
         out[name] = {"joints": n, "max_abs_err": max(errs.values()), "ms": min(turns["looped"]),
-                     "emitted_ms": min(turns["emitted"]), "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "emitted_ms": min(turns["emitted"]), "plain_ms": plain_ms,
+                     "plain_scope": f"the first {rows} rows, {steps} steps", "bound_ms": b_ms, "bound_by": b_by,
                      "statements": forms["looped"].statements, "loop_ops": forms["looped"].loop_ops,
                      "num_regs": a["num_regs"], "local_bytes": a["local_bytes"], "blocks_per_sm": a["blocks_per_sm"],
                      "sass_instructions": sass_instructions(forms["looped"]),
                      "emitted_sass_instructions": sass_instructions(forms["emitted"])}
         phase("looped_time", card=repr(card), robot=name, B=B_FULL, N=N_FULL,
-              **{f"max_abs_err_{k}_first{rows}": f"{v:.3e}" for k, v in errs.items()},
+              **{f"max_abs_err_{k}_first{rows}": f"{v:.3e}" for k, v in errs.items()}, steps_checked=steps,
               **{f"{f}_ms": ",".join(f"{t:.4f}" for t in turns[f]) for f in FORMS}, plain_ms=f"{plain_ms:.1f}",
               bound_ms=f"{b_ms:.4f}", statements=out[name]["statements"], loop_ops=out[name]["loop_ops"],
               num_regs=a["num_regs"], local_bytes=a["local_bytes"], blocks_per_sm=a["blocks_per_sm"],
@@ -1706,6 +1871,7 @@ def looped_record(bench: dict, urdf_rollout: dict, fleet_records: list) -> dict:
         "launches": launches, "max_abs_err": max([b["max_abs_err"] for b in bench.values()]
                                                  + [f["max_abs_err"] for f in looped_figures]),
         "tolerance": "0 (first rows)", "robot": "gen3", "ms": gen3["ms"], "plain_ms": gen3["plain_ms"],
+        "plain_scope": f"the first {ROWS_CHECKED} rows, {FIRST_STEPS_CHECKED} steps",
         "bound_ms": gen3["bound_ms"], "bound_by": gen3["bound_by"], "library_ms": None,
         "loop_ops": gen3["loop_ops"], "loop_ops_bound_ms": gen3["loop_ops_bound_ms"],
         "num_regs": gen3["num_regs"], "local_bytes": gen3["local_bytes"], "blocks_per_sm": gen3["blocks_per_sm"],
@@ -1769,7 +1935,12 @@ _SASS_COUNTS: dict = {}
 def sass_instructions(engine: CudaRollout):
     """The SASS instructions of the rollout kernel in ``engine``'s library
     (``cuobjdump -sass``, beside nvcc), or None where cuobjdump is missing."""
-    path = str(engine.build().path)
+    return sass_count(str(engine.build().path))
+
+
+def sass_count(path: str):
+    """The SASS instructions in the library at ``path`` (its one kernel's:
+    a K1 unit, or a K2 unit built alone), or None without cuobjdump."""
     if path not in _SASS_COUNTS:
         tool = os.path.join(os.path.dirname(os.path.realpath(nvcc_path())), "cuobjdump")
         if not os.path.exists(tool):
@@ -1785,7 +1956,7 @@ def k1_forms(label: str, model, forms: dict, gen: torch.Generator, card: str, ph
     CudaRollout, prebuilt). The public route first, its counts set to 0
     just before: one launch, of the form the route gives the robot, finite
     outputs. Then each form's outputs bitwise its own plain version's on
-    the first ROWS_CHECKED rows, both forms timed in turns (emitted, looped,
+    the first ROWS_CHECKED rows and FIRST_STEPS_CHECKED steps, both forms timed in turns (emitted, looped,
     looped, emitted; CUDA-event medians of 5 after 2 warm-ups), each form's
     registers, local bytes, blocks an SM and SASS instructions. With
     ``pending`` the looped form's rows go there for ``looped_plain_grouped``
@@ -1804,7 +1975,7 @@ def k1_forms(label: str, model, forms: dict, gen: torch.Generator, card: str, ph
     for name, x in zip(TOL, outs):
         if tuple(x.shape) != (B_FULL, N_FULL, n) or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{label} K1 {name}: shape {tuple(x.shape)} or non-finite values")
-    rows, out = ROWS_CHECKED, {}
+    rows, steps, out = ROWS_CHECKED, FIRST_STEPS_CHECKED, {}
     if any(eng.form != form for form, eng in forms.items()) or forms[route].source != engine.source:
         raise AssertionError(f"{label}: the engines are not the route's units")
     for form, eng in forms.items():
@@ -1813,10 +1984,11 @@ def k1_forms(label: str, model, forms: dict, gen: torch.Generator, card: str, ph
         out[form] = {"num_regs": a["num_regs"], "local_bytes": a["local_bytes"], "blocks_per_sm": a["blocks_per_sm"],
                      "sass_instructions": sass_instructions(eng), "ms_turns": []}
         if form == "looped" and pending is not None:
-            pending.append((label, eng, [x[:rows].clone() for x in (q0, dq0, tau)], [g[:rows].clone() for g in got]))
+            pending.append((label, eng, [q0[:rows].clone(), dq0[:rows].clone(), tau[:rows, :steps].contiguous()],
+                            [g[:rows, :steps].contiguous() for g in got]))
             continue
-        ref, plain_ms = timed(lambda: eng.plain(q0[:rows], dq0[:rows], tau[:rows]))
-        errs = {k: bit_diff(g[:rows], r) for k, g, r in zip(TOL, got, ref)}
+        ref, plain_ms = timed(lambda: eng.plain(q0[:rows], dq0[:rows], tau[:rows, :steps].contiguous()))
+        errs = {k: bit_diff(g[:rows, :steps], r) for k, g, r in zip(TOL, got, ref)}
         if any(v != 0.0 for v in errs.values()):
             raise AssertionError(f"{label}: K1 {form} against its plain version {errs}, not 0")
         out[form].update(max_abs_err=max(errs.values()), plain_ms=plain_ms)
@@ -1835,7 +2007,7 @@ def k1_forms(label: str, model, forms: dict, gen: torch.Generator, card: str, ph
     phase(phase_name, card=repr(card), robot=label, joints=n, B=B_FULL, N=N_FULL, route=route,
           route_launches=counts[route], statements=statements, loop_ops=loop_ops,
           **{f"{f}_ms": ",".join(f"{t:.4f}" for t in out[f]["ms_turns"]) for f in FORMS},
-          bound_ms=f"{b_ms:.4f}", bound_by=b_by, route_within_slack=route_ok,
+          bound_ms=f"{b_ms:.4f}", bound_by=b_by, route_within_slack=route_ok, steps_checked=steps,
           **{f"{f}_{k}": out[f][k] for f in FORMS for k in ("num_regs", "local_bytes", "blocks_per_sm", "sass_instructions")},
           **{f"{f}_max_abs_err_first{rows}": f"{out[f]['max_abs_err']:.3e}" for f in FORMS if "max_abs_err" in out[f]},
           **{f"{f}_plain_ms_first{rows}": f"{out[f]['plain_ms']:.1f}" for f in FORMS if "plain_ms" in out[f]},
@@ -1866,9 +2038,10 @@ def looped_plain_grouped(pending: list, results: dict) -> None:
             if any(v != 0.0 for v in errs.values()):
                 raise AssertionError(f"{label}: K1 looped against its plain version {errs}, not 0")
             results[label]["looped"].update(max_abs_err=max(errs.values()), plain_ms=plain_ms,
-                                            plain_scope=f"one LoopRollout call for the {len(items)} robots of {n} joints")
+                                            plain_scope=f"one LoopRollout call for the {len(items)} robots of {n} joints, "
+                                                        f"{FIRST_STEPS_CHECKED} steps")
             at += r
-        phase("fleet_looped_plain", joints=n, robots=",".join(i[0] for i in items), rows=sum(rows),
+        phase("fleet_looped_plain", joints=n, robots=",".join(i[0] for i in items), rows=sum(rows), steps=FIRST_STEPS_CHECKED,
               plain_ms=f"{plain_ms:.1f}", max_abs_err=f"{max(results[i[0]]['looped']['max_abs_err'] for i in items):.3e}")
 
 
@@ -1934,12 +2107,18 @@ def urdf_mpc_phase(arm, panda, card: str) -> dict:
     if launches != {k: 4 * v for k, v in per_solve.items()}:
         raise AssertionError(f"urdf panda arm: launches over 4 solves {launches}")
     # K2-K5 against their plain versions, fed the solver's own controls: K3
-    # within MPC_RTOL of each output's scale, the others bit for bit (NaN
-    # where the plain version has NaN: some alphas diverge).
+    # within MPC_RTOL of each output's scale on the sweep's last
+    # RICCATI_STEPS_CHECKED steps, the others bit for bit (NaN where the
+    # plain version has NaN: some alphas diverge).
     _, args, _ = mpc_stage_parity(K, x0, goals, us.permute(1, 2, 0).contiguous(), "urdf panda arm", False, check=False)
-    errs, plain = {}, K.plain()
+    errs, plain, k = {}, K.plain(), RICCATI_STEPS_CHECKED
     for stage in MPC_STAGES:
-        got, ref = getattr(K, stage)(*args[stage]), getattr(plain, stage)(*args[stage])
+        got = getattr(K, stage)(*args[stage])
+        if stage == "backward":
+            a = args[stage]
+            got, ref = got[-k:], plain.backward(*(x[-k:].contiguous() for x in a[:3]), *a[3:])
+        else:
+            ref = getattr(plain, stage)(*args[stage])
         got, ref = (x if isinstance(x, tuple) else (x,) for x in (got, ref))
         if stage in BITWISE_STAGES:
             errs[stage] = max(bit_diff(g, r) for g, r in zip(got, ref))
@@ -1959,8 +2138,9 @@ def urdf_mpc_phase(arm, panda, card: str) -> dict:
           mean_zero_control_cost=f"{float(cost_zero.mean()):.6e}",
           **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
           solve_ms=",".join(f"{v:.4f}" for v in arm_ms), programmatic_panda_solve_ms=",".join(f"{v:.4f}" for v in prog_ms),
-          u_lim=",".join(f"{v:g}" for v in K.P.u_lim), phase_s=f"{time.perf_counter() - t0:.2f}")
-    return {"per_solve": per_solve, "errs": errs, "solve_ms": min(arm_ms), "programmatic_solve_ms": min(prog_ms)}
+          u_lim=",".join(f"{v:g}" for v in K.P.u_lim), k2_form=K.form, phase_s=f"{time.perf_counter() - t0:.2f}")
+    return {"per_solve": per_solve, "errs": errs, "solve_ms": min(arm_ms), "programmatic_solve_ms": min(prog_ms),
+            "k2_form": K.form}
 
 
 def urdf_records(records: list, rollout: dict, mpc: dict) -> None:
@@ -1968,6 +2148,8 @@ def urdf_records(records: list, rollout: dict, mpc: dict) -> None:
     records[0]["urdf_robots"] = rollout
     for rec in records[1:]:
         stage = next((s for s, (name, _) in MPC_KERNELS.items() if rec["name"] == name), None)
+        if rec["name"] in K2_NAMES.values():  # the form the arm's route took
+            stage = "linearize" if rec["name"] == K2_NAMES[mpc["k2_form"]] else None
         if stage is None:
             continue
         err = mpc["errs"][stage]
@@ -2181,67 +2363,82 @@ def checkpoint_phase(panda, goals, x0, card: str) -> dict:
     return {"launches": launches}
 
 
-def aot_phase(mpc, single, panda, x0, card: str) -> dict:
-    """Phase 30: both solvers saved as AOT artifacts, loaded in a fresh
-    process without nvcc and with an empty build root; its solves bitwise
-    the in-process ones, every unit's compile_seconds 0; an artifact naming
-    another card refused."""
+def aot_phase(mpc, single, panda, x0) -> dict:
+    """Phase 30, begun: both solvers saved as AOT artifacts (an artifact
+    naming another card refused) and the process that loads them started,
+    without nvcc and with an empty build root. It runs beside the phases
+    that follow until ``aot_result`` waits for it."""
     n = mpc.n
     x0_s = mid_rest(panda)
     inputs = {"batch": (x0.contiguous(), torch.zeros((B_MPC, H_MPC, n), device=DEV)),
               "tracking": (x0_s, torch.zeros((H_MPC, n), device=DEV))}
     refs = {"batch": mpc.solve(*inputs["batch"]), "tracking": single.solve(*inputs["tracking"])}
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as work:
-        t0 = time.perf_counter()
-        paths = {"batch": aot.save_batch_mpc(mpc, os.path.join(work, "batch.aot")),
-                 "tracking": aot.save_tracking_mpc(single, os.path.join(work, "tracking.aot"))}
-        save_s = time.perf_counter() - t0
-        sizes = {k: os.path.getsize(p) for k, p in paths.items()}
-        torch.save(inputs, os.path.join(work, "inputs.pt"))
-        # An artifact whose meta names another card is refused.
-        with open(paths["batch"], "rb") as f:
-            header, blob = f.readline(), pickle.load(f)
-        blob["meta"]["device_name"] = "another card"
-        other = os.path.join(work, "other.aot")
-        with open(other, "wb") as f:
-            f.write(header)
-            pickle.dump(blob, f)
-        if aot.load_batch_mpc(other) is not None:
-            raise AssertionError("an artifact naming another card was loaded")
-        root = os.path.join(work, "empty_root")
-        os.makedirs(root)
-        env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
-        env["PATH"] = os.pathsep.join(p for p in env.get("PATH", "").split(os.pathsep)
-                                      if p and not os.path.exists(os.path.join(p, "nvcc")))
-        env.update(MANIPULAPY_TPU_CACHE_DIR=root, PYTHONPATH=REPO_ROOT)
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", AOT_CHILD, work], env=env, cwd=REPO_ROOT,
-                              capture_output=True, text=True, timeout=600)
-        child_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"the AOT load process failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        report = json.loads(proc.stdout.strip().splitlines()[-1])
+    work = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    paths = {"batch": aot.save_batch_mpc(mpc, os.path.join(work, "batch.aot")),
+             "tracking": aot.save_tracking_mpc(single, os.path.join(work, "tracking.aot"))}
+    save_s = time.perf_counter() - t0
+    sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+    torch.save(inputs, os.path.join(work, "inputs.pt"))
+    # An artifact whose meta names another card is refused.
+    with open(paths["batch"], "rb") as f:
+        header, blob = f.readline(), pickle.load(f)
+    blob["meta"]["device_name"] = "another card"
+    other = os.path.join(work, "other.aot")
+    with open(other, "wb") as f:
+        f.write(header)
+        pickle.dump(blob, f)
+    if aot.load_batch_mpc(other) is not None:
+        raise AssertionError("an artifact naming another card was loaded")
+    root = os.path.join(work, "empty_root")
+    os.makedirs(root)
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = os.pathsep.join(p for p in env.get("PATH", "").split(os.pathsep)
+                                  if p and not os.path.exists(os.path.join(p, "nvcc")))
+    env.update(MANIPULAPY_TPU_CACHE_DIR=root, PYTHONPATH=REPO_ROOT)
+    with open(os.path.join(work, "child.out"), "w") as out, open(os.path.join(work, "child.err"), "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", AOT_CHILD, work], env=env, cwd=REPO_ROOT, stdout=out, stderr=err)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "t0": time.perf_counter(), "work": work, "root": root, "refs": refs, "sizes": sizes,
+            "save_s": save_s}
+
+
+def aot_result(started: dict, card: str) -> dict:
+    """Phase 30, ended: the load process's solves bitwise the in-process
+    ones and every unit's compile_seconds 0; its seconds to import torch,
+    to load each artifact and to its first solve."""
+    proc, work, root = started["proc"], started["work"], started["root"]
+    try:
+        rc = proc.wait(timeout=600)
+        child_s = time.perf_counter() - started["t0"]
+        if rc != 0:
+            with open(os.path.join(work, "child.err")) as f:
+                raise AssertionError(f"the AOT load process failed ({rc}):\n{f.read()[-4000:]}")
+        with open(os.path.join(work, "child.out")) as f:
+            report = json.loads(f.read().strip().splitlines()[-1])
         outputs = torch.load(os.path.join(work, "outputs.pt"))
         unpacked = sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     if report["nvcc_on_path"] is not None or report["build_root"] != root:
         raise AssertionError(f"the load process saw nvcc at {report['nvcc_on_path']} or the root {report['build_root']}")
     for kind in ("batch", "tracking"):
         seconds = report[kind]["compile_seconds"]
         if len(seconds) != 3 or any(s != 0.0 for s in seconds.values()):
             raise AssertionError(f"{kind}: the loaded units compiled: {seconds}")
-        for name, g, r in zip(("us", "xs", "cost"), outputs[kind], refs[kind]):
+        for name, g, r in zip(("us", "xs", "cost"), outputs[kind], started["refs"][kind]):
             if not torch.equal(g, r):
                 raise AssertionError(f"{kind}: the loaded solve's {name} differs by {float((g - r).abs().max())}")
     phase("aot_first_solve", card=repr(card), robot="panda", batch=f"B={B_MPC} H={H_MPC}",
-          tracking=f"H={H_MPC} iterations={ITERS}", artifact_bytes=json.dumps(sizes).replace(" ", ""),
-          save_s=f"{save_s:.4f}", child_process_s=f"{child_s:.3f}",
+          tracking=f"H={H_MPC} iterations={ITERS}", artifact_bytes=json.dumps(started["sizes"]).replace(" ", ""),
+          save_s=f"{started['save_s']:.4f}", child_process_s=f"{child_s:.3f}",
           import_torch_s=f"{report['import_torch_s']:.3f}", cuda_init_s=f"{report['cuda_init_s']:.3f}",
           import_port_s=f"{report['import_port_s']:.3f}",
           **{f"{k}_load_s": f"{report[k]['load_s']:.4f}" for k in ("batch", "tracking")},
           **{f"{k}_first_solve_s": f"{report[k]['first_solve_s']:.4f}" for k in ("batch", "tracking")},
           compile_seconds=json.dumps({k: report[k]["compile_seconds"] for k in ("batch", "tracking")}).replace(" ", ""),
-          unpacked=len(unpacked), bitwise="us,xs,cost", other_card_refused=True)
+          unpacked=len(unpacked), bitwise="us,xs,cost", other_card_refused=True, beside="phase 7")
     return {k: {"load_s": report[k]["load_s"], "first_solve_s": report[k]["first_solve_s"]} for k in ("batch", "tracking")}
 
 
@@ -2360,12 +2557,14 @@ def perception_plan_phase(ur5, gen: torch.Generator, card: str) -> dict:
 
 def runtime_phases(ur5, panda, single, card: str) -> dict:
     """Phases 27-31, right after the build: before any long eager plain
-    version, which left ``torch.profiler`` blind once (PR 4)."""
+    version, which left ``torch.profiler`` blind once (PR 4). Phase 30 is
+    returned unbegun: its load process runs beside phase 7."""
     gen = torch.Generator(DEV).manual_seed(15)
     x0, goals = panda_problem(gen, panda, B_MPC)
     mpc = build_batch_tracking_mpc(panda, goals, B_MPC, H_MPC, DT, iterations=ITERS)
     out = {"features": features_phase(card), "profile_trace": profile_trace_phase(mpc, x0, card),
-           "checkpoint": checkpoint_phase(panda, goals, x0, card), "aot": aot_phase(mpc, single, panda, x0, card)}
+           "checkpoint": checkpoint_phase(panda, goals, x0, card),
+           "aot": lambda: aot_phase(mpc, single, panda, x0)}  # begun before phase 7
     out["perception"] = perception_plan_phase(ur5, gen, card)
     return out
 
@@ -2379,7 +2578,9 @@ def runtime_records(records: list, runtime: dict) -> None:
                             "perception_plan_launches": per["launches"]["rollout"],
                             "perception_plan_max_abs_err_per_output": per["errs"]["K1"]}
     k1["max_abs_err"] = max(k1["max_abs_err"], *per["errs"]["K1"].values())
+    k2_route = next(r["route_form"] for r in records if r["name"] == K2_NAMES["emitted"])
     for stage, (name, _) in MPC_KERNELS.items():
+        name = K2_NAMES[k2_route] if stage == "linearize" else name
         launches = runtime["checkpoint"]["launches"][stage]
         if stage == "linesearch":
             launches += runtime["checkpoint"]["launches"]["linesearch_costs"]
@@ -2440,8 +2641,8 @@ def fleet_setup(pool: UnitPool) -> dict:
     """Phase 32's models, problem, solvers and units, made at phase 2: the
     units go into the pool behind phase 2's and build while phases 27-31
     and 3-26 run. K1 in both forms for the 25 chains (the emitted unit a
-    robot, the looped one a joint count), K2-K5 for all 26 models, K6-K8
-    for the two of FLEET_SINGLE."""
+    robot, the looped one a joint count), K2-K5 for all 26 models and K2 in
+    the form their route did not take, K6-K8 for the two of FLEET_SINGLE."""
     t0 = time.perf_counter()
     models = {key: robot_data.load_robot(key, chain_joints_only=True) for key in fleet_keys()}
     models[f"{FLEET_FULL} (10 joints)"] = robot_data.load_robot(FLEET_FULL)
@@ -2450,16 +2651,18 @@ def fleet_setup(pool: UnitPool) -> dict:
                                                line_search_steps=ALPHAS) for label, m in models.items()}
     singles = {key: build_tracking_mpc(models[key], problem[key][1][0], H_MPC, DT, iterations=ITERS,
                                        line_search_steps=ALPHAS) for key in FLEET_SINGLE}
+    k2_other = {label: lin_only(models[label], OTHER_FORM[h.kernels.form]) for label, h in handles.items()}
     chains = [label for label in models if label in fleet_keys()]
     k1 = {label: {form: CudaRollout(models[label], DT, _form=form) for form in FORMS} for label in chains}
     units = {**{("K1", label, form): e for label, forms in k1.items() for form, e in forms.items()},
              **{("K2-K5", label): h.kernels for label, h in handles.items()},
+             **{("K2", label): k for label, k in k2_other.items()},
              **{("K6-K8", key): s.kernels for key, s in singles.items()}}
     emit_s = time.perf_counter() - t0
     t_submit = time.perf_counter()
     futures = pool.submit(units)
     return {"models": models, "problem": problem, "handles": handles, "singles": singles, "chains": chains,
-            "k1": k1, "futures": futures, "t_submit": t_submit, "emit_s": emit_s}
+            "k1": k1, "k2_other": k2_other, "futures": futures, "t_submit": t_submit, "emit_s": emit_s}
 
 
 def fleet_jax_costs() -> dict:
@@ -2496,7 +2699,10 @@ def fleet_stage_records(label: str, r: dict) -> list:
     for stage in FLEET_STAGES:
         name, replaces = MPC_KERNELS[stage]
         b_ms, b_by = bound(*bo[stage])
-        rec = {"name": f"{name} [{label}]", "route": "cuda", "source": MPC_SOURCE, "replaces": replaces,
+        source = MPC_SOURCE
+        if stage == "linearize":  # the route's form, the other's figures inside
+            name, source = K2_NAMES[K.form], K2_SOURCES[K.form]
+        rec = {"name": f"{name} [{label}]", "route": "cuda", "source": source, "replaces": replaces,
                "launches": r["launches"][stage], "max_abs_err": r["errs"][stage],
                "tolerance": "0" if stage in BITWISE_STAGES else f"{MPC_RTOL} x max|plain|",
                "ms": r["ms"][stage], "plain_ms": r["plain_ms"][stage], "plain_scope": r["scope"][stage],
@@ -2505,7 +2711,12 @@ def fleet_stage_records(label: str, r: dict) -> list:
                "local_bytes": attrs[stage]["local_bytes"], "smem_bytes": attrs[stage]["smem_bytes"],
                "nvcc_seconds": r["nvcc_s"][unit_of[stage]], "solve_ms": r["solve_ms"]}
         if stage == "linearize":
-            rec.update(seeds_per_thread=K.LIN_SEEDS, thread_statements=K.statements["linearize_group"])
+            k2 = r["k2"]
+            rec.update(route_form=K.form, thread_statements=K.statements["linearize_group"],
+                       **{k: k2[K.form][k] for k in ("seeds_per_thread", "blocks_per_sm", "sass_instructions",
+                                                    "loop_ops")},
+                       ms_turns=k2[K.form]["ms_turns"], max_abs_err=max(k2[f]["max_abs_err"] for f in LIN_FORMS),
+                       other_form={k: v for k, v in k2[OTHER_FORM[K.form]].items()})
         if stage == "backward":
             rec.update(dynamic_smem_bytes=K.layout_bytes()["backward"])
         records.append(rec)
@@ -2524,7 +2735,7 @@ def fleet_held(us, xs, cost, ref_cost, u_lim) -> torch.Tensor:
     return inside & torch.isfinite(xs).flatten(1).all(dim=1) & torch.isfinite(cost) & (cost <= ref_cost)
 
 
-def fleet_robot(label: str, mpc, x0, goals, built: dict, card: str, jax_costs: dict) -> dict:
+def fleet_robot(label: str, mpc, other, x0, goals, built: dict, card: str, jax_costs: dict) -> dict:
     """One fleet robot through the batched solver: one solve and
     FLEET_ROUNDS receding rounds (launches 4/4/4/1 a solve); per scenario
     (``fleet_held``) finite outputs, |u| <= u_lim and a cost at most its
@@ -2533,8 +2744,11 @@ def fleet_robot(label: str, mpc, x0, goals, built: dict, card: str, jax_costs: d
     are 0; K2, K4 and K5 against their plain versions fed the solver's own controls, bit
     for bit (K4's and K5's plain version is one function, ``replay_plain``:
     one call over every alpha of every scenario and, as a last row, each
-    scenario's own alpha computes both); K3's inputs and outputs for its
-    plain version, which runs once per joint count; CUDA-event medians."""
+    scenario's own alpha computes both, over the first FIRST_STEPS_CHECKED
+    steps); K3's inputs and outputs for its
+    plain version, which runs once per joint count; CUDA-event medians.
+    K2 in both forms (``other``: K2 alone in the form the route did not
+    take), each bitwise its own plain version, timed in turns."""
     t0 = time.perf_counter()
     K = mpc.kernels
     n, nx, B, H, A = K.n, K.nx, B_MPC, H_MPC, ALPHAS
@@ -2548,8 +2762,9 @@ def fleet_robot(label: str, mpc, x0, goals, built: dict, card: str, jax_costs: d
     torch.cuda.synchronize()
     per_solve = dict(BatchMPCKernels.launch_count)
     expected = {"linearize": ITERS, "backward": ITERS, "linesearch_costs": 0, "linesearch": ITERS, "replay": 1}
-    if per_solve != expected:
-        raise AssertionError(f"fleet {label}: launches per solve {per_solve}, expected {expected}")
+    if per_solve != expected or BatchMPCKernels.lin_launches != {K.form: ITERS, OTHER_FORM[K.form]: 0}:
+        raise AssertionError(f"fleet {label}: launches per solve {per_solve}, K2's by form "
+                             f"{BatchMPCKernels.lin_launches}, expected {expected}, K2 the route's {K.form}")
     if tuple(us.shape) != (B, H, n) or tuple(xs.shape) != (B, H + 1, nx) or tuple(cost.shape) != (B,):
         raise AssertionError(f"fleet {label}: shapes {tuple(us.shape)}, {tuple(xs.shape)}, {tuple(cost.shape)}")
     held = fleet_held(us, xs, cost, cost_zero, u_lim)
@@ -2592,20 +2807,26 @@ def fleet_robot(label: str, mpc, x0, goals, built: dict, card: str, jax_costs: d
     _, args, _ = mpc_stage_parity(K, x0, goals, us.permute(1, 2, 0).contiguous(), f"fleet {label}", False,
                                   check=False)
     errs, plain_ms, scope = {}, {}, {}
-    got = K.linearize(*args["linearize"])
-    ref, plain_ms["linearize"] = timed(lambda: K.linearize_plain(*args["linearize"]))
-    errs["linearize"], scope["linearize"] = bit_diff(got, ref), "this robot"
-    ls, rep = args["linesearch"], args["replay"]
+    k2 = k2_forms(f"fleet {label}", {K.form: K, other.form: other}, args["linearize"])
+    errs["linearize"], plain_ms["linearize"] = k2[K.form]["max_abs_err"], k2[K.form]["plain_ms"]
+    scope["linearize"] = "this robot"
+    # K4 and K5 over the first FIRST_STEPS_CHECKED steps (a replay is causal):
+    # their trajectories at full horizon, their costs from a launch on those
+    # steps alone, against one plain call on them.
+    ls, rep, k = args["linesearch"], args["replay"], FIRST_STEPS_CHECKED
+    first = lambda a: (a[0], *(x[:k].contiguous() for x in a[1:4]), *a[4:])  # sd_x, sd_u, kK by step
     both_alpha = torch.cat([ls[5][:, None].expand(A, B), rep[5][None]]).contiguous()
-    (xs_p, us_p, cost_p), both_ms = timed(lambda: K.replay_plain(*ls[:5], both_alpha))
+    (xs_p, us_p, cost_p), both_ms = timed(lambda: K.replay_plain(*first(ls)[:5], both_alpha))
     costs_k, xs_all_k, us_all_k = K.linesearch(*ls)
-    errs["linesearch"] = max(bit_diff(costs_k, cost_p[:A]), bit_diff(xs_all_k, xs_p[:, :, :A].contiguous()),
-                             bit_diff(us_all_k, us_p[:, :, :A].contiguous()))
-    xs_k, us_k, c_k = K.replay(*rep)
-    errs["replay"] = max(bit_diff(xs_k, xs_p[:, :, A].contiguous()), bit_diff(us_k, us_p[:, :, A].contiguous()),
-                         bit_diff(c_k, cost_p[A].contiguous()))
+    errs["linesearch"] = max(bit_diff(K.linesearch(*first(ls))[0], cost_p[:A]),
+                             bit_diff(xs_all_k[:k], xs_p[:, :, :A].contiguous()),
+                             bit_diff(us_all_k[:k], us_p[:, :, :A].contiguous()))
+    xs_k, us_k, _ = K.replay(*rep)
+    errs["replay"] = max(bit_diff(xs_k[:k], xs_p[:, :, A].contiguous()), bit_diff(us_k[:k], us_p[:, :, A].contiguous()),
+                         bit_diff(K.replay(*first(rep))[2], cost_p[A].contiguous()))
     plain_ms["linesearch"] = plain_ms["replay"] = both_ms
-    scope["linesearch"] = scope["replay"] = "one replay_plain call of A + 1 rows (K4's alphas, K5's own)"
+    scope["linesearch"] = scope["replay"] = (f"one replay_plain call of A + 1 rows (K4's alphas, K5's own) over the first "
+                                             f"{k} steps: the kernels' trajectories at H={H}, their costs at H={k}")
     for stage in ("linearize", "linesearch", "replay"):
         if errs[stage] != 0.0:
             raise AssertionError(f"fleet {label} {stage}: max |d| = {errs[stage]}, not 0")
@@ -2627,12 +2848,12 @@ def fleet_robot(label: str, mpc, x0, goals, built: dict, card: str, jax_costs: d
           mean_cost=f"{float(cost.mean()):.6e}", mean_zero_control_cost=f"{float(cost_zero.mean()):.6e}",
           jax_mean_cost=jax.get("mean_cost", "none"), jax_same_draws=jax.get("same_draws", "none"),
           solve_ms=f"{solve_ms:.4f}", **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()},
-          step_statements=K.statements["step"], lin_seeds=K.LIN_SEEDS,
+          step_statements=K.statements["step"], k2_route=K.form, **k2_fields(k2),
           **{f"{s}_regs": attrs[s]["num_regs"] for s in FLEET_STAGES},
           **{f"{s}_local_bytes": attrs[s]["local_bytes"] for s in FLEET_STAGES},
           backward_dynamic_smem_bytes=K.layout_bytes()["backward"],
           phase_s=f"{time.perf_counter() - t0:.2f}")
-    return {"K": K, "errs": errs, "ms": ms, "plain_ms": plain_ms, "scope": scope, "attrs": attrs, "nvcc_s": nvcc_s,
+    return {"K": K, "k2": k2, "errs": errs, "ms": ms, "plain_ms": plain_ms, "scope": scope, "attrs": attrs, "nvcc_s": nvcc_s,
             "launches": launches, "solve_ms": solve_ms, "bwd_args": args["backward"], "kK": kK, "n": n,
             "mean_cost": float(cost.mean()), "solve": lambda: mpc.solve(x0, zeros(B, H, n))}
 
@@ -2656,8 +2877,10 @@ def fleet_backward_plain(robots: dict) -> None:
     through its Jacobians (inputs) and the cost weights, the same for the
     whole fleet, so one call per joint count serves every robot of it: the
     robots' inputs side by side along the scenario axis (an elementwise
-    function, so each scenario's bits are those of a call of its own)."""
-    groups = {}
+    function, so each scenario's bits are those of a call of its own), over
+    the sweep's last RICCATI_STEPS_CHECKED steps (the kernel's at full
+    horizon: those rows need no earlier step)."""
+    groups, k = {}, RICCATI_STEPS_CHECKED
     for label, r in robots.items():
         groups.setdefault(r["n"], []).append(label)
     for n, labels in sorted(groups.items()):
@@ -2666,21 +2889,23 @@ def fleet_backward_plain(robots: dict) -> None:
         if len(weights) != 1:
             raise AssertionError(f"fleet K3 n={n}: the robots' cost weights differ ({len(weights)})")
         cat = [torch.cat([robots[label]["bwd_args"][i] for label in labels], dim=-1).contiguous() for i in range(6)]
+        cat = [x[-k:].contiguous() for x in cat[:3]] + cat[3:]  # AB, xs, us by step; x_last, goal, reg
         ref, ms = timed(lambda: Ks[0].backward_plain(*cat))
         for j, label in enumerate(labels):
             part = ref[..., j * B_MPC:(j + 1) * B_MPC]
-            err = compare_nan(robots[label]["kK"], part, f"fleet {label} backward")
+            err = compare_nan(robots[label]["kK"][-k:], part, f"fleet {label} backward")
             robots[label]["errs"]["backward"] = err
             robots[label]["plain_ms"]["backward"] = ms
-            robots[label]["scope"]["backward"] = f"one backward_plain call for the {len(labels)} robots of {n} joints"
-        phase("fleet_backward_plain", joints=n, robots=",".join(labels), scenarios=len(labels) * B_MPC,
+            robots[label]["scope"]["backward"] = (f"one backward_plain call for the {len(labels)} robots of {n} joints, "
+                                                  f"the last {k} steps")
+        phase("fleet_backward_plain", joints=n, robots=",".join(labels), scenarios=len(labels) * B_MPC, steps=k,
               plain_ms=f"{ms:.1f}", max_abs_err=f"{max(robots[l]['errs']['backward'] for l in labels):.3e}")
 
 
 def fleet_rollout(fleet: dict, urdf_rollout: dict, card: str) -> list:
     """K1 on each of the 25 chains at the rollout's shape in both forms
     (``k1_forms``: the public route's one launch, each form bitwise its
-    plain version on the first ROWS_CHECKED rows, the looped one once per
+    plain version on the first ROWS_CHECKED rows and FIRST_STEPS_CHECKED steps, the looped one once per
     joint count, both timed in turns). Phase 25's three robots are the
     same models (their digests) and are not run twice. One record per
     chain, of its route's form, the other form's figures inside it."""
@@ -2708,7 +2933,8 @@ def fleet_rollout(fleet: dict, urdf_rollout: dict, card: str) -> list:
                    other_form={"form": other, **r[other], "nvcc_seconds": nvcc[other]})
         records.append({"name": f"{K1_NAMES[form]} [{label}]", "route": "cuda", "source": K1_SOURCES[form],
                         "replaces": "manipulapy_tpu/ops/pallas_rollout.py:219", "tolerance": "0 (first rows)",
-                        "library_ms": None, "robot": label, "plain_scope": f"the first {ROWS_CHECKED} rows", **rec})
+                        "library_ms": None, "robot": label,
+                        "plain_scope": f"the first {ROWS_CHECKED} rows, {FIRST_STEPS_CHECKED} steps", **rec})
     phase("fleet_rollout_route", robots=len(fleet["chains"]), slack=ROUTE_SLACK, looped=",".join(looped) or "none",
           outside_slack=",".join(slack_misses) or "none")
     return records
@@ -2740,7 +2966,8 @@ def fleet_single(fleet: dict, card: str) -> list:
             raise AssertionError(f"fleet single {key}: non-finite outputs or a control past its limit")
         if not float(cost) <= float(cost_zero):
             raise AssertionError(f"fleet single {key}: cost {float(cost)} above the zero-control {float(cost_zero)}")
-        errs, args, plain_ms = single_stage_parity(S, x0, goal, us.contiguous(), f"fleet single {key}", 1)
+        errs, args, plain_ms = single_stage_parity(S, x0, goal, us.contiguous(), f"fleet single {key}", 1,
+                                                   riccati_last=RICCATI_STEPS_CHECKED, first=FIRST_STEPS_CHECKED)
         for stage, v in errs.items():
             if v != 0.0:
                 raise AssertionError(f"fleet single {key} {stage}: max |d| = {v}, not 0")
@@ -2759,6 +2986,8 @@ def fleet_single(fleet: dict, card: str) -> list:
                             "launches": launches[stage], "max_abs_err": errs[stage], "tolerance": "0",
                             "ms": ms[stage], "plain_ms": plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": None, "robot": key, "joints": n, "solve_ms": solve_ms,
+                            "plain_scope": {"backward": f"the last {RICCATI_STEPS_CHECKED} steps",
+                                            "forward": f"the first {FIRST_STEPS_CHECKED} steps"}.get(stage, "H=50"),
                             "num_regs": attrs[stage]["num_regs"], "local_bytes": attrs[stage]["local_bytes"],
                             "smem_bytes": attrs[stage]["smem_bytes"]})
     return records
@@ -2775,11 +3004,23 @@ def fleet_phase(fleet: dict, pool: UnitPool, urdf_rollout: dict, card: str) -> l
           wall_seconds=f"{last - fleet['t_submit']:.2f}", waited_s=f"{time.perf_counter() - t0:.2f}",
           emit_s=f"{fleet['emit_s']:.2f}", slowest_unit=repr(slowest[0]), slowest_seconds=f"{slowest[1]:.2f}")
     jax_costs = fleet_jax_costs()
+    # Every K1 and K2 unit's SASS count at once (a cuobjdump each, in
+    # parallel), before the robots read them one at a time.
+    libs = {str(K.build()["lin"].path) for K in [h.kernels for h in fleet["handles"].values()]
+            + list(fleet["k2_other"].values())}
+    libs |= {str(e.build().path) for forms in fleet["k1"].values() for e in forms.values()}
+    with concurrent.futures.ThreadPoolExecutor(pool.workers) as sass_pool:
+        list(sass_pool.map(sass_count, sorted(libs)))
     robots = {}
     for label, mpc in fleet["handles"].items():
         x0, goals = fleet["problem"][label]
-        robots[label] = fleet_robot(label, mpc, x0, goals, built, card, jax_costs)
+        robots[label] = fleet_robot(label, mpc, fleet["k2_other"][label], x0, goals, built, card, jax_costs)
     fleet_backward_plain(robots)
+    k2_misses = [label for label, r in robots.items()
+                 if r["k2"][r["K"].form]["ms"] > ROUTE_SLACK * r["k2"][OTHER_FORM[r["K"].form]]["ms"]]
+    phase("fleet_k2_route", robots=len(robots), slack=ROUTE_SLACK,
+          looped=",".join(label for label, r in robots.items() if r["K"].form == "looped") or "none",
+          outside_slack=",".join(k2_misses) or "none")
     records = []
     for label, r in robots.items():
         records += fleet_stage_records(label, r)
@@ -2839,6 +3080,9 @@ def main() -> int:
     mpc_kernels = {"panda": K_panda, "ur5": build_batch_tracking_mpc(ur5, np.zeros(6), 1, H_MPC, DT).kernels,
                    "panda single": single.kernels, **{f"panda K4 T{t}": V for t, V in k4_blocks.items()},
                    "urdf panda arm": build_batch_tracking_mpc(robots["panda_arm"], np.zeros(7), 1, H_MPC, DT).kernels}
+    # K2 alone in each form, for phases 7 and 9 (the route's shares its unit).
+    k2_sets = {robot: {f: lin_only(model, f) for f in LIN_FORMS} for robot, model in (("panda", panda), ("ur5", ur5))}
+    mpc_kernels.update({f"{robot} K2 {f}": k for robot, forms in k2_sets.items() for f, k in forms.items()})
     # Phase 32's units queue behind phase 2's in the same pool and build
     # while phases 27-31 and 3-26 run.
     pool = UnitPool()
@@ -2865,11 +3109,17 @@ def main() -> int:
         names = SINGLE_KERNELS if isinstance(K, SingleMPCKernels) else {
             **MPC_KERNELS, "linesearch_costs": ("K4 line-search costs alone (K0 inlined)",)}
         for stage, a in mpc_attrs[robot].items():
-            extra = {"seeds_per_thread": K.LIN_SEEDS, "thread_statements": K.statements["linearize_group"],
-                     "block": LIN_BLOCK} if isinstance(K, BatchMPCKernels) and stage == "linearize" else {}
+            extra, name = {}, names[stage][0]
+            if isinstance(K, BatchMPCKernels) and stage == "linearize":
+                looped = K.form == "looped"
+                name = K2_NAMES[K.form]
+                extra = {"form": K.form, "seeds_per_thread": K.LIN_LOOP_SEEDS if looped else K.LIN_SEEDS,
+                         "thread_statements": K.statements["linearize_group"],
+                         "block": LIN_BLOCK,
+                         "loop_ops": K.loop_ops["total"] if looped else None}
             if isinstance(K, BatchMPCKernels) and stage == "backward":
                 extra = {"dynamic_smem_bytes": K.layout_bytes()["backward"]}
-            phase("build", kernel=names[stage][0], robot=robot, statements=K.statements[stage], **extra, **a)
+            phase("build", kernel=name, robot=robot, statements=K.statements[stage], **extra, **a)
         if robot == "panda single":
             phase("build", kernel=names["forward"][0], robot=robot, **team_figures(K))
             phase("build", kernel=names["linearize"][0], robot=robot, **lin_figures(K, built["mpc", robot]))
@@ -2946,13 +3196,14 @@ def main() -> int:
     phase("pipeline", B=B_PIPELINE, N=N_FULL, max_abs_tracking_error_rad=f"{track:.4e}",
           kernel_launches=CudaRollout.launch_count)
 
-    # 6. Rollout time: kernel vs plain version at the main path's shape.
+    # 6. Rollout time: kernel vs plain version at the main path's shape (the
+    # plain version one call a turn: it is host-bound, ~3 s a call).
     kernel = engines["ur5"]
     plain = build_rollout(ur5, dt=DT)
-    plain_ms = time_ms(lambda: plain(q0, dq0, tau))
+    plain_ms = timed(lambda: plain(q0, dq0, tau))[1]
     kernel_ms = time_ms(lambda: kernel(q0, dq0, tau))
     kernel_ms_2 = time_ms(lambda: kernel(q0, dq0, tau))
-    plain_ms_2 = time_ms(lambda: plain(q0, dq0, tau))
+    plain_ms_2 = timed(lambda: plain(q0, dq0, tau))[1]
     k_ms, p_ms = min(kernel_ms, kernel_ms_2), min(plain_ms, plain_ms_2)
     steps = B_FULL * N_FULL
     n6 = 6
@@ -2987,6 +3238,7 @@ def main() -> int:
         "us_per_step": k_ms * 1e3 / N_FULL,
     }]
     looped_bench = looped_bench_phase(ur5, panda, engines, card)
+    aot_started = runtime["aot"]()  # 30: its load process runs beside phase 7's Panda cases
 
     # 7. MPC kernels vs their plain versions on the card.
     K = mpc_panda.kernels
@@ -3005,17 +3257,32 @@ def main() -> int:
     cases = (("random torques", x0_s, goals_s, us_s.contiguous(), False, 1e-6),
              ("solver's controls", x0_f, goals_f, us_f, True, 1e-6),
              ("solver's controls", x0_f, goals_f, us_f, False, REG_HEAVY))
+    # K2's other form (the route's is K's) on the same inputs, bit for bit too.
+    other = k2_sets["panda"][OTHER_FORM[K.form]]
+    k2_err = dict.fromkeys(LIN_FORMS, 0.0)
     for nominal, x0_c, goals_c, us_c, full, reg in cases:
         B, H = us_c.shape[2], us_c.shape[0]
-        errs, args, plain_ms = mpc_stage_parity(K, x0_c, goals_c, us_c, f"panda B={B} H={H} reg={reg}", full, reg=reg)
+        errs, args, plain_ms = mpc_stage_parity(K, x0_c, goals_c, us_c, f"panda B={B} H={H} reg={reg}", full, reg=reg,
+                                                riccati_last=RICCATI_STEPS_CHECKED if reg == REG_HEAVY else None)
         for stage in BITWISE_STAGES:  # K2, K4 and K5 do the plain version's operations in its order
             if errs[stage] != 0.0:
                 raise AssertionError(f"panda B={B} H={H} {stage}: max |d| = {errs[stage]}, not 0")
+        got = other.linearize(*args["linearize"])
+        ref, other_plain_ms = timed(lambda: other.plain().linearize(*args["linearize"]))
+        other_err = bit_diff(got, ref)
+        if other_err != 0.0:
+            raise AssertionError(f"panda B={B} H={H} K2 {other.form}: max |d| = {other_err}, not 0")
+        k2_err = {K.form: max(k2_err[K.form], errs["linearize"]), other.form: max(k2_err[other.form], other_err)}
         if full:
-            stage_args, stage_plain_ms = args, plain_ms
+            stage_args, stage_plain_ms, stage_errs = args, plain_ms, errs
+            k2_plain_ms = {K.form: plain_ms["linearize"], other.form: other_plain_ms}
         mpc_err = {k: max(mpc_err[k], errs[k]) for k in mpc_err}
-        phase("mpc_parity", robot="panda", B=B, H=H, reg=reg, nominal=repr(nominal),
-              **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()})
+        phase("mpc_parity", robot="panda", B=B, H=H, reg=reg, nominal=repr(nominal), k2_route_form=K.form,
+              **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
+              **{f"max_abs_err_linearize_{other.form}": f"{other_err:.3e}"})
+    runtime["aot"] = aot_result(aot_started, card)
+    k2_ur5, k2_ur5_timing = k2_ur5_phase(ur5, k2_sets["ur5"])
+    k2_err = {f: max([k2_err[f]] + [e[f] for e in k2_ur5.values()]) for f in LIN_FORMS}
 
     # 8. The MPC main path at full width, through the public entry points.
     x0, goals = panda_problem(gen, panda, B_MPC)
@@ -3036,6 +3303,10 @@ def main() -> int:
     if per_solve != {"linearize": ITERS, "backward": ITERS, "linesearch_costs": 0, "linesearch": ITERS, "replay": 1}:
         raise AssertionError(f"launches per solve {per_solve}, expected K2 {ITERS}, K3 {ITERS}, K4 {ITERS} "
                              "(with the trajectories), K5 1")
+    k2_form = mpc.kernels.form  # the route's
+    k2_per_solve = dict(BatchMPCKernels.lin_launches)
+    if k2_per_solve != {k2_form: ITERS, OTHER_FORM[k2_form]: 0}:
+        raise AssertionError(f"K2 launches per solve by form {k2_per_solve}, expected {ITERS} of the route's {k2_form}")
     check_solution("solve", us, xs, cost, u_lim)
     if not (bool((cost <= cost_zero).all()) and float(cost.mean()) < float(cost_zero.mean())):
         raise AssertionError(f"solve: mean cost {float(cost.mean())} not below the zero-control {float(cost_zero.mean())}")
@@ -3049,9 +3320,11 @@ def main() -> int:
         round_costs.append(float(cost_r.mean()))
     torch.cuda.synchronize()
     mpc_launches = dict(BatchMPCKernels.launch_count)
-    if mpc_launches != {k: 4 * v for k, v in per_solve.items()}:
-        raise AssertionError(f"launches over 4 solves {mpc_launches}")
+    k2_launches = dict(BatchMPCKernels.lin_launches)
+    if mpc_launches != {k: 4 * v for k, v in per_solve.items()} or k2_launches != {k: 4 * v for k, v in k2_per_solve.items()}:
+        raise AssertionError(f"launches over 4 solves {mpc_launches}, K2's by form {k2_launches}")
     phase("mpc_main_path", robot="panda", B=B_MPC, H=H_MPC, iterations=ITERS, solve_wall_s=f"{solve_wall:.4f}",
+          k2_form=k2_form, k2_launches_by_form=json.dumps(k2_launches).replace(" ", ""),
           launches_per_solve=json.dumps(per_solve).replace(" ", ""), launches_4_solves=json.dumps(mpc_launches).replace(" ", ""),
           mean_cost=f"{float(cost.mean()):.6e}", mean_zero_control_cost=f"{float(cost_zero.mean()):.6e}",
           round_mean_costs=",".join(f"{c:.6e}" for c in round_costs))
@@ -3077,30 +3350,54 @@ def main() -> int:
           **{f"plain_solve_ms_B{Bs}_H{Hs}": f"{small_plain_ms:.1f}", f"kernel_solve_ms_B{Bs}_H{Hs}": f"{small_kernel_ms:.4f}"})
     replay_err_by_B, linesearch_err_by_B = {}, {}
     block_ms = {threads: {} for threads in K4_BLOCKS}
+    k2_by_B, other_solve_ms, route_solve_ms = {}, {}, {}
     for B in (B_MPC,) + B_MPC_WIDE:
         if B == B_MPC:
-            handle, x0_b, args = mpc, x0, stage_args
+            handle, x0_b, goals_b = mpc, x0, goals
         else:
             x0_b, goals_b = panda_problem(gen, panda, B)
             handle = build_batch_tracking_mpc(panda, goals_b, B, H_MPC, DT, iterations=ITERS)
-            us_b = handle.solve(x0_b, torch.zeros((B, H_MPC, 7), **f32))[0].permute(1, 2, 0).contiguous()
+        # A solve on each form of K2 (their units are the route's and phase
+        # 2's: nothing builds).
+        other_handle = build_batch_tracking_mpc(panda, goals_b, B, H_MPC, DT, iterations=ITERS,
+                                                _form=OTHER_FORM[k2_form])
+        if B == B_MPC:
+            args = stage_args
+        else:
+            # The stages' inputs at this width: the emitted form's solve, the
+            # nominal K4's and K5's gates had before K2 had a looped form. On
+            # the looped form's, one scenario's alpha-1 replay leaves f32 in
+            # K5 and its plain version alike (tests/k5_shifted_draw.py,
+            # PERF.md §7), which K5's gate refuses.
+            nominal = handle if k2_form == "emitted" else other_handle
+            us_b = nominal.solve(x0_b, torch.zeros((B, H_MPC, 7), **f32))[0].permute(1, 2, 0).contiguous()
             args = mpc_stage_parity(K, x0_b, goals_b, us_b, f"panda B={B}", False, check=False)[1]
         ms = {s: time_ms(lambda s=s: getattr(K, s)(*args[s])) for s in MPC_STAGES}
         solve = time_ms(lambda: handle.solve(x0_b, torch.zeros((B, H_MPC, 7), **f32)))
+        route_solve_ms[B] = solve
+        k2_by_B[B] = k2_forms(f"panda B={B}", k2_sets["panda"], args["linearize"], check=False)
+        other_solve_ms[B] = time_ms(lambda: other_handle.solve(x0_b, torch.zeros((B, H_MPC, 7), **f32)))
         for threads, V in k4_blocks.items():
             block_ms[threads][B] = time_ms(lambda V=V: V.linesearch(*args["linesearch"]))
         # K5 and K4 bit for bit at every width, K4's block variants bit for
         # bit as the unit (after the timings: the plain versions run long).
-        got, ref = K.replay(*args["replay"]), K.replay_plain(*args["replay"])
-        replay_err_by_B[B] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        if replay_err_by_B[B] != 0.0 or not all(bool(torch.isfinite(r).all()) for r in ref):
-            raise AssertionError(f"panda B={B} replay: max |d| = {replay_err_by_B[B]}, not 0")
-        # Every alpha of every scenario: some diverge (alpha 1 on a nominal
-        # far from the optimum), in the plain version too; the solve's
-        # isfinite test rejects them. Bit for bit, NaN where it is NaN.
-        got, ref = K.linesearch(*args["linesearch"]), K.linesearch_plain(*args["linesearch"])
-        linesearch_err_by_B[B] = max(bit_diff(g, r) for g, r in zip(got, ref))
-        nonfinite = int((~torch.isfinite(ref[0])).sum())
+        # At B_MPC these are phase 7's inputs, where both were held (finite).
+        if B == B_MPC:
+            got = K.linesearch(*args["linesearch"])
+            replay_err_by_B[B], linesearch_err_by_B[B] = stage_errs["replay"], stage_errs["linesearch"]
+            nonfinite = int((~torch.isfinite(got[0])).sum())
+        else:
+            got, ref = K.replay(*args["replay"]), K.replay_plain(*args["replay"])
+            replay_err_by_B[B] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            if replay_err_by_B[B] != 0.0 or not all(bool(torch.isfinite(r).all()) for r in ref):
+                raise AssertionError(f"panda B={B} replay: max |d| = {replay_err_by_B[B]}, not 0")
+            # Every alpha of every scenario: some diverge (alpha 1 on a
+            # nominal far from the optimum), in the plain version too; the
+            # solve's isfinite test rejects them. Bit for bit, NaN where it
+            # is NaN.
+            got, ref = K.linesearch(*args["linesearch"]), K.linesearch_plain(*args["linesearch"])
+            linesearch_err_by_B[B] = max(bit_diff(g, r) for g, r in zip(got, ref))
+            nonfinite = int((~torch.isfinite(ref[0])).sum())
         if linesearch_err_by_B[B] != 0.0:
             raise AssertionError(f"panda B={B} linesearch: max |d| = {linesearch_err_by_B[B]}, not 0")
         for threads, V in k4_blocks.items():
@@ -3117,8 +3414,6 @@ def main() -> int:
         k3_bytes, k3_ops = bo_b["backward"]
         rates = {"linearize_Gops_per_s": bo_b["linearize"][1] / (ms["linearize"] * 1e6),
                  "linearize_Gstatements_per_s": lin_statements(K, B, H_MPC) / (ms["linearize"] * 1e6)}
-        if B == B_MPC:
-            lin_rates = rates
         phase("mpc_time", card=repr(card), robot="panda", B=B, H=H_MPC, iterations=ITERS,
               **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()},
               **{f"linesearch_ms_T{t}": f"{block_ms[t][B]:.4f}" for t in K4_BLOCKS}, solve_ms=f"{solve:.4f}",
@@ -3128,14 +3423,44 @@ def main() -> int:
               backward_GBps=f"{k3_bytes / (ms['backward'] * 1e6):.1f}",
               backward_Gops_per_s=f"{k3_ops / (ms['backward'] * 1e6):.1f}",
               **{k: f"{v:.1f}" for k, v in rates.items()})
+        phase("mpc_time_k2_forms", card=repr(card), robot="panda", B=B, H=H_MPC, route=k2_form,
+              **{f"solve_ms_{k2_form}": f"{solve:.4f}", f"solve_ms_{OTHER_FORM[k2_form]}": f"{other_solve_ms[B]:.4f}"},
+              bound_ms=f"{bound(*stage_bytes_ops(K, B, H_MPC, ALPHAS)['linearize'])[0]:.4f}",
+              **k2_fields(k2_by_B[B]))
 
     bo = stage_bytes_ops(K, B_MPC, H_MPC, ALPHAS)
     batch_chain = batch_chain_ms(K, H_MPC)
     phase("mpc_chain", robot="panda", H=H_MPC, clocks_max_sm=repr(card_line("clocks.max.sm")),
           cycles_per_link=CHAIN_CYCLES, **{f"{s}_links": v for s, v in K.chains.items()},
           **{f"{s}_chain_bound_ms": f"{v:.5f}" for s, v in batch_chain.items()})
+    k2_records = {}
     for stage, (name, replaces) in MPC_KERNELS.items():
         b_ms, b_by = bound(*bo[stage])
+        if stage == "linearize":  # a record a form, its launches the route's (phase 8, then phase 32's)
+            for form in LIN_FORMS:
+                f = k2_by_B[B_MPC][form]
+                solves = route_solve_ms if form == k2_form else other_solve_ms
+                k2_records[form] = {
+                    "name": K2_NAMES[form], "route": "cuda", "source": K2_SOURCES[form], "replaces": replaces,
+                    "launches": k2_launches[form], "max_abs_err": k2_err[form], "tolerance": "0",
+                    "ms": f["ms"], "plain_ms": k2_plain_ms[form], "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None, "robot": "panda", "route_form": k2_form,
+                    **{k: f[k] for k in ("seeds_per_thread", "block", "num_regs", "local_bytes", "blocks_per_sm",
+                                         "sass_instructions", "nvcc_seconds")},
+                    "ms_by_B": {B: k2_by_B[B][form]["ms"] for B in k2_by_B},
+                    "solve_ms_by_B": dict(solves), "Gops_per_s": bo["linearize"][1] / (f["ms"] * 1e6),
+                    "ur5": {k: k2_ur5_timing[form][k] for k in ("ms", "seeds_per_thread", "num_regs", "local_bytes",
+                                                                 "sass_instructions")},
+                }
+                if form == "looped":
+                    k2_records[form].update(
+                        step_replaces="manipulapy_tpu/ops/fd_step.py:274", loop_ops=f["loop_ops"],
+                        loop_ops_bound_ms=bound(0, f["loop_ops"]["total"] * B_MPC * H_MPC)[0])
+                else:
+                    k2_records[form].update(thread_statements=k2_sets["panda"][form].statements["linearize_group"])
+                records.append(k2_records[form])
+            records[-1].update(backward_Gops_per_s=bo["backward"][1] / (stage_ms["backward"] * 1e6))
+            continue
         a = mpc_attrs["panda"][stage]
         launches, err = mpc_launches[stage], mpc_err[stage]
         if stage == "linesearch":  # K4 serves both stages
@@ -3168,12 +3493,6 @@ def main() -> int:
                                 for t in K4_BLOCKS})
         if stage == "backward":
             records[-1].update(dynamic_smem_bytes=K.layout_bytes()["backward"])
-        if stage == "linearize":
-            records[-1].update(seeds_per_thread=K.LIN_SEEDS, block=LIN_BLOCK,
-                               thread_statements=K.statements["linearize_group"],
-                               Gops_per_s=lin_rates["linearize_Gops_per_s"],
-                               Gstatements_per_s=lin_rates["linearize_Gstatements_per_s"],
-                               backward_Gops_per_s=bo["backward"][1] / (stage_ms["backward"] * 1e6))
 
     records += single_path(panda, single, mpc_attrs["panda single"], card, built["mpc", "panda single"])
     plan_timed = planning_timed(ur5, card)
@@ -3185,6 +3504,12 @@ def main() -> int:
     runtime_records(records, runtime)
     # 32. The calibrated fleet.
     fleet_records = fleet_phase(fleet, pool, urdf_rollout, card)
+    for rec in fleet_records:  # the public route's K2 launches on the fleet, by form
+        if rec.get("route_form") and rec["name"].startswith(K2_NAMES[rec["route_form"]] + " ["):
+            k2_records[rec["route_form"]]["launches"] += rec["launches"]
+            k2_records[rec["route_form"]].setdefault("fleet_robots", []).append(rec["robot"])
+    if any(rec["launches"] < 1 for rec in k2_records.values()):
+        raise AssertionError(f"a K2 form no public route launched: {[(f, r['launches']) for f, r in k2_records.items()]}")
     records.insert(1, looped_record(looped_bench, urdf_rollout, fleet_records))
     records += fleet_records
     print(json.dumps({"kernels": records}))

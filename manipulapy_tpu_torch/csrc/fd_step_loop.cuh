@@ -4,7 +4,9 @@
 // Replaces, in the rollout kernel (csrc/rollout.cuh with MPT_LOOP_STEP),
 // the emitted straight-line step of ops/fd_step.py::build_fd_step_source,
 // the port of manipulapy_tpu/ops/fd_step.py:274 (build_fd_step_planes),
-// which the Pallas rollout kernel inlines.
+// which the Pallas rollout kernel inlines. Its parts (the link's transform,
+// the pass over the links, the Cholesky factor and solve) also serve the
+// looped forward mode, csrc/fd_step_loop_jvp.cuh (K2's looped form).
 //
 // This file is a template. ops/cuda_rollout.py writes one translation unit
 // per (joint count, intRes) that holds, in order:
@@ -120,12 +122,81 @@ static __device__ __forceinline__ float mpt_clamp(float x, float lo, float hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// One step: q and dq updated in place, ddq written; `tab` is the robot's
-// table (MPT_TAB_FLOATS floats).
-static __device__ __forceinline__ void fd_step_loop(
-    float q[MPT_NJ], float dq[MPT_NJ], const float tau[MPT_NJ], float ddq[MPT_NJ],
-    const float* __restrict__ tab) {
-  float V[6], Vd[6], JB[MPT_NJ][6], M[MPT_NJ][MPT_NJ], bias[MPT_NJ];
+// Td = exp(-[A_k] q_k) M_prev_k^-1, link k-1's CoM frame to link k's, as
+// (R, p); `L` is link k's row of the table.
+static __device__ __forceinline__ void mpt_link_transform(const float* L, float qk, float R[9], float p[3]) {
+  const float* A = L + MPT_TAB_A;
+  const float s = sinf(qk), c = cosf(qk);
+  // At -q, sin is -s and 1 - cos is 1 - c.
+  const float th = -qk, sn = -s, omc = 1.0f - c;
+  const float tms = th - sn;
+  const float w0 = A[0], w1 = A[1], w2 = A[2];
+  const float W[9] = {0.0f, -w2, w1, w2, 0.0f, -w0, -w1, w0, 0.0f};
+  float Re[9], pe[3];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    Re[i] = (i % 4 == 0) ? 1.0f + omc * L[MPT_TAB_W2 + i]
+                         : sn * W[i] + omc * L[MPT_TAB_W2 + i];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    pe[i] = th * A[3 + i] + (omc * L[MPT_TAB_WV + i] + tms * L[MPT_TAB_W2V + i]);
+  }
+  const float* Rc = L + MPT_TAB_MPREV_R;
+  const float* pc = L + MPT_TAB_MPREV_P;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      R[3 * i + j] = (Re[3 * i] * Rc[j] + Re[3 * i + 1] * Rc[3 + j]) + Re[3 * i + 2] * Rc[6 + j];
+    }
+    p[i] = mpt_dot3(Re + 3 * i, pc) + pe[i];
+  }
+}
+
+// out = ad_x y for twists x = [w; v], y: [w x y_w; v x y_w + w x y_v].
+static __device__ __forceinline__ void mpt_ad_twist(const float* x, const float* y, float* out) {
+  float c1[3], c2[3];
+  mpt_cross(x, y, out);
+  mpt_cross(x + 3, y, c1);
+  mpt_cross(x, y + 3, c2);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) out[3 + i] = c1[i] + c2[i];
+}
+
+// F = G Vd - ad_V^T G V = G Vd + [w x Gw + v x Gv; w x Gv], and GV = G V.
+static __device__ __forceinline__ void mpt_wrench(const float* I, float m, const float* V, const float* Vd,
+                                                  float F[6], float GV[6]) {
+  float GVd[6], c1[3], c2[3], c3[3];
+  mpt_inertia(I, m, V, GV);
+  mpt_inertia(I, m, Vd, GVd);
+  mpt_cross(V, GV, c1);
+  mpt_cross(V + 3, GV + 3, c2);
+  mpt_cross(V, GV + 3, c3);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    F[i] = GVd[i] + (c1[i] + c2[i]);
+    F[3 + i] = GVd[3 + i] + c3[i];
+  }
+}
+
+// x[k] for the link counter k, from compile-time indices only (an array
+// indexed by k itself would go to local memory).
+static __device__ __forceinline__ float mpt_pick(const float x[MPT_NJ], int k) {
+  float v = x[0];
+#pragma unroll
+  for (int i = 1; i < MPT_NJ; ++i) {
+    if (i == k) v = x[i];
+  }
+  return v;
+}
+
+// The pass over the links: M's upper triangle (M[i][j], i <= j) and the
+// bias h(q, dq) with gravity.
+static __device__ __forceinline__ void mpt_loop_dynamics(
+    const float q[MPT_NJ], const float dq[MPT_NJ], const float* __restrict__ tab,
+    float M[MPT_NJ][MPT_NJ], float bias[MPT_NJ]) {
+  float V[6], Vd[6], JB[MPT_NJ][6];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     V[i] = 0.0f;
@@ -146,40 +217,9 @@ static __device__ __forceinline__ void fd_step_loop(
   for (int k = 0; k < MPT_NJ; ++k) {
     const float* L = tab + MPT_TAB_HEAD + k * MPT_TAB_STRIDE;
     const float* A = L + MPT_TAB_A;
-    float qk = q[0], dqk = dq[0];
-#pragma unroll
-    for (int i = 1; i < MPT_NJ; ++i) {
-      if (i == k) {
-        qk = q[i];
-        dqk = dq[i];
-      }
-    }
-    const float s = sinf(qk), c = cosf(qk);
-    // Td = exp(-[A] q_k) M_prev^-1: at -q, sin is -s and 1 - cos is 1 - c.
-    const float th = -qk, sn = -s, omc = 1.0f - c;
-    const float tms = th - sn;
-    const float w0 = A[0], w1 = A[1], w2 = A[2];
-    const float W[9] = {0.0f, -w2, w1, w2, 0.0f, -w0, -w1, w0, 0.0f};
-    float Re[9], pe[3], R[9], p[3];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      Re[i] = (i % 4 == 0) ? 1.0f + omc * L[MPT_TAB_W2 + i]
-                           : sn * W[i] + omc * L[MPT_TAB_W2 + i];
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      pe[i] = th * A[3 + i] + (omc * L[MPT_TAB_WV + i] + tms * L[MPT_TAB_W2V + i]);
-    }
-    const float* Rc = L + MPT_TAB_MPREV_R;
-    const float* pc = L + MPT_TAB_MPREV_P;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        R[3 * i + j] = (Re[3 * i] * Rc[j] + Re[3 * i + 1] * Rc[3 + j]) + Re[3 * i + 2] * Rc[6 + j];
-      }
-      p[i] = mpt_dot3(Re + 3 * i, pc) + pe[i];
-    }
+    const float dqk = mpt_pick(dq, k);
+    float R[9], p[3];
+    mpt_link_transform(L, mpt_pick(q, k), R, p);
 
     // Link k's CoM Jacobian: the earlier columns into its frame, its own.
 #pragma unroll
@@ -193,36 +233,21 @@ static __device__ __forceinline__ void fd_step_loop(
     }
 
     // The RNEA's forward sweep (ddq = 0).
-    float Adq[6], top[3], c1[3], c2[3];
+    float Adq[6], adV[6];
 #pragma unroll
     for (int e = 0; e < 6; ++e) Adq[e] = A[e] * dqk;
     mpt_ad(R, p, V);
 #pragma unroll
     for (int e = 0; e < 6; ++e) V[e] = V[e] + Adq[e];
     mpt_ad(R, p, Vd);
-    mpt_cross(V, Adq, top);
-    mpt_cross(V + 3, Adq, c1);
-    mpt_cross(V, Adq + 3, c2);
+    mpt_ad_twist(V, Adq, adV);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      Vd[i] = Vd[i] + top[i];
-      Vd[3 + i] = Vd[3 + i] + (c1[i] + c2[i]);
-    }
+    for (int e = 0; e < 6; ++e) Vd[e] = Vd[e] + adV[e];
 
-    // F = G Vd - ad_V^T G V = G Vd + [w x Gw + v x Gv; w x Gv].
     const float* I = L + MPT_TAB_I;
     const float m = L[MPT_TAB_M];
-    float GV[6], GVd[6], F[6], c3[3];
-    mpt_inertia(I, m, V, GV);
-    mpt_inertia(I, m, Vd, GVd);
-    mpt_cross(V, GV, c1);
-    mpt_cross(V + 3, GV + 3, c2);
-    mpt_cross(V, GV + 3, c3);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      F[i] = GVd[i] + (c1[i] + c2[i]);
-      F[3 + i] = GVd[3 + i] + c3[i];
-    }
+    float F[6], GV[6];
+    mpt_wrench(I, m, V, Vd, F, GV);
 
     // M[i][j] += JB_i . G JB_j, bias[j] += JB_j . F; the first term of each
     // (at k == j) is set, not added.
@@ -241,10 +266,12 @@ static __device__ __forceinline__ void fd_step_loop(
       }
     }
   }
+}
 
-  // M ddq = tau - bias by Cholesky (ops/fd_step.py::_chol_solve_values),
-  // M's lower triangle read from its upper.
-  float Lc[MPT_NJ][MPT_NJ], inv_diag[MPT_NJ], y[MPT_NJ], x[MPT_NJ];
+// The Cholesky factor of M (its upper triangle read; ops/fd_step.py::
+// _chol_solve_values) and the reciprocals of its diagonal.
+static __device__ __forceinline__ void mpt_chol_factor(const float M[MPT_NJ][MPT_NJ], float Lc[MPT_NJ][MPT_NJ],
+                                                       float inv_diag[MPT_NJ]) {
 #pragma unroll
   for (int j = 0; j < MPT_NJ; ++j) {
     float s = M[j][j];
@@ -263,9 +290,15 @@ static __device__ __forceinline__ void fd_step_loop(
   }
 #pragma unroll
   for (int i = 0; i < MPT_NJ; ++i) inv_diag[i] = 1.0f / Lc[i][i];
+}
+
+// x = M^-1 rhs with the factor: both triangular solves.
+static __device__ __forceinline__ void mpt_chol_apply(const float Lc[MPT_NJ][MPT_NJ], const float inv_diag[MPT_NJ],
+                                                      const float rhs[MPT_NJ], float x[MPT_NJ]) {
+  float y[MPT_NJ];
 #pragma unroll
   for (int i = 0; i < MPT_NJ; ++i) {
-    float s = tau[i] - bias[i];
+    float s = rhs[i];
 #pragma unroll
     for (int kk = 0; kk < i; ++kk) s = s - Lc[i][kk] * y[kk];
     y[i] = s * inv_diag[i];
@@ -277,6 +310,20 @@ static __device__ __forceinline__ void fd_step_loop(
     for (int kk = i + 1; kk < MPT_NJ; ++kk) s = s - Lc[kk][i] * x[kk];
     x[i] = s * inv_diag[i];
   }
+}
+
+// One step: q and dq updated in place, ddq written; `tab` is the robot's
+// table (MPT_TAB_FLOATS floats).
+static __device__ __forceinline__ void fd_step_loop(
+    float q[MPT_NJ], float dq[MPT_NJ], const float tau[MPT_NJ], float ddq[MPT_NJ],
+    const float* __restrict__ tab) {
+  float M[MPT_NJ][MPT_NJ], bias[MPT_NJ], Lc[MPT_NJ][MPT_NJ], inv_diag[MPT_NJ], rhs[MPT_NJ], x[MPT_NJ];
+  mpt_loop_dynamics(q, dq, tab, M, bias);
+  // M ddq = tau - bias by Cholesky.
+  mpt_chol_factor(M, Lc, inv_diag);
+#pragma unroll
+  for (int i = 0; i < MPT_NJ; ++i) rhs[i] = tau[i] - bias[i];
+  mpt_chol_apply(Lc, inv_diag, rhs, x);
 
   // Semi-implicit Euler and the clamps.
   const float dt = tab[MPT_TAB_DT];

@@ -15,6 +15,10 @@
 //   code over cgen values as the plain PyTorch versions:
 //     LIN: #define MPT_LIN_SEEDS <G>, MPT_LIN_BLOCK <threads>,
 //          fd_step_jvp_group (ops/fd_step.py::build_fd_step_jvp_group_source);
+//          or, K2's looped form, one unit per (n, G) for every robot of n
+//          joints: MPT_LIN_LOOP, the table's layout, csrc/fd_step_loop.cuh
+//          and csrc/fd_step_loop_jvp.cuh (ops/cuda_mpc_batch.py::
+//          lin_loop_unit_source), the robot's table a kernel argument;
 //     BWD: riccati_terminal, riccati_step;
 //     FWD: mpc_fwd_step, mpc_terminal (K4 and K5 run the same
 //          fwd_rollout); with MPT_REPLAY_TEAM, K5's variant unit, also
@@ -36,7 +40,10 @@
 // takes the place of a sequential axis, and of the VMEM scratch it carried.
 //
 // Bound and design, per kernel (statement counts are the emitter's, Panda):
-//   K2: one thread per (scenario b, group of G = MPT_LIN_SEEDS seeds, step
+//   K2: (the emitted form; the looped form's design is in
+//       csrc/fd_step_loop_jvp.cuh: groups of one seed kind, 2n/G + 1 of
+//       them, the robot in a __grid_constant__ table)
+//       one thread per (scenario b, group of G = MPT_LIN_SEEDS seeds, step
 //       t), B*(m/G)*H independent threads in blocks of MPT_LIN_BLOCK; each
 //       runs the primal step once and the tangents of seeds gG .. gG+G-1
 //       and writes those G columns of AB at t. Operations bound it (Panda,
@@ -131,12 +138,38 @@
 // ---------------------------------------------------------------- K2 -----
 #if defined(MPT_UNIT_LIN)
 #if !defined(MPT_LIN_SEEDS) || !defined(MPT_LIN_BLOCK)
-#error "MPT_LIN_SEEDS and MPT_LIN_BLOCK must be defined with fd_step_jvp_group"
+#error "MPT_LIN_SEEDS and MPT_LIN_BLOCK must be defined with K2's step"
 #endif
+
+#ifdef MPT_LIN_LOOP
+// The looped form (csrc/fd_step_loop_jvp.cuh): the robot is the table, a
+// kernel argument; groups of one seed kind (q, dq: G a thread; tau: all n).
+#define MPT_LIN_GROUPS MPT_LOOP_GROUPS
+#define MPT_LIN_TABLE , const float* __restrict__ tab
+#define MPT_LIN_TABLE_ARG , tab.v
+
+// Thread (b, grp, t): the step at (x, u) of scenario b, step t, and the
+// columns of group grp's seeds, each stored as it is made.
+static __device__ __forceinline__ void lin_thread(
+    const float* __restrict__ xs, const float* __restrict__ us,
+    float* __restrict__ AB, int B, int b, int grp, int t MPT_LIN_TABLE) {
+  float x[MPT_NX], u[MPT_NJ];
+#pragma unroll
+  for (int i = 0; i < MPT_NX; ++i) x[i] = MPT_AT(xs, t * MPT_NX + i, b, B);
+#pragma unroll
+  for (int j = 0; j < MPT_NJ; ++j) u[j] = MPT_AT(us, t * MPT_NJ + j, b, B);
+  const size_t row0 = (size_t)t * MPT_NX * MPT_M;
+  fd_step_loop_jvp(x, u, grp, tab, [&](int s, int i, float v) {
+    MPT_AT(AB, row0 + (size_t)i * MPT_M + s, b, B) = v;
+  });
+}
+#else
 #if MPT_M % MPT_LIN_SEEDS != 0
 #error "MPT_LIN_SEEDS must divide the 3n seeds"
 #endif
 #define MPT_LIN_GROUPS (MPT_M / MPT_LIN_SEEDS)
+#define MPT_LIN_TABLE
+#define MPT_LIN_TABLE_ARG
 
 // Thread (b, grp, t): the step at (x, u) of scenario b, step t, and the
 // columns grp*G .. grp*G+G-1 of its Jacobian. Consecutive threads own
@@ -158,29 +191,55 @@ static __device__ __forceinline__ void lin_thread(
     for (int j = 0; j < MPT_LIN_SEEDS; ++j)
       MPT_AT(AB, row0 + (size_t)i * MPT_M + j, b, B) = col[j * MPT_NX + i];
 }
+#endif
 
 #ifdef __CUDACC__
+#ifdef MPT_LIN_LOOP
+// The robot's table, by value: it lives in the launch's parameter space.
+struct MptTable {
+  float v[MPT_TAB_FLOATS];
+};
+#define MPT_LIN_KERNEL_TABLE , const __grid_constant__ MptTable tab
+#define MPT_LIN_LAUNCH_TABLE , const float* table
+#else
+#define MPT_LIN_KERNEL_TABLE
+#define MPT_LIN_LAUNCH_TABLE
+#endif
+
 __global__ void __launch_bounds__(MPT_LIN_BLOCK) mpt_lin_kernel(
     const float* __restrict__ xs, const float* __restrict__ us,
-    float* __restrict__ AB, int B) {
+    float* __restrict__ AB, int B MPT_LIN_KERNEL_TABLE) {
   // The body's live values exceed the 255 registers a thread may hold; let
   // ptxas spill part of them to shared memory before local memory.
   asm volatile(".pragma \"enable_smem_spilling\";");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  lin_thread(xs, us, AB, B, b, (int)blockIdx.y, (int)blockIdx.z);
+  lin_thread(xs, us, AB, B, b, (int)blockIdx.y, (int)blockIdx.z MPT_LIN_TABLE_ARG);
 }
 
-// xs (H, nx, B), us (H, n, B) -> AB (H, nx, m, B). Grid (B blocks, m/G, H).
+// xs (H, nx, B), us (H, n, B) -> AB (H, nx, m, B). Grid (B blocks, groups,
+// H). The looped form's `table` is the robot's in host memory
+// (MPT_TAB_FLOATS floats), copied into the launch.
 extern "C" int launch_linearize(const float* xs, const float* us, float* AB,
-                                int B, int H, void* stream) {
+                                int B, int H MPT_LIN_LAUNCH_TABLE, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   const dim3 grid((unsigned int)((B + MPT_LIN_BLOCK - 1) / MPT_LIN_BLOCK),
                   MPT_LIN_GROUPS, (unsigned int)H);
+#ifdef MPT_LIN_LOOP
+  MptTable tab;
+  for (int i = 0; i < MPT_TAB_FLOATS; ++i) tab.v[i] = table[i];
+  mpt_lin_kernel<<<grid, MPT_LIN_BLOCK, 0, (cudaStream_t)stream>>>(xs, us, AB, B, tab);
+#else
   mpt_lin_kernel<<<grid, MPT_LIN_BLOCK, 0, (cudaStream_t)stream>>>(xs, us, AB, B);
+#endif
   return (int)cudaGetLastError();
 }
 MPT_ATTRIBUTES(attributes_linearize, mpt_lin_kernel)
+
+// The blocks of MPT_LIN_BLOCK threads an SM holds.
+extern "C" int occupancy_linearize(int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mpt_lin_kernel, MPT_LIN_BLOCK, 0);
+}
 #endif
 #endif  // MPT_UNIT_LIN
 

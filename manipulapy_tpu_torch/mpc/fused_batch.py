@@ -102,13 +102,15 @@ def build_batch_tracking_mpc(
     reg: float = 1e-6,
     u_limit=None,
     g=(0.0, 0.0, -9.81),
+    _form=None,
 ) -> BatchTrackingMPC:
     """Build the batched fused solver for one (robot, goals, B, H).
 
     ``q_goal``: (n,) shared or (batch, n) per scenario; it is kept on the
     model's device. ``u_limit`` defaults to the model's torque limits (its
     f64 host arrays where it has them). The kernels build with nvcc at
-    their first CUDA call (or :meth:`BatchMPCKernels.build`)."""
+    their first CUDA call (or :meth:`BatchMPCKernels.build`). ``_form``,
+    not a public option, names K2's form (``BatchMPCKernels``)."""
     n = model.num_joints
     nx = 2 * n
     H, B, A = int(horizon), int(batch), int(line_search_steps)
@@ -119,7 +121,7 @@ def build_batch_tracking_mpc(
         u_limit = host["torque_limit"] if host is not None else model.torque_limit
     u_lim = _host_vector(u_limit, n, "u_limit")
     kernels = BatchMPCKernels(
-        model, dt, g=g, w_q=w_q, w_dq=w_dq, w_u=w_u, w_terminal=w_terminal, u_lim=u_lim
+        model, dt, g=g, w_q=w_q, w_dq=w_dq, w_u=w_u, w_terminal=w_terminal, u_lim=u_lim, _form=_form
     )
     device = model.device
 
@@ -210,6 +212,7 @@ def build_batch_tracking_mpc(
         host_arrays=host_arrays(model), q_goal=goal_default.T.cpu().numpy().copy(), batch=B, horizon=H, dt=float(dt),
         iterations=int(iterations), line_search_steps=A, w_q=w_q, w_dq=w_dq, w_u=w_u, w_terminal=w_terminal,
         reg=float(reg), u_limit=u_lim, g=tuple(float(v) for v in g), device=model.device.type,
+        **({"_form": _form} if _form else {}),
     )
     return BatchTrackingMPC(
         solve=solve, horizon=H, n=n, batch=B,

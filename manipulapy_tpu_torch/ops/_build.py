@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
@@ -56,6 +57,8 @@ NVCC_FLAGS = (
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "manipulapy_tpu_torch"
 _CACHE_DIR = None  # set by utils.config.configure_cache
 _LOADED: dict = {}
+_KEY_LOCKS: dict = {}  # one lock a library: threads that ask for the same unit build it once
+_KEY_LOCKS_GUARD = threading.Lock()
 
 
 def build_root() -> Path:
@@ -102,11 +105,18 @@ def _write_atomic(path: Path, text: str) -> None:
 
 def build_library(source: str, name: str, flags: Tuple[str, ...] = ()) -> BuiltLibrary:
     """Compile ``source`` with ``nvcc`` for sm_90a (once per content and
-    flags: ``NVCC_FLAGS``, then the unit's own ``flags``) and load the
-    shared library."""
+    flags: ``NVCC_FLAGS``, then the unit's own ``flags``; threads that ask
+    for one library at once wait for one build) and load the shared
+    library."""
     key = library_key(source, name, flags)
-    flags = NVCC_FLAGS + tuple(flags)
     so_path = build_root() / key
+    with _KEY_LOCKS_GUARD:
+        lock = _KEY_LOCKS.setdefault(so_path, threading.Lock())
+    with lock:
+        return _build_locked(source, name, NVCC_FLAGS + tuple(flags), so_path)
+
+
+def _build_locked(source: str, name: str, flags: Tuple[str, ...], so_path: Path) -> BuiltLibrary:
     hit = _LOADED.get(so_path)
     if hit is not None:
         return hit

@@ -6,9 +6,14 @@ Counterpart of the four ``pallas_call``s of
 
 * K2 ``linearize`` (``lin_kernel``): ``A_t, B_t = d x' / d [x; u]`` of the
   step program with ``clip_velocity=False``, over the m = 3n seeds, a
-  group of them a thread (``fd_step_jvp_group``: the primal step once,
-  each tangent once per seed, as ``jax.linearize`` and its vmapped linear
-  program do), as many as :func:`lin_seeds` gives for the robot;
+  group of them a thread, in one of two forms (``BatchMPCKernels.form``):
+  ``"emitted"``, ``fd_step_jvp_group`` (the primal step once, each tangent
+  once per seed, as ``jax.linearize`` and its vmapped linear program do;
+  as many seeds as :func:`lin_seeds` gives), or ``"looped"``,
+  ``csrc/fd_step_loop_jvp.cuh`` (the step as a loop over links with the
+  robot in a table, :func:`lin_loop_seeds` q or dq seeds a thread and the
+  n tau seeds in one; one unit per (joint count, seeds), the robot's table
+  passed with each launch), chosen by :func:`lin_form`;
 * K3 ``backward`` (``bwd_kernel``): the time-reversed Riccati sweep with a
   per-scenario Levenberg term and the unrolled Cholesky solve of
   ``_chol_solve_tiles``;
@@ -38,7 +43,10 @@ m, B)``, ``kK (H, n, 1+nx, B)`` (``[..., j, 0, :]`` = k_j, ``[..., j, 1+i,
 ``us_all (H, n, A, B)``.
 
 On CPU tensors every stage runs its plain version, and only because the
-tensors lie on the CPU. On CUDA tensors it launches its kernel or raises:
+tensors lie on the CPU; K2's is the emitted form's unless the kernel set
+was built with ``_form`` (so a public solve's CPU result does not depend on
+the card's route), while :meth:`BatchMPCKernels.plain` gives the plain
+version of the form its kernel runs. On CUDA tensors it launches its kernel or raises:
 float32, contiguous, one device, the shapes above. Each launch adds one to
 ``BatchMPCKernels.launch_count[stage]`` (all instances).
 """
@@ -46,6 +54,7 @@ float32, contiguous, one device, the shapes above. Each launch adds one to
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Dict, List, Sequence
@@ -61,6 +70,11 @@ from .fd_step import (
     build_fd_step_jvp_planes,
     build_fd_step_jvp_source,
     build_fd_step_planes,
+    fd_step_loop_jvp_planes,
+    link_table,
+    loop_jvp_ops,
+    loop_supported,
+    table_defines,
 )
 from ..models.robot import RobotModel, host_arrays
 
@@ -71,6 +85,13 @@ __all__ = [
     "BLOCK",
     "lin_seeds",
     "LIN_BLOCK",
+    "LIN_FORMS",
+    "lin_form",
+    "lin_loop_seeds",
+    "lin_loop_threshold",
+    "lin_loop_unit_source",
+    "LIN_LOOP_THRESHOLD",
+    "LIN_LOOP_THRESHOLDS",
     "TEAM_WARPS",
     "TEAM_S",
     "TEAM_PER_BLOCK",
@@ -81,7 +102,9 @@ __all__ = [
     "terminal_cost",
 ]
 
-TEMPLATE = Path(__file__).resolve().parents[1] / "csrc" / "mpc_batch.cuh"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+TEMPLATE = CSRC / "mpc_batch.cuh"
+LOOP_STEP, LOOP_JVP = CSRC / "fd_step_loop.cuh", CSRC / "fd_step_loop_jvp.cuh"
 BLOCK = 128  # threads per block (K4, K5)
 # K2: threads a block (``MPT_LIN_BLOCK``; 64 leave each thread more shared
 # memory to spill into than 128) and ptxas's -O1, whose schedule spills less
@@ -99,6 +122,66 @@ def lin_seeds(n: int) -> int:
     one-seed ``fd_step_jvp`` in blocks of 128 at ptxas -O3). Both measured
     in one ``chip_compare.py`` call on an H100 (PERF.md section 6)."""
     return 3 if n <= 6 else 1
+
+
+LIN_FORMS = ("emitted", "looped")
+# K2's route: a robot whose emitted step (``statements["step"]``) has more
+# statements than its joint count's threshold takes the looped form
+# (LIN_LOOP_THRESHOLDS, else LIN_LOOP_THRESHOLD). Set from both forms timed
+# in turns in one call (chip_smoke.py phases 7, 9 and 32 at B=1024, H=50;
+# H100 80GB HBM3, 700 W; PERF.md §5): at 6, 7, 8 and 10 joints the looped
+# form took 0.13-0.50 of the emitted one's time on all 24 such fleet
+# models and the programmatic UR5 and Panda, from the 2739-statement ABB
+# arm up; at one joint the emitted form took 0.76-0.99 of the looped one's
+# (its short code fits; the looped one repeats the step for each seed
+# group). Joint counts not measured take the looped form past 2000. The
+# looped unit builds as the emitted one, LIN_BLOCK threads a block at
+# ptxas -O1 (32 and 128 threads and ptxas -O3 measured no faster,
+# chip_k2_variants.py).
+LIN_LOOP_THRESHOLD = 2000
+LIN_LOOP_THRESHOLDS: Dict[int, float] = {1: math.inf}
+
+
+def lin_loop_threshold(n: int) -> float:
+    """K2's route threshold on the emitted step's statements for n joints."""
+    return LIN_LOOP_THRESHOLDS.get(int(n), LIN_LOOP_THRESHOLD)
+
+
+def lin_form(model: RobotModel, statements: int) -> str:
+    """The form K2's route gives a robot whose emitted step has
+    ``statements`` statements: ``"looped"`` past its joint count's threshold
+    (where the looped step takes the robot, ``fd_step.loop_supported``),
+    else ``"emitted"``."""
+    if statements > lin_loop_threshold(model.num_joints) and loop_supported(model):
+        return "looped"
+    return "emitted"
+
+
+def lin_loop_seeds(n: int) -> int:
+    """The looped K2's q or dq seeds a thread (``MPT_LIN_SEEDS``; the tau
+    seeds of a step are one thread's): the largest divisor of n up to 7.
+    Each group of seeds repeats the primal step, so more seeds a thread
+    mean fewer primal steps; past 7 the tangents' registers spill. Measured
+    in one call on an H100 (``chip_k2_variants.py``, B = 1024 / 4096 /
+    16384, H = 50): UR5 G = 6 0.260 / 0.772 / 2.59 ms against G = 3 0.294
+    / 0.869 / 2.72; Panda G = 7 0.412 / 1.229 / 3.83 against G = 1 0.576 /
+    2.095 / 8.02; the 8-joint Panda G = 4 0.587 / 1.807 / 5.72 against G =
+    2 0.651 / 1.807 / 6.72; the 10-joint Jaco G = 5 1.269 / 3.818 / 11.05
+    against G = 2 1.517 / 3.766 / 13.39."""
+    return max(g for g in range(1, min(n, 7) + 1) if n % g == 0)
+
+
+def lin_loop_unit_source(n: int, seeds: int) -> str:
+    """K2's translation unit on the looped step: one per (joint count,
+    seeds a thread), for every robot of n joints (the robot is the table
+    each launch carries)."""
+    header = (
+        f"// Generated: the looped K2 for {int(n)} joints, {int(seeds)} q or dq seeds a thread.\n"
+        f"#define MPT_NJ {int(n)}\n#define MPT_BLOCK {BLOCK}\n#define MPT_UNIT_LIN 1\n"
+        f"#define MPT_LIN_SEEDS {int(seeds)}\n#define MPT_LIN_BLOCK {LIN_BLOCK}\n#define MPT_LIN_LOOP 1\n"
+    )
+    return (header + table_defines() + "#include <math.h>\n" + LOOP_STEP.read_text() + "\n"
+            + LOOP_JVP.read_text() + "\n" + TEMPLATE.read_text())
 
 
 # K5: one thread a scenario (``TEAM_WARPS`` = 0). A variant unit runs a team
@@ -462,13 +545,22 @@ class MPCKernelSet(KernelSet):
 
 
 class BatchMPCKernels(MPCKernelSet):
-    """K2-K5 for one (robot, dt, g, cost weights, torque limits). K2's unit
-    carries ``fd_step_jvp_group`` for ``LIN_SEEDS`` seeds a thread
-    (``MPT_LIN_SEEDS``; None: :func:`lin_seeds` of the robot, set on the
-    instance); the one-seed ``fd_step_jvp`` stays out of it, as
-    ``linearize_seed_source``, the host tests' reference. K5's unit runs
-    one thread a scenario, or with ``TEAM_WARPS`` > 0 a team of warps
-    (``self.team``). Only the units of ``UNITS`` are emitted and built."""
+    """K2-K5 for one (robot, dt, g, cost weights, torque limits). K2 runs
+    the ``form`` :func:`lin_form` gives the robot (``_form``, not a public
+    option, names one for the card's comparison of the two and the tests).
+    Emitted, its unit carries ``fd_step_jvp_group`` for ``LIN_SEEDS`` seeds
+    a thread (``MPT_LIN_SEEDS``; None: :func:`lin_seeds` of the robot, set
+    on the instance); the one-seed ``fd_step_jvp`` stays out of it, as
+    ``linearize_seed_source``, the host tests' reference. Looped, its unit
+    is :func:`lin_loop_unit_source` for ``LIN_LOOP_SEEDS`` (None:
+    :func:`lin_loop_seeds`), ``table`` (float32 on the host) goes with each
+    launch, and ``loop_ops`` counts its operations (``fd_step.loop_jvp_ops``);
+    ``statements`` stay the emitted body's, the bound's yardstick in either
+    form. A looped unit that fails to build or launch raises. K5's unit
+    runs one thread a scenario, or with ``TEAM_WARPS`` > 0 a team of warps
+    (``self.team``). Only the units of ``UNITS`` are emitted and built.
+    Each K2 launch also adds one to ``lin_launches[form]`` (all
+    instances)."""
 
     kind = "cuda"
     STAGES, UNITS, ARGTYPES, LIB_PREFIX = STAGES, UNITS, _ARGTYPES, "mpc_batch"
@@ -476,14 +568,39 @@ class BatchMPCKernels(MPCKernelSet):
     LIN_SEEDS, UNIT_FLAGS = None, {"lin": LIN_FLAGS}
     TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK, TEAM_STAGE = TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK, "replay"
     launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
+    lin_launches: Dict[str, int] = dict.fromkeys(LIN_FORMS, 0)  # K2's, by form
+    LIN_LOOP_SEEDS = None
     team = None
+    form, table, loop_ops = "emitted", None, None
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, _form=None, **kwargs):
+        if _form not in LIN_FORMS + (None,):
+            raise ValueError(f"_form must be one of {LIN_FORMS} or None, got {_form!r}")
+        self._form = _form
         super().__init__(*args, **kwargs)
         if self.team is not None:  # the team step goes where the template marks it, after the macros it reads
             fwd = self.sources["fwd"]
             at = fwd.rindex("// MPT_TEAM_STEP:")
             self.sources["fwd"] = fwd[:at] + self.team.source + fwd[at:]
+        if self.form == "looped":
+            self.sources["lin"] = lin_loop_unit_source(self.n, self.LIN_LOOP_SEEDS)
+            self.ARGTYPES = {**self.ARGTYPES, "linearize": [_P] * 3 + [_I, _I, _P, _P]}
+
+    @classmethod
+    def reset_launch_count(cls) -> None:
+        super().reset_launch_count()
+        cls.lin_launches = dict.fromkeys(LIN_FORMS, 0)
+
+    def lin_blocks_per_sm(self) -> int:
+        """The blocks of K2's kernel an SM holds on the current device
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+        fn = self._lib("linearize").occupancy_linearize
+        fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        blocks = ctypes.c_int()
+        err = fn(ctypes.byref(blocks))
+        if err:
+            raise RuntimeError(f"K2's occupancy failed with CUDA error {err}")
+        return blocks.value
 
     def _bodies(self, model, dt, g) -> Dict[str, str]:
         P, n, nx = self.P, self.n, self.nx
@@ -497,6 +614,14 @@ class BatchMPCKernels(MPCKernelSet):
                 model, dt, g=g, seeds=self.LIN_SEEDS
             )
             out["lin"] = f"#define MPT_LIN_SEEDS {self.LIN_SEEDS}\n#define MPT_LIN_BLOCK {LIN_BLOCK}\n{group_src}"
+            self.form = self._form or lin_form(model, self.statements["step"])
+            if self.form == "looped":  # its unit replaces this one (__init__)
+                if self.LIN_LOOP_SEEDS is None:
+                    self.LIN_LOOP_SEEDS = lin_loop_seeds(n)
+                self.table = link_table(model, dt, g, clip_velocity=False)
+                self._tables = {torch.float32: self.table,
+                                torch.float64: link_table(model, dt, g, clip_velocity=False, dtype=torch.float64)}
+                self.loop_ops = loop_jvp_ops(n, self.LIN_LOOP_SEEDS)
         if "bwd" in self.UNITS:
             term_src, term_ops = cg.c_function(
                 "riccati_terminal", [("x_last", nx), ("goal", n)], [], [("V", vn)],
@@ -573,8 +698,41 @@ class BatchMPCKernels(MPCKernelSet):
         if not self._route("linearize", {"xs": xs, "us": us}, {"xs": (H, nx, B), "us": (H, n, B)}):
             return self.linearize_plain(xs, us)
         AB = torch.empty((H, nx, m, B), dtype=xs.dtype, device=xs.device)
-        self._launch("linearize", xs.device, xs, us, AB, B, H)
+        table = (self.table,) if self.form == "looped" else ()
+        self._launch("linearize", xs.device, xs, us, AB, B, H, *table)
+        type(self).lin_launches[self.form] += 1
         return AB
+
+    def linearize_plain(self, xs: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+        """The plain linearization K2 runs on CPU tensors: the looped form's
+        where the set was built with ``_form="looped"``, else the emitted
+        form's (the public solver's, whatever the card's route)."""
+        if self._form == "looped":
+            return self.loop_linearize_plain(xs, us)
+        return super().linearize_plain(xs, us)
+
+    def loop_linearize_plain(self, xs: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+        """The looped K2's plain version (``fd_step.fd_step_loop_jvp_planes``
+        over the robot's table in the inputs' dtype, float32 or float64):
+        xs (H, nx, ...), us (H, n, ...) -> AB (H, nx, m, ...)."""
+        if self.table is None:
+            raise ValueError("this kernel set's K2 is the emitted form; build it with _form='looped'")
+        tab = self._tables.get(xs.dtype)
+        if tab is None:
+            raise TypeError(f"the looped linearization takes float32 or float64, got {xs.dtype}")
+        _, cols = fd_step_loop_jvp_planes(
+            tab.to(xs.device), self.n, [xs[:, i] for i in range(self.nx)], [us[:, j] for j in range(self.n)],
+            list(range(self.m)),
+        )
+        return torch.stack([torch.stack(col, dim=1) for col in cols], dim=2)
+
+    def plain(self) -> SimpleNamespace:
+        """The stages through the plain versions of the kernels as built:
+        K2's of ``form``."""
+        out = super().plain()
+        if self.form == "looped":
+            out.linearize = self.loop_linearize_plain
+        return out
 
     # -- K3 ----------------------------------------------------------------
     def backward(self, AB, xs, us, x_last, goal, reg) -> torch.Tensor:

@@ -57,6 +57,8 @@ __all__ = [
     "fd_step_loop_planes",
     "build_fd_step_loop",
     "loop_step_ops",
+    "fd_step_loop_jvp_planes",
+    "loop_jvp_ops",
     "loop_rollout_plain",
     "LoopRollout",
     "build_loop_rollout",
@@ -705,6 +707,79 @@ def _clamp(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return torch.where(lo == hi, torch.where(torch.isnan(x), x, hi + 0.0), inside)
 
 
+def _link_fields(tab: torch.Tensor, k: int) -> dict:
+    """Link k's row of the table, field by field."""
+    base = HEAD_FLOATS + k * LINK_STRIDE
+    return {name: tab[base + LINK_AT[name]:base + LINK_AT[name] + size] for name, size in LINK_FIELDS}
+
+
+def _link_transform(f: dict, qk):
+    """``Td = exp(-[A] qk) M_prev^-1``, link k-1's CoM frame to link k's, as
+    (R, p) (9 and 3 values): ``fd_step_loop.cuh``'s ``mpt_link_transform``."""
+    A, W2, Wv, W2v = f["A"], f["W2"], f["Wv"], f["W2v"]
+    s, c = torch.sin(qk), torch.cos(qk)
+    th, sn, omc = -qk, -s, 1.0 - c
+    tms = th - sn
+    w0, w1, w2 = A[0], A[1], A[2]
+    W = (None, -w2, w1, w2, None, -w0, -w1, w0, None)
+    Re = [1.0 + omc * W2[i] if i in (0, 4, 8) else sn * W[i] + omc * W2[i] for i in range(9)]
+    pe = [th * A[3 + i] + (omc * Wv[i] + tms * W2v[i]) for i in range(3)]
+    Rc, pc = f["Mprev_R"], f["Mprev_p"]
+    R = [_dot3(Re[3 * i:3 * i + 3], Rc[j::3]) for i in range(3) for j in range(3)]
+    p = [_dot3(Re[3 * i:3 * i + 3], pc) + pe[i] for i in range(3)]
+    return R, p
+
+
+def _ad_twist(x, y):
+    """``ad_x y`` for twists x = [w; v], y: [w x y_w; v x y_w + w x y_v]."""
+    return _cross(x[:3], y[:3]) + [a + b for a, b in zip(_cross(x[3:], y[:3]), _cross(x[:3], y[3:]))]
+
+
+def _wrench(I, m, V, Vd):
+    """``G Vd - ad_V^T G V = G Vd + [w x Gw + v x Gv; w x Gv]``, and G V."""
+    GV = _inertia_apply(I, m, V)
+    GVd = _inertia_apply(I, m, Vd)
+    adT_top = [x + y for x, y in zip(_cross(V[:3], GV[:3]), _cross(V[3:], GV[3:]))]
+    return [x + y for x, y in zip(GVd, adT_top + _cross(V[:3], GV[3:]))], GV
+
+
+def _loop_dynamics(tab: torch.Tensor, n: int, q_vals, dq_vals):
+    """The looped step's pass over the links: (M, bias), M's upper triangle
+    (``M[i][j]``, i <= j; the rest None) and the bias h(q, dq) with gravity."""
+    g = tab[HEAD_AT["g"]:HEAD_AT["g"] + 3]
+    like = q_vals[0]
+    full = lambda v: torch.broadcast_to(v, like.shape)
+    zero = torch.zeros_like(like)
+    V = [zero] * 6
+    Vd = [zero] * 3 + [full(-g[i]) for i in range(3)]
+    JB = [None] * n
+    M = [[None] * n for _ in range(n)]
+    bias = [None] * n
+    for k in range(n):
+        f = _link_fields(tab, k)
+        A, I, m = f["A"], f["I"], f["m"][0]
+        dqk = dq_vals[k]
+        R, p = _link_transform(f, q_vals[k])
+        for i in range(k):
+            JB[i] = _ad_transform(R, p, JB[i])
+        JB[k] = [full(A[e]) for e in range(6)]
+        # The RNEA's forward sweep (ddq = 0).
+        Adq = [A[e] * dqk for e in range(6)]
+        AdV = _ad_transform(R, p, V)
+        V = [x + y for x, y in zip(AdV, Adq)]
+        AdVd = _ad_transform(R, p, Vd)
+        Vd = [x + y for x, y in zip(AdVd, _ad_twist(V, Adq))]
+        F, _ = _wrench(I, m, V, Vd)
+        for j in range(k + 1):
+            GJ = _inertia_apply(I, m, JB[j])
+            for i in range(j + 1):
+                d = _dot6(JB[i], GJ)
+                M[i][j] = d if k == j else M[i][j] + d
+            d = _dot6(JB[j], F)
+            bias[j] = d if k == j else bias[j] + d
+    return M, bias
+
+
 def fd_step_loop_planes(tab: torch.Tensor, n: int, q_vals, dq_vals, tau_vals):
     """One step of the looped program over per-joint tensor lists: ``(q',
     dq', ddq)``. ``tab`` is a :func:`link_table` in the values' dtype, on
@@ -721,9 +796,103 @@ def fd_step_loop_planes(tab: torch.Tensor, n: int, q_vals, dq_vals, tau_vals):
     transform. Link k adds JB_i . G_k JB_j to M[i][j] (i <= j <= k) and
     JB_i . F_k to bias[i], F_k = G_k Vd - ad_V^T G_k V its wrench: the
     RNEA's backward sweep written as the sum of J^T F over the links, so
-    nothing is kept for a second pass. Then ``_chol_solve_values``,
-    semi-implicit Euler and the clamps."""
+    nothing is kept for a second pass. Then the Cholesky solve
+    (``_chol_factor``, ``_chol_apply``), semi-implicit Euler and the
+    clamps."""
+    M, bias = _loop_dynamics(tab, n, q_vals, dq_vals)
+    ddq = _chol_apply(*_chol_factor(M), [tau_vals[i] - bias[i] for i in range(n)])
     dt = tab[HEAD_AT["dt"]]
+    dq_new, q_new = [], []
+    for i in range(n):
+        lo, hi, vel = _limits(tab, i)
+        dq_i = dq_vals[i] + ddq[i] * dt
+        q_new.append(_clamp(q_vals[i] + dq_i * dt, lo, hi))
+        dq_new.append(_clamp(dq_i, -vel, vel))
+    return q_new, dq_new, ddq
+
+
+def _limits(tab: torch.Tensor, i: int):
+    """Joint i's position bounds and velocity limit from the table."""
+    base = HEAD_FLOATS + i * LINK_STRIDE
+    return tuple(tab[base + LINK_AT[k]] for k in ("lower", "upper", "vel"))
+
+
+# ---------------------------------------------------------------------------
+# The looped step's forward mode (K2's looped form)
+# ---------------------------------------------------------------------------
+#
+# The Jacobian columns d x'_i / d [q; dq; tau]_s of one step, seed by seed,
+# the plain version of csrc/fd_step_loop_jvp.cuh. With ddq the primal's,
+# M(q) ddq + h(q, dq) = tau, so
+#
+#     d ddq = M^-1 (d tau - r),   r = d(M ddq + h) at fixed ddq,
+#
+# solved with the primal's Cholesky factor. r is the tangent of the sum of
+# J^T W over the links, W_k = G_k Vd_k - ad_V^T G_k V_k the link's wrench
+# with Vd_k carrying the acceleration ddq too (the RNEA's full forward
+# sweep): a second pass over the links, which needs ddq, carries the
+# tangents of V and Vd from the seed's own joint j on. A q_j seed turns
+# link j's transform, so there dV = ad_{Ad V}(A_j) and dVd = ad_{Ad
+# Vd}(A_j) + ad_dV(A_j dq_j), and each earlier Jacobian column moves by
+# dJB_i = ad_{JB_i}(JB_j), i < j (in link k's frame, k >= j, never
+# stored); a dq_j seed starts at dV = A_j, dVd = ad_V(A_j); a tau seed has
+# r = 0 and needs the solve alone. Past link j both tangents move with the
+# link's transform and dVd gains ad_dV(A_k dq_k).
+
+
+def _chol_factor(M):
+    """The Cholesky factor of M (upper triangle read) and the reciprocals
+    of its diagonal: ``_chol_solve_values``' factor, operation for
+    operation, and ``fd_step_loop.cuh``'s ``mpt_chol_factor``."""
+    n = len(M)
+    L = [[None] * (i + 1) for i in range(n)]
+    for j in range(n):
+        s = M[j][j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        d = torch.sqrt(s)
+        L[j][j] = d
+        inv_d = 1.0 / d
+        for i in range(j + 1, n):
+            s = M[j][i]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s * inv_d
+    return L, [1.0 / L[i][i] for i in range(n)]
+
+
+def _chol_apply(L, inv_diag, rhs):
+    """Both triangular solves with the factor: ``mpt_chol_apply``."""
+    n = len(rhs)
+    y = [None] * n
+    for i in range(n):
+        s = rhs[i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s * inv_diag[i]
+    x = [None] * n
+    for i in range(n - 1, -1, -1):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i] * x[k]
+        x[i] = s * inv_diag[i]
+    return x
+
+
+def _clamp_tangent(p: torch.Tensor, t: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The tangent of ``_clamp(p)``, ``cgen._clip_tangent``'s rule with the
+    bounds as run-time values: t strictly inside, 0.5 t on a bound, 0
+    outside and for a NaN primal; an infinite bound is no bound, so with
+    both infinite the tangent is t whatever p (JAX does not clip there)."""
+    no_lo, no_hi = lo == -torch.inf, hi == torch.inf
+    inside = ((p > lo) | no_lo) & ((p < hi) | no_hi)
+    at = ((p == lo) & ~no_lo) | ((p == hi) & ~no_hi)
+    return torch.where(inside, t, torch.where(at, t * 0.5, torch.zeros_like(t)))
+
+
+def _loop_residual_tangents(tab: torch.Tensor, n: int, q_vals, dq_vals, ddq, seeds):
+    """Per q or dq seed s of ``seeds`` (0 <= s < 2n), r_s = d(M ddq + h) /
+    d s at fixed ddq (n values): the second pass, ``mpt_jvp_tangents``."""
     g = tab[HEAD_AT["g"]:HEAD_AT["g"] + 3]
     like = q_vals[0]
     full = lambda v: torch.broadcast_to(v, like.shape)
@@ -731,61 +900,84 @@ def fd_step_loop_planes(tab: torch.Tensor, n: int, q_vals, dq_vals, tau_vals):
     V = [zero] * 6
     Vd = [zero] * 3 + [full(-g[i]) for i in range(3)]
     JB = [None] * n
-    M = [[None] * n for _ in range(n)]
-    bias = [None] * n
+    tan = {}  # seed: (dV, dVd), from its joint on
+    r = {s: [zero] * n for s in seeds}
     for k in range(n):
-        base = HEAD_FLOATS + k * LINK_STRIDE
-        f = {name: tab[base + LINK_AT[name]:base + LINK_AT[name] + size] for name, size in LINK_FIELDS}
-        A, W2, Wv, W2v, I = f["A"], f["W2"], f["Wv"], f["W2v"], f["I"]
-        m = f["m"][0]
-        qk, dqk = q_vals[k], dq_vals[k]
-        s, c = torch.sin(qk), torch.cos(qk)
-        # Td = exp(-[A] qk) M_prev^-1.
-        th, sn, omc = -qk, -s, 1.0 - c
-        tms = th - sn
-        w0, w1, w2 = A[0], A[1], A[2]
-        W = (None, -w2, w1, w2, None, -w0, -w1, w0, None)
-        Re = [1.0 + omc * W2[i] if i in (0, 4, 8) else sn * W[i] + omc * W2[i] for i in range(9)]
-        pe = [th * A[3 + i] + (omc * Wv[i] + tms * W2v[i]) for i in range(3)]
-        Rc, pc = f["Mprev_R"], f["Mprev_p"]
-        R = [_dot3(Re[3 * i:3 * i + 3], Rc[j::3]) for i in range(3) for j in range(3)]
-        p = [_dot3(Re[3 * i:3 * i + 3], pc) + pe[i] for i in range(3)]
+        f = _link_fields(tab, k)
+        A, I, m = f["A"], f["I"], f["m"][0]
+        Af = [full(A[e]) for e in range(6)]
+        R, p = _link_transform(f, q_vals[k])
         for i in range(k):
             JB[i] = _ad_transform(R, p, JB[i])
-        JB[k] = [full(A[e]) for e in range(6)]
-        # The RNEA's forward sweep (ddq = 0).
-        Adq = [A[e] * dqk for e in range(6)]
+        JB[k] = Af
+        Adq = [A[e] * dq_vals[k] for e in range(6)]
         AdV = _ad_transform(R, p, V)
         V = [x + y for x, y in zip(AdV, Adq)]
         AdVd = _ad_transform(R, p, Vd)
-        top = _cross(V[:3], Adq[:3])
-        bottom = [x + y for x, y in zip(_cross(V[3:], Adq[:3]), _cross(V[:3], Adq[3:]))]
-        Vd = [x + y for x, y in zip(AdVd, top + bottom)]
-        # F = G Vd - ad_V^T G V = G Vd + [w x Gw + v x Gv; w x Gv].
-        GV = _inertia_apply(I, m, V)
-        GVd = _inertia_apply(I, m, Vd)
-        adT_top = [x + y for x, y in zip(_cross(V[:3], GV[:3]), _cross(V[3:], GV[3:]))]
-        F = [x + y for x, y in zip(GVd, adT_top + _cross(V[:3], GV[3:]))]
-        for j in range(k + 1):
-            GJ = _inertia_apply(I, m, JB[j])
-            for i in range(j + 1):
-                d = _dot6(JB[i], GJ)
-                M[i][j] = d if k == j else M[i][j] + d
-            d = _dot6(JB[j], F)
-            bias[j] = d if k == j else bias[j] + d
-    for i in range(n):
-        for j in range(i):
-            M[i][j] = M[j][i]
-    rhs = [tau_vals[i] - bias[i] for i in range(n)]
-    ddq = _chol_solve_values(M, rhs)
-    dq_new, q_new = [], []
-    for i in range(n):
-        base = HEAD_FLOATS + i * LINK_STRIDE
-        lo, hi, vel = (tab[base + LINK_AT[k]] for k in ("lower", "upper", "vel"))
-        dq_i = dq_vals[i] + ddq[i] * dt
-        q_new.append(_clamp(q_vals[i] + dq_i * dt, lo, hi))
-        dq_new.append(_clamp(dq_i, -vel, vel))
-    return q_new, dq_new, ddq
+        Vd = [(x + y) + A[e] * ddq[k] for e, (x, y) in enumerate(zip(AdVd, _ad_twist(V, Adq)))]
+        W, GV = _wrench(I, m, V, Vd)
+        for s in seeds:
+            j, is_q = s % n, s < n
+            if k < j:
+                continue
+            if k == j and is_q:
+                dV = _ad_twist(AdV, Af)
+                dVd = [x + y for x, y in zip(_ad_twist(AdVd, Af), _ad_twist(dV, Adq))]
+            elif k == j:
+                dV, dVd = Af, _ad_twist(V, Af)
+            else:
+                dV = _ad_transform(R, p, tan[s][0])
+                dVd = [x + y for x, y in zip(_ad_transform(R, p, tan[s][1]), _ad_twist(dV, Adq))]
+            tan[s] = (dV, dVd)
+            # dW = G dVd + [dw x Gw + w x Gdw + dv x Gv + v x Gdv; dw x Gv + w x Gdv].
+            GdV, GdVd = _inertia_apply(I, m, dV), _inertia_apply(I, m, dVd)
+            top = [(a + b) + (c + d) for a, b, c, d in zip(
+                _cross(dV[:3], GV[:3]), _cross(V[:3], GdV[:3]), _cross(dV[3:], GV[3:]), _cross(V[3:], GdV[3:]))]
+            bottom = [a + b for a, b in zip(_cross(dV[:3], GV[3:]), _cross(V[:3], GdV[3:]))]
+            dW = [x + y for x, y in zip(GdVd, top + bottom)]
+            rs = r[s]
+            for i in range(k + 1):
+                c = _dot6(JB[i], dW)
+                if is_q and i < j:
+                    c = c + _dot6(_ad_twist(JB[i], JB[j]), W)
+                rs[i] = rs[i] + c
+    return r
+
+
+def fd_step_loop_jvp_planes(tab: torch.Tensor, n: int, x_vals, u_vals, seeds):
+    """The looped step and its Jacobian columns over per-value tensor lists:
+    ``(x', cols)``, x' = [q'; dq'] (2n values) and ``cols[c][i] = d x'_i /
+    d [x; u]_s`` for s = ``seeds[c]`` (0 <= s < 3n: q, then dq, then tau).
+    ``tab`` as :func:`fd_step_loop_planes` takes it. The operations, their
+    operands and their order are ``csrc/fd_step_loop_jvp.cuh``'s for each
+    seed, so on the card this is the kernel's value bit for bit; a seed's
+    zeros are run-time values there and here alike."""
+    q_vals, dq_vals = x_vals[:n], x_vals[n:]
+    M, bias = _loop_dynamics(tab, n, q_vals, dq_vals)
+    L, inv_diag = _chol_factor(M)
+    ddq = _chol_apply(L, inv_diag, [u_vals[i] - bias[i] for i in range(n)])
+    dt = tab[HEAD_AT["dt"]]
+    limits = [_limits(tab, i) for i in range(n)]
+    dq_pre = [dq_vals[i] + ddq[i] * dt for i in range(n)]
+    q_pre = [q_vals[i] + dq_pre[i] * dt for i in range(n)]
+    x_next = [_clamp(q_pre[i], lo, hi) for i, (lo, hi, _) in enumerate(limits)]
+    x_next += [_clamp(dq_pre[i], -vel, vel) for i, (_, _, vel) in enumerate(limits)]
+    r = _loop_residual_tangents(tab, n, q_vals, dq_vals, ddq, [s for s in seeds if s < 2 * n])
+    zero, one = torch.zeros_like(q_vals[0]), torch.ones_like(q_vals[0])
+    cols = []
+    for s in seeds:
+        j = s % n
+        rhs = [-x for x in r[s]] if s < 2 * n else [one if i == j else zero for i in range(n)]
+        dx = _chol_apply(L, inv_diag, rhs)
+        d_dq = [dx[i] * dt for i in range(n)]
+        if n <= s < 2 * n:
+            d_dq[j] = 1.0 + d_dq[j]
+        d_q = [d_dq[i] * dt for i in range(n)]
+        if s < n:
+            d_q[j] = 1.0 + d_q[j]
+        cols.append([_clamp_tangent(q_pre[i], d_q[i], lo, hi) for i, (lo, hi, _) in enumerate(limits)]
+                    + [_clamp_tangent(dq_pre[i], d_dq[i], -vel, vel) for i, (_, _, vel) in enumerate(limits)])
+    return x_next, cols
 
 
 def build_fd_step_loop(
@@ -812,6 +1004,26 @@ def build_fd_step_loop(
     return step
 
 
+_ARITHMETIC = {"add", "sub", "rsub", "mul", "neg", "reciprocal", "div", "sqrt", "sin", "cos",
+               "lt", "gt", "eq", "isnan", "where", "bitwise_and", "bitwise_or", "bitwise_not"}
+
+
+def _count_ops(fn) -> int:
+    """The elementwise arithmetic ``fn()`` issues (``_ARITHMETIC``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += func.overloadpacket.__name__ in _ARITHMETIC
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.ops
+
+
 @functools.lru_cache(maxsize=None)
 def loop_step_ops(n: int) -> int:
     """The floating-point operations of one looped step for n joints: the
@@ -819,23 +1031,30 @@ def loop_step_ops(n: int) -> int:
     (``fd_step_loop.cuh`` does the same arithmetic, and one branch of each
     clamp where the plain version evaluates both; its selects of the link's
     registers and its branches on the link index are not counted)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    arithmetic = {"add", "sub", "rsub", "mul", "neg", "reciprocal", "div", "sqrt", "sin", "cos",
-                  "lt", "gt", "eq", "isnan", "where"}
-
-    class Count(TorchDispatchMode):
-        ops = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.ops += func.overloadpacket.__name__ in arithmetic
-            return func(*args, **(kwargs or {}))
-
     tab = torch.full((HEAD_FLOATS + n * LINK_STRIDE,), 0.5)
     x = [torch.zeros(1) for _ in range(n)]
-    with Count():
-        fd_step_loop_planes(tab, n, x, x, x)
-    return Count.ops
+    return _count_ops(lambda: fd_step_loop_planes(tab, n, x, x, x))
+
+
+@functools.lru_cache(maxsize=None)
+def loop_jvp_ops(n: int, seeds: int) -> dict:
+    """The operations of the looped K2 (``fd_step_loop_jvp.cuh``) per
+    (scenario, step) for n joints and ``seeds`` q or dq seeds a thread,
+    counted as :func:`loop_step_ops` counts on the plain version run one
+    thread's group at a time: per seed kind (``"q"``, ``"dq"``, ``"tau"``:
+    the sum over that kind's threads, each with its primal step) and
+    ``"total"``. The x' the plain version also returns is not counted."""
+    tab = torch.full((HEAD_FLOATS + n * LINK_STRIDE,), 0.5)
+    x = [torch.zeros(1) for _ in range(2 * n)]
+    groups = {"q": [list(range(j, j + seeds)) for j in range(0, n, seeds)],
+              "dq": [list(range(n + j, n + j + seeds)) for j in range(0, n, seeds)],
+              "tau": [list(range(2 * n, 3 * n))]}
+    b = tab[0]
+    xn = _count_ops(lambda: [_clamp(x[0], b, b) for _ in range(n)] + [_clamp(x[0], -b, b) for _ in range(n)])
+    out = {kind: sum(_count_ops(lambda: fd_step_loop_jvp_planes(tab, n, x, x[:n], g)) - xn for g in gs)
+           for kind, gs in groups.items()}
+    out["total"] = sum(out.values())
+    return out
 
 
 def loop_rollout_plain(tab: torch.Tensor, n: int, intRes: int, q0: torch.Tensor, dq0: torch.Tensor,

@@ -3,8 +3,10 @@ draws of ``chip_smoke.py``'s Panda problem at phase 9's widths, on the card.
 
 ``chip_smoke.py`` phases 7-9 draw the Panda problem from one generator
 after phases 3-5. Phase 6b draws from its own; had it drawn from that one,
-phases 7-9 would solve other scenarios (``shifted``). For each draw and
-each of phase 9's widths this script solves the batch as phase 9 does,
+phases 7-9 would solve other scenarios (``shifted``). For each draw, each
+form of K2 the solve may run (``emitted``, ``looped``: the same scenarios,
+solved on each form's linearization) and each of phase 9's widths this
+script solves the batch as phase 9 does,
 feeds K5 and its plain version the same inputs (the solve's controls, K2's
 and K3's outputs at reg 1e-6, an alpha of 0.5^(b mod 6) for scenario b),
 and reports, per output, the entries that are not finite on each side,
@@ -23,7 +25,6 @@ import json
 import os
 import sys
 
-import numpy as np
 import torch
 
 import chip_smoke as cs
@@ -54,10 +55,11 @@ def nonfinite(t: torch.Tensor) -> int:
     return int((~torch.isfinite(t)).sum())
 
 
-def case(K, panda, gen, B: int) -> dict:
+def case(panda, gen, B: int, form: str) -> dict:
     f32 = dict(dtype=torch.float32, device=cs.DEV)
     x0, goals = cs.panda_problem(gen, panda, B)
-    handle = build_batch_tracking_mpc(panda, goals, B, cs.H_MPC, cs.DT, iterations=cs.ITERS)
+    handle = build_batch_tracking_mpc(panda, goals, B, cs.H_MPC, cs.DT, iterations=cs.ITERS, _form=form)
+    K = handle.kernels
     us, _, cost = handle.solve(x0, torch.zeros((B, cs.H_MPC, 7), **f32))
     args = cs.mpc_stage_parity(K, x0, goals, us.permute(1, 2, 0).contiguous(), f"panda B={B}", False, check=False)[1]
     kK = args["replay"][3]
@@ -82,14 +84,15 @@ def main(out_dir: str = "build") -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("k5_shifted_draw: no CUDA device is available")
     panda = catalog.panda(dtype=torch.float32)
-    K = build_batch_tracking_mpc(panda, np.zeros(7), cs.B_MPC, cs.H_MPC, cs.DT, iterations=cs.ITERS).kernels
     results = {"card": cs.card_line()}
     for shifted in (False, True):
-        gen = phase9_generator(panda, shifted)
-        for B in cs.B_MPC_WIDE:
-            r = case(K, panda, gen, B)
-            results[f"{'shifted' if shifted else 'smoke'} B={B}"] = r
-            print(f"[k5_draw] draw={'shifted' if shifted else 'smoke'} {json.dumps(r)}", flush=True)
+        for form in cs.LIN_FORMS:
+            gen = phase9_generator(panda, shifted)
+            for B in cs.B_MPC_WIDE:
+                r = case(panda, gen, B, form)
+                draw = "shifted" if shifted else "smoke"
+                results[f"{draw} {form} B={B}"] = r
+                print(f"[k5_draw] draw={draw} k2={form} {json.dumps(r)}", flush=True)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "k5_shifted_draw.json"), "w") as f:
         json.dump(results, f, indent=1)

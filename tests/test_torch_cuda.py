@@ -28,7 +28,10 @@ nothing compiled; a checkpointed batched solve resumed bitwise; the
 unprojection's division; ``test_installation`` through K1:
 ``-k "aot or checkpoint or pixel_to_camera or test_installation"``. K1 on
 the looped step (``csrc/fd_step_loop.cuh``) bit for bit ``LoopRollout`` on
-chains of 1, 7 and 8 joints, and the route's form: ``-k looped``.
+chains of 1, 7 and 8 joints, and the route's form: ``-k looped`` (which
+also takes K2's looped form: bit for bit its plain version on chains of 1,
+7 and 8 joints with a NaN scenario, the public solve's form and an AOT
+round trip of a looped-form solve; ``-k "looped_linearize or k2"``).
 """
 
 import json
@@ -227,7 +230,8 @@ def test_mpc_kernels_match_plain_versions(cuda_device, robot):
     }
 
 
-# K2 alone: one thread per (scenario, group of LIN_SEEDS seeds, step), the
+# K2 alone, its emitted form (the route gives these arms the looped one,
+# below): one thread per (scenario, group of LIN_SEEDS seeds, step), the
 # primal step once and each tangent once per seed, bitwise against the plain
 # linearization (NaN where it is NaN). Its local bytes in blocks of 64, UR5
 # at 3 seeds a thread and Panda at 1 (PERF.md section 6, nvcc 12.8): more
@@ -237,12 +241,12 @@ _K2_SETS = {}
 
 
 def _k2(robot, device, g=(0.0, 0.0, -9.81)):
-    """K2-K5 for a robot at dt 0.01 with its own torque limits (one build a
-    robot and g for the whole module)."""
+    """K2-K5 for a robot at dt 0.01 with its own torque limits, K2 in its
+    emitted form (one build a robot and g for the whole module)."""
     if (robot, g) not in _K2_SETS:
         model = catalog.get_robot(robot, source="programmatic", device=device)
         u_lim = [float(v) for v in model.torque_limit.cpu()]
-        _K2_SETS[robot, g] = (model, BatchMPCKernels(model, 0.01, g=g, u_lim=u_lim))
+        _K2_SETS[robot, g] = (model, BatchMPCKernels(model, 0.01, g=g, u_lim=u_lim, _form="emitted"))
     return _K2_SETS[robot, g]
 
 
@@ -316,6 +320,62 @@ def test_linearize_kernel_keeps_a_nan_scenario_to_itself(cuda_device, robot):
     assert torch.equal(dirty[..., others].view(torch.int32), clean[..., others].view(torch.int32))
     attrs = K.kernel_attributes()["linearize"]
     assert attrs["local_bytes"] <= K2_LOCAL_BYTES[robot] and attrs["max_threads"] == 64
+
+
+# K2's looped form (csrc/fd_step_loop_jvp.cuh): one unit per (joint count,
+# seeds a thread), the robot's table passed with each launch, bit for bit
+# its plain version (``fd_step.fd_step_loop_jvp_planes``, NaN where it has
+# NaN); no more local bytes than sinf/cosf's 32-byte frame (ptxas spills to
+# shared memory first), reported.
+LOOPED_K2_ROBOTS = {"robotiq_2f_85": 1, "gen3": 7, "panda": 8}
+
+
+def _chain(robot, device):
+    from manipulapy_tpu_torch.models import robot_data
+
+    return robot_data.load_robot(robot, chain_joints_only=True, device=device)
+
+
+@pytest.mark.parametrize("B, H", [(1, 1), (257, 8), (1024, 50)])
+@pytest.mark.parametrize("robot", sorted(LOOPED_K2_ROBOTS))
+def test_looped_linearize_kernel_is_bitwise(cuda_device, robot, B, H):
+    model = _chain(robot, cuda_device)
+    n = model.num_joints
+    assert n == LOOPED_K2_ROBOTS[robot]
+    K = type("LinOnly", (BatchMPCKernels,), {"UNITS": {"lin": ("linearize",)}})(
+        model, 0.01, u_lim=[1.0] * n, _form="looped")
+    xs, us = _lin_states(model, B, H, cuda_device, seed=B + H)
+    if B > 1:
+        xs[:, n, B // 2] = float("nan")  # a NaN scenario stays its own
+    before = dict(BatchMPCKernels.lin_launches)
+    AB = K.linearize(xs, us)
+    torch.cuda.synchronize()
+    assert BatchMPCKernels.lin_launches["looped"] == before["looped"] + 1
+    assert AB.shape == (H, 2 * n, 3 * n, B)
+    ref = K.plain().linearize(xs, us)
+    _assert_bits_and_nans(AB, ref)
+    if B > 1:
+        assert bool(torch.isnan(AB[..., B // 2]).any()) and bool(torch.isfinite(AB[..., 0]).all())
+    attrs = K.kernel_attributes()["linearize"]
+    print(f"looped K2 {robot}: {K.LIN_LOOP_SEEDS} seeds a thread, {attrs['num_regs']} registers, "
+          f"{attrs['local_bytes']} local bytes")
+    assert attrs["local_bytes"] <= 32 and attrs["max_threads"] == 64
+
+
+@pytest.mark.parametrize("robot, form", [("panda", "looped"), ("robotiq_2f_85", "emitted")])
+def test_public_solve_launches_the_looped_or_emitted_k2_by_route(cuda_device, robot, form):
+    """The public solver's K2 is the route's form: the programmatic Panda
+    the looped one, the one-joint Robotiq the emitted one; a solve launches
+    it ITERS times and the other form never."""
+    model = catalog.panda(device=cuda_device) if robot == "panda" else _chain(robot, cuda_device)
+    n, B, H = model.num_joints, 64, 10
+    x0, goals, _ = _mpc_problem(model, B, H, cuda_device, seed=16)
+    mpc = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2)
+    assert mpc.kernels.form == form
+    BatchMPCKernels.reset_launch_count()
+    mpc.solve(x0, torch.zeros((B, H, n), device=cuda_device))
+    torch.cuda.synchronize()
+    assert BatchMPCKernels.lin_launches == {form: 2, {"looped": "emitted", "emitted": "looped"}[form]: 0}
 
 
 @pytest.fixture(scope="module")
@@ -1194,14 +1254,23 @@ def test_route_launches_the_looped_kernel_past_the_threshold(cuda_device):
         assert CudaRollout.launch_count == 1 and CudaRollout.launch_counts[form] == 1
 
 
-def _calibrated_mpc_kernels_bitwise(model, device, B=257, H=8, seed=14):
-    """K2-K5 fed a 2-iteration solve's own controls: K2, K4 and K5 the plain
-    versions' bits (NaN where theirs is NaN), K3 within 1e-5 of each
-    output's scale; the solve launches each kernel as the Panda's does.
-    Returns the solve."""
+def _k3_close_with_nans(got, ref):
+    """K3 where a scenario's factor went non-finite: NaN and infinities where
+    its plain version has them, within 1e-5 of scale where both are finite."""
+    assert torch.equal(torch.isnan(got), torch.isnan(ref)) and torch.equal(torch.isinf(got), torch.isinf(ref))
+    both = torch.isfinite(ref)
+    assert float((got - ref)[both].abs().max()) <= MPC_RTOL * float(ref[both].abs().max())
+
+
+def _calibrated_mpc_kernels_bitwise(model, device, B=257, H=8, seed=14, form=None, k3_nans=False):
+    """K2-K5 fed a 2-iteration solve's own controls (K2 in ``form``, None:
+    the route's): K2, K4 and K5 the plain versions' bits (NaN where theirs
+    is NaN), K3 within 1e-5 of each output's scale (``k3_nans``: NaN where
+    its plain version has NaN); the solve launches each kernel as the
+    Panda's does. Returns the solve."""
     n = model.num_joints
     x0, goals, _ = _mpc_problem(model, B, H, device, seed=seed)
-    mpc = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2)
+    mpc = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2, _form=form)
     K, P = mpc.kernels, mpc.kernels.plain()
     assert K.P.u_lim == [float(v) for v in model.torque_limit.cpu()]
     BatchMPCKernels.reset_launch_count()
@@ -1222,7 +1291,7 @@ def _calibrated_mpc_kernels_bitwise(model, device, B=257, H=8, seed=14):
     AB = K.linearize(sd_x, us)
     _assert_bits_and_nans(AB, P.linearize(sd_x, us))
     bwd = (AB, sd_x, us, xs0[0][-1].contiguous(), goal_t, torch.full((B,), 1e-6, device=device))
-    _close_to_scale(K.backward(*bwd), P.backward(*bwd))
+    (_k3_close_with_nans if k3_nans else _close_to_scale)(K.backward(*bwd), P.backward(*bwd))
     kK = K.backward(*bwd)
     alphas = 0.5 ** torch.arange(6, device=device, dtype=torch.float32)
     ls = (x0_t, sd_x, us, kK, goal_t, alphas)
@@ -1246,12 +1315,29 @@ def test_mpc_kernels_are_bitwise_on_the_calibrated_panda_arm(cuda_device):
 def test_mpc_kernels_are_bitwise_at_the_fleets_extremes(cuda_device, robot):
     """K2-K5 on the calibrated fleet's narrowest and widest chains: one
     revolute finger joint (K2's 3 seeds in one thread, 30 of K3's 32 lanes
-    idle) and the Jaco's 8 joints."""
+    idle) and the Jaco's 8 joints, K2 in its emitted form (the route gives
+    the Jaco chain the looped one: the next test)."""
     from manipulapy_tpu_torch.models import robot_data
 
     model = robot_data.load_robot(robot, chain_joints_only=True, device=cuda_device)
     assert model.num_joints == (1 if robot == "robotiq_2f_85" else 8)
-    _calibrated_mpc_kernels_bitwise(model, cuda_device)
+    _calibrated_mpc_kernels_bitwise(model, cuda_device, form="emitted")
+
+
+def test_looped_k2_solve_on_the_jaco_chain_keeps_k3_to_its_plain_version(cuda_device):
+    """The Jaco chain's public solve on K2's looped form, its stages fed the
+    solve's own controls: K2, K4 and K5 bitwise (NaN where the plain version
+    has NaN), K3 within 1e-5 of scale and NaN where its plain version has
+    NaN. The fingers weigh grams: Quu's condition number reaches ~1.7e10,
+    past float32, so whether K3's factor stays finite on a scenario turns on
+    the last bits of AB (scenario 93 of this draw: finite on the emitted
+    K2's nominal, not on the looped one's, though the looped AB is the
+    closer to the float64 Jacobian: 5.5e-4 against 8.9e-3 at scale 1037)."""
+    from manipulapy_tpu_torch.models import robot_data
+
+    model = robot_data.load_robot("jaco_7dof", chain_joints_only=True, device=cuda_device)
+    mpc = _calibrated_mpc_kernels_bitwise(model, cuda_device, k3_nans=True)[0]
+    assert mpc.kernels.form == "looped"
 
 
 def test_zero_torque_limits_give_plus_zero_controls_on_the_card(cuda_device):
@@ -1291,13 +1377,61 @@ from manipulapy_tpu_torch.utils import aot
 work = sys.argv[1]
 inputs = torch.load(os.path.join(work, "inputs.pt"))
 outputs, seconds = {}, {}
+forms = {}
 for kind, load in (("batch", aot.load_batch_mpc), ("tracking", aot.load_tracking_mpc)):
+    if not os.path.exists(os.path.join(work, kind + ".aot")):
+        continue
     solve = load(os.path.join(work, kind + ".aot"))
     outputs[kind] = solve(*inputs[kind])
     seconds[kind] = [b.compile_seconds for b in solve.handle.kernels.build().values()]
+    forms[kind] = getattr(solve.handle.kernels, "form", None)
 torch.save(outputs, os.path.join(work, "outputs.pt"))
-print(json.dumps({"seconds": seconds, "root": str(_build.build_root())}))
+print(json.dumps({"seconds": seconds, "root": str(_build.build_root()), "forms": forms}))
 '''
+
+
+def _aot_load_in_a_fresh_process(tmp_path):
+    """Run ``_AOT_LOAD`` on the artifacts under ``tmp_path`` in a process with
+    no nvcc on PATH, no CUDA_HOME and an empty build root: its report."""
+    import os
+    import subprocess
+    import sys
+
+    root = tmp_path / "empty_root"
+    root.mkdir()
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = os.pathsep.join(p for p in env.get("PATH", "").split(os.pathsep)
+                                  if p and not os.path.exists(os.path.join(p, "nvcc")))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env.update(MANIPULAPY_TPU_CACHE_DIR=str(root), PYTHONPATH=repo)
+    proc = subprocess.run([sys.executable, "-c", _AOT_LOAD, str(tmp_path)], env=env, cwd=repo,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["root"] == str(root)
+    return report
+
+
+def test_aot_round_trip_of_a_looped_k2_solve_is_bitwise(cuda_device, tmp_path):
+    """A batched solve on K2's looped form (Panda, B=64 H=10, ``_form``
+    kept in the artifact's build arguments) saved and loaded without nvcc:
+    the loaded solver runs the looped form, nothing compiles, and its solve
+    is the in-process one's bits."""
+    from manipulapy_tpu_torch.utils import aot
+
+    model = catalog.panda(device=cuda_device)
+    B, H = 64, 10
+    x0, goals, _ = _mpc_problem(model, B, H, cuda_device, seed=17)
+    batch = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2, _form="looped")
+    assert batch.kernels.form == "looped" and batch.build_args["_form"] == "looped"
+    inputs = {"batch": (x0, torch.zeros((B, H, 7), device=cuda_device))}
+    ref = batch.solve(*inputs["batch"])
+    aot.save_batch_mpc(batch, str(tmp_path / "batch.aot"))
+    torch.save(inputs, str(tmp_path / "inputs.pt"))
+    report = _aot_load_in_a_fresh_process(tmp_path)
+    assert report["forms"] == {"batch": "looped"} and report["seconds"] == {"batch": [0.0] * 3}
+    for g, r in zip(torch.load(str(tmp_path / "outputs.pt"))["batch"], ref):
+        assert torch.equal(g, r)
 
 
 def test_aot_artifacts_load_without_nvcc_and_solve_bitwise(cuda_device, tmp_path):
@@ -1305,9 +1439,6 @@ def test_aot_artifacts_load_without_nvcc_and_solve_bitwise(cuda_device, tmp_path
     process with no nvcc on PATH, no CUDA_HOME and an empty build root:
     every unit loads with compile_seconds 0, and the solves are the
     in-process solves' bits."""
-    import os
-    import subprocess
-    import sys
 
     from manipulapy_tpu_torch.utils import aot
 
@@ -1325,18 +1456,7 @@ def test_aot_artifacts_load_without_nvcc_and_solve_bitwise(cuda_device, tmp_path
     assert sorted(libraries) == sorted(batch.kernels.unit_keys().values())
     assert meta["device_name"] == torch.cuda.get_device_name()
     torch.save(inputs, str(tmp_path / "inputs.pt"))
-    root = tmp_path / "empty_root"
-    root.mkdir()
-    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
-    env["PATH"] = os.pathsep.join(p for p in env.get("PATH", "").split(os.pathsep)
-                                  if p and not os.path.exists(os.path.join(p, "nvcc")))
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env.update(MANIPULAPY_TPU_CACHE_DIR=str(root), PYTHONPATH=repo)
-    proc = subprocess.run([sys.executable, "-c", _AOT_LOAD, str(tmp_path)], env=env, cwd=repo,
-                          capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert report["root"] == str(root)
+    report = _aot_load_in_a_fresh_process(tmp_path)
     assert report["seconds"] == {"batch": [0.0] * 3, "tracking": [0.0] * 3}
     outputs = torch.load(str(tmp_path / "outputs.pt"))
     for kind in refs:

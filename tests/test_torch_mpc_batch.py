@@ -689,7 +689,7 @@ def lin_units(tmp_path_factory):
             model = _model(robot)
             n = model.num_joints
             cls = type("Seeds", (BatchMPCKernels,), {"LIN_SEEDS": seeds})
-            k = cls(model, 0.01, g=g, u_lim=[10.0] * n)
+            k = cls(model, 0.01, g=g, u_lim=[10.0] * n, _form="emitted")
             tmp = tmp_path_factory.mktemp(f"{robot}_G{seeds}")
             cpp, so = tmp / "lin.cpp", tmp / "lin.so"
             cpp.write_text(_LIN_HARNESS.format(src=k.sources["lin"], seed_src=k.linearize_seed_source))
@@ -811,21 +811,22 @@ def test_single_lin_unit_keeps_the_one_seed_body():
     body at one seed (K2's for the Panda), and its team unit the same
     statements split over the warps; the emitted one-seed ``fd_step_jvp``
     is in neither K6's nor K2's unit, but the host tests' reference of
-    both. K2 runs the group body, three seeds a thread for the UR5 and one
-    for the Panda."""
+    both. K2's emitted form runs the group body, three seeds a thread for
+    the UR5 and one for the Panda."""
     model = port_catalog.get_robot("ur5", source="programmatic", device="cpu")
     _, one_seed, _ = tfd.build_fd_step_jvp_source(model, 0.01, g=tfd.DEFAULT_G)
     _, group1, group_ops = tfd.build_fd_step_jvp_group_source(model, 0.01, g=tfd.DEFAULT_G, seeds=1)
     single = type("OneThread", (SingleMPCKernels,), {"LIN_WARPS": 0})(model, 0.01, u_lim=[10.0] * 6)
     team = type("Team", (SingleMPCKernels,), {"LIN_WARPS": 4})(model, 0.01, u_lim=[10.0] * 6)
-    batch = BatchMPCKernels(model, 0.01, u_lim=[10.0] * 6)
+    batch = BatchMPCKernels(model, 0.01, u_lim=[10.0] * 6, _form="emitted")
     assert group1 in single.sources["lin"] and "#define MPT_LIN_SEEDS 1\n" in single.sources["lin"]
     assert single.lin_team is None and team.lin_team.statements == group_ops
     assert group1 == single.linearize_group_source == team.linearize_group_source
     assert one_seed == single.linearize_seed_source == batch.linearize_seed_source
     assert all(one_seed not in k.sources["lin"] for k in (single, team, batch))
     assert batch.LIN_SEEDS == 3 and f"#define MPT_LIN_SEEDS 3\n" in batch.sources["lin"]
-    panda = BatchMPCKernels(port_catalog.get_robot("panda", source="programmatic", device="cpu"), 0.01, u_lim=[10.0] * 7)
+    panda = BatchMPCKernels(port_catalog.get_robot("panda", source="programmatic", device="cpu"), 0.01, u_lim=[10.0] * 7,
+                            _form="emitted")
     assert panda.LIN_SEEDS == 1 and f"#define MPT_LIN_SEEDS 1\n" in panda.sources["lin"]
 
 
