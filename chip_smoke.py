@@ -70,10 +70,17 @@ Phases, one line each (or one line per case):
    and both forms of K2 on the programmatic UR5 at B=257 H=8 and at B=1024
    H=50 on its solver's own controls (K2's looped form,
    ``csrc/fd_step_loop_jvp.cuh``, against ``fd_step_loop_jvp_planes``);
+   K4 (both stages) and K5 in the form the route did not give the Panda,
+   and both forms on the UR5, at 0 against one plain call over the A + 1
+   alphas (K4's, then each scenario's own; the looped form,
+   ``csrc/mpc_batch.cuh`` with ``MPT_FWD_LOOP``, against
+   ``loop_fwd_rollout_plain``), and both forms once more at B=257 with
+   scenario 5's velocity NaN, NaN in the same places;
 8. MPC main path: one solve and 3 rounds of ``batch_mpc_step`` with goals
    passed at run time, launch counts read just after (per solve K2 4, K3
    4, K4 4 with the trajectories, K5 1: the initial rollout; K2's by form,
-   all 4 of the form the route gives the Panda), finite
+   all 4 of the form the route gives the Panda; K4's and K5's likewise,
+   ``fwd_launches``), finite
    outputs, costs below the zero-control rollout's, |u| <= u_lim; then the
    whole solve against the plain solver on the card at Panda B=64 H=10
    with 2 iterations;
@@ -95,6 +102,10 @@ Phases, one line each (or one line per case):
    turns (emitted, looped, looped, emitted) at each width, each form's
    seeds a thread, registers, local bytes, blocks an SM and SASS
    instructions (``cuobjdump``), and one solve on each form;
+   ``mpc_time_k45_forms``: K4 (with its trajectories) and K5 in both forms
+   the same way, per kernel registers, local bytes, blocks an SM and SASS
+   instructions, and one solve on each form (the UR5's at B=1024 in
+   phase 7's line);
 10. single-problem parity: each of K6-K8 against its plain version on the
     card at Panda H=50 (the solver's own controls), H=37 (random torques
     within 30% of the limits; K6's H*m lanes end mid-block) and H=50
@@ -255,7 +266,11 @@ robots: the first key of each vendored URDF, 25 root-to-tip chains of 1 to
     controls (K4's and K5's is one ``replay_plain`` call on the first 10
     steps; K2 in both forms,
     each against its own plain version, then timed in turns with each
-    form's figures; the form the public solve took, 4 launches a solve), K3 within 1e-5 of
+    form's figures; the form the public solve took, 4 launches a solve; K4
+    and K5 likewise, the looped form's plain version once per joint count
+    with the robots side by side, ``fleet_fwd_looped_plain``, the route's
+    form 4 + 1 launches a solve, ``fleet_fwd_route`` naming the robots
+    outside the 5% rule), K3 within 1e-5 of
     scale (its plain version once per joint count, the robots' inputs side
     by side, on the sweep's last 10 steps); the solve's and each launch's CUDA-event medians, registers,
     local bytes, K3's shared bytes, K2's seeds a thread; the mean cost
@@ -273,7 +288,7 @@ Then one JSON line of every kernel (K1's record also names the URDF robots
 it was held on, and K1 on the looped step has a record of its own, its
 launches the public route's on the robots it serves; K2's two forms have a
 record each, its launches the public route's of that form (phase 8 and the
-fleet), each form launched at least once; K2-K5's the Panda arm; every record its launches and
+fleet), each form launched at least once, and so have K4's and K5's; K2-K5's the Panda arm; every record its launches and
 errors in phases 27-31; a record per fleet model and kernel), the card's
 name and power limit, and the result line. Any failure raises, so the script exits nonzero before its
 last line. It needs one card and imports no JAX. Run from the repository
@@ -316,7 +331,8 @@ from manipulapy_tpu_torch.models import catalog, data, host_arrays, robot_data
 from manipulapy_tpu_torch.urdf import URDF
 from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
-from manipulapy_tpu_torch.ops.cuda_mpc_batch import BLOCK as BLOCK_MPC, LIN_BLOCK, LIN_FORMS, BatchMPCKernels
+from manipulapy_tpu_torch.ops.cuda_mpc_batch import BLOCK as BLOCK_MPC, FWD_FORMS, LIN_BLOCK, LIN_FORMS, BatchMPCKernels
+from manipulapy_tpu_torch.ops.cuda_mpc_batch import loop_fwd_rollout_plain
 from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
 from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, FORMS, CudaRollout, build_cuda_rollout
 from manipulapy_tpu_torch.ops._build import build_library, library_key, nvcc_path
@@ -384,6 +400,16 @@ K2_NAMES = {"emitted": MPC_KERNELS["linearize"][0],
             "looped": "K2 linearize, looped forward mode (K0 as a loop over links, the robot in a table)"}
 K2_SOURCES = {"emitted": "manipulapy_tpu_torch/csrc/mpc_batch.cuh",
               "looped": "manipulapy_tpu_torch/csrc/fd_step_loop_jvp.cuh"}
+# K4's and K5's two forms: the emitted closed-loop step and the looped one
+# (csrc/mpc_batch.cuh with MPT_FWD_LOOP, over csrc/fd_step_loop.cuh).
+FWD_NAMES = {
+    "linesearch": {"emitted": MPC_KERNELS["linesearch"][0],
+                   "looped": "K4 line search, every alpha's cost and trajectory, looped step (K0 as a loop over "
+                             "links, the robot in a table)"},
+    "replay": {"emitted": MPC_KERNELS["replay"][0],
+               "looped": "K5 replay, looped step (K0 as a loop over links, the robot in a table)"},
+}
+K45_STAGES = ("linesearch_costs", "linesearch", "replay")
 MPC_STAGES = ("linearize", "backward", "linesearch_costs", "linesearch", "replay")
 BITWISE_STAGES = ("linearize", "linesearch_costs", "linesearch", "replay")  # max |d| must be 0
 K4_BLOCKS = (32, 64)  # K4's block-shape variants besides the unit's BLOCK
@@ -858,13 +884,16 @@ def k2_fields(forms: dict) -> dict:
     return out
 
 
-def k2_ur5_phase(ur5, forms: dict) -> dict:
+def k2_ur5_phase(ur5, forms: dict, fwd_forms: dict) -> dict:
     """Phase 7 on the programmatic UR5: K2 in both forms (``forms``, K2
     alone) bitwise its plain version at B=257 H=8 (random torques within
     30% of the limits) and at the main path's B=1024 H=50 on the UR5
-    solver's own controls, there also both timed in turns. Its own
-    generator: the later phases' draws do not depend on it. Returns per B
-    the |d| of each form, and the timings (``k2_forms``) as "forms"."""
+    solver's own controls, there also both timed in turns; K4 (both stages)
+    and K5 in both forms (``fwd_forms``) bitwise theirs on the same inputs,
+    and at B=257 once more with a NaN scenario. Its own generator: the later
+    phases' draws do not depend on it. Returns per B the |d| of each K2
+    form, the timings (``k2_forms``) and per case the |d| of each K4/K5
+    form."""
     gen = torch.Generator(DEV).manual_seed(7)
     mpc = build_batch_tracking_mpc(ur5, np.zeros(6), B_MPC, H_MPC, DT, iterations=ITERS)
     K = mpc.kernels
@@ -873,22 +902,217 @@ def k2_ur5_phase(ur5, forms: dict) -> dict:
     us_s = ((torch.rand((H_PARITY, 6, B_PARITY), generator=gen, device=DEV) * 2 - 1) * 0.3 * u_lim[:, None]).contiguous()
     x0_f, goals_f = panda_problem(gen, ur5, B_MPC)
     us_f = mpc.solve(x0_f, torch.zeros((B_MPC, H_MPC, 6), device=DEV), goals_f)[0].permute(1, 2, 0).contiguous()
-    out = {}
+    out, fwd_out = {}, {}
     for nominal, x0_c, goals_c, us_c in (("random torques", x0_s, goals_s, us_s),
                                          ("solver's controls", x0_f, goals_f, us_f)):
         B, H = us_c.shape[2], us_c.shape[0]
-        args = mpc_stage_parity(K, x0_c, goals_c, us_c, f"ur5 B={B}", False, check=False)[1]["linearize"]
+        all_args = mpc_stage_parity(K, x0_c, goals_c, us_c, f"ur5 B={B}", False, check=False)[1]
+        args, ls, rep = all_args["linearize"], all_args["linesearch"], all_args["replay"]
         errs = {f: bit_diff(Kf.linearize(*args), Kf.plain().linearize(*args)) for f, Kf in forms.items()}
         if any(v != 0.0 for v in errs.values()):
             raise AssertionError(f"ur5 B={B} H={H}: K2 against its plain version {errs}, not 0")
+        fwd_errs = {f: max(k45_errs(k45_outputs(Kf, ls, rep), Kf.plain().replay(*k45_plain_inputs(ls, rep))).values())
+                    for f, Kf in fwd_forms.items()}
+        if any(v != 0.0 for v in fwd_errs.values()):
+            raise AssertionError(f"ur5 B={B} H={H}: K4/K5 against its plain version {fwd_errs}, not 0")
         phase("mpc_parity", robot="ur5", B=B, H=H, nominal=repr(nominal), k2_route_form=K.form,
-              **{f"max_abs_err_linearize_{f}": f"{v:.3e}" for f, v in errs.items()})
-        out[B] = errs
+              k45_route_form=K.fwd_form, **{f"max_abs_err_linearize_{f}": f"{v:.3e}" for f, v in errs.items()},
+              **{f"max_abs_err_k45_{f}": f"{v:.3e}" for f, v in fwd_errs.items()})
+        out[B], fwd_out[B] = errs, fwd_errs
+        if B == B_PARITY:
+            fwd_out["nan"] = k45_nan_check(f"ur5 B={B}", fwd_forms, ls, rep)
+            phase("mpc_parity", robot="ur5", B=B, H=H, nominal=repr("random torques, scenario 5's dq NaN"),
+                  **{f"max_abs_err_k45_{f}": f"{v:.3e}" for f, v in fwd_out["nan"].items()})
     timing = k2_forms("ur5", forms, args, check=False)
     route_ok = timing[K.form]["ms"] <= ROUTE_SLACK * timing[OTHER_FORM[K.form]]["ms"]
     phase("mpc_time_k2_forms", robot="ur5", B=B_MPC, H=H_MPC, route=K.form, route_within_slack=route_ok,
           **k2_fields(timing))
-    return out, timing
+    fwd_timing = k45_forms("ur5", fwd_forms, ls, rep, check=False)
+    fwd_ok = fwd_timing[K.fwd_form]["solve_share_ms"] <= ROUTE_SLACK * fwd_timing[OTHER_FORM[K.fwd_form]]["solve_share_ms"]
+    phase("mpc_time_k45_forms", robot="ur5", B=B_MPC, H=H_MPC, route=K.fwd_form, route_within_slack=fwd_ok,
+          fwd_statements=K.statements["replay"], **k45_fields(fwd_timing))
+    fwd_out["timing"] = fwd_timing
+    return out, timing, fwd_out
+
+
+def fwd_only(K: BatchMPCKernels, model, form: str) -> BatchMPCKernels:
+    """K4 and K5 alone in ``form`` for ``model`` with ``K``'s cost weights
+    and torque limits, at the smoke's dt and g."""
+    cls = type("K45Form", (BatchMPCKernels,), {"UNITS": {"fwd": BatchMPCKernels.UNITS["fwd"]}})
+    P = K.P
+    return cls(model, DT, w_q=P.w_q, w_dq=P.w_dq, w_u=P.w_u, w_terminal=P.wT[0], u_lim=P.u_lim, _fwd_form=form)
+
+
+_SASS_KERNELS: dict = {}
+
+
+def sass_by_kernel(path: str) -> dict:
+    """The SASS instructions of each K4/K5 kernel in the fwd library at
+    ``path`` (``cuobjdump -sass``, its ``Function :`` sections), per stage;
+    {} without cuobjdump."""
+    if path not in _SASS_KERNELS:
+        tool = os.path.join(os.path.dirname(os.path.realpath(nvcc_path())), "cuobjdump")
+        if not os.path.exists(tool):
+            return {}
+        sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True, timeout=120).stdout
+        counts, name = {}, None
+        for ln in sass.splitlines():
+            m = re.match(r"\s+Function : (\S+)", ln)
+            if m:
+                f = m.group(1)
+                name = ("linesearch_costs" if "mpt_cost_kernelILb0" in f else "linesearch" if "mpt_cost_kernelILb1" in f
+                        else "replay" if "mpt_replay_kernel" in f else f)
+            elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln):
+                counts[name] = counts.get(name, 0) + 1
+        _SASS_KERNELS[path] = counts
+    return _SASS_KERNELS[path]
+
+
+def fwd_figures(K: BatchMPCKernels) -> dict:
+    """K4's and K5's kernels as built: the form, per stage registers, local
+    bytes, blocks an SM and SASS instructions, the unit's nvcc seconds and,
+    looped, its step's operations (``fd_step.loop_fwd_ops``)."""
+    attrs, lib, blocks = K.kernel_attributes(), K.build()["fwd"], K.fwd_blocks_per_sm()
+    sass = sass_by_kernel(str(lib.path))
+    return {"form": K.fwd_form, "nvcc_seconds": lib.compile_seconds, "loop_ops": K.fwd_loop_ops,
+            **{s: {"num_regs": attrs[s]["num_regs"], "local_bytes": attrs[s]["local_bytes"],
+                   "blocks_per_sm": blocks[s], "sass_instructions": sass.get(s)} for s in K45_STAGES}}
+
+
+def k45_plain_inputs(ls, rep, k: int = None):
+    """The inputs of the one plain call that holds K4 (both stages) and K5:
+    ``ls``'s x0, sd_x, sd_u, kK (the first ``k`` steps where given) and
+    goal, and alphas (A + 1, B), K4's A alphas then each scenario's own
+    (``rep``'s)."""
+    A, B = ls[5].shape[0], ls[0].shape[1]
+    both = torch.cat([ls[5][:, None].expand(A, B), rep[5][None]]).contiguous()
+    cut = (lambda x: x[:k].contiguous()) if k else (lambda x: x)
+    return (ls[0], *(cut(x) for x in ls[1:4]), ls[4], both)
+
+
+def k45_outputs(K: BatchMPCKernels, ls, rep, k: int = None) -> dict:
+    """K's K4 (both stages) and K5 on ``ls`` and ``rep``: the trajectories
+    of launches at full horizon (their first ``k`` steps where given), the
+    costs of launches on those steps alone."""
+    first = (lambda a: (a[0], *(x[:k].contiguous() for x in a[1:4]), *a[4:])) if k else (lambda a: a)
+    _, xs_all, us_all = K.linesearch(*ls)
+    xs, us, _ = K.replay(*rep)
+    cut = (lambda x: x[:k].contiguous()) if k else (lambda x: x)
+    return {"costs": K.linesearch(*first(ls))[0], "costs_only": K.linesearch_costs(*first(ls)),
+            "xs_all": cut(xs_all), "us_all": cut(us_all), "xs": cut(xs), "us": cut(us),
+            "cost": K.replay(*first(rep))[2]}
+
+
+def k45_errs(got: dict, ref) -> dict:
+    """Per stage the largest ``bit_diff`` of ``k45_outputs`` against the one
+    plain call's (xs (k, nx, A + 1, B), us, cost (A + 1, B))."""
+    xs_p, us_p, cost_p = ref
+    A = cost_p.shape[0] - 1
+    col = lambda x, a: x[:, :, a].contiguous()
+    return {"linesearch": max(bit_diff(got["costs"], cost_p[:A].contiguous()),
+                              bit_diff(got["xs_all"], xs_p[:, :, :A].contiguous()),
+                              bit_diff(got["us_all"], us_p[:, :, :A].contiguous())),
+            "linesearch_costs": bit_diff(got["costs_only"], cost_p[:A].contiguous()),
+            "replay": max(bit_diff(got["xs"], col(xs_p, A)), bit_diff(got["us"], col(us_p, A)),
+                          bit_diff(got["cost"], cost_p[A].contiguous()))}
+
+
+def k45_forms(label: str, Ks: dict, ls, rep, k: int = None, check: bool = True, pending: list = None) -> dict:
+    """K4 and K5 in both forms (``Ks``: form -> kernel set) on the same
+    inputs: unless ``check`` is False, each form's K4 (both stages) and K5
+    bitwise (NaN where it has NaN) its own plain version, one call over the
+    A + 1 alphas (``k45_plain_inputs``; the first ``k`` steps where given;
+    with ``pending`` the looped form's goes there for
+    ``fwd_looped_plain_grouped``); then both timed in turns (emitted,
+    looped, looped, emitted; ``per_call_ms``, a launch's device time over 20
+    back-to-back launches: a one-joint arm's launch takes ~0.1 ms, within
+    the spread of single-launch timings), K4 with its trajectories and K5.
+    Per form: ``fwd_figures``, the times and their least, |d| and plain
+    ms."""
+    out = {}
+    for form, K in Ks.items():
+        out[form] = {**fwd_figures(K), "ms_turns": {"linesearch": [], "replay": []}}
+        if not check:
+            continue
+        got = k45_outputs(K, ls, rep, k)
+        if form == "looped" and pending is not None:
+            pending.append((label, K, k45_plain_inputs(ls, rep, k), got, out[form]))
+            continue
+        ref, plain_ms = timed(lambda: K.plain().replay(*k45_plain_inputs(ls, rep, k)))
+        errs = k45_errs(got, ref)
+        if any(v != 0.0 for v in errs.values()):
+            raise AssertionError(f"{label}: K4/K5 {form} against its plain version {errs}, not 0")
+        out[form].update(max_abs_err=errs, plain_ms=plain_ms)
+    for form in ("emitted", "looped", "looped", "emitted"):
+        for stage, args in (("linesearch", ls), ("replay", rep)):
+            out[form]["ms_turns"][stage].append(per_call_ms(lambda: getattr(Ks[form], stage)(*args)))
+    for form in FWD_FORMS:
+        out[form]["ms"] = {s: min(t) for s, t in out[form]["ms_turns"].items()}
+        out[form]["solve_share_ms"] = ITERS * out[form]["ms"]["linesearch"] + out[form]["ms"]["replay"]
+    return out
+
+
+def fwd_looped_plain_grouped(pending: list) -> None:
+    """The looped K4's and K5's checks of ``k45_forms`` (``pending``) against
+    one plain call per joint count: the robots' inputs side by side along
+    the scenario axis, each column with its robot's table and weights
+    (``loop_fwd_rollout_plain`` over a (T, B) table), so the host's
+    launches are paid once a joint count. Each robot bitwise; its figures
+    get the |d| and the group's plain ms."""
+    groups = {}
+    for item in pending:
+        groups.setdefault(item[1].n, []).append(item)
+    for n, items in sorted(groups.items()):
+        cols = [x[0].shape[1] for _, _, x, _, _ in items]
+        tab = torch.cat([K.fwd_table[:, None].expand(-1, c) for (_, K, _, _, _), c in zip(items, cols)], dim=1).to(DEV)
+        ins = [torch.cat([x[i] for _, _, x, _, _ in items], dim=-1).contiguous() for i in range(6)]
+        ref, plain_ms = timed(lambda: loop_fwd_rollout_plain(tab, n, *ins))
+        at = 0
+        for (label, _, _, got, fig), c in zip(items, cols):
+            part = tuple(r[..., at:at + c] for r in ref)
+            errs = k45_errs(got, part)
+            if any(v != 0.0 for v in errs.values()):
+                raise AssertionError(f"{label}: K4/K5 looped against its plain version {errs}, not 0")
+            fig.update(max_abs_err=errs, plain_ms=plain_ms,
+                       plain_scope=f"one loop_fwd_rollout_plain call for the {len(items)} robots of {n} joints")
+            at += c
+        phase("fleet_fwd_looped_plain", joints=n, robots=",".join(i[0] for i in items), scenarios=sum(cols),
+              steps=ins[1].shape[0], plain_ms=f"{plain_ms:.1f}",
+              max_abs_err=f"{max(max(i[4]['max_abs_err'].values()) for i in items):.3e}")
+
+
+def k45_fields(forms: dict) -> dict:
+    """A phase line's fields of ``k45_forms``' result."""
+    out = {}
+    for f in FWD_FORMS:
+        for s in ("linesearch", "replay"):
+            out[f"{f}_{s}_ms"] = ",".join(f"{t:.4f}" for t in forms[f]["ms_turns"][s])
+        out[f"{f}_solve_share_ms"] = f"{forms[f]['solve_share_ms']:.4f}"
+        for s in K45_STAGES:
+            out.update({f"{f}_{s}_{k}": forms[f][s][k] for k in ("num_regs", "local_bytes", "blocks_per_sm",
+                                                                  "sass_instructions")})
+        if "max_abs_err" in forms[f]:
+            out[f"{f}_max_abs_err"] = f"{max(forms[f]['max_abs_err'].values()):.3e}"
+    out["looped_loop_ops"] = forms["looped"]["loop_ops"]
+    return out
+
+
+def k45_nan_check(label: str, Ks: dict, ls, rep) -> dict:
+    """Both forms' K4 and K5 with scenario 5's initial velocity NaN: NaN in
+    the same places as the plain version, bitwise elsewhere, the other
+    scenarios finite where the clean run was. Returns |d| per form."""
+    x0 = ls[0].clone()
+    x0[x0.shape[0] // 2, 5] = float("nan")
+    ls_n, rep_n = (x0, *ls[1:]), (x0, *rep[1:])
+    out = {}
+    for form, K in Ks.items():
+        got = k45_outputs(K, ls_n, rep_n)
+        ref = K.plain().replay(*k45_plain_inputs(ls_n, rep_n))
+        errs = k45_errs(got, ref)
+        if any(v != 0.0 for v in errs.values()) or not bool(torch.isnan(got["cost"][5])):
+            raise AssertionError(f"{label}: K4/K5 {form} with a NaN scenario against its plain version {errs}")
+        out[form] = max(errs.values())
+    return out
 
 
 def team_figures(K, stage: str = None) -> dict:
@@ -2642,9 +2866,12 @@ def fleet_setup(pool: UnitPool) -> dict:
     units go into the pool behind phase 2's and build while phases 27-31
     and 3-26 run. K1 in both forms for the 25 chains (the emitted unit a
     robot, the looped one a joint count), K2-K5 for all 26 models and K2 in
-    the form their route did not take, K6-K8 for the two of FLEET_SINGLE."""
+    the form their route did not take, K4 and K5 likewise, K6-K8 for the two
+    of FLEET_SINGLE."""
     t0 = time.perf_counter()
     models = {key: robot_data.load_robot(key, chain_joints_only=True) for key in fleet_keys()}
+    # K4 and K5 in the form their route did not take: the looped units are
+    # one a joint count, the emitted ones a robot's.
     models[f"{FLEET_FULL} (10 joints)"] = robot_data.load_robot(FLEET_FULL)
     problem = fleet_draws(models)
     handles = {label: build_batch_tracking_mpc(m, problem[label][1], B_MPC, H_MPC, DT, iterations=ITERS,
@@ -2652,17 +2879,20 @@ def fleet_setup(pool: UnitPool) -> dict:
     singles = {key: build_tracking_mpc(models[key], problem[key][1][0], H_MPC, DT, iterations=ITERS,
                                        line_search_steps=ALPHAS) for key in FLEET_SINGLE}
     k2_other = {label: lin_only(models[label], OTHER_FORM[h.kernels.form]) for label, h in handles.items()}
+    fwd_other = {label: fwd_only(h.kernels, models[label], OTHER_FORM[h.kernels.fwd_form]) for label, h in handles.items()}
     chains = [label for label in models if label in fleet_keys()]
     k1 = {label: {form: CudaRollout(models[label], DT, _form=form) for form in FORMS} for label in chains}
     units = {**{("K1", label, form): e for label, forms in k1.items() for form, e in forms.items()},
              **{("K2-K5", label): h.kernels for label, h in handles.items()},
              **{("K2", label): k for label, k in k2_other.items()},
+             **{("K4K5", label): k for label, k in fwd_other.items()},
              **{("K6-K8", key): s.kernels for key, s in singles.items()}}
     emit_s = time.perf_counter() - t0
     t_submit = time.perf_counter()
     futures = pool.submit(units)
     return {"models": models, "problem": problem, "handles": handles, "singles": singles, "chains": chains,
-            "k1": k1, "k2_other": k2_other, "futures": futures, "t_submit": t_submit, "emit_s": emit_s}
+            "k1": k1, "k2_other": k2_other, "fwd_other": fwd_other, "futures": futures, "t_submit": t_submit,
+            "emit_s": emit_s}
 
 
 def fleet_jax_costs() -> dict:
@@ -2717,6 +2947,20 @@ def fleet_stage_records(label: str, r: dict) -> list:
                                                     "loop_ops")},
                        ms_turns=k2[K.form]["ms_turns"], max_abs_err=max(k2[f]["max_abs_err"] for f in LIN_FORMS),
                        other_form={k: v for k, v in k2[OTHER_FORM[K.form]].items()})
+        if stage in ("linesearch", "replay"):  # the route's form, the other's figures inside
+            k45, form = r["k45"], K.fwd_form
+            other = OTHER_FORM[form]
+            rec.update(name=f"{FWD_NAMES[stage][form]} [{label}]", fwd_form=form, ms_turns=k45[form]["ms_turns"][stage],
+                       blocks_per_sm=k45[form][stage]["blocks_per_sm"],
+                       sass_instructions=k45[form][stage]["sass_instructions"], loop_ops=k45[form]["loop_ops"],
+                       solve_share_ms=k45[form]["solve_share_ms"],
+                       other_form={"form": other, "ms": k45[other]["ms"][stage], "ms_turns": k45[other]["ms_turns"][stage],
+                                   "solve_share_ms": k45[other]["solve_share_ms"], "loop_ops": k45[other]["loop_ops"],
+                                   "max_abs_err": k45[other]["max_abs_err"], "plain_ms": k45[other]["plain_ms"],
+                                   "nvcc_seconds": k45[other]["nvcc_seconds"], **k45[other][stage]})
+            if form == "looped":
+                rec.update(step_source=LOOP_SOURCE, loop_ops_bound_ms=bound(
+                    0, k45[form]["loop_ops"] * H_MPC * B_MPC * (ALPHAS if stage == "linesearch" else 1))[0])
         if stage == "backward":
             rec.update(dynamic_smem_bytes=K.layout_bytes()["backward"])
         records.append(rec)
@@ -2735,7 +2979,8 @@ def fleet_held(us, xs, cost, ref_cost, u_lim) -> torch.Tensor:
     return inside & torch.isfinite(xs).flatten(1).all(dim=1) & torch.isfinite(cost) & (cost <= ref_cost)
 
 
-def fleet_robot(label: str, mpc, other, x0, goals, built: dict, card: str, jax_costs: dict) -> dict:
+def fleet_robot(label: str, mpc, other, fwd_other, x0, goals, built: dict, card: str, jax_costs: dict,
+                pending: list) -> dict:
     """One fleet robot through the batched solver: one solve and
     FLEET_ROUNDS receding rounds (launches 4/4/4/1 a solve); per scenario
     (``fleet_held``) finite outputs, |u| <= u_lim and a cost at most its
@@ -2748,7 +2993,9 @@ def fleet_robot(label: str, mpc, other, x0, goals, built: dict, card: str, jax_c
     steps); K3's inputs and outputs for its
     plain version, which runs once per joint count; CUDA-event medians.
     K2 in both forms (``other``: K2 alone in the form the route did not
-    take), each bitwise its own plain version, timed in turns."""
+    take), each bitwise its own plain version, timed in turns; K4 and K5
+    likewise (``fwd_other``; ``k45_forms``, the looped form's check into
+    ``pending``, one plain call a joint count later)."""
     t0 = time.perf_counter()
     K = mpc.kernels
     n, nx, B, H, A = K.n, K.nx, B_MPC, H_MPC, ALPHAS
@@ -2762,9 +3009,11 @@ def fleet_robot(label: str, mpc, other, x0, goals, built: dict, card: str, jax_c
     torch.cuda.synchronize()
     per_solve = dict(BatchMPCKernels.launch_count)
     expected = {"linearize": ITERS, "backward": ITERS, "linesearch_costs": 0, "linesearch": ITERS, "replay": 1}
-    if per_solve != expected or BatchMPCKernels.lin_launches != {K.form: ITERS, OTHER_FORM[K.form]: 0}:
+    if per_solve != expected or BatchMPCKernels.lin_launches != {K.form: ITERS, OTHER_FORM[K.form]: 0} \
+            or BatchMPCKernels.fwd_launches != {K.fwd_form: ITERS + 1, OTHER_FORM[K.fwd_form]: 0}:
         raise AssertionError(f"fleet {label}: launches per solve {per_solve}, K2's by form "
-                             f"{BatchMPCKernels.lin_launches}, expected {expected}, K2 the route's {K.form}")
+                             f"{BatchMPCKernels.lin_launches}, K4's and K5's {BatchMPCKernels.fwd_launches}, expected "
+                             f"{expected}, K2 the route's {K.form}, K4 and K5 the route's {K.fwd_form}")
     if tuple(us.shape) != (B, H, n) or tuple(xs.shape) != (B, H + 1, nx) or tuple(cost.shape) != (B,):
         raise AssertionError(f"fleet {label}: shapes {tuple(us.shape)}, {tuple(xs.shape)}, {tuple(cost.shape)}")
     held = fleet_held(us, xs, cost, cost_zero, u_lim)
@@ -2810,28 +3059,20 @@ def fleet_robot(label: str, mpc, other, x0, goals, built: dict, card: str, jax_c
     k2 = k2_forms(f"fleet {label}", {K.form: K, other.form: other}, args["linearize"])
     errs["linearize"], plain_ms["linearize"] = k2[K.form]["max_abs_err"], k2[K.form]["plain_ms"]
     scope["linearize"] = "this robot"
-    # K4 and K5 over the first FIRST_STEPS_CHECKED steps (a replay is causal):
-    # their trajectories at full horizon, their costs from a launch on those
-    # steps alone, against one plain call on them.
+    # K4 and K5 in both forms over the first FIRST_STEPS_CHECKED steps (a
+    # replay is causal): their trajectories at full horizon, their costs
+    # from a launch on those steps alone, against one plain call on them
+    # (A + 1 rows: K4's alphas, K5's own), the looped form's once a joint
+    # count (``fwd_looped_plain_grouped``).
     ls, rep, k = args["linesearch"], args["replay"], FIRST_STEPS_CHECKED
-    first = lambda a: (a[0], *(x[:k].contiguous() for x in a[1:4]), *a[4:])  # sd_x, sd_u, kK by step
-    both_alpha = torch.cat([ls[5][:, None].expand(A, B), rep[5][None]]).contiguous()
-    (xs_p, us_p, cost_p), both_ms = timed(lambda: K.replay_plain(*first(ls)[:5], both_alpha))
-    costs_k, xs_all_k, us_all_k = K.linesearch(*ls)
-    errs["linesearch"] = max(bit_diff(K.linesearch(*first(ls))[0], cost_p[:A]),
-                             bit_diff(xs_all_k[:k], xs_p[:, :, :A].contiguous()),
-                             bit_diff(us_all_k[:k], us_p[:, :, :A].contiguous()))
-    xs_k, us_k, _ = K.replay(*rep)
-    errs["replay"] = max(bit_diff(xs_k[:k], xs_p[:, :, A].contiguous()), bit_diff(us_k[:k], us_p[:, :, A].contiguous()),
-                         bit_diff(K.replay(*first(rep))[2], cost_p[A].contiguous()))
-    plain_ms["linesearch"] = plain_ms["replay"] = both_ms
-    scope["linesearch"] = scope["replay"] = (f"one replay_plain call of A + 1 rows (K4's alphas, K5's own) over the first "
-                                             f"{k} steps: the kernels' trajectories at H={H}, their costs at H={k}")
-    for stage in ("linearize", "linesearch", "replay"):
-        if errs[stage] != 0.0:
-            raise AssertionError(f"fleet {label} {stage}: max |d| = {errs[stage]}, not 0")
-    if label in FLEET_ZERO_U and not torch.equal(us_all_k.view(torch.int32), torch.zeros_like(us_all_k).view(torch.int32)):
-        raise AssertionError(f"fleet {label}: K4 has an alpha's control that is not +0.0")
+    k45 = k45_forms(f"fleet {label}", {K.fwd_form: K, fwd_other.fwd_form: fwd_other}, ls, rep, k, pending=pending)
+    if errs["linearize"] != 0.0:
+        raise AssertionError(f"fleet {label} linearize: max |d| = {errs['linearize']}, not 0")
+    if label in FLEET_ZERO_U:
+        for Kf in (K, fwd_other):
+            us_all_k = Kf.linesearch(*ls)[2]
+            if not torch.equal(us_all_k.view(torch.int32), torch.zeros_like(us_all_k).view(torch.int32)):
+                raise AssertionError(f"fleet {label}: K4 {Kf.fwd_form} has an alpha's control that is not +0.0")
     kK = K.backward(*args["backward"])
 
     ms = {s: time_ms(lambda s=s: getattr(K, s)(*args[s])) for s in FLEET_STAGES}
@@ -2842,18 +3083,22 @@ def fleet_robot(label: str, mpc, other, x0, goals, built: dict, card: str, jax_c
     phase("fleet", card=repr(card), robot=label, joints=n, B=B, H=H, iterations=ITERS, alphas=A,
           launches_per_solve=json.dumps(per_solve).replace(" ", ""),
           launches_run=json.dumps({k: v for k, v in launches.items() if k != "linesearch_costs"}).replace(" ", ""),
-          **{f"max_abs_err_{s}": f"{v:.3e}" for s, v in errs.items()}, finite=True,
+          **{f"max_abs_err_{s}": f"{v:.3e}" for s, v in errs.items()},
+          **{f"max_abs_err_k45_{f}": f"{max(k45[f]['max_abs_err'].values()):.3e}" for f in FWD_FORMS
+             if "max_abs_err" in k45[f]}, finite=True,
           overflowing_scenarios=overflow_solve, round_overflowing_scenarios=overflow,
           cost_le_zero_control=True, zero_u_lim=label in FLEET_ZERO_U,
           mean_cost=f"{float(cost.mean()):.6e}", mean_zero_control_cost=f"{float(cost_zero.mean()):.6e}",
           jax_mean_cost=jax.get("mean_cost", "none"), jax_same_draws=jax.get("same_draws", "none"),
           solve_ms=f"{solve_ms:.4f}", **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()},
           step_statements=K.statements["step"], k2_route=K.form, **k2_fields(k2),
+          fwd_statements=K.statements["replay"], k45_route=K.fwd_form, **{f"k45_{k}": v for k, v in k45_fields(k45).items()},
           **{f"{s}_regs": attrs[s]["num_regs"] for s in FLEET_STAGES},
           **{f"{s}_local_bytes": attrs[s]["local_bytes"] for s in FLEET_STAGES},
           backward_dynamic_smem_bytes=K.layout_bytes()["backward"],
           phase_s=f"{time.perf_counter() - t0:.2f}")
-    return {"K": K, "k2": k2, "errs": errs, "ms": ms, "plain_ms": plain_ms, "scope": scope, "attrs": attrs, "nvcc_s": nvcc_s,
+    return {"K": K, "k2": k2, "k45": k45, "errs": errs, "ms": ms, "plain_ms": plain_ms, "scope": scope, "attrs": attrs,
+            "nvcc_s": nvcc_s,
             "launches": launches, "solve_ms": solve_ms, "bwd_args": args["backward"], "kK": kK, "n": n,
             "mean_cost": float(cost.mean()), "solve": lambda: mpc.solve(x0, zeros(B, H, n))}
 
@@ -3009,18 +3254,39 @@ def fleet_phase(fleet: dict, pool: UnitPool, urdf_rollout: dict, card: str) -> l
     libs = {str(K.build()["lin"].path) for K in [h.kernels for h in fleet["handles"].values()]
             + list(fleet["k2_other"].values())}
     libs |= {str(e.build().path) for forms in fleet["k1"].values() for e in forms.values()}
+    fwd_libs = {str(K.build()["fwd"].path) for K in [h.kernels for h in fleet["handles"].values()]
+                + list(fleet["fwd_other"].values())}
     with concurrent.futures.ThreadPoolExecutor(pool.workers) as sass_pool:
         list(sass_pool.map(sass_count, sorted(libs)))
-    robots = {}
+        list(sass_pool.map(sass_by_kernel, sorted(fwd_libs)))
+    robots, pending = {}, []
     for label, mpc in fleet["handles"].items():
         x0, goals = fleet["problem"][label]
-        robots[label] = fleet_robot(label, mpc, fleet["k2_other"][label], x0, goals, built, card, jax_costs)
+        robots[label] = fleet_robot(label, mpc, fleet["k2_other"][label], fleet["fwd_other"][label], x0, goals, built,
+                                    card, jax_costs, pending)
+    fwd_looped_plain_grouped(pending)
+    for label, r in robots.items():  # K4's and K5's checks of the route's form, now complete
+        f = r["k45"][r["K"].fwd_form]
+        r["errs"]["linesearch"] = max(f["max_abs_err"]["linesearch"], f["max_abs_err"]["linesearch_costs"])
+        r["errs"]["replay"] = f["max_abs_err"]["replay"]
+        r["plain_ms"]["linesearch"] = r["plain_ms"]["replay"] = f["plain_ms"]
+        r["scope"]["linesearch"] = r["scope"]["replay"] = f.get(
+            "plain_scope", f"one replay_plain call of A + 1 rows (K4's alphas, K5's own) over the first "
+                           f"{FIRST_STEPS_CHECKED} steps: the kernels' trajectories at H={H_MPC}, their costs at "
+                           f"H={FIRST_STEPS_CHECKED}")
     fleet_backward_plain(robots)
     k2_misses = [label for label, r in robots.items()
                  if r["k2"][r["K"].form]["ms"] > ROUTE_SLACK * r["k2"][OTHER_FORM[r["K"].form]]["ms"]]
     phase("fleet_k2_route", robots=len(robots), slack=ROUTE_SLACK,
           looped=",".join(label for label, r in robots.items() if r["K"].form == "looped") or "none",
           outside_slack=",".join(k2_misses) or "none")
+    # K4's and K5's route against the other form: 4 K4 + K5, a solve's share.
+    fwd_misses = [label for label, r in robots.items()
+                  if r["k45"][r["K"].fwd_form]["solve_share_ms"] > ROUTE_SLACK * r["k45"][OTHER_FORM[r["K"].fwd_form]][
+                      "solve_share_ms"]]
+    phase("fleet_fwd_route", robots=len(robots), slack=ROUTE_SLACK,
+          looped=",".join(label for label, r in robots.items() if r["K"].fwd_form == "looped") or "none",
+          outside_slack=",".join(fwd_misses) or "none")
     records = []
     for label, r in robots.items():
         records += fleet_stage_records(label, r)
@@ -3083,6 +3349,10 @@ def main() -> int:
     # K2 alone in each form, for phases 7 and 9 (the route's shares its unit).
     k2_sets = {robot: {f: lin_only(model, f) for f in LIN_FORMS} for robot, model in (("panda", panda), ("ur5", ur5))}
     mpc_kernels.update({f"{robot} K2 {f}": k for robot, forms in k2_sets.items() for f, k in forms.items()})
+    # K4 and K5 alone in each form, for phases 7 and 9 (the route's shares its unit).
+    fwd_sets = {robot: {f: fwd_only(mpc_kernels[robot], model, f) for f in FWD_FORMS}
+                for robot, model in (("panda", panda), ("ur5", ur5))}
+    mpc_kernels.update({f"{robot} K4K5 {f}": k for robot, forms in fwd_sets.items() for f, k in forms.items()})
     # Phase 32's units queue behind phase 2's in the same pool and build
     # while phases 27-31 and 3-26 run.
     pool = UnitPool()
@@ -3119,6 +3389,9 @@ def main() -> int:
                          "loop_ops": K.loop_ops["total"] if looped else None}
             if isinstance(K, BatchMPCKernels) and stage == "backward":
                 extra = {"dynamic_smem_bytes": K.layout_bytes()["backward"]}
+            if isinstance(K, BatchMPCKernels) and stage in K45_STAGES:
+                extra = {"form": K.fwd_form, "loop_ops": K.fwd_loop_ops}
+                name = FWD_NAMES.get(stage, {}).get(K.fwd_form, name)
             phase("build", kernel=name, robot=robot, statements=K.statements[stage], **extra, **a)
         if robot == "panda single":
             phase("build", kernel=names["forward"][0], robot=robot, **team_figures(K))
@@ -3260,6 +3533,10 @@ def main() -> int:
     # K2's other form (the route's is K's) on the same inputs, bit for bit too.
     other = k2_sets["panda"][OTHER_FORM[K.form]]
     k2_err = dict.fromkeys(LIN_FORMS, 0.0)
+    # K4's and K5's other form (the route's is K's) likewise: one plain call
+    # over the A + 1 alphas.
+    fwd_other = fwd_sets["panda"][OTHER_FORM[K.fwd_form]]
+    fwd_err, fwd_plain_ms = dict.fromkeys(FWD_FORMS, 0.0), {}
     for nominal, x0_c, goals_c, us_c, full, reg in cases:
         B, H = us_c.shape[2], us_c.shape[0]
         errs, args, plain_ms = mpc_stage_parity(K, x0_c, goals_c, us_c, f"panda B={B} H={H} reg={reg}", full, reg=reg,
@@ -3273,16 +3550,33 @@ def main() -> int:
         if other_err != 0.0:
             raise AssertionError(f"panda B={B} H={H} K2 {other.form}: max |d| = {other_err}, not 0")
         k2_err = {K.form: max(k2_err[K.form], errs["linearize"]), other.form: max(k2_err[other.form], other_err)}
+        ls_c, rep_c = args["linesearch"], args["replay"]
+        got = k45_outputs(fwd_other, ls_c, rep_c)
+        ref, other_fwd_ms = timed(lambda: fwd_other.plain().replay(*k45_plain_inputs(ls_c, rep_c)))
+        other_fwd_err = max(k45_errs(got, ref).values())
+        if other_fwd_err != 0.0:
+            raise AssertionError(f"panda B={B} H={H} K4/K5 {fwd_other.fwd_form}: max |d| = {other_fwd_err}, not 0")
+        fwd_err = {K.fwd_form: max(fwd_err[K.fwd_form], *(errs[s] for s in K45_STAGES)),
+                   fwd_other.fwd_form: max(fwd_err[fwd_other.fwd_form], other_fwd_err)}
+        if B == B_PARITY:
+            small_args = args
         if full:
             stage_args, stage_plain_ms, stage_errs = args, plain_ms, errs
             k2_plain_ms = {K.form: plain_ms["linearize"], other.form: other_plain_ms}
+            fwd_plain_ms = {K.fwd_form: plain_ms["linesearch"], fwd_other.fwd_form: other_fwd_ms}
         mpc_err = {k: max(mpc_err[k], errs[k]) for k in mpc_err}
         phase("mpc_parity", robot="panda", B=B, H=H, reg=reg, nominal=repr(nominal), k2_route_form=K.form,
-              **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
-              **{f"max_abs_err_linearize_{other.form}": f"{other_err:.3e}"})
+              k45_route_form=K.fwd_form, **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
+              **{f"max_abs_err_linearize_{other.form}": f"{other_err:.3e}"},
+              **{f"max_abs_err_k45_{fwd_other.fwd_form}": f"{other_fwd_err:.3e}"})
+    nan_errs = k45_nan_check(f"panda B={B_PARITY}", fwd_sets["panda"], small_args["linesearch"], small_args["replay"])
+    fwd_err = {f: max(fwd_err[f], nan_errs[f]) for f in FWD_FORMS}
+    phase("mpc_parity", robot="panda", B=B_PARITY, H=H_PARITY, nominal=repr("random torques, scenario 5's dq NaN"),
+          **{f"max_abs_err_k45_{f}": f"{v:.3e}" for f, v in nan_errs.items()})
     runtime["aot"] = aot_result(aot_started, card)
-    k2_ur5, k2_ur5_timing = k2_ur5_phase(ur5, k2_sets["ur5"])
+    k2_ur5, k2_ur5_timing, fwd_ur5 = k2_ur5_phase(ur5, k2_sets["ur5"], fwd_sets["ur5"])
     k2_err = {f: max([k2_err[f]] + [e[f] for e in k2_ur5.values()]) for f in LIN_FORMS}
+    fwd_err = {f: max([fwd_err[f]] + [e[f] for k, e in fwd_ur5.items() if k != "timing"]) for f in FWD_FORMS}
 
     # 8. The MPC main path at full width, through the public entry points.
     x0, goals = panda_problem(gen, panda, B_MPC)
@@ -3307,6 +3601,11 @@ def main() -> int:
     k2_per_solve = dict(BatchMPCKernels.lin_launches)
     if k2_per_solve != {k2_form: ITERS, OTHER_FORM[k2_form]: 0}:
         raise AssertionError(f"K2 launches per solve by form {k2_per_solve}, expected {ITERS} of the route's {k2_form}")
+    fwd_route = mpc.kernels.fwd_form
+    fwd_per_solve = dict(BatchMPCKernels.fwd_launches)
+    if fwd_per_solve != {fwd_route: ITERS + 1, OTHER_FORM[fwd_route]: 0}:
+        raise AssertionError(f"K4 and K5 launches per solve by form {fwd_per_solve}, expected {ITERS + 1} of the "
+                             f"route's {fwd_route}")
     check_solution("solve", us, xs, cost, u_lim)
     if not (bool((cost <= cost_zero).all()) and float(cost.mean()) < float(cost_zero.mean())):
         raise AssertionError(f"solve: mean cost {float(cost.mean())} not below the zero-control {float(cost_zero.mean())}")
@@ -3321,10 +3620,14 @@ def main() -> int:
     torch.cuda.synchronize()
     mpc_launches = dict(BatchMPCKernels.launch_count)
     k2_launches = dict(BatchMPCKernels.lin_launches)
-    if mpc_launches != {k: 4 * v for k, v in per_solve.items()} or k2_launches != {k: 4 * v for k, v in k2_per_solve.items()}:
-        raise AssertionError(f"launches over 4 solves {mpc_launches}, K2's by form {k2_launches}")
+    fwd_launches = dict(BatchMPCKernels.fwd_launches)
+    if mpc_launches != {k: 4 * v for k, v in per_solve.items()} or k2_launches != {k: 4 * v for k, v in k2_per_solve.items()} \
+            or fwd_launches != {k: 4 * v for k, v in fwd_per_solve.items()}:
+        raise AssertionError(f"launches over 4 solves {mpc_launches}, K2's by form {k2_launches}, K4's and K5's "
+                             f"{fwd_launches}")
     phase("mpc_main_path", robot="panda", B=B_MPC, H=H_MPC, iterations=ITERS, solve_wall_s=f"{solve_wall:.4f}",
           k2_form=k2_form, k2_launches_by_form=json.dumps(k2_launches).replace(" ", ""),
+          k45_form=fwd_route, k45_launches_by_form=json.dumps(fwd_launches).replace(" ", ""),
           launches_per_solve=json.dumps(per_solve).replace(" ", ""), launches_4_solves=json.dumps(mpc_launches).replace(" ", ""),
           mean_cost=f"{float(cost.mean()):.6e}", mean_zero_control_cost=f"{float(cost_zero.mean()):.6e}",
           round_mean_costs=",".join(f"{c:.6e}" for c in round_costs))
@@ -3351,6 +3654,7 @@ def main() -> int:
     replay_err_by_B, linesearch_err_by_B = {}, {}
     block_ms = {threads: {} for threads in K4_BLOCKS}
     k2_by_B, other_solve_ms, route_solve_ms = {}, {}, {}
+    fwd_by_B, fwd_other_solve_ms = {}, {}
     for B in (B_MPC,) + B_MPC_WIDE:
         if B == B_MPC:
             handle, x0_b, goals_b = mpc, x0, goals
@@ -3361,6 +3665,8 @@ def main() -> int:
         # 2's: nothing builds).
         other_handle = build_batch_tracking_mpc(panda, goals_b, B, H_MPC, DT, iterations=ITERS,
                                                 _form=OTHER_FORM[k2_form])
+        fwd_other_handle = build_batch_tracking_mpc(panda, goals_b, B, H_MPC, DT, iterations=ITERS,
+                                                    _fwd_form=OTHER_FORM[fwd_route])
         if B == B_MPC:
             args = stage_args
         else:
@@ -3377,6 +3683,8 @@ def main() -> int:
         route_solve_ms[B] = solve
         k2_by_B[B] = k2_forms(f"panda B={B}", k2_sets["panda"], args["linearize"], check=False)
         other_solve_ms[B] = time_ms(lambda: other_handle.solve(x0_b, torch.zeros((B, H_MPC, 7), **f32)))
+        fwd_by_B[B] = k45_forms(f"panda B={B}", fwd_sets["panda"], args["linesearch"], args["replay"], check=False)
+        fwd_other_solve_ms[B] = time_ms(lambda: fwd_other_handle.solve(x0_b, torch.zeros((B, H_MPC, 7), **f32)))
         for threads, V in k4_blocks.items():
             block_ms[threads][B] = time_ms(lambda V=V: V.linesearch(*args["linesearch"]))
         # K5 and K4 bit for bit at every width, K4's block variants bit for
@@ -3387,7 +3695,7 @@ def main() -> int:
             replay_err_by_B[B], linesearch_err_by_B[B] = stage_errs["replay"], stage_errs["linesearch"]
             nonfinite = int((~torch.isfinite(got[0])).sum())
         else:
-            got, ref = K.replay(*args["replay"]), K.replay_plain(*args["replay"])
+            got, ref = K.replay(*args["replay"]), K.plain().replay(*args["replay"])
             replay_err_by_B[B] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
             if replay_err_by_B[B] != 0.0 or not all(bool(torch.isfinite(r).all()) for r in ref):
                 raise AssertionError(f"panda B={B} replay: max |d| = {replay_err_by_B[B]}, not 0")
@@ -3395,7 +3703,7 @@ def main() -> int:
             # nominal far from the optimum), in the plain version too; the
             # solve's isfinite test rejects them. Bit for bit, NaN where it
             # is NaN.
-            got, ref = K.linesearch(*args["linesearch"]), K.linesearch_plain(*args["linesearch"])
+            got, ref = K.linesearch(*args["linesearch"]), K.plain().linesearch(*args["linesearch"])
             linesearch_err_by_B[B] = max(bit_diff(g, r) for g, r in zip(got, ref))
             nonfinite = int((~torch.isfinite(ref[0])).sum())
         if linesearch_err_by_B[B] != 0.0:
@@ -3427,13 +3735,18 @@ def main() -> int:
               **{f"solve_ms_{k2_form}": f"{solve:.4f}", f"solve_ms_{OTHER_FORM[k2_form]}": f"{other_solve_ms[B]:.4f}"},
               bound_ms=f"{bound(*stage_bytes_ops(K, B, H_MPC, ALPHAS)['linearize'])[0]:.4f}",
               **k2_fields(k2_by_B[B]))
+        phase("mpc_time_k45_forms", card=repr(card), robot="panda", B=B, H=H_MPC, route=fwd_route,
+              fwd_statements=K.statements["replay"],
+              **{f"solve_ms_{fwd_route}": f"{solve:.4f}", f"solve_ms_{OTHER_FORM[fwd_route]}": f"{fwd_other_solve_ms[B]:.4f}"},
+              linesearch_bound_ms=f"{bound(*bo_b['linesearch'])[0]:.4f}", replay_bound_ms=f"{bound(*bo_b['replay'])[0]:.4f}",
+              **k45_fields(fwd_by_B[B]))
 
     bo = stage_bytes_ops(K, B_MPC, H_MPC, ALPHAS)
     batch_chain = batch_chain_ms(K, H_MPC)
     phase("mpc_chain", robot="panda", H=H_MPC, clocks_max_sm=repr(card_line("clocks.max.sm")),
           cycles_per_link=CHAIN_CYCLES, **{f"{s}_links": v for s, v in K.chains.items()},
           **{f"{s}_chain_bound_ms": f"{v:.5f}" for s, v in batch_chain.items()})
-    k2_records = {}
+    k2_records, fwd_records = {}, {}
     for stage, (name, replaces) in MPC_KERNELS.items():
         b_ms, b_by = bound(*bo[stage])
         if stage == "linearize":  # a record a form, its launches the route's (phase 8, then phase 32's)
@@ -3465,6 +3778,25 @@ def main() -> int:
         launches, err = mpc_launches[stage], mpc_err[stage]
         if stage == "linesearch":  # K4 serves both stages
             launches, err = launches + mpc_launches["linesearch_costs"], max(err, mpc_err["linesearch_costs"])
+        if stage in FWD_NAMES:  # a record a form, its launches the route's (phase 8, then phase 32's)
+            name, err = FWD_NAMES[stage][fwd_route], fwd_err[fwd_route]
+            other_f = fwd_by_B[B_MPC][OTHER_FORM[fwd_route]]
+            fwd_records[stage, OTHER_FORM[fwd_route]] = {
+                "name": FWD_NAMES[stage][OTHER_FORM[fwd_route]], "route": "cuda", "source": MPC_SOURCE,
+                "replaces": replaces, "launches": 0, "max_abs_err": fwd_err[OTHER_FORM[fwd_route]], "tolerance": "0",
+                "ms": other_f["ms"][stage], "plain_ms": fwd_plain_ms[OTHER_FORM[fwd_route]],
+                "plain_scope": "one plain call of A + 1 rows (K4's alphas, K5's own), B=1024 H=50",
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "robot": "panda", "fwd_form": OTHER_FORM[fwd_route],
+                "fwd_route": fwd_route, **other_f[stage], "nvcc_seconds": other_f["nvcc_seconds"],
+                "loop_ops": other_f["loop_ops"], "block": BLOCK_MPC,
+                "ms_by_B": {B: fwd_by_B[B][OTHER_FORM[fwd_route]]["ms"][stage] for B in fwd_by_B},
+                "solve_ms_by_B": dict(fwd_other_solve_ms),
+                "ur5": {"ms": fwd_ur5["timing"][OTHER_FORM[fwd_route]]["ms"][stage],
+                        **fwd_ur5["timing"][OTHER_FORM[fwd_route]][stage]},
+            }
+            if OTHER_FORM[fwd_route] == "looped":
+                fwd_records[stage, "looped"].update(step_source=LOOP_SOURCE, loop_ops_bound_ms=bound(
+                    0, other_f["loop_ops"] * H_MPC * B_MPC * (ALPHAS if stage == "linesearch" else 1))[0])
         records.append({
             "name": name, "route": "cuda", "source": MPC_SOURCE, "replaces": replaces,
             "launches": launches, "max_abs_err": err,
@@ -3476,6 +3808,13 @@ def main() -> int:
         if stage in batch_chain:
             records[-1].update(chain_bound_ms=batch_chain[stage], chain_bound="estimate: longest chain of emitted "
                                f"statements x {CHAIN_CYCLES} cycles at clocks.max.sm")
+        if stage in FWD_NAMES:
+            route_f = fwd_by_B[B_MPC][fwd_route]
+            fwd_records[stage, fwd_route] = records[-1]
+            records[-1].update(fwd_form=fwd_route, fwd_route=fwd_route, **route_f[stage],
+                               ms_by_B={B: fwd_by_B[B][fwd_route]["ms"][stage] for B in fwd_by_B},
+                               solve_ms_by_B=dict(route_solve_ms),
+                               ur5={"ms": fwd_ur5["timing"][fwd_route]["ms"][stage], **fwd_ur5["timing"][fwd_route][stage]})
         if stage == "replay":
             records[-1].update(threads_per_scenario=1, block=BLOCK_MPC, max_abs_err_by_B=replay_err_by_B)
         if stage == "linesearch":
@@ -3493,6 +3832,8 @@ def main() -> int:
                                 for t in K4_BLOCKS})
         if stage == "backward":
             records[-1].update(dynamic_smem_bytes=K.layout_bytes()["backward"])
+        if stage in FWD_NAMES:  # the other form's record after the route's
+            records.append(fwd_records[stage, OTHER_FORM[fwd_route]])
 
     records += single_path(panda, single, mpc_attrs["panda single"], card, built["mpc", "panda single"])
     plan_timed = planning_timed(ur5, card)
@@ -3510,6 +3851,18 @@ def main() -> int:
             k2_records[rec["route_form"]].setdefault("fleet_robots", []).append(rec["robot"])
     if any(rec["launches"] < 1 for rec in k2_records.values()):
         raise AssertionError(f"a K2 form no public route launched: {[(f, r['launches']) for f, r in k2_records.items()]}")
+    for rec in fleet_records:  # the public route's K4 and K5 launches on the fleet, by form
+        for stage in FWD_NAMES:
+            if rec.get("fwd_form") and rec["name"].startswith(FWD_NAMES[stage][rec["fwd_form"]] + " ["):
+                fwd_records[stage, rec["fwd_form"]]["launches"] += rec["launches"]
+                fwd_records[stage, rec["fwd_form"]].setdefault("fleet_robots", []).append(rec["robot"])
+                fwd_records[stage, rec["fwd_form"]]["max_abs_err"] = max(fwd_records[stage, rec["fwd_form"]]["max_abs_err"],
+                                                                         rec["max_abs_err"])
+                other = fwd_records[stage, OTHER_FORM[rec["fwd_form"]]]  # held on this robot too
+                other["max_abs_err"] = max(other["max_abs_err"], *rec["other_form"]["max_abs_err"].values())
+    if any(rec["launches"] < 1 for rec in fwd_records.values()):
+        raise AssertionError(f"a K4 or K5 form no public route launched: "
+                             f"{[(k, r['launches']) for k, r in fwd_records.items()]}")
     records.insert(1, looped_record(looped_bench, urdf_rollout, fleet_records))
     records += fleet_records
     print(json.dumps({"kernels": records}))

@@ -6,7 +6,9 @@
 // the port of manipulapy_tpu/ops/fd_step.py:274 (build_fd_step_planes),
 // which the Pallas rollout kernel inlines. Its parts (the link's transform,
 // the pass over the links, the Cholesky factor and solve) also serve the
-// looped forward mode, csrc/fd_step_loop_jvp.cuh (K2's looped form).
+// looped forward mode, csrc/fd_step_loop_jvp.cuh (K2's looped form), and
+// the step itself the looped closed-loop step of K4 and K5
+// (csrc/mpc_batch.cuh with MPT_FWD_LOOP).
 //
 // This file is a template. ops/cuda_rollout.py writes one translation unit
 // per (joint count, intRes) that holds, in order:
@@ -49,7 +51,7 @@
 // same for every lane.
 //
 // The table is a __grid_constant__ kernel parameter (rollout.cuh's
-// MptTable, 4 + 49 n floats: 1584 bytes at n = 8), not a __constant__
+// MptTable, 4 + 47 n floats: 1520 bytes at n = 8), not a __constant__
 // array written before the launch: the parameter travels with its launch,
 // so two robots of the same n, one library, launched on two streams cannot
 // see each other's table; and a row read with the warp-uniform k is one

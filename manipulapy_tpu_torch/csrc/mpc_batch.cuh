@@ -21,7 +21,11 @@
 //          lin_loop_unit_source), the robot's table a kernel argument;
 //     BWD: riccati_terminal, riccati_step;
 //     FWD: mpc_fwd_step, mpc_terminal (K4 and K5 run the same
-//          fwd_rollout); with MPT_REPLAY_TEAM, K5's variant unit, also
+//          fwd_rollout); or, their looped form, one unit per n for every
+//          robot of n joints: MPT_FWD_LOOP, the table's layout and
+//          csrc/fd_step_loop.cuh (ops/cuda_mpc_batch.py::
+//          fwd_loop_unit_source), the robot's table and cost weights a
+//          kernel argument; with MPT_REPLAY_TEAM, K5's variant unit, also
 //          MPT_TEAM_S_MAX <scenarios a team>, MPT_TEAM_PER_BLOCK <teams a
 //          block> and the step split over a team of warps (mpt_fwd_team,
 //          with ops/cgen.py::TEAM_SOURCE);
@@ -73,9 +77,7 @@
 //       step inlined, in blocks of MPT_BLOCK; `linesearch` also stores each
 //       step's post-step state and control (21 floats a step for Panda,
 //       coalesced), so the solver selects the chosen alpha's trajectory
-//       and replays nothing. Operations set its least time (~5k statements
-//       per step); at B=1024 it is latency-bound: B*A threads fill few of
-//       the 132 SMs.
+//       and replays nothing.
 //   K5: one thread per scenario with its own alpha, the same fwd_rollout,
 //       streaming out xs, us and the cost; the solver runs it once, for
 //       the initial rollout. Its variant unit (MPT_REPLAY_TEAM) runs a team
@@ -83,11 +85,28 @@
 //       each closed-loop step is the emitted step partitioned into one
 //       straight-line program per warp (ops/cgen.py::team_function), the
 //       team's named barrier between phases, values that cross warps in
-//       shared-memory slots. Both are bound by the instruction stream, not
-//       by the dependent chain: the step is ~6k instructions of
-//       straight-line code (~12k split over 8 warps) that no instruction
-//       cache holds, so each SM fetches it anew every step, and the team
-//       was 1.3-3.2x slower than one thread (PERF.md section 6).
+//       shared-memory slots; the split doubles the code (~12k instructions
+//       over 8 warps for Panda) and was 1.3-3.2x slower than one thread.
+//   K4 and K5 take one of two forms, one unit for both: the emitted step
+//   (mpc_fwd_step), or with MPT_FWD_LOOP the looped step (fd_step_loop,
+//   the robot, its torque bounds and the cost weights in the launch's
+//   table; one unit per joint count). Two regimes bound them (H100, B=1024,
+//   H=50, 6 alphas; PERF.md section 5):
+//     - below ~6k statements of the emitted step, latency: K4's 48 blocks
+//       of 128 threads (K5's 8) leave each SM at most one warp a
+//       scheduler, each thread 50 dependent steps, so nothing hides an
+//       instruction's latency; K4 runs at ~0.1 ms per 1000 statements,
+//       ~10x its operations' bound. The looped step does ~15% more
+//       operations with fewer registers (151-168 against 165-255) and is
+//       1.1-1.35x slower there: a third block an SM has no warp to give.
+//     - past it, the instruction fetch: the emitted kernels' 7.8k-14.8k
+//       SASS instructions outgrow what an SM caches and its rate falls by
+//       up to half (Gen3, Jaco, 10-joint Jaco). The looped step's
+//       3.1k-5.2k stay inside, back at the latency-bound rate: 0.78x the
+//       emitted time on the Gen3, 0.48x on the Jaco chain, 0.44x on the
+//       10-joint Jaco.
+//   ops/cuda_mpc_batch.py::fwd_form routes each joint count by the
+//   emitted statements to the faster form.
 // Every kernel is built with --fmad=false and the emitter's order of
 // operations, so each agrees bitwise with its plain PyTorch version.
 //
@@ -612,6 +631,106 @@ MPT_ATTRIBUTES(attributes_backward, mpt_bwd_warp_kernel)
 
 // ----------------------------------------------------------- K4 and K5 ---
 #if defined(MPT_UNIT_FWD)
+#ifdef MPT_FWD_LOOP
+// The looped form (one unit per joint count, every robot of n joints):
+// the closed-loop step on K0's loop over links (csrc/fd_step_loop.cuh),
+// the robot, its torque bounds (MPT_TAB_U_LIM) and the cost weights
+// (MPT_COST_*, after the table) in the launch's __grid_constant__
+// parameter. ops/fd_step.py::fd_fwd_loop_planes is its plain version,
+// operation for operation.
+#ifdef MPT_REPLAY_TEAM
+#error "K5's team splits the emitted step; the looped form runs one thread a scenario"
+#endif
+#define MPT_FWD_TABLE , const float* __restrict__ tab
+#define MPT_FWD_TABLE_ARG , tab
+
+// Step t of scenario b: u = clamp(u_nom + alpha k + K dx, +-u_lim) (each
+// gain row read as its control is formed), the running cost at the
+// pre-step state, returned, then the looped step: q and dq in place.
+// Every sum in the emitter's order (ops/cuda_mpc_batch.py::fwd_step).
+static __device__ __forceinline__ float mpt_fwd_loop_step(
+    float q[MPT_NJ], float dq[MPT_NJ], const float g[MPT_NJ], const float* __restrict__ sd_x,
+    const float* __restrict__ sd_u, const float* __restrict__ kK, float alpha, float u[MPT_NJ],
+    int B, int b, int t, const float* __restrict__ tab) {
+  const float* W = tab + MPT_TAB_FLOATS;
+  float dx[MPT_NX];
+#pragma unroll
+  for (int i = 0; i < MPT_NJ; ++i) {
+    dx[i] = q[i] - MPT_AT(sd_x, t * MPT_NX + i, b, B);
+    dx[MPT_NJ + i] = dq[i] - MPT_AT(sd_x, t * MPT_NX + MPT_NJ + i, b, B);
+  }
+  const size_t kk_row = (size_t)t * (MPT_NJ * MPT_KK);
+#pragma unroll
+  for (int j = 0; j < MPT_NJ; ++j) {
+    const size_t r = kk_row + (size_t)j * MPT_KK;
+    float uj = MPT_AT(sd_u, t * MPT_NJ + j, b, B) + alpha * MPT_AT(kK, r, b, B);
+#pragma unroll
+    for (int i = 0; i < MPT_NX; ++i) uj = uj + MPT_AT(kK, r + 1 + i, b, B) * dx[i];
+    const float lim = tab[MPT_TAB_HEAD + j * MPT_TAB_STRIDE + MPT_TAB_U_LIM];
+    u[j] = mpt_clamp(uj, -lim, lim);
+  }
+  float c = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MPT_NJ; ++i) {
+    const float e = q[i] - g[i];
+    const float te = (W[MPT_COST_W_Q] * e) * e;
+    c = i == 0 ? te : c + te;
+    c = c + (W[MPT_COST_W_DQ] * dq[i]) * dq[i];
+  }
+#pragma unroll
+  for (int j = 0; j < MPT_NJ; ++j) c = c + (W[MPT_COST_W_U] * u[j]) * u[j];
+  float ddq[MPT_NJ];
+  fd_step_loop(q, dq, u, ddq, tab);
+  return c;
+}
+
+// The terminal cost with the table's weights.
+static __device__ __forceinline__ float mpt_fwd_loop_terminal(
+    const float q[MPT_NJ], const float dq[MPT_NJ], const float g[MPT_NJ], const float* __restrict__ tab) {
+  const float* W = tab + MPT_TAB_FLOATS;
+  float c = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MPT_NJ; ++i) {
+    const float e = q[i] - g[i];
+    const float te = (W[MPT_COST_WT_Q] * e) * e;
+    c = i == 0 ? te : c + te;
+    c = c + (W[MPT_COST_WT_DQ] * dq[i]) * dq[i];
+  }
+  return c;
+}
+
+// fwd_rollout (below) on the looped step.
+static __device__ __forceinline__ float fwd_rollout(
+    const float* __restrict__ x0, const float* __restrict__ sd_x,
+    const float* __restrict__ sd_u, const float* __restrict__ kK,
+    const float* __restrict__ goal, float alpha, float* __restrict__ xs_out,
+    float* __restrict__ us_out, int stride, int B, int H, int b, const float* __restrict__ tab) {
+  float q[MPT_NJ], dq[MPT_NJ], g[MPT_NJ], u[MPT_NJ];
+#pragma unroll
+  for (int i = 0; i < MPT_NJ; ++i) {
+    q[i] = MPT_AT(x0, i, b, B);
+    dq[i] = MPT_AT(x0, MPT_NJ + i, b, B);
+    g[i] = MPT_AT(goal, i, b, B);
+  }
+  float acc = 0.0f;
+  for (int t = 0; t < H; ++t) {
+    acc = acc + mpt_fwd_loop_step(q, dq, g, sd_x, sd_u, kK, alpha, u, B, b, t, tab);
+    if (xs_out != NULL) {
+#pragma unroll
+      for (int i = 0; i < MPT_NJ; ++i) {
+        MPT_AT(xs_out, (size_t)(t * MPT_NX + i) * stride, b, B) = q[i];
+        MPT_AT(xs_out, (size_t)(t * MPT_NX + MPT_NJ + i) * stride, b, B) = dq[i];
+      }
+#pragma unroll
+      for (int j = 0; j < MPT_NJ; ++j)
+        MPT_AT(us_out, (size_t)(t * MPT_NJ + j) * stride, b, B) = u[j];
+    }
+  }
+  return acc + mpt_fwd_loop_terminal(q, dq, g, tab);
+}
+#else
+#define MPT_FWD_TABLE
+#define MPT_FWD_TABLE_ARG
 // The closed-loop rollout of one scenario under one alpha. Writes each
 // step's post-step state and control when xs_out is not null, row r of
 // them at xs_out[r * stride * B] (K5: stride 1; K4: the A alphas, xs_out
@@ -652,14 +771,15 @@ static __device__ __forceinline__ float fwd_rollout(
   mpc_terminal(x, g, c);
   return acc + c[0];
 }
+#endif
 
 // K4, costs only: thread (b, a) scores alpha a for scenario b.
 static __device__ __forceinline__ void cost_thread(
     const float* x0, const float* sd_x, const float* sd_u, const float* kK,
     const float* goal, const float* alphas, float* costs, int B, int H, int b,
-    int a) {
+    int a MPT_FWD_TABLE) {
   MPT_AT(costs, a, b, B) =
-      fwd_rollout(x0, sd_x, sd_u, kK, goal, alphas[a], NULL, NULL, 1, B, H, b);
+      fwd_rollout(x0, sd_x, sd_u, kK, goal, alphas[a], NULL, NULL, 1, B, H, b MPT_FWD_TABLE_ARG);
 }
 
 // K4 with the trajectories: thread (b, a) also stores alpha a's states and
@@ -667,21 +787,43 @@ static __device__ __forceinline__ void cost_thread(
 static __device__ __forceinline__ void linesearch_thread(
     const float* x0, const float* sd_x, const float* sd_u, const float* kK,
     const float* goal, const float* alphas, float* costs, float* xs_all,
-    float* us_all, int B, int H, int A, int b, int a) {
+    float* us_all, int B, int H, int A, int b, int a MPT_FWD_TABLE) {
   const size_t col = (size_t)a * (size_t)B;
   MPT_AT(costs, a, b, B) = fwd_rollout(x0, sd_x, sd_u, kK, goal, alphas[a], xs_all + col,
-                                       us_all + col, A, B, H, b);
+                                       us_all + col, A, B, H, b MPT_FWD_TABLE_ARG);
 }
 
 // K5: scenario b under its own alpha.
 static __device__ __forceinline__ void replay_thread(
     const float* x0, const float* sd_x, const float* sd_u, const float* kK,
     const float* goal, const float* alpha, float* xs, float* us, float* cost,
-    int B, int H, int b) {
-  cost[b] = fwd_rollout(x0, sd_x, sd_u, kK, goal, alpha[b], xs, us, 1, B, H, b);
+    int B, int H, int b MPT_FWD_TABLE) {
+  cost[b] = fwd_rollout(x0, sd_x, sd_u, kK, goal, alpha[b], xs, us, 1, B, H, b MPT_FWD_TABLE_ARG);
 }
 
 #ifdef __CUDACC__
+#ifdef MPT_FWD_LOOP
+// The table and the cost weights, by value: they live in the launch's
+// parameter space (4 + 47 n + 5 floats, 1916 bytes at n = 10).
+struct MptFwdTable {
+  float v[MPT_TAB_FLOATS + MPT_COST_FLOATS];
+};
+static MptFwdTable mpt_fwd_table(const float* table) {
+  MptFwdTable tab;
+  for (int i = 0; i < MPT_TAB_FLOATS + MPT_COST_FLOATS; ++i) tab.v[i] = table[i];
+  return tab;
+}
+#define MPT_FWD_KERNEL_TABLE , const __grid_constant__ MptFwdTable tab
+#define MPT_FWD_KERNEL_ARG , tab.v
+#define MPT_FWD_LAUNCH_TABLE , const float* table
+#define MPT_FWD_LAUNCH_ARG , mpt_fwd_table(table)
+#else
+#define MPT_FWD_KERNEL_TABLE
+#define MPT_FWD_KERNEL_ARG
+#define MPT_FWD_LAUNCH_TABLE
+#define MPT_FWD_LAUNCH_ARG
+#endif
+
 // K4: block (i, a) holds scenarios i*MPT_BLOCK .. of alpha a; STORE adds
 // the trajectories (`linesearch`), without it the costs alone
 // (`linesearch_costs`).
@@ -691,27 +833,29 @@ __global__ void __launch_bounds__(MPT_BLOCK) mpt_cost_kernel(
     const float* __restrict__ sd_u, const float* __restrict__ kK,
     const float* __restrict__ goal, const float* __restrict__ alphas,
     float* __restrict__ costs, float* __restrict__ xs_all, float* __restrict__ us_all,
-    int B, int H) {
+    int B, int H MPT_FWD_KERNEL_TABLE) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   if (STORE)
     linesearch_thread(x0, sd_x, sd_u, kK, goal, alphas, costs, xs_all, us_all, B, H,
-                      (int)gridDim.y, b, (int)blockIdx.y);
+                      (int)gridDim.y, b, (int)blockIdx.y MPT_FWD_KERNEL_ARG);
   else
-    cost_thread(x0, sd_x, sd_u, kK, goal, alphas, costs, B, H, b, (int)blockIdx.y);
+    cost_thread(x0, sd_x, sd_u, kK, goal, alphas, costs, B, H, b, (int)blockIdx.y MPT_FWD_KERNEL_ARG);
 }
 
 // x0 (nx, B), sd_x (H, nx, B), sd_u (H, n, B), kK (H, n, 1+nx, B),
-// goal (n, B), alphas (A) -> costs (A, B). Grid (B blocks, A).
+// goal (n, B), alphas (A) -> costs (A, B). Grid (B blocks, A). The looped
+// form's `table` is the robot's table and cost weights in host memory
+// (MPT_TAB_FLOATS + MPT_COST_FLOATS floats), copied into the launch.
 extern "C" int launch_linesearch_costs(const float* x0, const float* sd_x,
                                        const float* sd_u, const float* kK,
                                        const float* goal, const float* alphas,
-                                       float* costs, int B, int H, int A,
-                                       void* stream) {
+                                       float* costs, int B, int H, int A
+                                       MPT_FWD_LAUNCH_TABLE, void* stream) {
   if (B <= 0 || A <= 0) return 0;
   const dim3 grid((unsigned int)((B + MPT_BLOCK - 1) / MPT_BLOCK), (unsigned int)A);
   mpt_cost_kernel<false><<<grid, MPT_BLOCK, 0, (cudaStream_t)stream>>>(
-      x0, sd_x, sd_u, kK, goal, alphas, costs, NULL, NULL, B, H);
+      x0, sd_x, sd_u, kK, goal, alphas, costs, NULL, NULL, B, H MPT_FWD_LAUNCH_ARG);
   return (int)cudaGetLastError();
 }
 
@@ -720,11 +864,11 @@ extern "C" int launch_linesearch(const float* x0, const float* sd_x,
                                  const float* sd_u, const float* kK,
                                  const float* goal, const float* alphas,
                                  float* costs, float* xs_all, float* us_all,
-                                 int B, int H, int A, void* stream) {
+                                 int B, int H, int A MPT_FWD_LAUNCH_TABLE, void* stream) {
   if (B <= 0 || A <= 0) return 0;
   const dim3 grid((unsigned int)((B + MPT_BLOCK - 1) / MPT_BLOCK), (unsigned int)A);
   mpt_cost_kernel<true><<<grid, MPT_BLOCK, 0, (cudaStream_t)stream>>>(
-      x0, sd_x, sd_u, kK, goal, alphas, costs, xs_all, us_all, B, H);
+      x0, sd_x, sd_u, kK, goal, alphas, costs, xs_all, us_all, B, H MPT_FWD_LAUNCH_ARG);
   return (int)cudaGetLastError();
 }
 MPT_ATTRIBUTES(attributes_linesearch_costs, mpt_cost_kernel<false>)
@@ -738,10 +882,10 @@ __global__ void __launch_bounds__(MPT_BLOCK) mpt_replay_kernel(
     const float* __restrict__ sd_u, const float* __restrict__ kK,
     const float* __restrict__ goal, const float* __restrict__ alpha,
     float* __restrict__ xs, float* __restrict__ us, float* __restrict__ cost,
-    int B, int H) {
+    int B, int H MPT_FWD_KERNEL_TABLE) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  replay_thread(x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H, b);
+  replay_thread(x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H, b MPT_FWD_KERNEL_ARG);
 }
 
 // The same inputs with one alpha per scenario, alpha (B) -> xs (H, nx, B),
@@ -749,12 +893,12 @@ __global__ void __launch_bounds__(MPT_BLOCK) mpt_replay_kernel(
 extern "C" int launch_replay(const float* x0, const float* sd_x,
                              const float* sd_u, const float* kK,
                              const float* goal, const float* alpha, float* xs,
-                             float* us, float* cost, int B, int H,
-                             void* stream) {
+                             float* us, float* cost, int B, int H
+                             MPT_FWD_LAUNCH_TABLE, void* stream) {
   if (B <= 0) return 0;
   const unsigned int blocks = (unsigned int)((B + MPT_BLOCK - 1) / MPT_BLOCK);
   mpt_replay_kernel<<<blocks, MPT_BLOCK, 0, (cudaStream_t)stream>>>(
-      x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H);
+      x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H MPT_FWD_LAUNCH_ARG);
   return (int)cudaGetLastError();
 }
 MPT_ATTRIBUTES(attributes_replay, mpt_replay_kernel)
@@ -981,4 +1125,20 @@ extern "C" int team_replay(int* out) {
 MPT_ATTRIBUTES(attributes_replay, mpt_replay_kernel)
 #endif
 #endif  // MPT_REPLAY_TEAM
+
+#ifdef __CUDACC__
+// The blocks an SM holds of K4's costs alone, K4 with its trajectories and
+// K5 (one thread a scenario; -1 for K5's team variant).
+extern "C" int occupancy_fwd(int* blocks) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mpt_cost_kernel<false>, MPT_BLOCK, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1, mpt_cost_kernel<true>, MPT_BLOCK, 0);
+#if !defined(MPT_REPLAY_TEAM)
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 2, mpt_replay_kernel, MPT_BLOCK, 0);
+#else
+  blocks[2] = -1;
+#endif
+  return (int)err;
+}
+#endif
 #endif  // MPT_UNIT_FWD

@@ -103,14 +103,16 @@ def build_batch_tracking_mpc(
     u_limit=None,
     g=(0.0, 0.0, -9.81),
     _form=None,
+    _fwd_form=None,
 ) -> BatchTrackingMPC:
     """Build the batched fused solver for one (robot, goals, B, H).
 
     ``q_goal``: (n,) shared or (batch, n) per scenario; it is kept on the
     model's device. ``u_limit`` defaults to the model's torque limits (its
     f64 host arrays where it has them). The kernels build with nvcc at
-    their first CUDA call (or :meth:`BatchMPCKernels.build`). ``_form``,
-    not a public option, names K2's form (``BatchMPCKernels``)."""
+    their first CUDA call (or :meth:`BatchMPCKernels.build`). ``_form`` and
+    ``_fwd_form``, not public options, name K2's form and K4's and K5's
+    (``BatchMPCKernels``)."""
     n = model.num_joints
     nx = 2 * n
     H, B, A = int(horizon), int(batch), int(line_search_steps)
@@ -121,7 +123,8 @@ def build_batch_tracking_mpc(
         u_limit = host["torque_limit"] if host is not None else model.torque_limit
     u_lim = _host_vector(u_limit, n, "u_limit")
     kernels = BatchMPCKernels(
-        model, dt, g=g, w_q=w_q, w_dq=w_dq, w_u=w_u, w_terminal=w_terminal, u_lim=u_lim, _form=_form
+        model, dt, g=g, w_q=w_q, w_dq=w_dq, w_u=w_u, w_terminal=w_terminal, u_lim=u_lim, _form=_form,
+        _fwd_form=_fwd_form,
     )
     device = model.device
 
@@ -212,7 +215,7 @@ def build_batch_tracking_mpc(
         host_arrays=host_arrays(model), q_goal=goal_default.T.cpu().numpy().copy(), batch=B, horizon=H, dt=float(dt),
         iterations=int(iterations), line_search_steps=A, w_q=w_q, w_dq=w_dq, w_u=w_u, w_terminal=w_terminal,
         reg=float(reg), u_limit=u_lim, g=tuple(float(v) for v in g), device=model.device.type,
-        **({"_form": _form} if _form else {}),
+        **({"_form": _form} if _form else {}), **({"_fwd_form": _fwd_form} if _fwd_form else {}),
     )
     return BatchTrackingMPC(
         solve=solve, horizon=H, n=n, batch=B,

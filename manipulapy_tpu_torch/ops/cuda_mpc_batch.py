@@ -25,6 +25,14 @@ Counterpart of the four ``pallas_call``s of
   alpha, streaming out xs, us and the cost, one thread a scenario; a
   variant unit (``TEAM_WARPS`` > 0) runs each step on a team of warps.
 
+K4 and K5 are one unit, in one of two forms (``BatchMPCKernels.fwd_form``,
+chosen by :func:`fwd_form`): ``"emitted"``, the emitted closed-loop step
+(:func:`fwd_step`), or ``"looped"``, the same step on K0's loop over links
+(``fd_step.fd_fwd_loop_planes``; one unit per joint count, the robot, its
+torque bounds and the cost weights the table each launch carries). The
+solve selects from K4's trajectories and starts from K5's rollout, so the
+two always take one form.
+
 Each kernel's arithmetic is one Python function over cgen values
 (:func:`riccati_terminal`, :func:`riccati_step`, :func:`fwd_step`,
 :func:`terminal_cost`, and ``ops/fd_step.py::build_fd_step_jvp_planes``
@@ -45,7 +53,8 @@ m, B)``, ``kK (H, n, 1+nx, B)`` (``[..., j, 0, :]`` = k_j, ``[..., j, 1+i,
 On CPU tensors every stage runs its plain version, and only because the
 tensors lie on the CPU; K2's is the emitted form's unless the kernel set
 was built with ``_form`` (so a public solve's CPU result does not depend on
-the card's route), while :meth:`BatchMPCKernels.plain` gives the plain
+the card's route), and K4's and K5's the emitted form's unless it was built
+with ``_fwd_form``, while :meth:`BatchMPCKernels.plain` gives the plain
 version of the form its kernel runs. On CUDA tensors it launches its kernel or raises:
 float32, contiguous, one device, the shapes above. Each launch adds one to
 ``BatchMPCKernels.launch_count[stage]`` (all instances).
@@ -70,10 +79,14 @@ from .fd_step import (
     build_fd_step_jvp_planes,
     build_fd_step_jvp_source,
     build_fd_step_planes,
+    fd_fwd_loop_planes,
     fd_step_loop_jvp_planes,
+    fwd_table,
     link_table,
+    loop_fwd_ops,
     loop_jvp_ops,
     loop_supported,
+    loop_terminal_cost,
     table_defines,
 )
 from ..models.robot import RobotModel, host_arrays
@@ -92,6 +105,13 @@ __all__ = [
     "lin_loop_unit_source",
     "LIN_LOOP_THRESHOLD",
     "LIN_LOOP_THRESHOLDS",
+    "FWD_FORMS",
+    "fwd_form",
+    "fwd_loop_threshold",
+    "fwd_loop_unit_source",
+    "loop_fwd_rollout_plain",
+    "FWD_LOOP_THRESHOLD",
+    "FWD_LOOP_THRESHOLDS",
     "TEAM_WARPS",
     "TEAM_S",
     "TEAM_PER_BLOCK",
@@ -182,6 +202,76 @@ def lin_loop_unit_source(n: int, seeds: int) -> str:
     )
     return (header + table_defines() + "#include <math.h>\n" + LOOP_STEP.read_text() + "\n"
             + LOOP_JVP.read_text() + "\n" + TEMPLATE.read_text())
+
+
+FWD_FORMS = ("emitted", "looped")
+# K4's and K5's route: a robot whose emitted closed-loop step
+# (``statements["replay"]``) has more statements than its joint count's
+# threshold takes the looped form (FWD_LOOP_THRESHOLDS, else
+# FWD_LOOP_THRESHOLD). Set from both forms timed in turns in one call
+# (chip_smoke.py phases 7, 9 and 32, B=1024, H=50, 6 alphas, each launch
+# timed over 20 back-to-back ones; H100 80GB HBM3, 700 W; PERF.md §5), the
+# looped form's 4 K4 + K5 of a solve over the emitted one's: 1 joint
+# 1.05-1.54 (the Robotiq grippers, 207-232 statements); 6 joints 1.31-1.41
+# from 2972 to 3209 statements (the ABB, CRX and FANUC arms, the
+# programmatic UR5), 0.98-0.99 from 4563 to 4676 (the UR arms, the xArm6);
+# 7 joints 1.13 at 4955 (the programmatic Panda), 0.98 at 5955 (the xArm6
+# with its gripper), 0.78-0.95 from 6171 to 6465 (the iiwas, the Jaco
+# 6-dof, the Gen3); 8 joints 1.16 at 5819 (the Panda with its finger),
+# 0.44 at 8099 (the Jaco chain); 10 joints 0.44 at 11885. Joint counts not
+# measured take the looped form past 6000.
+FWD_LOOP_THRESHOLD = 6000
+FWD_LOOP_THRESHOLDS: Dict[int, float] = {1: math.inf, 6: 4500, 7: 5500, 8: 7000}
+
+
+def fwd_loop_threshold(n: int) -> float:
+    """K4's and K5's route threshold on the emitted closed-loop step's
+    statements for n joints."""
+    return FWD_LOOP_THRESHOLDS.get(int(n), FWD_LOOP_THRESHOLD)
+
+
+def fwd_form(model: RobotModel, statements: int) -> str:
+    """The form K4's and K5's route gives a robot whose emitted closed-loop
+    step has ``statements`` statements: ``"looped"`` past its joint count's
+    threshold (where the looped step takes the robot), else ``"emitted"``."""
+    if statements > fwd_loop_threshold(model.num_joints) and loop_supported(model):
+        return "looped"
+    return "emitted"
+
+
+def fwd_loop_unit_source(n: int) -> str:
+    """K4's and K5's translation unit on the looped step: one per joint
+    count, for every robot of n joints (the robot, its torque bounds and
+    the cost weights are the table each launch carries)."""
+    header = (
+        f"// Generated: the looped K4 and K5 for {int(n)} joints.\n"
+        f"#define MPT_NJ {int(n)}\n#define MPT_BLOCK {BLOCK}\n#define MPT_UNIT_FWD 1\n#define MPT_FWD_LOOP 1\n"
+    )
+    return header + table_defines() + "#include <math.h>\n" + LOOP_STEP.read_text() + "\n" + TEMPLATE.read_text()
+
+
+def loop_fwd_rollout_plain(tab: torch.Tensor, n: int, x0, sd_x, sd_u, kK, goal, alpha):
+    """The looped K4's and K5's plain version: the closed-loop rollout of
+    ``fd_step.fd_fwd_loop_planes`` over ``tab`` (a ``fd_step.fwd_table`` in
+    the inputs' dtype on their device; (T,), or (T, B) with a column a
+    scenario, so that robots of n joints run side by side), the terminal
+    cost last. Inputs and outputs as :meth:`BatchMPCKernels.replay_plain`'s:
+    alpha (B,) for K5, (A, 1) for every alpha of K4."""
+    nx, H = 2 * n, sd_x.shape[0]
+    like = torch.zeros(torch.broadcast_shapes(alpha.shape, x0.shape[1:]), dtype=x0.dtype, device=x0.device)
+    g = [goal[j] for j in range(n)]
+    x = [x0[i] for i in range(nx)]
+    acc = like
+    xs_rows, us_rows = [], []
+    for t in range(H):
+        kk = [kK[t, j, c] for j in range(n) for c in range(1 + nx)]
+        u, c, x = fd_fwd_loop_planes(tab, n, x, [sd_x[t, i] for i in range(nx)], [sd_u[t, j] for j in range(n)],
+                                     kk, g, alpha)
+        acc = acc + c
+        xs_rows.append(_stack(x, like))
+        us_rows.append(_stack(u, like))
+    cost = acc + loop_terminal_cost(tab, n, x, g)
+    return torch.stack(xs_rows), torch.stack(us_rows), _full(cost, like)
 
 
 # K5: one thread a scenario (``TEAM_WARPS`` = 0). A variant unit runs a team
@@ -547,7 +637,14 @@ class MPCKernelSet(KernelSet):
 class BatchMPCKernels(MPCKernelSet):
     """K2-K5 for one (robot, dt, g, cost weights, torque limits). K2 runs
     the ``form`` :func:`lin_form` gives the robot (``_form``, not a public
-    option, names one for the card's comparison of the two and the tests).
+    option, names one for the card's comparison of the two and the tests),
+    K4 and K5 the ``fwd_form`` :func:`fwd_form` gives it (``_fwd_form``
+    likewise). Looped, K4's and K5's unit is :func:`fwd_loop_unit_source`,
+    ``fwd_table`` (``fd_step.fwd_table``, float32 on the host) goes with
+    each launch and ``fwd_loop_ops`` counts its step's operations
+    (``fd_step.loop_fwd_ops``); the emitted step's statements stay the
+    bound's yardstick. A team variant (``TEAM_WARPS`` > 0) splits the
+    emitted step, so its route is the emitted form.
     Emitted, its unit carries ``fd_step_jvp_group`` for ``LIN_SEEDS`` seeds
     a thread (``MPT_LIN_SEEDS``; None: :func:`lin_seeds` of the robot, set
     on the instance); the one-seed ``fd_step_jvp`` stays out of it, as
@@ -559,8 +656,8 @@ class BatchMPCKernels(MPCKernelSet):
     form. A looped unit that fails to build or launch raises. K5's unit
     runs one thread a scenario, or with ``TEAM_WARPS`` > 0 a team of warps
     (``self.team``). Only the units of ``UNITS`` are emitted and built.
-    Each K2 launch also adds one to ``lin_launches[form]`` (all
-    instances)."""
+    Each K2 launch also adds one to ``lin_launches[form]``, each K4 or K5
+    launch to ``fwd_launches[fwd_form]`` (all instances)."""
 
     kind = "cuda"
     STAGES, UNITS, ARGTYPES, LIB_PREFIX = STAGES, UNITS, _ARGTYPES, "mpc_batch"
@@ -569,14 +666,20 @@ class BatchMPCKernels(MPCKernelSet):
     TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK, TEAM_STAGE = TEAM_WARPS, TEAM_S, TEAM_PER_BLOCK, "replay"
     launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
     lin_launches: Dict[str, int] = dict.fromkeys(LIN_FORMS, 0)  # K2's, by form
+    fwd_launches: Dict[str, int] = dict.fromkeys(FWD_FORMS, 0)  # K4's and K5's, by form
     LIN_LOOP_SEEDS = None
     team = None
     form, table, loop_ops = "emitted", None, None
+    fwd_form, fwd_table, fwd_loop_ops = "emitted", None, None
 
-    def __init__(self, *args, _form=None, **kwargs):
+    def __init__(self, *args, _form=None, _fwd_form=None, **kwargs):
         if _form not in LIN_FORMS + (None,):
             raise ValueError(f"_form must be one of {LIN_FORMS} or None, got {_form!r}")
-        self._form = _form
+        if _fwd_form not in FWD_FORMS + (None,):
+            raise ValueError(f"_fwd_form must be one of {FWD_FORMS} or None, got {_fwd_form!r}")
+        if _fwd_form == "looped" and self.TEAM_WARPS:
+            raise ValueError("K5's team variant splits the emitted step; it has no looped form")
+        self._form, self._fwd_form = _form, _fwd_form
         super().__init__(*args, **kwargs)
         if self.team is not None:  # the team step goes where the template marks it, after the macros it reads
             fwd = self.sources["fwd"]
@@ -585,11 +688,15 @@ class BatchMPCKernels(MPCKernelSet):
         if self.form == "looped":
             self.sources["lin"] = lin_loop_unit_source(self.n, self.LIN_LOOP_SEEDS)
             self.ARGTYPES = {**self.ARGTYPES, "linearize": [_P] * 3 + [_I, _I, _P, _P]}
+        if self.fwd_form == "looped":
+            self.sources["fwd"] = fwd_loop_unit_source(self.n)
+            self.ARGTYPES = {**self.ARGTYPES, **{s: _ARGTYPES[s][:-1] + [_P, _P] for s in UNITS["fwd"]}}
 
     @classmethod
     def reset_launch_count(cls) -> None:
         super().reset_launch_count()
         cls.lin_launches = dict.fromkeys(LIN_FORMS, 0)
+        cls.fwd_launches = dict.fromkeys(FWD_FORMS, 0)
 
     def lin_blocks_per_sm(self) -> int:
         """The blocks of K2's kernel an SM holds on the current device
@@ -601,6 +708,18 @@ class BatchMPCKernels(MPCKernelSet):
         if err:
             raise RuntimeError(f"K2's occupancy failed with CUDA error {err}")
         return blocks.value
+
+    def fwd_blocks_per_sm(self) -> Dict[str, int]:
+        """The blocks of K4's and K5's kernels an SM holds on the current
+        device, per stage (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;
+        K5's team variant -1)."""
+        fn = self._lib("replay").occupancy_fwd
+        fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        blocks = (ctypes.c_int * 3)()
+        err = fn(blocks)
+        if err:
+            raise RuntimeError(f"K4's and K5's occupancy failed with CUDA error {err}")
+        return dict(zip(UNITS["fwd"], blocks))
 
     def _bodies(self, model, dt, g) -> Dict[str, str]:
         P, n, nx = self.P, self.n, self.nx
@@ -641,6 +760,15 @@ class BatchMPCKernels(MPCKernelSet):
             out["bwd"] = bwd_weights(P) + term_src
         if "fwd" in self.UNITS:
             out["fwd"] = self._fwd_body()
+            route = "emitted" if self.TEAM_WARPS else fwd_form(model, self.statements["replay"])
+            self.fwd_form = self._fwd_form or route
+            if self.fwd_form == "looped":  # its unit replaces this one (__init__)
+                P = self.P
+                weights = dict(u_lim=P.u_lim, w_q=P.w_q, w_dq=P.w_dq, w_u=P.w_u, w_terminal=P.wT[0])
+                self._fwd_tables = {dt_: fwd_table(model, dt, g, dtype=dt_, **weights)
+                                    for dt_ in (torch.float32, torch.float64)}
+                self.fwd_table = self._fwd_tables[torch.float32]
+                self.fwd_loop_ops = loop_fwd_ops(n)
         return out
 
     def _fwd_body(self) -> str:
@@ -728,10 +856,13 @@ class BatchMPCKernels(MPCKernelSet):
 
     def plain(self) -> SimpleNamespace:
         """The stages through the plain versions of the kernels as built:
-        K2's of ``form``."""
+        K2's of ``form``, K4's and K5's of ``fwd_form``."""
         out = super().plain()
         if self.form == "looped":
             out.linearize = self.loop_linearize_plain
+        if self.fwd_form == "looped":
+            out.linesearch_costs, out.linesearch = self.loop_linesearch_costs_plain, self.loop_linesearch_plain
+            out.replay = self.loop_replay_plain
         return out
 
     # -- K3 ----------------------------------------------------------------
@@ -782,8 +913,15 @@ class BatchMPCKernels(MPCKernelSet):
         if not kernel:
             return self.linesearch_costs_plain(x0, sd_x, sd_u, kK, goal, alphas)
         costs = torch.empty((A, B), dtype=x0.dtype, device=x0.device)
-        self._launch("linesearch_costs", x0.device, x0, sd_x, sd_u, kK, goal, alphas, costs, B, H, A)
+        self._fwd_launch("linesearch_costs", x0.device, x0, sd_x, sd_u, kK, goal, alphas, costs, B, H, A)
         return costs
+
+    def _fwd_launch(self, stage, device, *args) -> None:
+        """Launch K4 or K5 (the looped form with its table last) and count
+        it by form."""
+        table = (self.fwd_table,) if self.fwd_form == "looped" else ()
+        self._launch(stage, device, *args, *table)
+        type(self).fwd_launches[self.fwd_form] += 1
 
     def linesearch_costs_plain(self, x0, sd_x, sd_u, kK, goal, alphas) -> torch.Tensor:
         return self.replay_plain(x0, sd_x, sd_u, kK, goal, alphas[:, None])[2]
@@ -807,8 +945,8 @@ class BatchMPCKernels(MPCKernelSet):
             costs, xs, us = self.linesearch_plain(x0, sd_x, sd_u, kK, goal, alphas)
             return costs, outs["xs_all"].copy_(xs), outs["us_all"].copy_(us)
         costs = torch.empty((A, B), dtype=x0.dtype, device=x0.device)
-        self._launch("linesearch", x0.device, x0, sd_x, sd_u, kK, goal, alphas, costs,
-                     outs["xs_all"], outs["us_all"], B, H, A)
+        self._fwd_launch("linesearch", x0.device, x0, sd_x, sd_u, kK, goal, alphas, costs,
+                         outs["xs_all"], outs["us_all"], B, H, A)
         return costs, outs["xs_all"], outs["us_all"]
 
     def linesearch_plain(self, x0, sd_x, sd_u, kK, goal, alphas, xs_all=None, us_all=None):
@@ -831,13 +969,17 @@ class BatchMPCKernels(MPCKernelSet):
         xs = torch.empty((H, nx, B), dtype=x0.dtype, device=x0.device)
         us = torch.empty((H, n, B), dtype=x0.dtype, device=x0.device)
         cost = torch.empty((B,), dtype=x0.dtype, device=x0.device)
-        self._launch("replay", x0.device, x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H)
+        self._fwd_launch("replay", x0.device, x0, sd_x, sd_u, kK, goal, alpha, xs, us, cost, B, H)
         return xs, us, cost
 
     def replay_plain(self, x0, sd_x, sd_u, kK, goal, alpha):
         """The plain version of K5 (alpha (B,)), and of K4 with alpha (A, 1),
         every alpha for every scenario: (xs, us, cost), with a leading alpha
-        axis for K4."""
+        axis for K4. The looped form's where the set was built with
+        ``_fwd_form="looped"``, else the emitted form's (the public solver's
+        on the CPU, whatever the card's route)."""
+        if self._fwd_form == "looped":
+            return self.loop_replay_plain(x0, sd_x, sd_u, kK, goal, alpha)
         n, nx = self.n, self.nx
         H = sd_x.shape[0]
         lead = torch.broadcast_shapes(alpha.shape, x0.shape[1:])
@@ -856,3 +998,24 @@ class BatchMPCKernels(MPCKernelSet):
             us_rows.append(_stack(u, like))
         cost = cg.add(acc, terminal_cost(self.P, x, g))
         return torch.stack(xs_rows), torch.stack(us_rows), _full(cost, like)
+
+    def loop_replay_plain(self, x0, sd_x, sd_u, kK, goal, alpha):
+        """The looped K5's plain version (and K4's with alpha (A, 1)):
+        :func:`loop_fwd_rollout_plain` over the robot's table and cost
+        weights in the inputs' dtype, float32 or float64."""
+        if self.fwd_table is None:
+            raise ValueError("this kernel set's K4 and K5 are the emitted form; build it with _fwd_form='looped'")
+        tab = self._fwd_tables.get(x0.dtype)
+        if tab is None:
+            raise TypeError(f"the looped replay takes float32 or float64, got {x0.dtype}")
+        return loop_fwd_rollout_plain(tab.to(x0.device), self.n, x0, sd_x, sd_u, kK, goal, alpha)
+
+    def loop_linesearch_costs_plain(self, x0, sd_x, sd_u, kK, goal, alphas) -> torch.Tensor:
+        """The looped K4's costs alone, every alpha (A,): (A, B)."""
+        return self.loop_replay_plain(x0, sd_x, sd_u, kK, goal, alphas[:, None])[2]
+
+    def loop_linesearch_plain(self, x0, sd_x, sd_u, kK, goal, alphas, xs_all=None, us_all=None):
+        """The looped K4 with every alpha's trajectory (``linesearch_plain``'s
+        contract)."""
+        xs, us, costs = self.loop_replay_plain(x0, sd_x, sd_u, kK, goal, alphas[:, None])
+        return costs, xs, us

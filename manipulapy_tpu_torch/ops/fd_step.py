@@ -51,14 +51,19 @@ __all__ = [
     "LINK_FIELDS",
     "TABLE_HEAD",
     "LINK_STRIDE",
+    "COST_FIELDS",
     "loop_supported",
     "link_table",
+    "fwd_table",
     "table_defines",
     "fd_step_loop_planes",
     "build_fd_step_loop",
     "loop_step_ops",
     "fd_step_loop_jvp_planes",
     "loop_jvp_ops",
+    "fd_fwd_loop_planes",
+    "loop_terminal_cost",
+    "loop_fwd_ops",
     "loop_rollout_plain",
     "LoopRollout",
     "build_loop_rollout",
@@ -577,7 +582,11 @@ def build_rollout(model: RobotModel, dt: float = 0.01, intRes: int = 1, g=DEFAUL
 # `down`). W = [w] for A_k's rotation part w, so the transform's rotation
 # is I - sin(q) W + (1 - cos q) W^2 (_joint_exp at -q). G_k = [[I, 0], [0, m
 # 1]] in the CoM frame. A clamp not applied is an infinite bound: the
-# kernel's clamp then leaves the value as it is, NaN too. The space-frame
+# kernel's clamp then leaves the value as it is, NaN too. u_lim is the
+# torque bound the closed-loop step clamps its control to (K4 and K5); the
+# rollout's and K2's tables carry +inf there and do not read it. The
+# closed-loop step's table (:func:`fwd_table`) is followed by its cost
+# weights, COST_FIELDS, in the same launch parameter. The space-frame
 # screws S_k and CoM homes Mc_k, which _emit_dynamics also folds, are not
 # in the table: the loop carries each CoM Jacobian column from link to link
 # with the RNEA's transform, so the space frame never appears.
@@ -594,7 +603,11 @@ LINK_FIELDS = (
     ("lower", 1),    # position limits (-inf, +inf: not clamped)
     ("upper", 1),
     ("vel", 1),      # velocity limit (+inf: not clamped)
+    ("u_lim", 1),    # torque bound of the closed-loop step (+inf: not clamped)
 )
+# The closed-loop step's cost weights, after the table: the running cost's
+# state and control weights and the terminal cost's (``Costs``' wT).
+COST_FIELDS = (("w_q", 1), ("w_dq", 1), ("w_u", 1), ("wT_q", 1), ("wT_dq", 1))
 
 
 def _offsets(fields):
@@ -607,15 +620,18 @@ def _offsets(fields):
 
 HEAD_AT, HEAD_FLOATS = _offsets(TABLE_HEAD)
 LINK_AT, LINK_STRIDE = _offsets(LINK_FIELDS)
+COST_AT, COST_FLOATS = _offsets(COST_FIELDS)
 
 
 def table_defines() -> str:
-    """The table's layout as C macros (``MPT_TAB_*``) for
-    ``csrc/fd_step_loop.cuh``: the one place the layout is written is
-    here."""
+    """The table's layout as C macros (``MPT_TAB_*``, and ``MPT_COST_*``
+    for the cost weights after it) for ``csrc/fd_step_loop.cuh`` and the
+    looped K4/K5: the one place the layout is written is here."""
     lines = [f"#define MPT_TAB_HEAD {HEAD_FLOATS}", f"#define MPT_TAB_STRIDE {LINK_STRIDE}"]
     lines += [f"#define MPT_TAB_{name.upper()} {at}" for name, at in HEAD_AT.items()]
     lines += [f"#define MPT_TAB_{name.upper()} {at}" for name, at in LINK_AT.items()]
+    lines += [f"#define MPT_COST_FLOATS {COST_FLOATS}"]
+    lines += [f"#define MPT_COST_{name.upper()} {at}" for name, at in COST_AT.items()]
     return "\n".join(lines) + "\n"
 
 
@@ -638,16 +654,20 @@ def link_table(
     clip_limits: bool = True,
     clip_velocity: bool = True,
     dtype=torch.float32,
+    u_lim=None,
 ) -> torch.Tensor:
     """The robot's geometry, dt and g as one flat tensor on the CPU (layout:
     ``TABLE_HEAD``, then ``LINK_FIELDS`` for each link), the data of the
     looped step (:func:`fd_step_loop_planes`, ``csrc/fd_step_loop.cuh``).
     The values are those ``_emit_dynamics`` folds into the emitted code,
-    computed in f64 the same way and rounded once to ``dtype``."""
+    computed in f64 the same way and rounded once to ``dtype``. ``u_lim``
+    (n torque bounds, or None for +inf) is read by the closed-loop step
+    alone."""
     if not loop_supported(model):
         raise ValueError("the looped step takes spatial inertias of the form [[I, 0], [0, m 1]] only")
     S_np, Mc_np, G_np, lower, upper, vel = _np_model(model)
     n = S_np.shape[0]
+    u_lim = np.full(n, np.inf) if u_lim is None else np.broadcast_to(np.asarray(u_lim, dtype=np.float64), (n,))
     out = np.zeros(HEAD_FLOATS + n * LINK_STRIDE)
     out[HEAD_AT["dt"]] = float(dt)
     out[HEAD_AT["g"]:HEAD_AT["g"] + 3] = np.asarray(g, dtype=np.float64)
@@ -666,6 +686,7 @@ def link_table(
             "lower": lower[k] if clip_limits else -np.inf,
             "upper": upper[k] if clip_limits else np.inf,
             "vel": vel[k] if clip_velocity else np.inf,
+            "u_lim": u_lim[k],
         }
         base = HEAD_FLOATS + k * LINK_STRIDE
         for name, size in LINK_FIELDS:
@@ -1055,6 +1076,104 @@ def loop_jvp_ops(n: int, seeds: int) -> dict:
            for kind, gs in groups.items()}
     out["total"] = sum(out.values())
     return out
+
+
+# ---------------------------------------------------------------------------
+# The looped closed-loop step (K4's and K5's looped form)
+# ---------------------------------------------------------------------------
+#
+# The batched solver's line search and replay roll each scenario under the
+# controller u = clip(u_nom + alpha k + K dx, +-u_lim), the running cost
+# at the pre-step state, then the step (``clip_limits=True,
+# clip_velocity=False``): ``cuda_mpc_batch.fwd_step`` on the emitted step,
+# here on the looped one, with the torque bounds (``u_lim``) and the cost
+# weights (COST_FIELDS) read from the table. Every sum keeps the emitted
+# order: ((u_nom + alpha k_j) + K_j0 dx_0) + K_j1 dx_1 ..., and the cost
+# joint by joint, its first term set, not added to 0.
+
+
+def fwd_table(
+    model: RobotModel,
+    dt: float,
+    g=DEFAULT_G,
+    u_lim=None,
+    w_q: float = 10.0,
+    w_dq: float = 0.5,
+    w_u: float = 1e-4,
+    w_terminal: float = 100.0,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """The looped closed-loop step's table: :func:`link_table` of its step
+    (``clip_velocity=False``) with the torque bounds ``u_lim``, then the
+    cost weights (``COST_FIELDS``: w_q, w_dq, w_u and the terminal weights
+    w_terminal and 0.1 w_terminal, as ``cuda_mpc_batch.Costs`` forms them),
+    computed in f64 and rounded once to ``dtype``: 4 + 50 n + 5 floats."""
+    weights = {"w_q": w_q, "w_dq": w_dq, "w_u": w_u, "wT_q": float(w_terminal), "wT_dq": 0.1 * float(w_terminal)}
+    tail = torch.from_numpy(np.array([float(weights[name]) for name, _ in COST_FIELDS])).to(dtype)
+    return torch.cat([link_table(model, dt, g, clip_velocity=False, dtype=dtype, u_lim=u_lim), tail])
+
+
+def _cost_weights(tab: torch.Tensor, n: int) -> dict:
+    """The cost weights after the table of an n-joint robot."""
+    base = HEAD_FLOATS + n * LINK_STRIDE
+    return {name: tab[base + at] for name, at in COST_AT.items()}
+
+
+def fd_fwd_loop_planes(tab: torch.Tensor, n: int, x_vals, sdx_vals, sdu_vals, kk_vals, goal_vals, alpha):
+    """One closed-loop step on the looped program over per-value tensor
+    lists: ``(u, c, x')``. ``tab`` is a :func:`fwd_table` in the values'
+    dtype on their device, (T,) or (T, ...) as :func:`fd_step_loop_planes`
+    takes it; ``kk_vals`` the step's gains, flat ``n * (1 + 2n)`` (k_j, then
+    row j of K); ``alpha`` a tensor that broadcasts against the values. The
+    operations, their operands and their order are the looped K4's and
+    K5's (``mpt_fwd_loop_step``, ``csrc/mpc_batch.cuh``), so on the card
+    this is the kernel's value bit for bit."""
+    nx = 2 * n
+    w = _cost_weights(tab, n)
+    dx = [x_vals[i] - sdx_vals[i] for i in range(nx)]
+    u = []
+    for j in range(n):
+        row = kk_vals[j * (1 + nx):(j + 1) * (1 + nx)]
+        uj = sdu_vals[j] + alpha * row[0]
+        for i in range(nx):
+            uj = uj + row[1 + i] * dx[i]
+        lim = tab[HEAD_FLOATS + j * LINK_STRIDE + LINK_AT["u_lim"]]
+        u.append(_clamp(uj, -lim, lim))
+    c = None
+    for i in range(n):
+        e = x_vals[i] - goal_vals[i]
+        t = (w["w_q"] * e) * e
+        c = t if c is None else c + t
+        c = c + (w["w_dq"] * x_vals[n + i]) * x_vals[n + i]
+    for j in range(n):
+        c = c + (w["w_u"] * u[j]) * u[j]
+    q2, dq2, _ = fd_step_loop_planes(tab, n, list(x_vals[:n]), list(x_vals[n:]), u)
+    return u, c, list(q2) + list(dq2)
+
+
+def loop_terminal_cost(tab: torch.Tensor, n: int, x_vals, goal_vals):
+    """The terminal cost with the table's weights: ``sum wT_q (q - goal)^2 +
+    wT_dq dq^2`` in ``cuda_mpc_batch.terminal_cost``'s order (the looped
+    K4's and K5's ``mpt_fwd_loop_terminal``)."""
+    w = _cost_weights(tab, n)
+    c = None
+    for i in range(n):
+        e = x_vals[i] - goal_vals[i]
+        t = (w["wT_q"] * e) * e
+        c = t if c is None else c + t
+        c = c + (w["wT_dq"] * x_vals[n + i]) * x_vals[n + i]
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def loop_fwd_ops(n: int) -> int:
+    """The floating-point operations of one looped closed-loop step for n
+    joints (the controller, the running cost and the looped step), counted
+    as :func:`loop_step_ops` counts, on :func:`fd_fwd_loop_planes`: the
+    looped K4's and K5's own operations a (scenario, alpha) and step."""
+    tab = torch.full((HEAD_FLOATS + n * LINK_STRIDE + COST_FLOATS,), 0.5)
+    x = [torch.zeros(1) for _ in range(2 * n * (2 + n))]
+    return _count_ops(lambda: fd_fwd_loop_planes(tab, n, x[:2 * n], x[:2 * n], x[:n], x, x[:n], x[0]))
 
 
 def loop_rollout_plain(tab: torch.Tensor, n: int, intRes: int, q0: torch.Tensor, dq0: torch.Tensor,

@@ -31,7 +31,11 @@ the looped step (``csrc/fd_step_loop.cuh``) bit for bit ``LoopRollout`` on
 chains of 1, 7 and 8 joints, and the route's form: ``-k looped`` (which
 also takes K2's looped form: bit for bit its plain version on chains of 1,
 7 and 8 joints with a NaN scenario, the public solve's form and an AOT
-round trip of a looped-form solve; ``-k "looped_linearize or k2"``).
+round trip of a looped-form solve; ``-k "looped_linearize or k2"``; and
+K4's and K5's looped form, every stage bit for bit its plain version on
+chains of 1, 7, 8 and 10 joints with a NaN scenario, K4's trajectory at the
+chosen alpha the looped K5's replay, and the public solve's form:
+``-k "looped_linesearch or k45"``).
 """
 
 import json
@@ -241,12 +245,14 @@ _K2_SETS = {}
 
 
 def _k2(robot, device, g=(0.0, 0.0, -9.81)):
-    """K2-K5 for a robot at dt 0.01 with its own torque limits, K2 in its
-    emitted form (one build a robot and g for the whole module)."""
+    """K2-K5 for a robot at dt 0.01 with its own torque limits, K2, K4 and
+    K5 in their emitted forms (one build a robot and g for the whole
+    module)."""
     if (robot, g) not in _K2_SETS:
         model = catalog.get_robot(robot, source="programmatic", device=device)
         u_lim = [float(v) for v in model.torque_limit.cpu()]
-        _K2_SETS[robot, g] = (model, BatchMPCKernels(model, 0.01, g=g, u_lim=u_lim, _form="emitted"))
+        _K2_SETS[robot, g] = (model, BatchMPCKernels(model, 0.01, g=g, u_lim=u_lim, _form="emitted",
+                                                     _fwd_form="emitted"))
     return _K2_SETS[robot, g]
 
 
@@ -376,6 +382,121 @@ def test_public_solve_launches_the_looped_or_emitted_k2_by_route(cuda_device, ro
     mpc.solve(x0, torch.zeros((B, H, n), device=cuda_device))
     torch.cuda.synchronize()
     assert BatchMPCKernels.lin_launches == {form: 2, {"looped": "emitted", "emitted": "looped"}[form]: 0}
+
+
+# K4's and K5's looped form (csrc/mpc_batch.cuh with MPT_FWD_LOOP): one unit
+# per joint count, the robot's table, torque bounds and cost weights passed
+# with each launch; every stage bit for bit its plain version
+# (``cuda_mpc_batch.loop_fwd_rollout_plain``, NaN where it has NaN), on
+# chains of 1, 7, 8 and 10 joints.
+LOOPED_FWD_ROBOTS = {"robotiq_2f_85": (True, 1), "gen3": (True, 7), "jaco_7dof": (True, 8), "jaco_7dof_full": (False, 10)}
+
+
+def _fwd_looped(robot, device):
+    from manipulapy_tpu_torch.models import robot_data
+
+    chain, n = LOOPED_FWD_ROBOTS[robot]
+    model = robot_data.load_robot(robot.replace("_full", ""), chain_joints_only=chain, device=device)
+    assert model.num_joints == n
+    u_lim = [float(v) for v in model.torque_limit.cpu()]
+    K = type("FwdOnly", (BatchMPCKernels,), {"UNITS": {"fwd": BatchMPCKernels.UNITS["fwd"]}})(
+        model, 0.01, u_lim=u_lim, _fwd_form="looped")
+    return model, K
+
+
+def _fwd_args(model, B, H, device, seed):
+    """K4's and K5's inputs at the robot's own scale, unlimited joints too:
+    the nominal states of ``_lin_states`` (limits clipped to +-pi), x0 its
+    first at rest, the nominal torques the gravity torques there plus
+    M_jj U[-1, 1] (about 1 rad/s^2 a joint; the light fingers leave f32
+    under torques of a fraction of their limits), gains k_j M_jj U[-1, 1],
+    K_ji M_jj U[-0.1, 0.1], goals the last nominal positions, one alpha a
+    scenario."""
+    from manipulapy_tpu_torch.dynamics import gravity_forces, mass_matrix
+
+    n = model.num_joints
+    sd_x, _ = _lin_states(model, B, H, device, seed)
+    x0 = sd_x[0].clone()
+    x0[n:] = 0.0
+    q0 = x0[:n].T.contiguous()
+    mjj = torch.diagonal(mass_matrix(model, q0), dim1=-2, dim2=-1).T  # (n, B)
+    grav = gravity_forces(model, q0).T
+    gen = torch.Generator(device).manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=gen, device=device) * 2 - 1
+    us = (grav[None] + mjj[None] * u(H, n, B)).contiguous()
+    kK = (mjj[None, :, None] * torch.cat([u(H, n, 1, B), 0.1 * u(H, n, 2 * n, B)], dim=2)).contiguous()
+    alpha = (0.5 ** torch.arange(6, device=device, dtype=torch.float32))[torch.arange(B, device=device) % 6]
+    return x0.contiguous(), sd_x, us, kK, sd_x[-1, :n].contiguous(), alpha.contiguous()
+
+
+@pytest.mark.parametrize("B, H", [(257, 8), (1024, 50)])
+@pytest.mark.parametrize("robot", sorted(LOOPED_FWD_ROBOTS))
+def test_looped_linesearch_and_replay_kernels_are_bitwise(cuda_device, robot, B, H):
+    model, K = _fwd_looped(robot, cuda_device)
+    n, A = model.num_joints, 6
+    x0_t, sd_x, us, kK, goal_t, alpha = _fwd_args(model, B, H, cuda_device, seed=B + n)
+    x0_t[n, B // 2] = float("nan")  # a NaN scenario stays its own
+    alphas = 0.5 ** torch.arange(A, device=cuda_device, dtype=torch.float32)
+    before = dict(BatchMPCKernels.fwd_launches)
+    costs_only = K.linesearch_costs(x0_t, sd_x, us, kK, goal_t, alphas)
+    costs, xs_all, us_all = K.linesearch(x0_t, sd_x, us, kK, goal_t, alphas)
+    xs, us_r, cost = K.replay(x0_t, sd_x, us, kK, goal_t, alpha)
+    torch.cuda.synchronize()
+    assert BatchMPCKernels.fwd_launches["looped"] == before["looped"] + 3
+    assert xs_all.shape == (H, 2 * n, A, B) and xs.shape == (H, 2 * n, B)
+    # One plain call: K4's alphas, then each scenario's own (K5's).
+    both = torch.cat([alphas[:, None].expand(A, B), alpha[None]]).contiguous()
+    ref_xs, ref_us, ref_cost = K.plain().replay(x0_t, sd_x, us, kK, goal_t, both)
+    _assert_bits_and_nans(costs_only, ref_cost[:A].contiguous())
+    _assert_bits_and_nans(costs, ref_cost[:A].contiguous())
+    _assert_bits_and_nans(xs_all, ref_xs[:, :, :A].contiguous())
+    _assert_bits_and_nans(us_all, ref_us[:, :, :A].contiguous())
+    _assert_bits_and_nans(xs, ref_xs[:, :, A].contiguous())
+    _assert_bits_and_nans(us_r, ref_us[:, :, A].contiguous())
+    _assert_bits_and_nans(cost, ref_cost[A].contiguous())
+    assert bool(torch.isnan(cost[B // 2])) and bool(torch.isfinite(cost[: B // 2]).any())
+    attrs = K.kernel_attributes()
+    print(f"looped K4/K5 {robot}: " + ", ".join(
+        f"{s} {a['num_regs']} registers, {a['local_bytes']} local bytes" for s, a in attrs.items()))
+
+
+@pytest.mark.parametrize("robot", ["gen3", "jaco_7dof_full"])
+def test_looped_linesearch_trajectory_at_the_chosen_alpha_is_the_replay(cuda_device, robot):
+    """The looped K4's trajectory at each scenario's alpha (b % 6) is the
+    looped K5's replay at that alpha, bit for bit, at the main path's
+    width: the solve selects from one and starts from the other."""
+    model, K = _fwd_looped(robot, cuda_device)
+    B, H, A = 1024, 50, 6
+    x0_t, sd_x, us, kK, goal_t, alpha = _fwd_args(model, B, H, cuda_device, seed=12)
+    alphas = 0.5 ** torch.arange(A, device=cuda_device, dtype=torch.float32)
+    costs, xs_all, us_all = K.linesearch(x0_t, sd_x, us, kK, goal_t, alphas)
+    xs, us_r, cost = K.replay(x0_t, sd_x, us, kK, goal_t, alpha)
+    idx, cols = torch.arange(B, device=cuda_device) % A, torch.arange(B, device=cuda_device)
+    assert bool(torch.isfinite(costs).any())
+    _assert_bits_and_nans(xs_all[:, :, idx, cols], xs)
+    _assert_bits_and_nans(us_all[:, :, idx, cols], us_r)
+    _assert_bits_and_nans(costs[idx, cols], cost)
+
+
+def test_public_solve_launches_the_routes_k45_form(cuda_device):
+    """The public solver's K4 and K5 are the route's form, the other never:
+    the 10-joint Jaco takes the looped one, the programmatic UR5 the
+    emitted one; a solve launches K4 ITERS times and K5 once."""
+    from manipulapy_tpu_torch.models import robot_data
+
+    for robot, form in (("jaco_7dof", "looped"), ("ur5", "emitted")):
+        model = (robot_data.load_robot(robot, device=cuda_device) if form == "looped"
+                 else catalog.ur5(device=cuda_device))
+        n, B, H = model.num_joints, 64, 10
+        x0, _, _, _, goals, _ = _fwd_args(model, B, H, cuda_device, seed=17)
+        x0, goals = x0.T.contiguous(), goals.T.contiguous()
+        mpc = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2)
+        assert mpc.kernels.fwd_form == form
+        BatchMPCKernels.reset_launch_count()
+        mpc.solve(x0, torch.zeros((B, H, n), device=cuda_device))
+        torch.cuda.synchronize()
+        assert BatchMPCKernels.fwd_launches == {form: 3, {"looped": "emitted", "emitted": "looped"}[form]: 0}
+        assert BatchMPCKernels.launch_count["linesearch"] == 2 and BatchMPCKernels.launch_count["replay"] == 1
 
 
 @pytest.fixture(scope="module")

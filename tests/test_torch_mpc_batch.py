@@ -1355,7 +1355,9 @@ extern "C" void run_replay_one(const float** in, float** out, int B, int H, int 
 
 @pytest.fixture(scope="module")
 def fwd_units(tmp_path_factory):
-    """Per robot on first use: its default K4/K5 unit under the host shim."""
+    """Per robot on first use: its emitted K4/K5 unit under the host shim
+    (the route gives the long arms the looped one, held in
+    ``test_torch_fwd_loop.py``)."""
     if shutil.which("g++") is None:
         pytest.skip("the host has no g++ to compile the emitted C")
     units = {}
@@ -1363,7 +1365,7 @@ def fwd_units(tmp_path_factory):
     def get(robot):
         if robot not in units:
             model = _model(robot)
-            k = BatchMPCKernels(model, 0.01, u_lim=[10.0] * model.num_joints)
+            k = BatchMPCKernels(model, 0.01, u_lim=[10.0] * model.num_joints, _fwd_form="emitted")
             lib = compile_team_unit(k.sources["fwd"] + _LINESEARCH_ENTRIES, tmp_path_factory.mktemp(f"{robot}_fwd"),
                                     "fwd", ())
             for entry in ("run_linesearch", "run_replay_one"):
