@@ -34,7 +34,8 @@ Phases, one line each (or one line per case):
    phase 32's units queued behind these and built while phases 27-31 and
    3-26 run (the rollout for UR5 with intRes 1 and 3, at the planning
    path's dt, and for Panda; K2-K5 for Panda and UR5, and K2 alone in
-   both its forms for each; K6-K8 for Panda; the
+   both its forms for each; K6-K8 for Panda, and K8 alone in both its
+   forms (the team and the looped one); the
    static unit of K9 and K10), with build seconds, registers, spill
    bytes and static shared bytes per block (K3, one warp per scenario, and
    K7, one block, keep their state there; K7 must have no local bytes,
@@ -113,22 +114,37 @@ Phases, one line each (or one line per case):
     sweep's last 10 steps), max |d| per output 0 for each:
     K6 (the lean one-seed body, one thread a lane or split over a team of
     warps; its record carries its design), K7 (one block of threads whose
-    phases do the plain version's operations in its order) and K8 (one
-    team of warps a block, as K5; its record carries its team);
+    phases do the plain version's operations in its order) and K8 in the
+    solver's form (the team's); K8 in its looped form against its own
+    plain version on the same inputs, at A = 1 (the initial rollout) and
+    A = 6 (on the first 10 steps in the reg = 10 case); both forms once
+    more with alpha 2 NaN, NaN where the plain version has it and every
+    other alpha's bits kept (the team K8: the emitted step split over a
+    team of warps, as K5's variant; the looped K8, ``csrc/fwd_loop_lanes.cuh``:
+    one warp an alpha, its lanes over the joints, against
+    ``loop_forward_plain``);
 11. single-problem main path: one solve from rest at the middle of the
     joint limits towards the benchmark's goal, then 20 receding-horizon
     rounds (x <- xs[1], the warm start shifted by one), the goal
     re-targeted at run time in round 10; launch counts read just after
-    (4/4/5 per solve), finite outputs, |u| <= u_lim, the cost below the
+    (4/4/5 per solve, K8's all the team's, ``forward_launches``),
+    finite outputs, |u| <= u_lim, the cost below the
     zero-control cost, the distance to each goal shrinking; then the whole
     solve against the plain solver on the card at H=10, 2 iterations;
 12. single-problem time: each kernel at H=50 (device time per launch, over
     20 back-to-back launches), one solve at 4 and at 2 iterations, one
     receding round, and the glue (the solve minus its kernels' sum),
-    CUDA-event medians; then a ``torch.profiler`` trace of 3 solves: each
+    CUDA-event medians; ``single_time_k8_forms``: both K8 forms timed in
+    turns (team, looped, looped, team) at A = 6 and A = 1, each form's
+    registers, local and shared bytes and SASS instructions (each form's
+    time the median of its four turns, beside the turns' spread), and one
+    solve at 4 and at 2 iterations on the looped form (K8's launches in
+    the first are the looped record's); then a ``torch.profiler``
+    trace of 3 solves: each
     kernel's device time per solve, the glue's, and the device's busy
     share. K6-K8's records carry, beside the throughput bound, an estimate
-    of their dependent chains' least time (``chain_bound_ms``);
+    of their dependent chains' least time (``chain_bound_ms``; the team's
+    for K8, whose emitted step it reads; the looped K8's record has none);
 13. ``elementwise_build``: the static unit's nvcc seconds, registers and
     spills;
 14. ``traj_parity``: K9 against its plain version for the cubic, quintic
@@ -281,14 +297,28 @@ robots: the first key of each vendored URDF, 25 root-to-tip chains of 1 to
     launch, both forms bitwise on their first 10 steps and timed in turns; phase 25's three robots
     are reused), and the robots whose route is outside the 5% rule (a
     line, not a gate: timings); K6-K8 on ``robotiq_2f_85`` and the Jaco's chain at
-    H=50: launches 4/4/5, each stage bitwise on the solver's own controls
-    (K7 on the sweep's last 10 steps, K8 on the first 10), the solve timed.
+    H=50: launches 4/4/5 (K8's all the team's, ``forward_launches``),
+    each stage bitwise on the solver's own controls
+    (K7 on the sweep's last 10 steps, K8 on the first 10), the solve timed;
+    ``fleet_k8``: K8 in both forms on K8_ROBOTS (the Robotiq, the ABB, the UR5, the iiwa14, the Gen3,
+    the 8-joint Panda, the Jaco chain, the 10-joint Jaco; the programmatic
+    Panda's are phase 12's) on the fleet's first scenario with the batched
+    solve's nominal and K3's gains, each form bitwise its own plain version
+    on the first 10 steps (the looped one's once per joint count with the
+    robots side by side, ``fleet_k8_looped_plain``), both timed in turns,
+    and a ``fleet_k8_route`` line: the solver's K8 is the team's on every
+    robot, the robots where the looped form is more than 5% faster
+    (outside the rule), and those where either form's turns spread by
+    more than 5% (unresolved: no ratio is read there).
 
 Then one JSON line of every kernel (K1's record also names the URDF robots
 it was held on, and K1 on the looped step has a record of its own, its
 launches the public route's on the robots it serves; K2's two forms have a
 record each, its launches the public route's of that form (phase 8 and the
-fleet), each form launched at least once, and so have K4's and K5's; K2-K5's the Panda arm; every record its launches and
+fleet), each form launched at least once, and so have K4's and K5's and
+K8's (the team's launches phase 11's and the fleet's public solves', the
+looped form's those of phase 12's solve built with ``_fwd_form="looped"``;
+each form's figures on K8_ROBOTS inside); K2-K5's the Panda arm; every record its launches and
 errors in phases 27-31; a record per fleet model and kernel), the card's
 name and power limit, and the result line. Any failure raises, so the script exits nonzero before its
 last line. It needs one card and imports no JAX. Run from the repository
@@ -333,7 +363,7 @@ from manipulapy_tpu_torch.mpc.fused import build_tracking_mpc
 from manipulapy_tpu_torch.mpc.fused_batch import batch_mpc_step, build_batch_tracking_mpc
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import BLOCK as BLOCK_MPC, FWD_FORMS, LIN_BLOCK, LIN_FORMS, BatchMPCKernels
 from manipulapy_tpu_torch.ops.cuda_mpc_batch import loop_fwd_rollout_plain
-from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels
+from manipulapy_tpu_torch.ops.cuda_mpc_single import SingleMPCKernels, loop_forward_plain
 from manipulapy_tpu_torch.ops.cuda_rollout import BLOCK, CHUNK, FORMS, CudaRollout, build_cuda_rollout
 from manipulapy_tpu_torch.ops._build import build_library, library_key, nvcc_path
 from manipulapy_tpu_torch.ops import elementwise as ew
@@ -384,6 +414,9 @@ LOOP_SOURCE = "manipulapy_tpu_torch/csrc/fd_step_loop.cuh"
 # The route's rule (PERF.md §2): a robot's default form may be no more than
 # this much slower than its other form in the same call.
 ROUTE_SLACK = 1.05
+# K8's forms are timed over this many back-to-back launches a turn, each
+# form's time the median of its four turns (``k8_turns``).
+K8_CALLS = 40
 K1_NAMES = {"emitted": "K1 rollout (step program K0 inlined)",
             "looped": "K1 rollout, looped step (K0 as a loop over links, the robot in a table)"}
 K1_SOURCES = {"emitted": ROLLOUT_SOURCE, "looped": LOOP_SOURCE}
@@ -419,6 +452,17 @@ SINGLE_KERNELS = {  # stage: (id and name, the TPU kernel's pallas_call, the CUD
     "backward": ("K7 single-problem Riccati backward (Gauss-Jordan)", "manipulapy_tpu/mpc/fused.py:303", "mps_bwd_block_kernel"),
     "forward": ("K8 single-problem line-search forward (K0 inlined)", "manipulapy_tpu/mpc/fused.py:375", "mps_fwd_kernel"),
 }
+# K8's two forms: the emitted step split over a team of warps, and the
+# looped step with a warp an alpha (csrc/fwd_loop_lanes.cuh).
+K8_NAMES = {"emitted": SINGLE_KERNELS["forward"][0],
+            "looped": "K8 single-problem line-search forward, looped step (K0 as a loop over links, one warp an "
+                      "alpha, its lanes over the joints)"}
+K8_SOURCES = {"emitted": SINGLE_SOURCE, "looped": "manipulapy_tpu_torch/csrc/fwd_loop_lanes.cuh"}
+K8_KERNELS = {"emitted": "mps_fwd_kernel", "looped": "mps_fwd_loop_kernel"}
+# The robots K8's two forms are timed on (phase 32): fleet labels, and the
+# programmatic Panda of phases 10-12.
+K8_ROBOTS = ("robotiq_2f_85", "abb_irb2400", "ur5", "iiwa14", "gen3", "panda", "jaco_7dof",
+                   "jaco_7dof (10 joints)", "panda (programmatic)")
 # The planning path: widths, tolerances (those of the JAX package's kernel
 # tests) and the shapes timed besides the path's own.
 B_PLAN, N_PLAN, TF_PLAN, O_PLAN, D0_PLAN = 1024, 1000, 2.0, 32, 0.5
@@ -1253,7 +1297,86 @@ def single_chain_ms(S: SingleMPCKernels, H: int) -> dict:
             "forward": ms(H * c["forward"] + c["cost_terminal"])}
 
 
-def single_path(panda, single, attrs: dict, card: str, built: dict) -> list:
+def k8_only(S: SingleMPCKernels, model, form: str, **attrs) -> SingleMPCKernels:
+    """K8 alone in ``form`` for ``model`` with ``S``'s cost weights and
+    torque limits, at the smoke's dt and g (``S``'s form shares its unit
+    with ``S``); ``attrs`` override class attributes (``FWD_LOOP_WARPS``)."""
+    cls = type("K8Form", (SingleMPCKernels,), {"UNITS": {"fwd": SingleMPCKernels.UNITS["fwd"]}, **attrs})
+    P = S.P
+    return cls(model, DT, w_q=P.w_q, w_dq=P.w_dq, w_u=P.w_u, w_terminal=P.wT[0], u_lim=P.u_lim, _fwd_form=form)
+
+
+def k8_figures(K: SingleMPCKernels) -> dict:
+    """K8 as built in its form: registers, local bytes, static shared bytes
+    a block, SASS instructions (``cuobjdump``), the unit's nvcc seconds;
+    the team's design (emitted) or the looped layout and its step's
+    operations (looped)."""
+    a, lib = K.kernel_attributes()["forward"], K.build()["fwd"]
+    fig = {"form": K.fwd_form, "num_regs": a["num_regs"], "local_bytes": a["local_bytes"],
+           "smem_bytes": a["smem_bytes"], "sass_instructions": sass_count(str(lib.path)),
+           "nvcc_seconds": lib.compile_seconds}
+    if K.fwd_form == "looped":
+        fig.update(layout=K.loop_layout(), loop_ops=K.fwd_loop_ops)
+    else:
+        fig.update(team=team_figures(K))
+    return fig
+
+
+def k8_check(K: SingleMPCKernels, args, first: int = None):
+    """``K``'s K8 on ``args`` against its own form's plain version: the
+    trajectories of a launch at full horizon (their first ``first`` steps
+    where given) and the costs of a launch on those steps; ``bit_diff``
+    (NaN where it has NaN). Returns (max |d|, the plain version's ms)."""
+    got = K.forward(*args)
+    if first is not None:
+        args = (args[0], *(x[:first].contiguous() for x in args[1:4]), *args[4:])
+        got = (got[0][:, :first], got[1][:, :first], K.forward(*args)[2])
+    ref, ms = timed(lambda: K.plain().forward(*args))
+    return max(bit_diff(g, r) for g, r in zip(got, ref)), ms
+
+
+def k8_nan_check(label: str, K: SingleMPCKernels, args) -> float:
+    """``args``' alpha 2 made NaN: K8 NaN where its plain version is, bit for
+    bit elsewhere, alpha 2's loop NaN and every other alpha's the clean
+    run's bits. Returns the max |d|."""
+    clean = K.forward(*args)
+    alphas = args[5].clone()
+    alphas[2] = float("nan")
+    nan_args = (*args[:5], alphas)
+    err, _ = k8_check(K, nan_args)
+    got = K.forward(*nan_args)
+    keep = [a for a in range(alphas.shape[0]) if a != 2]
+    if err != 0.0 or not bool(torch.isnan(got[2][2])) or not all(
+            torch.equal(g[keep].view(torch.int32), c[keep].view(torch.int32)) for g, c in zip(got, clean)):
+        raise AssertionError(f"{label}: K8 {K.fwd_form} with a NaN alpha: |d| {err}, or the NaN left its warp")
+    return err
+
+
+def k8_turns(Ks: dict, args) -> dict:
+    """The K8 sets ``Ks`` (name -> kernel set) on ``args`` timed in turns:
+    in order, then in reverse, twice (four turns each), each a launch's
+    device time over K8_CALLS back-to-back launches (``per_call_ms``). Per
+    set: the turns, their median (``ms``) and their spread, (max - min) /
+    median. A comparison whose sets spread by more than ROUTE_SLACK - 1 is
+    unresolved (``k8_resolved``)."""
+    order = list(Ks) + list(reversed(list(Ks)))
+    turns = {name: [] for name in Ks}
+    for name in order * 2:
+        turns[name].append(per_call_ms(lambda: Ks[name].forward(*args), K8_CALLS))
+    out = {}
+    for name, t in turns.items():
+        mid = statistics.median(t)
+        out[name] = {"ms_turns": t, "ms": mid, "spread": (max(t) - min(t)) / mid}
+    return out
+
+
+def k8_resolved(forms: dict) -> bool:
+    """Whether both K8 forms' turns spread by at most ROUTE_SLACK - 1, so
+    that their ratio is read."""
+    return all(forms[f]["spread"] <= ROUTE_SLACK - 1 for f in FWD_FORMS)
+
+
+def single_path(panda, single, attrs: dict, card: str, built: dict, k8_sets: dict) -> tuple:
     """Phases 10-12, the single-problem solver; returns its kernels'
     records."""
     S = single.kernels
@@ -1269,6 +1392,12 @@ def single_path(panda, single, attrs: dict, card: str, built: dict) -> list:
     us_nom = single.solve(x0, torch.zeros((H, 7), **f32))[0].contiguous()
     x0_r, goal_r, us_r = random_single_problem(panda, H_ODD, ODD_SEED)
     err = dict.fromkeys(SINGLE_KERNELS, 0.0)
+    # K8 in its looped form (the solver runs the team's), on the same inputs:
+    # at A = 1 (the initial rollout) and A = 6, on the whole horizon in the
+    # first two cases and on the first steps in the third.
+    route, other = S.fwd_form, OTHER_FORM[S.fwd_form]
+    k8_err = dict.fromkeys(FWD_FORMS, 0.0)
+    k8_plain_ms = {}
     for nominal, x0_c, goal_c, us_c, calls, reg in (
         ("solver's controls", x0, goal_a, us_nom, 1, 1e-6), ("random torques", x0_r, goal_r, us_r, 0, 1e-6),
         ("solver's controls", x0, goal_a, us_nom, 0, REG_HEAVY),
@@ -1280,10 +1409,27 @@ def single_path(panda, single, attrs: dict, card: str, built: dict) -> list:
             if errs[stage] != 0.0:
                 raise AssertionError(f"{label} {stage}: max |d| = {errs[stage]}, not 0")
         err = {k: max(err[k], errs[k]) for k in err}
+        k8_err[route] = max(k8_err[route], errs["forward"])
+        Hc = us_c.shape[0]
+        init = (x0_c, torch.zeros((Hc, S.nx), **f32), us_c, torch.zeros((Hc, S.n, 1 + S.nx), **f32), goal_c,
+                torch.zeros((1,), **f32))
+        other_errs = {}
+        for A_, a_args in ((1, init), (ALPHAS, args["forward"])):
+            e_, ms_ = k8_check(k8_sets[other], a_args, None if calls or reg == 1e-6 else FIRST_STEPS_CHECKED)
+            if e_ != 0.0:
+                raise AssertionError(f"{label}: K8 {other} at A={A_}: max |d| = {e_}, not 0")
+            other_errs[A_] = e_
+            if calls and A_ == ALPHAS:
+                k8_plain_ms[other] = ms_
+        k8_err[other] = max(k8_err[other], *other_errs.values())
         if calls:
             stage_args, plain_ms = args, ms
-        phase("single_parity", robot="panda", H=us_c.shape[0], reg=reg, nominal=repr(nominal),
-              **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()})
+            k8_plain_ms[route] = ms["forward"]
+            nan_err = {f: k8_nan_check(f"{label} NaN alpha", K8, args["forward"]) for f, K8 in k8_sets.items()}
+        phase("single_parity", robot="panda", H=us_c.shape[0], reg=reg, nominal=repr(nominal), k8_route=route,
+              **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
+              **{f"max_abs_err_forward_{other}_A{A_}": f"{v:.3e}" for A_, v in other_errs.items()},
+              **({f"max_abs_err_forward_{f}_nan_alpha": f"{v:.3e}" for f, v in nan_err.items()} if calls else {}))
 
     # 11. The main path: one solve, then ROUNDS receding-horizon rounds.
     cost_zero = single.forward(x0, torch.zeros((H, 14), **f32), torch.zeros((H, 7), **f32),
@@ -1307,6 +1453,8 @@ def single_path(panda, single, attrs: dict, card: str, built: dict) -> list:
     per_solve = dict(SingleMPCKernels.launch_count)
     if per_solve != launches_at(ITERS):
         raise AssertionError(f"launches per solve {per_solve}, expected {ITERS}/{ITERS}/{ITERS + 1}")
+    if SingleMPCKernels.forward_launches != {route: ITERS + 1, other: 0}:
+        raise AssertionError(f"K8 launches by form {SingleMPCKernels.forward_launches}, expected {ITERS + 1} {route}")
     check("solve", us, xs, cost)
     if not float(cost) < float(cost_zero):
         raise AssertionError(f"solve: cost {float(cost)} not below the zero-control {float(cost_zero)}")
@@ -1323,13 +1471,15 @@ def single_path(panda, single, attrs: dict, card: str, built: dict) -> list:
         dists.append(dist(x, goal))
     torch.cuda.synchronize()
     launches = dict(SingleMPCKernels.launch_count)
-    if launches != {k: (ROUNDS + 1) * v for k, v in per_solve.items()}:
-        raise AssertionError(f"launches over {ROUNDS + 1} solves {launches}")
+    k8_launches = dict(SingleMPCKernels.forward_launches)
+    if launches != {k: (ROUNDS + 1) * v for k, v in per_solve.items()} or k8_launches[route] != launches["forward"]:
+        raise AssertionError(f"launches over {ROUNDS + 1} solves {launches}, K8's by form {k8_launches}")
     if not (dists[RETARGET - 1] < d_start and dists[-1] < d_retarget):
         raise AssertionError(f"distance to the goal did not shrink: {d_start} -> {dists[RETARGET - 1]}, "
                              f"then {d_retarget} -> {dists[-1]}")
     phase("single_main_path", robot="panda", H=H, iterations=ITERS, alphas=ALPHAS, solve_wall_s=f"{solve_wall:.4f}",
           launches_per_solve=json.dumps(per_solve).replace(" ", ""), launches_run=json.dumps(launches).replace(" ", ""),
+          k8_launches_by_form=json.dumps(k8_launches).replace(" ", ""),
           cost=f"{float(cost):.6e}", zero_control_cost=f"{float(cost_zero):.6e}",
           goal_distance=f"{d_start:.4f}->{dists[RETARGET - 1]:.4f},retarget:{d_retarget:.4f}->{dists[-1]:.4f}")
 
@@ -1363,11 +1513,41 @@ def single_path(panda, single, attrs: dict, card: str, built: dict) -> list:
           solve_ms=f"{solve_ms:.4f}", kernels_ms_per_solve=f"{kernel_sum:.4f}", glue_ms=f"{solve_ms - kernel_sum:.4f}",
           kernel_share=f"{kernel_sum / solve_ms:.4f}", solve_2it_ms=f"{solve2_ms:.4f}",
           glue_2it_ms=f"{solve2_ms - kernel_sum2:.4f}", kernel_share_2it=f"{kernel_sum2 / solve2_ms:.4f}",
-          round_ms=f"{round_ms:.4f}", **{f"{s}_plain_ms": f"{v:.2f}" for s, v in plain_ms.items()})
+          round_ms=f"{round_ms:.4f}", k8_route=route, **{f"{s}_plain_ms": f"{v:.2f}" for s, v in plain_ms.items()})
+    # Both K8 forms in turns at A = 6 and A = 1, and a solve at 4 and 2
+    # iterations on each form (the route's are the solves above).
+    fwd6 = stage_args["forward"]
+    fwd1 = (*fwd6[:5], fwd6[5][:1].contiguous())
+    k8_by_A = {ALPHAS: k8_turns(k8_sets, fwd6), 1: k8_turns(k8_sets, fwd1)}
+    k8_fig = {f: k8_figures(K8) for f, K8 in k8_sets.items()}
+    solves = {route: {ITERS: solve_ms, 2: solve2_ms}}
+    for iters in (ITERS, 2):
+        h = build_tracking_mpc(panda, Q_GOAL7, H, DT, iterations=iters, line_search_steps=ALPHAS, _fwd_form=other)
+        if iters == ITERS:  # the looped K8's own path: one solve, its counts read just after
+            SingleMPCKernels.reset_launch_count()
+            us_o, xs_o, cost_o = h.solve(x0, zeros_us)
+            torch.cuda.synchronize()
+            k8_launches[other] = SingleMPCKernels.forward_launches[other]
+            if dict(SingleMPCKernels.forward_launches) != {other: ITERS + 1, route: 0}:
+                raise AssertionError(f"the {other}-K8 solve's launches by form {SingleMPCKernels.forward_launches}")
+            check(f"{other}-K8 solve", us_o, xs_o, cost_o)
+        solves.setdefault(other, {})[iters] = time_ms(lambda: h.solve(x0, zeros_us))
+    phase("single_time_k8_forms", card=repr(card), robot="panda", H=H, route=route,
+          fwd_statements=S.statements["forward"],
+          **{f"{f}_ms_A{A_}": ",".join(f"{t:.4f}" for t in r[f]["ms_turns"]) for A_, r in k8_by_A.items() for f in FWD_FORMS},
+          **{f"{f}_median_ms_A{A_}": f"{r[f]['ms']:.4f}" for A_, r in k8_by_A.items() for f in FWD_FORMS},
+          **{f"{f}_spread_A{A_}": f"{r[f]['spread']:.4f}" for A_, r in k8_by_A.items() for f in FWD_FORMS},
+          **{f"resolved_A{A_}": k8_resolved(r) for A_, r in k8_by_A.items()},
+          **{f"solve_ms_{f}_{it}it": f"{v:.4f}" for f, d in solves.items() for it, v in d.items()},
+          **{f"{f}_{k}": v for f, fig in k8_fig.items() for k, v in fig.items() if not isinstance(v, (dict, str))},
+          looped_layout=json.dumps(k8_fig["looped"]["layout"]).replace(" ", ""),
+          emitted_team=json.dumps({k: k8_fig["emitted"]["team"][k] for k in ("warps", "phases", "slots")}).replace(" ", ""))
     trace = device_profile(lambda: single.solve(x0, zeros_us))
     if trace:
-        ours = {s: sum(v for k, v in trace["by_name"].items() if k.startswith(name[2])) for s, name in SINGLE_KERNELS.items()}
-        phase("single_trace", robot="panda", H=H, iterations=ITERS, **{f"{k}_device_ms_per_solve": f"{v:.4f}" for k, v in ours.items()},
+        names = {**{s: name[2] for s, name in SINGLE_KERNELS.items()}, "forward": K8_KERNELS[route]}
+        ours = {s: sum(v for k, v in trace["by_name"].items() if k.startswith(name)) for s, name in names.items()}
+        phase("single_trace", robot="panda", H=H, iterations=ITERS, k8_route=route,
+              **{f"{k}_device_ms_per_solve": f"{v:.4f}" for k, v in ours.items()},
               glue_device_ms_per_solve=f"{trace['busy_ms'] - sum(ours.values()):.4f}",
               device_busy_ms_per_solve=f"{trace['busy_ms']:.4f}", device_busy_share=f"{trace['busy_share']:.4f}",
               device_launches_per_solve=f"{trace['launches']:.1f}")
@@ -1379,9 +1559,34 @@ def single_path(panda, single, attrs: dict, card: str, built: dict) -> list:
     phase("single_chain", robot="panda", H=H, clocks_max_sm=repr(card_line("clocks.max.sm")),
           cycles_per_link=CHAIN_CYCLES, **{f"{s}_links": v for s, v in S.chains.items()},
           **{f"{s}_chain_bound_ms": f"{v:.5f}" for s, v in chain.items()})
-    records = []
+    records, k8_records = [], {}
     for stage, (name, replaces, _) in SINGLE_KERNELS.items():
         b_ms, b_by = bound(*bo[stage])
+        if stage == "forward":  # a record a form: the team's launches the public solves' (phase 11, then
+            # phase 32's), the looped form's its own solve's above
+            for form in (route, other):
+                fig = k8_fig[form]
+                k8_records[form] = {
+                    "name": K8_NAMES[form], "route": "cuda", "source": K8_SOURCES[form], "replaces": replaces,
+                    "launches": k8_launches[form], "max_abs_err": k8_err[form], "tolerance": "0",
+                    "ms": k8_by_A[ALPHAS][form]["ms"], "plain_ms": k8_plain_ms[form], "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None, "robot": "panda", "fwd_form": form, "k8_route": route,
+                    "ms_turns": k8_by_A[ALPHAS][form]["ms_turns"], "spread": k8_by_A[ALPHAS][form]["spread"],
+                    "ms_A1": k8_by_A[1][form]["ms"],
+                    "ms_turns_A1": k8_by_A[1][form]["ms_turns"],
+                    "solve_ms_by_iterations": solves[form], **{k: v for k, v in fig.items() if k != "form"},
+                    "max_abs_err_nan_alpha": nan_err[form],
+                }
+                if form == "looped":
+                    k8_records[form].update(
+                        step_replaces="manipulapy_tpu/ops/fd_step.py:274", step_source=LOOP_SOURCE,
+                        loop_ops_bound_ms=bound(0, fig["loop_ops"] * H * ALPHAS)[0], public_route=False,
+                        launches_from=f"one solve built with _fwd_form={other!r} (phase 12)")
+                else:
+                    k8_records[form].update(chain_bound_ms=chain[stage], chain_bound="estimate: longest chain of "
+                                            f"emitted statements x {CHAIN_CYCLES} cycles at clocks.max.sm")
+                records.append(k8_records[form])
+            continue
         records.append({
             "name": name, "route": "cuda", "source": SINGLE_SOURCE, "replaces": replaces,
             "launches": launches[stage], "max_abs_err": err[stage],
@@ -1392,11 +1597,9 @@ def single_path(panda, single, attrs: dict, card: str, built: dict) -> list:
             "num_regs": attrs[stage]["num_regs"], "local_bytes": attrs[stage]["local_bytes"],
             "smem_bytes": attrs[stage]["smem_bytes"],
         })
-        if stage == "forward":
-            records[-1].update(team_figures(S))
         if stage == "linearize":
             records[-1].update(lin_figures(S, built))
-    return records
+    return records, k8_records
 
 # ---------------------------------------------------------------------------
 # The planning path (K9, K10, K1)
@@ -2882,17 +3085,23 @@ def fleet_setup(pool: UnitPool) -> dict:
     fwd_other = {label: fwd_only(h.kernels, models[label], OTHER_FORM[h.kernels.fwd_form]) for label, h in handles.items()}
     chains = [label for label in models if label in fleet_keys()]
     k1 = {label: {form: CudaRollout(models[label], DT, _form=form) for form in FORMS} for label in chains}
+    # K8 alone in both forms on the fleet robots of K8_ROBOTS (the
+    # programmatic Panda's are phase 2's): the looped units are one a joint
+    # count, the emitted ones a robot's.
+    k8 = {label: {f: k8_only(singles[label].kernels if label in singles else handles[label].kernels, models[label], f)
+                  for f in FWD_FORMS} for label in K8_ROBOTS if label in models}
     units = {**{("K1", label, form): e for label, forms in k1.items() for form, e in forms.items()},
              **{("K2-K5", label): h.kernels for label, h in handles.items()},
              **{("K2", label): k for label, k in k2_other.items()},
              **{("K4K5", label): k for label, k in fwd_other.items()},
-             **{("K6-K8", key): s.kernels for key, s in singles.items()}}
+             **{("K6-K8", key): s.kernels for key, s in singles.items()},
+             **{("K8", label, f): k for label, forms in k8.items() for f, k in forms.items()}}
     emit_s = time.perf_counter() - t0
     t_submit = time.perf_counter()
     futures = pool.submit(units)
     return {"models": models, "problem": problem, "handles": handles, "singles": singles, "chains": chains,
-            "k1": k1, "k2_other": k2_other, "fwd_other": fwd_other, "futures": futures, "t_submit": t_submit,
-            "emit_s": emit_s}
+            "k1": k1, "k2_other": k2_other, "fwd_other": fwd_other, "k8": k8, "futures": futures,
+            "t_submit": t_submit, "emit_s": emit_s}
 
 
 def fleet_jax_costs() -> dict:
@@ -3205,8 +3414,10 @@ def fleet_single(fleet: dict, card: str) -> list:
         us, xs, cost = single.solve(x0, torch.zeros((H, n), **f32))
         torch.cuda.synchronize()
         launches = dict(SingleMPCKernels.launch_count)
-        if launches != {"linearize": ITERS, "backward": ITERS, "forward": ITERS + 1}:
-            raise AssertionError(f"fleet single {key}: launches {launches}")
+        k8_launches = dict(SingleMPCKernels.forward_launches)
+        if launches != {"linearize": ITERS, "backward": ITERS, "forward": ITERS + 1} \
+                or k8_launches != {S.fwd_form: ITERS + 1, OTHER_FORM[S.fwd_form]: 0}:
+            raise AssertionError(f"fleet single {key}: launches {launches}, K8's by form {k8_launches}")
         if not all(bool(torch.isfinite(v).all()) for v in (us, xs, cost)) or not bool((us.abs() <= u_lim).all()):
             raise AssertionError(f"fleet single {key}: non-finite outputs or a control past its limit")
         if not float(cost) <= float(cost_zero):
@@ -3220,14 +3431,18 @@ def fleet_single(fleet: dict, card: str) -> list:
         solve_ms = time_ms(lambda: single.solve(x0, torch.zeros((H, n), **f32)))
         attrs, bo = S.kernel_attributes(), single_bytes_ops(S, H, ALPHAS)
         phase("fleet_single", card=repr(card), robot=key, joints=n, H=H, iterations=ITERS, alphas=ALPHAS,
-              launches_per_solve=json.dumps(launches).replace(" ", ""), cost=f"{float(cost):.6e}",
+              launches_per_solve=json.dumps(launches).replace(" ", ""), k8_form=S.fwd_form,
+              k8_launches_by_form=json.dumps(k8_launches).replace(" ", ""), cost=f"{float(cost):.6e}",
               zero_control_cost=f"{float(cost_zero):.6e}", **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
               **{f"{s}_ms": f"{v:.4f}" for s, v in ms.items()}, solve_ms=f"{solve_ms:.4f}",
               **{f"{s}_plain_ms": f"{v:.1f}" for s, v in plain_ms.items()},
               phase_s=f"{time.perf_counter() - t0:.2f}")
         for stage, (name, replaces, _) in SINGLE_KERNELS.items():
             b_ms, b_by = bound(*bo[stage])
-            records.append({"name": f"{name} [{key}]", "route": "cuda", "source": SINGLE_SOURCE, "replaces": replaces,
+            source = SINGLE_SOURCE
+            if stage == "forward":  # the route's form, its launches the public solve's
+                name, source = K8_NAMES[S.fwd_form], K8_SOURCES[S.fwd_form]
+            records.append({"name": f"{name} [{key}]", "route": "cuda", "source": source, "replaces": replaces,
                             "launches": launches[stage], "max_abs_err": errs[stage], "tolerance": "0",
                             "ms": ms[stage], "plain_ms": plain_ms[stage], "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": None, "robot": key, "joints": n, "solve_ms": solve_ms,
@@ -3235,7 +3450,79 @@ def fleet_single(fleet: dict, card: str) -> list:
                                             "forward": f"the first {FIRST_STEPS_CHECKED} steps"}.get(stage, "H=50"),
                             "num_regs": attrs[stage]["num_regs"], "local_bytes": attrs[stage]["local_bytes"],
                             "smem_bytes": attrs[stage]["smem_bytes"]})
+            if stage == "forward":
+                records[-1].update(fwd_form=S.fwd_form, k8_public=True)
     return records
+
+
+def fleet_k8(fleet: dict, robots: dict, card: str, pool: UnitPool) -> dict:
+    """K8 in both forms on the fleet robots of K8_ROBOTS, on one
+    problem each: the fleet's first scenario, its nominal and gains those
+    of the batched solve (K3's on the solver's own controls), 6 alphas.
+    Each form bitwise (NaN where it has NaN) its own plain version over
+    the first FIRST_STEPS_CHECKED steps (trajectories of a launch at full
+    horizon, costs of a launch on those steps), the looped form's plain
+    version once per joint count with the robots side by side (a column a
+    (robot, alpha), each with its robot's table); both forms timed in turns
+    (``k8_turns``); registers, local and shared bytes, SASS. Returns label
+    -> form -> figures."""
+    k = FIRST_STEPS_CHECKED
+    f32 = dict(dtype=torch.float32, device=DEV)
+    alphas = 0.5 ** torch.arange(ALPHAS, **f32)
+    with concurrent.futures.ThreadPoolExecutor(pool.workers) as sass_pool:
+        list(sass_pool.map(sass_count, sorted({str(K.build()["fwd"].path)
+                                               for forms in fleet["k8"].values() for K in forms.values()})))
+    out, pending = {}, {}
+    for label, Ks in fleet["k8"].items():
+        t0 = time.perf_counter()
+        r = robots[label]
+        _, sd_x, us, _, goal, _ = r["bwd_args"]
+        x0 = fleet["problem"][label][0][0].contiguous()
+        ins = (x0, sd_x[..., 0].contiguous(), us[..., 0].contiguous(), r["kK"][..., 0].contiguous(),
+               goal[:, 0].contiguous(), alphas)
+        cut = (ins[0], *(x[:k].contiguous() for x in ins[1:4]), *ins[4:])
+        out[label] = {f: k8_figures(K) for f, K in Ks.items()}
+        for f, K in Ks.items():
+            got = K.forward(*ins)
+            got = (got[0][:, :k], got[1][:, :k], K.forward(*cut)[2])
+            if f == "looped":
+                pending.setdefault(K.n, []).append((label, K, cut, got))
+                continue
+            ref, ms_ = timed(lambda: K.plain().forward(*cut))
+            err = max(bit_diff(g, rr) for g, rr in zip(got, ref))
+            if err != 0.0:
+                raise AssertionError(f"fleet {label}: K8 {f} against its plain version, max |d| = {err}, not 0")
+            out[label][f].update(max_abs_err=err, plain_ms=ms_)
+        for f, t in k8_turns(Ks, ins).items():
+            out[label][f].update(t)
+        out[label]["route"] = "emitted"  # the solver's K8 on every robot
+        phase("fleet_k8", card=repr(card), robot=label, joints=Ks["emitted"].n, H=H_MPC, alphas=ALPHAS, route="emitted",
+              fwd_statements=Ks["emitted"].statements["forward"],
+              **{f"{f}_ms": ",".join(f"{t:.4f}" for t in out[label][f]["ms_turns"]) for f in FWD_FORMS},
+              **{f"{f}_median_ms": f"{out[label][f]['ms']:.4f}" for f in FWD_FORMS},
+              **{f"{f}_spread": f"{out[label][f]['spread']:.4f}" for f in FWD_FORMS},
+              resolved=k8_resolved(out[label]),
+              **{f"{f}_{key}": out[label][f][key] for f in FWD_FORMS
+                 for key in ("num_regs", "local_bytes", "smem_bytes", "sass_instructions")},
+              phase_s=f"{time.perf_counter() - t0:.2f}")
+    for n, items in sorted(pending.items()):
+        cols = ALPHAS
+        tab = torch.cat([K.fwd_table[:, None].expand(-1, cols) for _, K, _, _ in items], dim=1).to(DEV)
+        col = lambda x: x[..., None].expand(*x.shape, cols)
+        ins = [torch.cat([col(c[i]) for _, _, c, _ in items], dim=-1).contiguous() for i in range(5)]
+        ins.append(torch.cat([c[5] for _, _, c, _ in items]).contiguous())
+        ref, plain_ms = timed(lambda: loop_forward_plain(tab, n, *ins))
+        for at, (label, _, _, got) in enumerate(items):
+            part = tuple(rr[at * cols:(at + 1) * cols] for rr in ref)
+            err = max(bit_diff(g, rr) for g, rr in zip(got, part))
+            if err != 0.0:
+                raise AssertionError(f"fleet {label}: K8 looped against its plain version, max |d| = {err}, not 0")
+            out[label]["looped"].update(max_abs_err=err, plain_ms=plain_ms,
+                                        plain_scope=f"one loop_forward_plain call for the {len(items)} robots of {n} "
+                                                    f"joints, the first {k} steps")
+        phase("fleet_k8_looped_plain", joints=n, robots=",".join(i[0] for i in items), columns=len(items) * cols,
+              steps=k, plain_ms=f"{plain_ms:.1f}", max_abs_err="0.000e+00")
+    return out
 
 
 def fleet_phase(fleet: dict, pool: UnitPool, urdf_rollout: dict, card: str) -> list:
@@ -3302,8 +3589,44 @@ def fleet_phase(fleet: dict, pool: UnitPool, urdf_rollout: dict, card: str) -> l
     for rec in records:
         rec.update(fleet_round_ms=round_ms, fleet_round_scenarios_per_s=scenarios / (round_ms * 1e-3))
     records = fleet_rollout(fleet, urdf_rollout, card) + records + fleet_single(fleet, card)
+    fleet["k8_route"] = fleet_k8(fleet, robots, card, pool)
     phase("fleet_done", robots=len(robots), records=len(records), phase_s=f"{time.perf_counter() - t0:.2f}")
     return records
+
+
+def k8_fleet_records(k8_records: dict, fleet_records: list, fleet_k8_route: dict, panda_route: str) -> None:
+    """K8's records by form completed from phase 32: the team's launches on
+    FLEET_SINGLE's robots, each form's |d| on K8_ROBOTS (``fleet_k8``, and
+    the programmatic Panda's of phases 10-12), a ``fleet_k8_route`` line
+    naming the robots where the solver's form (the team's) is more than 5%
+    slower than the looped one and those whose turns spread too far to
+    tell (``k8_resolved``); fails if a form was launched no time."""
+    for rec in fleet_records:
+        if rec.get("k8_public"):
+            k8_records[rec["fwd_form"]]["launches"] += rec["launches"]
+            k8_records[rec["fwd_form"]].setdefault("fleet_robots", []).append(rec["robot"])
+            k8_records[rec["fwd_form"]]["max_abs_err"] = max(k8_records[rec["fwd_form"]]["max_abs_err"],
+                                                             rec["max_abs_err"])
+    k8_route = {**fleet_k8_route, "panda (programmatic)": {
+        **{f: {k: r[k] for k in ("ms", "ms_turns", "spread", "max_abs_err")} for f, r in k8_records.items()},
+        "route": panda_route}}
+    for label, forms in k8_route.items():
+        for f in FWD_FORMS:
+            k8_records[f]["max_abs_err"] = max(k8_records[f]["max_abs_err"], forms[f]["max_abs_err"])
+            k8_records[f].setdefault("route_robots", {})[label] = {
+                "route": forms["route"], **{k: forms[f][k] for k in ("ms", "ms_turns", "spread", "max_abs_err")},
+                **{k: forms[f][k] for k in ("num_regs", "local_bytes", "smem_bytes", "sass_instructions", "plain_scope")
+                   if k in forms[f]}}
+    unresolved = [label for label, forms in k8_route.items() if not k8_resolved(forms)]
+    k8_misses = [label for label, forms in k8_route.items() if label not in unresolved
+                 and forms[forms["route"]]["ms"] > ROUTE_SLACK * forms[OTHER_FORM[forms["route"]]]["ms"]]
+    phase("fleet_k8_route", robots=len(k8_route), slack=ROUTE_SLACK,
+          looped=",".join(label for label, forms in k8_route.items() if forms["route"] == "looped") or "none",
+          outside_slack=",".join(k8_misses) or "none", unresolved=",".join(unresolved) or "none",
+          looped_over_team=json.dumps({label: round(forms["looped"]["ms"] / forms["emitted"]["ms"], 4)
+                                       for label, forms in k8_route.items()}).replace(" ", ""))
+    if any(rec["launches"] < 1 for rec in k8_records.values()):
+        raise AssertionError(f"a K8 form was launched no time: {[(f, r['launches']) for f, r in k8_records.items()]}")
 
 
 def main() -> int:
@@ -3353,6 +3676,9 @@ def main() -> int:
     fwd_sets = {robot: {f: fwd_only(mpc_kernels[robot], model, f) for f in FWD_FORMS}
                 for robot, model in (("panda", panda), ("ur5", ur5))}
     mpc_kernels.update({f"{robot} K4K5 {f}": k for robot, forms in fwd_sets.items() for f, k in forms.items()})
+    # K8 alone in each form, for phases 10 and 12 (the route's shares its unit).
+    k8_sets = {f: k8_only(single.kernels, panda, f) for f in FWD_FORMS}
+    mpc_kernels.update({f"panda K8 {f}": k for f, k in k8_sets.items()})
     # Phase 32's units queue behind phase 2's in the same pool and build
     # while phases 27-31 and 3-26 run.
     pool = UnitPool()
@@ -3380,6 +3706,8 @@ def main() -> int:
             **MPC_KERNELS, "linesearch_costs": ("K4 line-search costs alone (K0 inlined)",)}
         for stage, a in mpc_attrs[robot].items():
             extra, name = {}, names[stage][0]
+            if isinstance(K, SingleMPCKernels) and stage == "forward":
+                name = K8_NAMES[K.fwd_form]
             if isinstance(K, BatchMPCKernels) and stage == "linearize":
                 looped = K.form == "looped"
                 name = K2_NAMES[K.form]
@@ -3394,8 +3722,11 @@ def main() -> int:
                 name = FWD_NAMES.get(stage, {}).get(K.fwd_form, name)
             phase("build", kernel=name, robot=robot, statements=K.statements[stage], **extra, **a)
         if robot == "panda single":
-            phase("build", kernel=names["forward"][0], robot=robot, **team_figures(K))
             phase("build", kernel=names["linearize"][0], robot=robot, **lin_figures(K, built["mpc", robot]))
+        if robot.startswith("panda K8"):
+            fig = k8_figures(K)
+            phase("build", kernel=K8_NAMES[K.fwd_form], robot=robot, route=single.kernels.fwd_form,
+                  **{k: json.dumps(v).replace(" ", "") if isinstance(v, dict) else v for k, v in fig.items()})
     if mpc_attrs["panda single"]["backward"]["local_bytes"] != 0:  # its state lives in shared memory
         raise AssertionError(f"K7 uses local memory: {mpc_attrs['panda single']['backward']}")
     # K6 spills nothing (ptxas's report); no more local bytes than sinf/cosf's 32-byte frame.
@@ -3835,7 +4166,9 @@ def main() -> int:
         if stage in FWD_NAMES:  # the other form's record after the route's
             records.append(fwd_records[stage, OTHER_FORM[fwd_route]])
 
-    records += single_path(panda, single, mpc_attrs["panda single"], card, built["mpc", "panda single"])
+    single_records, k8_records = single_path(panda, single, mpc_attrs["panda single"], card, built["mpc", "panda single"],
+                                             k8_sets)
+    records += single_records
     plan_timed = planning_timed(ur5, card)
     closed_loop(ur5, panda, engines["ur5"], card, records)
     records += planning_records(ur5, ew_attrs, records[0], plan_timed)
@@ -3863,6 +4196,7 @@ def main() -> int:
     if any(rec["launches"] < 1 for rec in fwd_records.values()):
         raise AssertionError(f"a K4 or K5 form no public route launched: "
                              f"{[(k, r['launches']) for k, r in fwd_records.items()]}")
+    k8_fleet_records(k8_records, fleet_records, fleet["k8_route"], single.kernels.fwd_form)
     records.insert(1, looped_record(looped_bench, urdf_rollout, fleet_records))
     records += fleet_records
     print(json.dumps({"kernels": records}))

@@ -58,9 +58,18 @@
 //       the phases' dependent chains and barriers.
 //   K8: one team of MPT_FWD_TEAM_W warps a block runs the closed loops of
 //       32 alphas (one a lane), each step the emitted step partitioned over
-//       the warps as K5's (ops/cgen.py::team_function), the next step's rows
-//       by cp.async; xs, us and the costs leave after each step. Bound by
-//       the instruction stream of its ~12k-instruction step, as K5.
+//       the warps as K5's team variant (ops/cgen.py::team_function), the
+//       next step's rows by cp.async; xs, us and the costs leave after each
+//       step. Bound by fetching its step: every warp's slice is other code,
+//       so each SM fetches the whole ~12k-instruction program every step
+//       (~6 us a step for Panda, against ~0.7 us along its longest chain).
+//       Its looped form (csrc/fwd_loop_lanes.cuh, one warp an alpha, its
+//       lanes over the joints; built only where _fwd_form names it) runs
+//       ~2.3k instructions and is bound by its lanes' dependent chains
+//       instead: the per-link work every lane repeats, the table read from
+//       the launch's parameter space, and the Cholesky factor and solves,
+//       one lane a phase, ~40% of its step. It measured slower than the
+//       team on every arm (PERF.md), so the solver runs the team.
 // Every kernel is built with --fmad=false and the emitter's order of
 // operations, so each agrees bitwise with its plain PyTorch version.
 //

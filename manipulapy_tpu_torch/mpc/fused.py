@@ -91,12 +91,16 @@ def build_tracking_mpc(
     reg: float = 1e-6,
     u_limit=None,
     g=(0.0, 0.0, -9.81),
+    _fwd_form=None,
 ) -> TrackingMPC:
     """Build the fused solver for one (robot, goal, horizon).
 
     ``u_limit`` defaults to the model's torque limits (its f64 host arrays
     where it has them). The kernels build with nvcc at their first CUDA
-    call (or :meth:`SingleMPCKernels.build`)."""
+    call (or :meth:`SingleMPCKernels.build`). ``_fwd_form``, not a public
+    option, names K8's form: ``"emitted"`` (the team, the default) or
+    ``"looped"`` (``ops/cuda_mpc_single.py``), for the card's comparison of
+    the two and the tests."""
     n = model.num_joints
     nx = 2 * n
     H, A = int(horizon), int(line_search_steps)
@@ -115,7 +119,7 @@ def build_tracking_mpc(
         u_limit = host["torque_limit"] if host is not None else model.torque_limit
     u_lim = _host_vector(u_limit, n, "u_limit")
     kernels = SingleMPCKernels(
-        model, dt, g=g, w_q=w_q, w_dq=w_dq, w_u=w_u, w_terminal=w_terminal, u_lim=u_lim
+        model, dt, g=g, w_q=w_q, w_dq=w_dq, w_u=w_u, w_terminal=w_terminal, u_lim=u_lim, _fwd_form=_fwd_form
     )
     P = kernels.P
     q_goal_host = q_goal.detach().cpu() if isinstance(q_goal, torch.Tensor) else q_goal
@@ -205,6 +209,7 @@ def build_tracking_mpc(
         host_arrays=host_arrays(model), q_goal=goal_default, horizon=H, dt=float(dt), iterations=int(iterations),
         line_search_steps=A, w_q=w_q, w_dq=w_dq, w_u=w_u, w_terminal=w_terminal, reg=float(reg), u_limit=u_lim,
         g=tuple(float(v) for v in g), device=model.device.type,
+        **({"_fwd_form": _fwd_form} if _fwd_form else {}),
     )
     return TrackingMPC(
         solve=solve, horizon=H, n=n,

@@ -15,7 +15,16 @@ Counterpart of the three ``pallas_call``s of ``manipulapy_tpu/mpc/fused.py``:
   threads runs the sweep;
 * K8 ``forward`` (``fwd_kernel``): the closed-loop rollout of every
   line-search alpha, streaming out xs and us, with the running and
-  terminal cost.
+  terminal cost: the emitted closed-loop step split over a team of
+  ``FWD_WARPS`` warps (``SingleMPCKernels.fwd_form`` ``"emitted"``, the
+  solver's). A second form, ``"looped"``, built only where
+  ``_fwd_form="looped"`` names it, runs the step on K0's loop over links
+  with the robot, its torque bounds and the cost weights in the launch's
+  table, one warp an alpha and its lanes over the joints
+  (``csrc/fwd_loop_lanes.cuh``; one unit per joint count,
+  :func:`single_fwd_loop_unit_source`; plain version
+  :func:`loop_forward_plain`). It measured slower than the team on every
+  arm of the fleet on an H100 (PERF.md), so no robot is routed to it.
 
 Each kernel's arithmetic is one Python function over cgen values
 (``ops/fd_step.py::build_fd_step_jvp_planes`` for K6, emitted ``lean``,
@@ -36,22 +45,27 @@ j, 0]`` = k_j, ``[t, j, 1+i]`` = K_ji, K3's row format), ``goal (n,)``,
 H, n)`` and ``costs (A,)``.
 
 On CPU tensors every stage runs its plain version, and only because the
-tensors lie on the CPU. On CUDA tensors it launches its kernel or raises:
-float32, contiguous, one device, the shapes above. Each launch adds one to
-``SingleMPCKernels.launch_count[stage]`` (all instances).
+tensors lie on the CPU; K8's is that of the form the set was built in.
+On CUDA tensors it launches its kernel or raises: float32, contiguous,
+one device, the shapes above. Each launch adds one to
+``SingleMPCKernels.launch_count[stage]`` (all instances), and each K8
+launch to ``forward_launches[fwd_form]``.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Dict, List
 
 import torch
 
 from . import cgen as cg
 from .cuda_mpc_batch import (
+    FWD_FORMS,
     LIN_FLAGS,
+    LOOP_STEP,
     Costs,
     MPCKernelSet,
     _stack,
@@ -61,7 +75,16 @@ from .cuda_mpc_batch import (
     fwd_step,
     team_layout,
 )
-from .fd_step import _full, build_fd_step_jvp_group_source, build_fd_step_jvp_planes
+from .fd_step import (
+    _full,
+    build_fd_step_jvp_group_source,
+    build_fd_step_jvp_planes,
+    fd_fwd_loop_planes,
+    fwd_table,
+    loop_fwd_ops,
+    loop_terminal_cost_fused,
+    table_defines,
+)
 
 __all__ = [
     "SingleMPCKernels",
@@ -69,12 +92,16 @@ __all__ = [
     "BWD_THREADS",
     "FWD_WARPS",
     "LIN_WARPS",
+    "FWD_LOOP_WARPS",
+    "single_fwd_loop_unit_source",
+    "loop_forward_plain",
     "lin_team_step",
     "riccati_step_gj",
     "terminal_cost_fused",
 ]
 
 TEMPLATE = Path(__file__).resolve().parents[1] / "csrc" / "mpc_single.cuh"
+FWD_LOOP_TEMPLATE = TEMPLATE.with_name("fwd_loop_lanes.cuh")
 BWD_THREADS = 256  # K7's block; chip_compare.py times 128 and 512 beside it (PERF.md)
 # K8: warps of its team (the partition of the emitted step, ``cg.team_function``),
 # chosen by timing Panda's K8 on an H100 (``chip_compare.py``, PERF.md section 6).
@@ -84,6 +111,12 @@ FWD_WARPS = 32
 # (``chip_compare.py --variants``, PERF.md section 6): 8 warps 18% faster
 # than one thread a lane in one call, 2, 4 and 16 warps slower than 8.
 LIN_WARPS = 8
+# K8's looped form: warps (alphas) a block, ``MPT_FWDL_WARPS``. One, two,
+# four and eight timed in one call (``chip_k8_variants.py``, H100 80GB HBM3,
+# 700 W, PERF.md §5): two and four within 0.6% of each other on the 6- to
+# 10-joint arms and up to 2.9% ahead of one, eight 13-16% behind; on the
+# Robotiq gripper the spread between turns (32-47%) hides the difference.
+FWD_LOOP_WARPS = 2
 STAGES = ("linearize", "backward", "forward")
 UNITS = {"lin": ("linearize",), "bwd": ("backward",), "fwd": ("forward",)}
 _P = ctypes.c_void_p
@@ -93,6 +126,45 @@ _ARGTYPES = {
     "backward": [_P] * 7 + [_I, _P],
     "forward": [_P] * 9 + [_I, _I, _P],
 }
+
+
+def single_fwd_loop_unit_source(n: int, warps: int = None) -> str:
+    """K8's translation unit on the looped step: one per joint count (and
+    warps a block, ``FWD_LOOP_WARPS`` by default), for every robot of n
+    joints (the robot, its torque bounds and the cost weights are the table
+    each launch carries)."""
+    warps = FWD_LOOP_WARPS if warps is None else int(warps)
+    header = (
+        f"// Generated: the looped K8 for {int(n)} joints, {warps} warps a block.\n"
+        f"#define MPT_NJ {int(n)}\n#define MPT_FWDL_WARPS {warps}\n"
+    )
+    return (header + table_defines() + "#include <math.h>\n" + LOOP_STEP.read_text() + "\n" + cg.TEAM_SOURCE
+            + FWD_LOOP_TEMPLATE.read_text())
+
+
+def loop_forward_plain(tab: torch.Tensor, n: int, x0, sd_x, sd_u, kK, goal, alphas):
+    """The looped K8's plain version: the closed loop of every alpha,
+    ``fd_step.fd_fwd_loop_planes`` over ``tab`` (a ``fd_step.fwd_table`` in
+    the inputs' dtype on their device) with one column an alpha, then K8's
+    fused terminal cost (``fd_step.loop_terminal_cost_fused``). Inputs and
+    outputs as :meth:`SingleMPCKernels.forward`'s: x0 (nx,), sd_x (H, nx),
+    sd_u (H, n), kK (H, n, 1+nx), goal (n,), alphas (A,) -> (xs (A, H, nx),
+    us (A, H, n), costs (A,))."""
+    nx, H = 2 * n, sd_x.shape[0]
+    like = torch.zeros_like(alphas)
+    g = [goal[j] for j in range(n)]
+    x = [x0[i] for i in range(nx)]
+    acc = like
+    xs_rows, us_rows = [], []
+    for t in range(H):
+        kk = [kK[t, j, c] for j in range(n) for c in range(1 + nx)]
+        u, c, x = fd_fwd_loop_planes(tab, n, x, [sd_x[t, i] for i in range(nx)], [sd_u[t, j] for j in range(n)],
+                                     kk, g, alphas)
+        acc = acc + c
+        xs_rows.append(_stack(x, like, dim=-1))
+        us_rows.append(_stack(u, like, dim=-1))
+    cost = acc + loop_terminal_cost_fused(tab, n, x, g)
+    return torch.stack(xs_rows, dim=1), torch.stack(us_rows, dim=1), _full(cost, like)
 
 
 def _gj_solve_rows(aug: List[List], n: int) -> List[List]:
@@ -240,22 +312,46 @@ class SingleMPCKernels(MPCKernelSet):
     split over a team of ``LIN_WARPS`` warps (``self.lin_team``); the
     one-seed ``fd_step_jvp`` stays out of it, as ``linearize_seed_source``,
     and so does the body for a team, as ``linearize_group_source``: the
-    host tests' references. Only the units of ``UNITS`` are built."""
+    host tests' references. K8's unit holds the team step (``self.team``)
+    unless ``_fwd_form="looped"`` (not a public option: for the card's
+    comparison of the two forms and the tests) builds the looped form:
+    its unit is :func:`single_fwd_loop_unit_source` for ``FWD_LOOP_WARPS``
+    warps a block, ``fwd_table`` (``fd_step.fwd_table``, float32 on the
+    host) goes with each launch and ``fwd_loop_ops`` counts its step's
+    operations (``fd_step.loop_fwd_ops``); the emitted step's statements
+    stay the bound's yardstick in either form. A looped unit that fails to
+    build or launch raises. Each K8 launch also adds one to
+    ``forward_launches[fwd_form]`` (all instances). Only the units of
+    ``UNITS`` are built."""
 
     STAGES, UNITS, ARGTYPES, LIB_PREFIX = STAGES, UNITS, _ARGTYPES, "mpc_single"
     TEMPLATE, DEFINES = TEMPLATE, {"MPT_BWD_THREADS": BWD_THREADS}
     FWD_WARPS, TEAM_STAGE = FWD_WARPS, "forward"
     LIN_WARPS, UNIT_FLAGS = LIN_WARPS, {"lin": LIN_FLAGS}
+    FWD_LOOP_WARPS = FWD_LOOP_WARPS
     LAYOUTS = {"lin": ("linearize_team", "mpt_layout_linearize_team")}
     launch_count: Dict[str, int] = dict.fromkeys(STAGES, 0)  # all instances
-    lin_team = None
+    forward_launches: Dict[str, int] = dict.fromkeys(FWD_FORMS, 0)  # K8's, by form
+    lin_team = team = None
+    fwd_table = fwd_loop_ops = None
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, _fwd_form=None, **kwargs):
+        if _fwd_form not in FWD_FORMS + (None,):
+            raise ValueError(f"_fwd_form must be one of {FWD_FORMS} or None, got {_fwd_form!r}")
+        self.fwd_form = _fwd_form or "emitted"
         super().__init__(*args, **kwargs)
         if self.lin_team is not None:  # the team body goes where the template marks it, after MPT_TS
             lin = self.sources["lin"]
             at = lin.rindex("// MPT_LIN_TEAM_STEP:")
             self.sources["lin"] = lin[:at] + self.lin_team.source + lin[at:]
+        if self.fwd_form == "looped":
+            self.sources["fwd"] = single_fwd_loop_unit_source(self.n, self.FWD_LOOP_WARPS)
+            self.ARGTYPES = {**self.ARGTYPES, "forward": _ARGTYPES["forward"][:-1] + [_P, _P]}
+
+    @classmethod
+    def reset_launch_count(cls) -> None:
+        super().reset_launch_count()
+        cls.forward_launches = dict.fromkeys(FWD_FORMS, 0)
 
     def _bodies(self, model, dt, g) -> Dict[str, str]:
         """The units' generated parts; also ``riccati_step_source``, K8's
@@ -296,15 +392,22 @@ class SingleMPCKernels(MPCKernelSet):
             "mpc_terminal_fused", [("x", nx), ("goal", n)], [], [("c", 1)],
             lambda x, goal: [[terminal_cost_fused(P, x, goal)]], emitter=ems,
         )
-        # K8: the same step split over a team of warps, the alphas on its
-        # lanes (columns of 32), the rows and the goal shared by every lane.
-        self.team = cg.team_function("mpt_fwd_team", *fwd_signature(P), fwd_body, team_layout(P, "1"), self.FWD_WARPS)
         self.chains = {
             "linearize": lin_chain,
             "backward": cg.chain_length(self._bwd_emitter),
             "forward": cg.chain_length(ems[0]),
             "cost_terminal": cg.chain_length(ems[1]),
         }
+        if self.fwd_form == "looped":  # its unit replaces the emitted one (__init__)
+            weights = dict(u_lim=P.u_lim, w_q=P.w_q, w_dq=P.w_dq, w_u=P.w_u, w_terminal=P.wT[0])
+            self._fwd_tables = {dt_: fwd_table(model, dt, g, dtype=dt_, **weights)
+                                for dt_ in (torch.float32, torch.float64)}
+            self.fwd_table = self._fwd_tables[torch.float32]
+            self.fwd_loop_ops = loop_fwd_ops(n)
+            return {"lin": lin_src, "bwd": bwd_weights(P), "fwd": ""}
+        # K8: the same step split over a team of warps, the alphas on its
+        # lanes (columns of 32), the rows and the goal shared by every lane.
+        self.team = cg.team_function("mpt_fwd_team", *fwd_signature(P), fwd_body, team_layout(P, "1"), self.FWD_WARPS)
         team_src = f"#define MPT_TS 32\n{cg.TEAM_SOURCE}{self.team.source}"
         return {"lin": lin_src, "bwd": bwd_weights(P), "fwd": fwd_src + cost_src + team_src}
 
@@ -374,10 +477,15 @@ class SingleMPCKernels(MPCKernelSet):
         xs = torch.empty((A, H, nx), dtype=x0.dtype, device=x0.device)
         us = torch.empty((A, H, n), dtype=x0.dtype, device=x0.device)
         costs = torch.empty((A,), dtype=x0.dtype, device=x0.device)
-        self._launch("forward", x0.device, x0, sd_x, sd_u, kK, goal, alphas, xs, us, costs, H, A)
+        table = (self.fwd_table,) if self.fwd_form == "looped" else ()
+        self._launch("forward", x0.device, x0, sd_x, sd_u, kK, goal, alphas, xs, us, costs, H, A, *table)
+        type(self).forward_launches[self.fwd_form] += 1
         return xs, us, costs
 
     def forward_plain(self, x0, sd_x, sd_u, kK, goal, alphas):
+        """The plain K8 on CPU tensors, of the form the set was built in."""
+        if self.fwd_form == "looped":
+            return self.loop_forward_plain(x0, sd_x, sd_u, kK, goal, alphas)
         n, nx = self.n, self.nx
         H = sd_x.shape[0]
         like = torch.zeros_like(alphas)
@@ -395,3 +503,38 @@ class SingleMPCKernels(MPCKernelSet):
             us_rows.append(_stack(u, like, dim=-1))
         cost = cg.add(acc, terminal_cost_fused(self.P, x, g))
         return torch.stack(xs_rows, dim=1), torch.stack(us_rows, dim=1), _full(cost, like)
+
+    def loop_forward_plain(self, x0, sd_x, sd_u, kK, goal, alphas):
+        """The looped K8's plain version: :func:`loop_forward_plain` over the
+        robot's table and cost weights in the inputs' dtype, float32 or
+        float64."""
+        if self.fwd_table is None:
+            raise ValueError("this kernel set's K8 is the emitted form; build it with _fwd_form='looped'")
+        tab = self._fwd_tables.get(x0.dtype)
+        if tab is None:
+            raise TypeError(f"the looped forward takes float32 or float64, got {x0.dtype}")
+        return loop_forward_plain(tab.to(x0.device), self.n, x0, sd_x, sd_u, kK, goal, alphas)
+
+    def plain(self) -> SimpleNamespace:
+        """The stages through the plain versions of the kernels as built:
+        K8's of ``fwd_form``."""
+        out = super().plain()
+        if self.fwd_form == "looped":
+            out.forward = self.loop_forward_plain
+        return out
+
+    def team_attributes(self, stage: str = None) -> Dict[str, int]:
+        if (stage or self.TEAM_STAGE) == "forward" and self.team is None:
+            raise ValueError("this kernel set's K8 is the looped form (loop_layout); the team is the emitted one's")
+        return super().team_attributes(stage)
+
+    def loop_layout(self) -> Dict[str, int]:
+        """The looped K8 as built: warps (alphas) a block, lanes a warp,
+        joints (the lanes at work), the shared bytes of a block and of a
+        warp's region (its unit's ``layout_forward_loop``)."""
+        if self.fwd_form != "looped":
+            raise ValueError("this kernel set's K8 is the emitted form")
+        keys = ("warps", "lanes", "joints", "smem_bytes", "warp_smem_bytes")
+        out = (ctypes.c_int * len(keys))()
+        self._lib("forward").layout_forward_loop(out)
+        return dict(zip(keys, out))

@@ -63,6 +63,7 @@ __all__ = [
     "loop_jvp_ops",
     "fd_fwd_loop_planes",
     "loop_terminal_cost",
+    "loop_terminal_cost_fused",
     "loop_fwd_ops",
     "loop_rollout_plain",
     "LoopRollout",
@@ -1161,6 +1162,22 @@ def loop_terminal_cost(tab: torch.Tensor, n: int, x_vals, goal_vals):
         e = x_vals[i] - goal_vals[i]
         t = (w["wT_q"] * e) * e
         c = t if c is None else c + t
+        c = c + (w["wT_dq"] * x_vals[n + i]) * x_vals[n + i]
+    return c
+
+
+def loop_terminal_cost_fused(tab: torch.Tensor, n: int, x_vals, goal_vals):
+    """K8's terminal cost with the table's weights: every q term ``wT_q (q -
+    goal)^2``, then every dq term ``wT_dq dq^2``, the order of
+    ``cuda_mpc_single.terminal_cost_fused`` (the looped K8's
+    ``fwdl_terminal_cost``, ``csrc/fwd_loop_lanes.cuh``)."""
+    w = _cost_weights(tab, n)
+    c = None
+    for i in range(n):
+        e = x_vals[i] - goal_vals[i]
+        t = (w["wT_q"] * e) * e
+        c = t if c is None else c + t
+    for i in range(n):
         c = c + (w["wT_dq"] * x_vals[n + i]) * x_vals[n + i]
     return c
 

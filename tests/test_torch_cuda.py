@@ -35,7 +35,11 @@ round trip of a looped-form solve; ``-k "looped_linearize or k2"``; and
 K4's and K5's looped form, every stage bit for bit its plain version on
 chains of 1, 7, 8 and 10 joints with a NaN scenario, K4's trajectory at the
 chosen alpha the looped K5's replay, and the public solve's form:
-``-k "looped_linesearch or k45"``).
+``-k "looped_linesearch or k45"``; and K8's looped form, one warp an alpha,
+bit for bit its plain version on chains of 1, 7, 8 and 10 joints at A = 1,
+6 and 33 with a NaN alpha, the latency solve's form (the team's unless
+``_fwd_form`` names the looped one) and an AOT round trip of a looped-K8
+solve: ``-k "looped_forward or k8"``).
 """
 
 import json
@@ -1221,6 +1225,91 @@ def test_forward_kernel_is_bitwise_the_plain_version(cuda_device, H, A):
     assert team["warps"] == K.FWD_WARPS and team["phases"] == K.team.partition.phases
 
 
+# K8's looped form (csrc/fwd_loop_lanes.cuh): one warp an alpha, its lanes
+# over the joints, the robot in the launch's table; bit for bit its plain
+# version (``loop_forward_plain``), NaN where it has NaN, on chains of 1, 7,
+# 8 and 10 joints at A = 1, 6 and 33 (past one block), with a NaN alpha.
+LOOPED_K8_ROBOTS = {"robotiq_2f_85": (True, 1), "panda": (None, 7), "jaco_7dof": (True, 8), "jaco_7dof_full": (False, 10)}
+
+
+def _k8_looped(robot, device):
+    from manipulapy_tpu_torch.models import robot_data
+    from manipulapy_tpu_torch.ops.cuda_mpc_single import UNITS
+
+    chain, n = LOOPED_K8_ROBOTS[robot]
+    model = (catalog.panda(device=device) if chain is None
+             else robot_data.load_robot(robot.replace("_full", ""), chain_joints_only=chain, device=device))
+    assert model.num_joints == n
+    u_lim = [float(v) for v in model.torque_limit.cpu()]
+    K = type("K8Only", (SingleMPCKernels,), {"UNITS": {"fwd": UNITS["fwd"]}})(model, 0.01, u_lim=u_lim,
+                                                                              _fwd_form="looped")
+    return model, K
+
+
+@pytest.mark.parametrize("A", [1, 6, 33])
+@pytest.mark.parametrize("robot", sorted(LOOPED_K8_ROBOTS))
+def test_looped_forward_kernel_is_bitwise(cuda_device, robot, A):
+    """A = 1 is the solver's initial rollout (alpha 0, zero gains and
+    nominal) of a warm start holding x0 against gravity: the open loop of
+    ``_fwd_args``' noisy torques leaves f32 on the Jaco's fingers within 50
+    steps, in the plain version as in the kernel. A = 6 and 33 are the line
+    search's alphas 0.5^a on ``_fwd_args``' nominal and gains."""
+    from manipulapy_tpu_torch.dynamics import gravity_forces
+
+    model, K = _k8_looped(robot, cuda_device)
+    n, H = model.num_joints, 50
+    x0_t, sd_x, us, kK, goal_t, _ = _fwd_args(model, 1, H, cuda_device, seed=A + n)
+    alphas = 0.5 ** torch.arange(A, device=cuda_device, dtype=torch.float32)
+    if A == 1:
+        grav = gravity_forces(model, x0_t[:n, 0][None].contiguous())[0]
+        sd_x, kK, alphas = torch.zeros_like(sd_x), torch.zeros_like(kK), torch.zeros_like(alphas)
+        us = grav[None, :, None].expand(H, n, 1).contiguous()
+    args = (x0_t[:, 0].contiguous(), sd_x[..., 0].contiguous(), us[..., 0].contiguous(), kK[..., 0].contiguous(),
+            goal_t[:, 0].contiguous(), alphas)
+    before = dict(SingleMPCKernels.forward_launches)
+    got = K.forward(*args)
+    torch.cuda.synchronize()
+    assert SingleMPCKernels.forward_launches["looped"] == before["looped"] + 1
+    assert got[0].shape == (A, H, 2 * n) and got[2].shape == (A,)
+    ref = K.plain().forward(*args)
+    assert K.plain().forward == K.loop_forward_plain
+    for g, r in zip(got, ref):
+        _assert_bits_and_nans(g, r)
+    assert bool(torch.isfinite(ref[2]).any())
+    if A >= 6:  # alpha 2 NaN: NaN where the plain version has it, the other alphas' bits kept
+        nan_alphas = alphas.clone()
+        nan_alphas[2] = float("nan")
+        dirty = K.forward(*args[:5], nan_alphas)
+        for g, r, c in zip(dirty, K.plain().forward(*args[:5], nan_alphas), got):
+            _assert_bits_and_nans(g, r)
+            keep = torch.arange(A, device=cuda_device) != 2
+            assert torch.equal(g[keep].view(torch.int32), c[keep].view(torch.int32))
+        assert bool(torch.isnan(dirty[2][2]))
+    attrs, layout = K.kernel_attributes()["forward"], K.loop_layout()
+    assert layout["warps"] == K.FWD_LOOP_WARPS and layout["joints"] == n and attrs["smem_bytes"] == layout["smem_bytes"]
+    print(f"looped K8 {robot}: {attrs['num_regs']} registers, {attrs['local_bytes']} local bytes, {layout}")
+
+
+@pytest.mark.parametrize("fwd_form", [None, "looped"])
+@pytest.mark.parametrize("robot", ["robotiq_2f_85", "panda"])
+def test_single_solve_launches_the_team_k8_or_the_looped_one_by_fwd_form(cuda_device, robot, fwd_form):
+    """The public latency solver's K8 is the team's (emitted) form, the
+    looped one only where ``_fwd_form="looped"`` names it, the other form
+    never: 5 launches a solve of 4 iterations."""
+    model, _ = _k8_looped(robot, cuda_device)
+    n, H = model.num_joints, 50
+    x0_t, _, _, _, goal_t, _ = _fwd_args(model, 1, H, cuda_device, seed=3)
+    mpc = build_tracking_mpc(model, goal_t[:, 0].contiguous(), H, 0.01, iterations=4, _fwd_form=fwd_form)
+    form = fwd_form or "emitted"
+    assert mpc.kernels.fwd_form == form
+    SingleMPCKernels.reset_launch_count()
+    us, xs, cost = mpc.solve(x0_t[:, 0].contiguous(), torch.zeros((H, n), device=cuda_device))
+    torch.cuda.synchronize()
+    assert SingleMPCKernels.forward_launches == {form: 5, {"looped": "emitted", "emitted": "looped"}[form]: 0}
+    assert SingleMPCKernels.launch_count == {"linearize": 4, "backward": 4, "forward": 5}
+    assert bool(torch.isfinite(cost)) and bool(torch.isfinite(xs).all())
+
+
 # The fleet layer on the card (parallel/): the rollout split over a mesh
 # runs K1 a chunk, bit for bit the unsharded call; the fleet round on the
 # fused solver runs K2-K5 a robot, bit for bit each robot's own solver.
@@ -1498,7 +1587,7 @@ from manipulapy_tpu_torch.utils import aot
 work = sys.argv[1]
 inputs = torch.load(os.path.join(work, "inputs.pt"))
 outputs, seconds = {}, {}
-forms = {}
+forms, fwd_forms = {}, {}
 for kind, load in (("batch", aot.load_batch_mpc), ("tracking", aot.load_tracking_mpc)):
     if not os.path.exists(os.path.join(work, kind + ".aot")):
         continue
@@ -1506,8 +1595,9 @@ for kind, load in (("batch", aot.load_batch_mpc), ("tracking", aot.load_tracking
     outputs[kind] = solve(*inputs[kind])
     seconds[kind] = [b.compile_seconds for b in solve.handle.kernels.build().values()]
     forms[kind] = getattr(solve.handle.kernels, "form", None)
+    fwd_forms[kind] = solve.handle.kernels.fwd_form
 torch.save(outputs, os.path.join(work, "outputs.pt"))
-print(json.dumps({"seconds": seconds, "root": str(_build.build_root()), "forms": forms}))
+print(json.dumps({"seconds": seconds, "root": str(_build.build_root()), "forms": forms, "fwd_forms": fwd_forms}))
 '''
 
 
@@ -1552,6 +1642,28 @@ def test_aot_round_trip_of_a_looped_k2_solve_is_bitwise(cuda_device, tmp_path):
     report = _aot_load_in_a_fresh_process(tmp_path)
     assert report["forms"] == {"batch": "looped"} and report["seconds"] == {"batch": [0.0] * 3}
     for g, r in zip(torch.load(str(tmp_path / "outputs.pt"))["batch"], ref):
+        assert torch.equal(g, r)
+
+
+def test_aot_round_trip_of_a_looped_k8_solve_is_bitwise(cuda_device, tmp_path):
+    """A latency solve on K8's looped form (Panda, H=10, ``_fwd_form`` kept
+    in the artifact's build arguments) saved and loaded without nvcc: the
+    loaded solver runs the looped form, nothing compiles, and its solve is
+    the in-process one's bits."""
+    from manipulapy_tpu_torch.utils import aot
+
+    model = catalog.panda(device=cuda_device)
+    H = 10
+    x0, goals, _ = _mpc_problem(model, 1, H, cuda_device, seed=18)
+    single = build_tracking_mpc(model, goals[0], H, 0.01, iterations=2, _fwd_form="looped")
+    assert single.kernels.fwd_form == "looped" and single.build_args["_fwd_form"] == "looped"
+    inputs = {"tracking": (x0[0].contiguous(), torch.zeros((H, 7), device=cuda_device))}
+    ref = single.solve(*inputs["tracking"])
+    aot.save_tracking_mpc(single, str(tmp_path / "tracking.aot"))
+    torch.save(inputs, str(tmp_path / "inputs.pt"))
+    report = _aot_load_in_a_fresh_process(tmp_path)
+    assert report["fwd_forms"] == {"tracking": "looped"} and report["seconds"] == {"tracking": [0.0] * 3}
+    for g, r in zip(torch.load(str(tmp_path / "outputs.pt"))["tracking"], ref):
         assert torch.equal(g, r)
 
 
