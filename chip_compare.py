@@ -36,7 +36,17 @@ then CUDA-event medians (5 timings after 2 warm-ups) of
   team variant for each shape of ``REPLAY_VARIANTS``
   (``replay_ms_B<B>_W<warps>_S<scenarios>_T<teams a block>``), each with
   its registers, local bytes and nvcc seconds and held bitwise to the
-  default's outputs;
+  default's outputs. K3's SASS by opcode class (``cuobjdump -sass``: shared
+  loads by width, FMUL and FADD, integer, branch and barrier; static counts
+  of its one kernel, ``backward_sass``) always; with ``--variants``, where
+  the tree's K3 has the phases of one warp a scenario over its shared
+  state, two timing-only variants of it (``K3_PROBES``: phases 2 and 3
+  reading [A | B] from registers, and the n factor phases dropped; their
+  gains are wrong by design), timed with the unit as built in turns, five
+  rounds (``backward_ms_turns_B<B>``, ``..._<probe>``, medians); and where
+  the tree routes K3 by joint count (``bwd_form``), its other form
+  likewise (``backward_ms_turns_B<B>_<form>``), held bitwise to the
+  route's;
 * the Panda single-problem solve, H=50, 6 alphas, at 4 and at 2 iterations,
   the device's busy share over 3 solves at 4 (``torch.profiler``), and each
   of K6-K8 per launch (20 back-to-back launches) on that solve's own
@@ -92,6 +102,31 @@ FORWARD_WARPS = (4, 8, 16, 32)
 # (0) and a team of each other number of warps, each a variant unit.
 LIN_WARPS = (0, 2, 4, 8, 16)
 Q_GOAL7 = (0.3, -0.4, 0.2, -1.6, 0.1, 1.4, 0.4)
+# K3 on the fleet's joint counts (``--k3``), B=1024: label -> (the vendored
+# robot, its chain's joints only).
+FLEET_K3 = {"robotiq_2f_85": ("robotiq_2f_85", True), "ur5": ("ur5", True), "gen3": ("gen3", True),
+            "jaco_7dof_chain": ("jaco_7dof", True), "jaco_7dof_10": ("jaco_7dof", False)}
+# Timing-only variants of K3 where its unit keeps one warp's state in
+# shared memory, phase by phase (the design before the column lanes): (old, new) replacements of its
+# source. "ab_registers": each lane reads one column of [A | B] into
+# registers once a phase and phases 2 and 3 take every [A | B] operand from
+# there, halving their shared loads; "no_factor": the n phases of the
+# Cholesky factor dropped (the solve reads a stale factor).
+_ABR = "  float abr[MPT_NX];\n#pragma unroll\n  for (int l = 0; l < MPT_NX; ++l) abr[l] = tm->ab[l * MPT_M + lane % MPT_M];\n"
+K3_PROBES = {
+    "ab_registers": (
+        ("void bwd_value_products(int lane, mpt_bwd_team* tm) {\n",
+         "void bwd_value_products(int lane, mpt_bwd_team* tm) {\n" + _ABR),
+        ("float s = Vk[0] * tm->ab[c];", "float s = Vk[0] * abr[0];"),
+        ("s = s + Vk[l] * tm->ab[l * MPT_M + c];", "s = s + Vk[l] * abr[l];"),
+        ("void bwd_q_blocks(int lane, mpt_bwd_team* tm) {\n", "void bwd_q_blocks(int lane, mpt_bwd_team* tm) {\n" + _ABR),
+        ("float s = tm->ab[r] * tm->VAB[c];", "float s = abr[0] * tm->VAB[c];"),
+        ("s = s + tm->ab[l * MPT_M + r] * tm->VAB[l * MPT_M + c];", "s = s + abr[l] * tm->VAB[l * MPT_M + c];"),
+    ),
+    "no_factor": (
+        ("#pragma unroll\n    for (int j = 0; j < MPT_NJ; ++j) MPT_PHASE(bwd_cholesky_column(lane, tm, j));\n", ""),
+    ),
+}
 
 
 def variant_units(K, model, unit: str, variants, build: bool = True) -> dict:
@@ -130,6 +165,62 @@ def unit_figures(K, prefix: str, unit: str, stage: str) -> dict:
     return out
 
 
+def k3_probe_units(K, model) -> dict:
+    """K3's timing-only variants (``K3_PROBES``) as kernel sets with only
+    the bwd unit, where every replacement applies to ``K``'s source; {}
+    otherwise (a unit of another design)."""
+    src = K.sources["bwd"]
+    out = {}
+    for name, edits in K3_PROBES.items():
+        if not all(old in src for old, _ in edits):
+            continue
+        V = type("K3Probe", (type(K),), {"UNITS": {"bwd": type(K).UNITS["bwd"]}})(
+            model, DT, w_q=K.P.w_q, w_dq=K.P.w_dq, w_u=K.P.w_u, w_terminal=K.P.wT[0], u_lim=K.P.u_lim)
+        for old, new in edits:
+            V.sources["bwd"] = V.sources["bwd"].replace(old, new)
+        out[name] = V
+    return out
+
+
+def sass_classes(path: str) -> dict:
+    """Static SASS instruction counts of the library at ``path`` by opcode
+    class (``cuobjdump -sass``, beside nvcc): shared loads by width
+    (``LDS``, ``LDS.64``, ``LDS.128``), shared stores, ``FMUL``, ``FADD``,
+    integer (``I*``, ``LEA``, ``SHF``, ``LOP3``, ``SEL``, ``PRMT``,
+    ``MOV``), branch (``BRA``, ``BSSY``, ``BSYNC``, ``CALL``, ``RET``,
+    ``EXIT``), ``WARPSYNC``/``BAR`` and the total; {} without cuobjdump.
+    ``chip_smoke.py`` reads K3's so."""
+    import re
+
+    from manipulapy_tpu_torch.ops._build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(os.path.realpath(nvcc_path())), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True, timeout=120).stdout
+    out = dict.fromkeys(("LDS", "LDS.64", "LDS.128", "STS", "FMUL", "FADD", "integer", "branch", "sync", "total"), 0)
+    for ln in sass.splitlines():
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)((?:\.[A-Z0-9_]+)*)", ln)
+        if not m:
+            continue
+        op, mods = m.group(1), m.group(2).split(".")[1:]
+        out["total"] += 1
+        if op == "LDS":
+            width = next((w for w in ("128", "64") if w in mods), None)
+            out[f"LDS.{width}" if width else "LDS"] += 1
+        elif op == "STS":
+            out["STS"] += 1
+        elif op in ("FMUL", "FADD"):
+            out[op] += 1
+        elif op.startswith("I") or op in ("LEA", "SHF", "LOP3", "SEL", "PRMT", "MOV"):
+            out["integer"] += 1
+        elif op in ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "BREAK", "BRX", "JMP"):
+            out["branch"] += 1
+        elif op in ("WARPSYNC", "BAR", "NANOSLEEP"):
+            out["sync"] += 1
+    return out
+
+
 def k6_jvp_unit(S, model):
     """K6's unit as it was before the lean body: the one-seed ``fd_step_jvp``
     one thread a lane, blocks of one warp, ptxas at its default -O3 (the
@@ -152,6 +243,9 @@ def main() -> int:
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     parser.add_argument("--batched-only", action="store_true",
                         help="time the batched solve and K2-K5 alone (no rollout, planning or single solve)")
+    parser.add_argument("--k3", action="store_true",
+                        help="time the batched solve and K2-K5 alone, K3's variants only (with --variants), and K3 "
+                             "on the fleet's joint counts (FLEET_K3)")
     parser.add_argument("--variants", action="store_true",
                         help="also build and time the design variants of K1, K2, K4, K5, K7 and K8")
     cli = parser.parse_args()
@@ -211,6 +305,7 @@ def main() -> int:
     ur5, panda = catalog.ur5(), catalog.panda()
     out = {"root": root, "card": card}
 
+    cli.batched_only = cli.batched_only or cli.k3
     if not cli.batched_only:  # the rollouts, the planning path and K1
         q0, dq0, tau = rand(131072, 6) * 2 - 1, rand(131072, 6) - 0.5, rand(131072, 50, 6) * 20 - 10
         out["rollout_ms"] = time_ms(lambda: trajectory.forward_dynamics_trajectory(ur5, q0, dq0, tau, dt=DT))
@@ -275,10 +370,16 @@ def main() -> int:
     # K2 at its other seeds a thread.
     from manipulapy_tpu_torch.ops import cuda_mpc_batch
 
-    lin_variants = block_variants = replay_variants = {}
+    lin_variants = block_variants = replay_variants = k3_variants = {}
     ur5_other = None
-    if cli.variants and getattr(cuda_mpc_batch.BatchMPCKernels, "TEAM_WARPS", None) == 0:
+    if cli.variants:
         Kp = build_batch_tracking_mpc(panda, torch.zeros(7, device="cuda"), 1, H, DT).kernels
+        k3_variants = k3_probe_units(Kp, panda)
+        if hasattr(cuda_mpc_batch, "BWD_FORMS"):  # K3's other form where the tree routes it by joint count
+            k3_variants.update({f: type(Kp)(panda, DT, w_q=Kp.P.w_q, w_dq=Kp.P.w_dq, w_u=Kp.P.w_u, w_terminal=Kp.P.wT[0],
+                                            u_lim=Kp.P.u_lim, _bwd_form=f)
+                                for f in cuda_mpc_batch.BWD_FORMS if f != Kp.bwd_form})
+    if cli.variants and not cli.k3 and getattr(cuda_mpc_batch.BatchMPCKernels, "TEAM_WARPS", None) == 0:
         lin_variants = variant_units(Kp, panda, "lin", [(g, {"LIN_SEEDS": g}) for g in LIN_VARIANTS], build=False)
         block_variants = variant_units(Kp, panda, "fwd", [(t, {"DEFINES": {**Kp.DEFINES, "MPT_BLOCK": t}})
                                                           for t in K4_BLOCKS], build=False)
@@ -297,6 +398,10 @@ def main() -> int:
             out.update(unit_figures(V, f"replay_{name}", "fwd", "replay"))
         out.update(unit_figures(Ku, "ur5_linearize", "lin", "linearize"))
         out.update(unit_figures(ur5_other, f"ur5_linearize_G{ur5_seeds}", "lin", "linearize"))
+    build_sets(k3_variants.values())
+    for name, V in k3_variants.items():
+        out.update(unit_figures(V, f"backward_{name}", "bwd", "backward"))
+        out[f"backward_{name}_sass"] = sass_classes(str(V.build()["bwd"].path))
     for B in B_WIDTHS:
         x0 = torch.cat([(lo + hi) / 2 + (rand(B, 7) * 2 - 1) * 0.25 * (hi - lo), torch.zeros(B, 7, device="cuda")], 1)
         goals = torch.clamp(x0[:, :7] + (rand(B, 7) * 2 - 1) * 0.3, lo, hi)
@@ -320,9 +425,23 @@ def main() -> int:
         if B == B_WIDTHS[0]:
             out.update(unit_figures(K, "linearize", "lin", "linearize"))
             out.update(unit_figures(K, "backward", "bwd", "backward"))
+            out["backward_sass"] = sass_classes(str(K.build()["bwd"].path))
+            out["backward_dynamic_smem_bytes"] = K.layout_bytes().get("backward")
+            if hasattr(K, "bwd_blocks_per_sm"):
+                out["backward_blocks_per_sm"] = K.bwd_blocks_per_sm()
             out.update(unit_figures(K, "replay", "fwd", "replay"))
             if "linesearch" in args:
                 out.update(unit_figures(K, "linesearch", "fwd", "linesearch"))
+        if k3_variants:  # K3 as built and its variants, in turns; a routed form bitwise the route's
+            runs = {"": K, **{f"_{name}": V for name, V in k3_variants.items()}}
+            for name, V in k3_variants.items():
+                if name in getattr(cuda_mpc_batch, "BWD_FORMS", ()) and not same((V.backward(*bwd_args),), (kK,)):
+                    raise AssertionError(f"K3's {name} form differs from the route's at B={B}")
+            times = {k: [] for k in runs}
+            for _ in range(5):
+                for k, V in runs.items():
+                    times[k].append(time_ms(lambda: V.backward(*bwd_args)))
+            out.update({f"backward_ms_turns_B{B}{k}": statistics.median(v) for k, v in times.items()})
         AB = K.linearize(sd_x, us)
         for g, V in lin_variants.items():
             if not same((V.linearize(sd_x, us),), (AB,)):
@@ -352,6 +471,35 @@ def main() -> int:
                 raise AssertionError(f"UR5's K2 with {ur5_seeds} seeds a thread differs from the default at B={B}")
             out[f"ur5_linearize_ms_B{B}"] = time_ms(lambda: Ku.linearize(sd_u, us_u))
             out[f"ur5_linearize_ms_B{B}_G{ur5_seeds}"] = time_ms(lambda: ur5_other.linearize(sd_u, us_u))
+
+    if cli.k3:  # K3 alone on the fleet's joint counts, B=1024, on inputs from a seed (its time does not depend on them)
+        from manipulapy_tpu_torch.models import robot_data
+
+        fleet = {label: robot_data.load_robot(key, chain_joints_only=chain) for label, (key, chain) in FLEET_K3.items()}
+        sets = {label: type("Bwd", (cuda_mpc_batch.BatchMPCKernels,), {"UNITS": {"bwd": ("backward",)}})(
+            model, DT, u_lim=[10.0] * model.num_joints) for label, model in fleet.items()}
+        build_sets(sets.values())
+        gen.manual_seed(2)
+        B, fleet_args = B_WIDTHS[0], {}
+        for label, V in sets.items():
+            n = V.n
+            noise = lambda *s: (rand(*s) * 2 - 1) * 0.2
+            AB = noise(H, 2 * n, 3 * n, B) * 0.1
+            AB[:, :, : 2 * n] += torch.eye(2 * n, device="cuda")[None, :, :, None]
+            fleet_args[label] = (AB.contiguous(), noise(H, 2 * n, B), noise(H, n, B), noise(2 * n, B), noise(n, B),
+                                 rand(B) + 1e-3)
+            out[f"fleet_backward_finite_{label}"] = bool(torch.isfinite(V.backward(*fleet_args[label])).all())
+            out.update(unit_figures(V, f"fleet_backward_{label}", "bwd", "backward"))
+            if hasattr(V, "bwd_blocks_per_sm"):
+                out[f"fleet_backward_blocks_per_sm_{label}"] = V.bwd_blocks_per_sm()
+        # A launch as the median of five turns of 20 back-to-back launches,
+        # the robots in turns (a gripper's single launches spread ~20%).
+        times = {label: [] for label in sets}
+        for _ in range(5):
+            for label, V in sets.items():
+                times[label].append(per_call_ms(lambda: V.backward(*fleet_args[label])))
+        out.update({f"fleet_backward_ms_{label}": statistics.median(v) for label, v in times.items()})
+        out.update({f"fleet_backward_spread_{label}": max(v) / min(v) - 1 for label, v in times.items()})
 
     if not cli.batched_only:  # the single-problem solve and K6-K8
         single = build_tracking_mpc(panda, Q_GOAL7, H, DT, iterations=ITERS, line_search_steps=ALPHAS)

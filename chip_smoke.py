@@ -4161,8 +4161,11 @@ def main() -> int:
                                     "num_regs": mpc_attrs[f"panda K4 T{t}"]["linesearch"]["num_regs"],
                                     "local_bytes": mpc_attrs[f"panda K4 T{t}"]["linesearch"]["local_bytes"]}
                                 for t in K4_BLOCKS})
-        if stage == "backward":
-            records[-1].update(dynamic_smem_bytes=K.layout_bytes()["backward"])
+        if stage == "backward":  # its shared storage, blocks an SM and SASS by opcode class (static counts)
+            from chip_compare import sass_classes
+
+            records[-1].update(dynamic_smem_bytes=K.layout_bytes()["backward"], blocks_per_sm=K.bwd_blocks_per_sm(),
+                               sass=sass_classes(str(K.build()["bwd"].path)))
         if stage in FWD_NAMES:  # the other form's record after the route's
             records.append(fwd_records[stage, OTHER_FORM[fwd_route]])
 

@@ -264,341 +264,558 @@ extern "C" int occupancy_linearize(int* blocks) {
 
 // ---------------------------------------------------------------- K3 -----
 #if defined(MPT_UNIT_BWD)
-// One warp per scenario. The warp's state lives in its own region of
-// shared memory (`mpt_bwd_team`) and each step of the sweep is a sequence of
-// phases, `__syncwarp()` between them. Every output entry of a phase belongs
-// to one lane (round robin, e = lane, lane + 32, ...), and that lane takes
-// the entry's whole sum in the emitter's order (`riccati_step` of
-// ops/cuda_mpc_batch.py: the first term, then left to right), so each
-// entry gets the plain version's IEEE operations and, with --fmad=false,
-// its bits. The generated part of the unit gives `riccati_terminal`,
-// MPT_BWD_2WX (2 w_x, nx) and MPT_BWD_2WU (2 w_u): the folded weights. Where
-// a weight is exactly 0 the plain version folds its term away and the
-// kernel multiplies by 0; the two differ only for a non-finite input or in
-// the sign of a zero.
+// One warp per scenario, MPT_BWD_WARPS scenarios a block. The warp's state
+// lives in its own region of shared memory (`mpt_bwd_team`); the block's
+// threads copy the next step's inputs of all its scenarios into them
+// together (bwd_stage), and each step of the sweep is four phases,
+// `__syncwarp()` between them and `__syncthreads()` after the last:
+//   A  lane c takes column c of [A | B] (and c + 32 past ten joints): Qx_c
+//      or Qu_c, then column c of Vxx [A | B] in its registers, then column c
+//      of the Q blocks, Q[r][c] = [A | B][:, r] . (Vxx [A | B])[:, c]. Vx,
+//      Vxx's rows and the columns r are broadcasts: every lane reads the same
+//      four floats at once. Lanes past the m columns help the longest
+//      columns with their Q entries.
+//   B  lane c < 1 + nx forms the whole Cholesky factor of Quu
+//      in its registers (every solving lane does the same operations, so
+//      gets the same bits) and solves column c of [Qu | Qux], storing -z as
+//      column c of the gains. Past MPT_BWD_FACTOR_REGS joints the factor
+//      would spill: there it lives in shared memory, one phase a column
+//      before the solves (n + 3 phases a step).
+//   C  lane i < nx forms row i of K^T Quu (Quu's rows broadcasts); the
+//      lanes past nx (wrapping past 32) form Quu k.
+//   D  Vx' on lanes 0 .. nx-1, then Vxx''s upper triangle in 2x2 tiles, one
+//      tile a lane (round robin past 32 tiles), mirrored into V.
+// Every output entry belongs to one lane, which takes its whole sum in the
+// emitter's order (`riccati_step` of ops/cuda_mpc_batch.py: the first term,
+// then left to right), so each entry gets the plain version's IEEE
+// operations and, with --fmad=false, its bits. Every loop over the unit's
+// dimensions is unrolled at compile time; which entries a lane owns follows
+// from its lane index alone (the tiles' indices are set once a sweep). The
+// generated part of the unit gives `riccati_terminal`, MPT_BWD_2WX (2 w_x,
+// nx) and MPT_BWD_2WU (2 w_u): the folded weights. Where a weight is exactly
+// 0 the plain version folds its term away and the kernel multiplies by 0;
+// the two differ only for a non-finite input or in the sign of a zero.
 #define MPT_BWD_WARPS 4                       // scenarios per block
 #define MPT_LANES 32
 #define MPT_AB (MPT_NX * MPT_M)               // [A | B] of one step
-#define MPT_UPPER (MPT_NX * (MPT_NX + 1) / 2)  // upper triangle of nx x nx
 #define MPT_KKN (MPT_NJ * MPT_KK)             // gains of one step
 #define MPT_ROUNDS(count) (((count) + MPT_LANES - 1) / MPT_LANES)
-// Registers a lane holds the next step's inputs in: its entries of AB, then
-// of [x; u].
-#define MPT_PRE_AB MPT_ROUNDS(MPT_AB)
-#define MPT_PRE (MPT_PRE_AB + MPT_ROUNDS(MPT_NX + MPT_NJ))
+#define MPT_PAD4(count) (((count) + 3) / 4 * 4)
+#define MPT_NXS MPT_PAD4(MPT_NX)  // row stride of an nx-wide row: whole float4s
+#define MPT_NS MPT_PAD4(MPT_NJ)   // row stride of an n-wide row
+// Column stride of [A | B]: an odd number of float4s, so that lanes reading
+// their own columns at once meet in no bank.
+#define MPT_ABS ((MPT_NXS / 4 | 1) * 4)
+#define MPT_TILES (MPT_NJ * (MPT_NJ + 1) / 2)  // 2x2 tiles on or above Vxx's diagonal
+// Step t-1's [A | B], x and u arrive in the other of two buffers by
+// asynchronous copies (cp.async: no register holds them) while step t runs
+// (two or three steps ahead were no faster on any joint count).
+// Blocks an SM must hold, which caps the registers a thread takes: up to 7
+// joints 4 (128 registers), at 8 joints 3 (168), elsewhere as many as the
+// body needs. Each is the largest that spills nothing, where it was faster
+// on the card (an H100; PERF.md section 6).
+#define MPT_BWD_MIN_BLOCKS (MPT_NJ <= 7 ? 4 : MPT_NJ == 8 ? 3 : 1)
+#define MPT_BWD_FACTOR_REGS 13  // joints up to which a lane holds the whole factor in registers
+#if MPT_NJ > MPT_BWD_FACTOR_REGS
+#define MPT_BWD_SHARED_FACTOR 1
+#endif
+// Phase A's work a lane. Column c's Q entries are its Qux (or Quu) rows r =
+// nx .. m-1, then Qxx's rows r = 0 .. c (c < nx). Where the m columns leave
+// lanes over (n <= 10), lane m + h helps column nx-1-h, h < MPT_HELPERS:
+// the column's own lane keeps its n rows r >= nx and Qxx's rows 0 .. a-1,
+// the helper takes rows a .. c, a = max(0, (c + 2 - n) / 2) so that neither
+// has more than half but the own lane all its rows r >= nx.
+#define MPT_MAX2(p, q) ((p) > (q) ? (p) : (q))
+#define MPT_HELPERS (MPT_LANES <= MPT_M ? 0 : MPT_LANES - MPT_M < MPT_NX ? MPT_LANES - MPT_M : MPT_NX)
+#define MPT_KEPT(c) MPT_MAX2(0, ((c) + 2 - MPT_NJ) / 2)
+// The most Q entries a lane has: an unhelped column's, a helped column's
+// own lane's, or a helper's (the longest column's each).
+#define MPT_Q_ITERS                                                             \
+  MPT_MAX2(MPT_MAX2(MPT_NJ, MPT_HELPERS < MPT_NX ? MPT_M - MPT_HELPERS : 0),    \
+           MPT_HELPERS ? MPT_MAX2(MPT_NJ + MPT_KEPT(MPT_NX - 1), MPT_NX - MPT_KEPT(MPT_NX - 1)) : 0)
 
-// One warp's storage (Panda: 1191 floats). Row-major matrices, one region
-// per warp, so the lanes of a phase read neighbouring entries of one row
-// or one entry for all (a broadcast). VAB is dead once the Q blocks exist,
-// and the factor, the gains and their products take its place.
+// One warp's storage (Panda: 1840 floats). Every row and column starts on
+// a float4, so a lane reads four floats of it with one load.
 struct mpt_bwd_team {
-  float V[MPT_VN];   // Vxx rows, then Vx: of step t+1, of step t after phase 7
-  float ab[MPT_AB];  // row i: A_t[i, :], then B_t[i, :]
-  float x[MPT_NX], u[MPT_NJ], g[MPT_NJ];
-  float Qx[MPT_NX], Qu[MPT_NJ];
-  float Qxx[MPT_NX * MPT_NX];  // upper triangle only
-  float Quu[MPT_NJ * MPT_NJ];
-  float Qux[MPT_NJ * MPT_NX];
+  float V[(MPT_NX + 1) * MPT_NXS];  // Vxx's rows, then Vx: of step t+1, of step t after phase D
+  float ab[2][MPT_M * MPT_ABS];     // step t's in ab[t & 1]: column c of [A | B] at c * MPT_ABS
+  float x[2][MPT_NXS], u[2][MPT_NS];
   union {
-    float VAB[MPT_AB];  // phases 2-3: Vxx [A | B]
+    float Vt[MPT_VN];  // the terminal value function (row stride nx), until it is copied into V
     struct {
-      float L[MPT_NJ * MPT_NJ], inv_d[MPT_NJ];      // phase 4 on
-      float kk[MPT_KKN];                             // phase 5 on: k_j, row j of K
-      float Quu_k[MPT_NJ], KtQuu[MPT_NX * MPT_NJ];  // phase 6 on
-    } s;
+      float Qxx[MPT_NX * MPT_NXS];  // upper triangle only
+      float Qux[MPT_NJ * MPT_NXS];
+    } q;
   };
-  float reg;
+  float Quu[MPT_NJ * MPT_NS];
+#ifdef MPT_BWD_SHARED_FACTOR
+  float L[MPT_NJ * MPT_NS], inv_d[MPT_NS];  // the factor's lower triangle, 1 / its diagonal
+#endif
+  float K[MPT_NJ * MPT_NXS];      // K[j][i] at j * MPT_NXS + i
+  float KtQuu[MPT_NJ * MPT_NXS];  // (K^T Quu)[i][j2] at j2 * MPT_NXS + i
+  float Qx[MPT_NXS];  // x_T until step H-1's phase A
+  float Qu[MPT_NS], g[MPT_NS], k[MPT_NS], Quu_k[MPT_NS];
+  float reg[4];
 };
 
-// Entry e of the upper triangle, row by row: (i, k) with k >= i.
-static __device__ __forceinline__ void mpt_upper(int e, int* i, int* k) {
-  int r = 0;
-  while (e >= MPT_NX - r) {
-    e -= MPT_NX - r;
-    ++r;
+// What a lane keeps in registers from phase to phase: its work in phase A,
+// a column a round (c | first row past nx's Qux rows << 8 | first Qxx row
+// << 16 | entries << 24: the own lane's Qux rows come first, a helper has
+// none), and phase D's tiles (row tile << 8 | column tile, -1 past the
+// last).
+struct mpt_bwd_lane {
+  int col[MPT_ROUNDS(MPT_M)];
+  int tile[MPT_ROUNDS(MPT_TILES)];
+};
+
+// N floats from shared memory (N a multiple of 4), a float4 at a time.
+template <int N>
+static __device__ __forceinline__ void mpt_row(float* dst, const float* src) {
+#ifdef __CUDACC__
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src + i);
+    dst[i] = v.x;
+    dst[i + 1] = v.y;
+    dst[i + 2] = v.z;
+    dst[i + 3] = v.w;
   }
-  *i = r;
-  *k = r + e;
+#else
+  for (int i = 0; i < N; ++i) dst[i] = src[i];
+#endif
+}
+
+// Two floats from shared memory, one load.
+static __device__ __forceinline__ void mpt_pair(float* dst, const float* src) {
+#ifdef __CUDACC__
+  const float2 v = *reinterpret_cast<const float2*>(src);
+  dst[0] = v.x;
+  dst[1] = v.y;
+#else
+  dst[0] = src[0];
+  dst[1] = src[1];
+#endif
+}
+
+// The lane's columns of phase A and tiles of Vxx''s upper triangle, row
+// tile by row tile (once a sweep).
+static __device__ __forceinline__ void bwd_lane_setup(int lane, mpt_bwd_lane* me) {
+#pragma unroll
+  for (int p = 0; p < MPT_ROUNDS(MPT_M); ++p) {
+    const int c = lane + p * MPT_LANES, h = c - MPT_M;
+    if (c < MPT_M) {
+      const bool helped = c < MPT_NX && MPT_NX - 1 - c < MPT_HELPERS;
+      const int rows = c >= MPT_NX ? 0 : helped ? MPT_KEPT(c) : c + 1;
+      me->col[p] = c | MPT_NJ << 8 | (MPT_NJ + rows) << 24;
+    } else if (p == 0 && h < MPT_HELPERS) {
+      const int hc = MPT_NX - 1 - h;
+      me->col[p] = hc | MPT_KEPT(hc) << 16 | (hc + 1 - MPT_KEPT(hc)) << 24;
+    } else {
+      me->col[p] = 0;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < MPT_ROUNDS(MPT_TILES); ++p) {
+    int e = lane + p * MPT_LANES, ti = 0;
+    while (ti < MPT_NJ && e >= MPT_NJ - ti) {
+      e -= MPT_NJ - ti;
+      ++ti;
+    }
+    me->tile[p] = ti < MPT_NJ ? (ti << 8 | (ti + e)) : -1;
+  }
 }
 
 static __device__ __forceinline__ void bwd_load_ends(
     int lane, mpt_bwd_team* tm, const float* __restrict__ x_last,
     const float* __restrict__ goal, const float* __restrict__ reg, int B, int b) {
+  if (b >= B) return;  // a warp past the last scenario: it only keeps the block's pace
   for (int e = lane; e <= MPT_NX + MPT_NJ; e += MPT_LANES) {
-    if (e < MPT_NX) tm->x[e] = MPT_AT(x_last, e, b, B);
+    if (e < MPT_NX) tm->Qx[e] = MPT_AT(x_last, e, b, B);
     else if (e < MPT_NX + MPT_NJ) tm->g[e - MPT_NX] = MPT_AT(goal, e - MPT_NX, b, B);
-    else tm->reg = reg[b];
+    else tm->reg[0] = reg[b];
   }
 }
 
-// Step t's inputs into the lane's registers (issued a step ahead of use).
-static __device__ __forceinline__ void bwd_prefetch(
-    int lane, float* pre, const float* __restrict__ AB, const float* __restrict__ xs,
-    const float* __restrict__ us, int B, int b, int t) {
-  const size_t ab_row = (size_t)t * MPT_AB;
-#pragma unroll
-  for (int r = 0; r < MPT_PRE_AB; ++r) {
-    const int e = lane + r * MPT_LANES;
-    if (e < MPT_AB) pre[r] = MPT_AT(AB, ab_row + e, b, B);
-  }
-#pragma unroll
-  for (int r = MPT_PRE_AB; r < MPT_PRE; ++r) {
-    const int e = lane + (r - MPT_PRE_AB) * MPT_LANES;
-    if (e < MPT_NX) pre[r] = MPT_AT(xs, (size_t)t * MPT_NX + e, b, B);
-    else if (e < MPT_NX + MPT_NJ) pre[r] = MPT_AT(us, (size_t)t * MPT_NJ + (e - MPT_NX), b, B);
+// The terminal value function into V's padded rows.
+static __device__ __forceinline__ void bwd_terminal_copy(int lane, mpt_bwd_team* tm) {
+  for (int e = lane; e < MPT_VN; e += MPT_LANES) {
+    const int r = e / MPT_NX;
+    tm->V[r * MPT_NXS + (e - r * MPT_NX)] = tm->Vt[e];
   }
 }
 
-static __device__ __forceinline__ void bwd_commit(int lane, mpt_bwd_team* tm, const float* pre) {
+// One float from global to shared memory: on the card an asynchronous copy
+// (cp.async), which holds no register and does not stall the lane; a plain
+// copy in the host harness. bwd_wait completes the thread's copies.
+static __device__ __forceinline__ void bwd_copy(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned int to = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(to), "l"(src) : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+static __device__ __forceinline__ void bwd_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// Step t's inputs for the block's scenarios b0 .. b0 + MPT_BWD_WARPS - 1
+// into buffer t & 1 of each one's storage (issued a step ahead of use), by
+// the block's threads together: thread tid copies entries f = tid / W, + 32,
+// + 64, ... of scenario b0 + tid % W (W = MPT_BWD_WARPS). A warp's copy thus
+// reads 8 entries of 4 neighbouring scenarios, 16 bytes of a sector each,
+// where one warp a scenario would read 32 sectors for 4 bytes each. The
+// entries run column by column (f = c nx + l), so neighbouring threads fill
+// neighbouring words of a column; entry f0 + 32 r is column c0 + 32 r / nx,
+// row l0 + 32 r % nx (one column on where that passes nx), with c0, l0
+// entry f0's: no division a round. A step's [A | B] of all B scenarios is
+// indexed in 32 bits (launch_backward refuses a B past that).
+static __device__ __forceinline__ void bwd_stage(
+    int tid, mpt_bwd_team* teams, const float* __restrict__ AB, const float* __restrict__ xs,
+    const float* __restrict__ us, int B, int b0, int t) {
+  int f0 = tid / MPT_BWD_WARPS;
+#ifdef __CUDA_ARCH__
+  // f0 opaque to the compiler: it forms the copies' addresses anew at each
+  // step rather than holding them all in registers through the sweep.
+  asm volatile("" : "+r"(f0));
+#endif
+  const int s = tid % MPT_BWD_WARPS, b = b0 + s;
+  if (b >= B) return;
+  mpt_bwd_team* tm = teams + s;
+  const int c0 = f0 / MPT_NX, l0 = f0 - c0 * MPT_NX;
+  const float* src = AB + (size_t)t * MPT_AB * (size_t)B + (size_t)b;
+  float* ab = tm->ab[t & 1];
 #pragma unroll
-  for (int r = 0; r < MPT_PRE_AB; ++r) {
-    const int e = lane + r * MPT_LANES;
-    if (e < MPT_AB) tm->ab[e] = pre[r];
+  for (int r = 0; r < MPT_ROUNDS(MPT_AB); ++r) {
+    const int wrap = l0 + r * MPT_LANES % MPT_NX >= MPT_NX;
+    const int c = c0 + r * MPT_LANES / MPT_NX + wrap, l = l0 + r * MPT_LANES % MPT_NX - wrap * MPT_NX;
+    if (c < MPT_M) bwd_copy(ab + c * MPT_ABS + l, src + (unsigned int)(l * MPT_M + c) * (unsigned int)B);
   }
 #pragma unroll
-  for (int r = MPT_PRE_AB; r < MPT_PRE; ++r) {
-    const int e = lane + (r - MPT_PRE_AB) * MPT_LANES;
-    if (e < MPT_NX) tm->x[e] = pre[r];
-    else if (e < MPT_NX + MPT_NJ) tm->u[e - MPT_NX] = pre[r];
+  for (int r = 0; r < MPT_ROUNDS(MPT_NX + MPT_NJ); ++r) {
+    const int e = f0 + r * MPT_LANES;
+    if (e < MPT_NX) bwd_copy(tm->x[t & 1] + e, &MPT_AT(xs, (size_t)t * MPT_NX + e, b, B));
+    else if (e < MPT_NX + MPT_NJ) bwd_copy(tm->u[t & 1] + (e - MPT_NX), &MPT_AT(us, (size_t)t * MPT_NJ + (e - MPT_NX), b, B));
   }
 }
 
-// Phase 1: Qx = lx + Vx A, Qu = lu + Vx B; entry e is column e of [A | B].
-static __device__ __forceinline__ void bwd_gradients(int lane, mpt_bwd_team* tm) {
-  const float* Vx = tm->V + MPT_NX * MPT_NX;
-  for (int e = lane; e < MPT_M; e += MPT_LANES) {
-    float s = Vx[0] * tm->ab[e];
+// Phase A, the lane's work on column c of [A | B] (a), `col` of
+// mpt_bwd_lane:
+//   Qx_c = lx_c + Vx . a (c < nx), Qu_{c-nx} = lu + Vx . a (the own lane);
+//   VAB_c = Vxx a, each row of Vxx a broadcast;
+//   Q[r][c] = [A | B][:, r] . VAB_c for the lane's rows r of Qxx's upper
+//   triangle (+ 2 w_x on its diagonal), Qux, and Quu (+ (2 w_u + reg) on its
+//   diagonal). The own lanes' r agree at each round, a broadcast.
+static __device__ __forceinline__ void bwd_column(int col, mpt_bwd_team* tm, int t) {
+  const int c = col & 255, qux = col >> 8 & 255, r0 = col >> 16 & 255, count = col >> 24;
+  const float* ab = tm->ab[t & 1];
+  const float* x = tm->x[t & 1];
+  float a[MPT_NXS], v[MPT_NXS];
+  mpt_row<MPT_NXS>(a, ab + c * MPT_ABS);
+  if (qux) {
+    mpt_row<MPT_NXS>(v, tm->V + MPT_NX * MPT_NXS);
+    float s = v[0] * a[0];
 #pragma unroll
-    for (int k = 1; k < MPT_NX; ++k) s = s + Vx[k] * tm->ab[k * MPT_M + e];
-    if (e < MPT_NJ) tm->Qx[e] = MPT_BWD_2WX[e] * (tm->x[e] - tm->g[e]) + s;
-    else if (e < MPT_NX) tm->Qx[e] = MPT_BWD_2WX[e] * tm->x[e] + s;  // goal velocity 0
-    else tm->Qu[e - MPT_NX] = MPT_BWD_2WU * tm->u[e - MPT_NX] + s;
+    for (int k = 1; k < MPT_NX; ++k) s = s + v[k] * a[k];
+    if (c < MPT_NJ) tm->Qx[c] = MPT_BWD_2WX[c] * (x[c] - tm->g[c]) + s;
+    else if (c < MPT_NX) tm->Qx[c] = MPT_BWD_2WX[c] * x[c] + s;  // goal velocity 0
+    else tm->Qu[c - MPT_NX] = MPT_BWD_2WU * tm->u[t & 1][c - MPT_NX] + s;
+  }
+  float vab[MPT_NX];
+#pragma unroll
+  for (int k = 0; k < MPT_NX; ++k) {
+    mpt_row<MPT_NXS>(v, tm->V + k * MPT_NXS);
+    float sk = v[0] * a[0];
+#pragma unroll
+    for (int l = 1; l < MPT_NX; ++l) sk = sk + v[l] * a[l];
+    vab[k] = sk;
+  }
+  const float diag = c < MPT_NX ? MPT_BWD_2WX[c] : MPT_BWD_2WU + tm->reg[0];
+  // Every round runs on every lane (a lane past its count sums a row it
+  // does not store), so the rounds' sums form one straight line whose
+  // chains the compiler interleaves.
+#pragma unroll
+  for (int e = 0; e < MPT_Q_ITERS; ++e) {
+    const int q = e < qux ? MPT_NX + e : r0 + (e - qux);
+    const int r = q < MPT_M ? q : MPT_M - 1;
+    mpt_row<MPT_NXS>(v, ab + r * MPT_ABS);
+    float sr = v[0] * vab[0];
+#pragma unroll
+    for (int l = 1; l < MPT_NX; ++l) sr = sr + v[l] * vab[l];
+    if (r == c) sr = sr + diag;
+    float* dst = r < MPT_NX ? tm->q.Qxx + r * MPT_NXS + c
+                 : c < MPT_NX ? tm->q.Qux + (r - MPT_NX) * MPT_NXS + c
+                              : tm->Quu + (r - MPT_NX) * MPT_NS + (c - MPT_NX);
+    if (e < count) *dst = sr;
   }
 }
 
-// Phase 2: VAB = Vxx [A | B] (VA, then VB, per row).
-static __device__ __forceinline__ void bwd_value_products(int lane, mpt_bwd_team* tm) {
-  for (int e = lane; e < MPT_AB; e += MPT_LANES) {
-    const int k = e / MPT_M, c = e - k * MPT_M;
-    const float* Vk = tm->V + k * MPT_NX;
-    float s = Vk[0] * tm->ab[c];
+static __device__ __forceinline__ void bwd_columns(int lane, const mpt_bwd_lane* me, mpt_bwd_team* tm, int t) {
+  (void)lane;
 #pragma unroll
-    for (int l = 1; l < MPT_NX; ++l) s = s + Vk[l] * tm->ab[l * MPT_M + c];
-    tm->VAB[e] = s;
-  }
+  for (int p = 0; p < MPT_ROUNDS(MPT_M); ++p)
+    if (me->col[p]) bwd_column(me->col[p], tm, t);
 }
 
-// Phase 3: Q[r][c] = sum_l [A | B][l][r] VAB[l][c] for the upper triangle
-// of Qxx (+ 2 w_x on its diagonal), Quu (+ (2 w_u + reg) on its diagonal)
-// and Qux.
-static __device__ __forceinline__ void bwd_q_blocks(int lane, mpt_bwd_team* tm) {
-  const float diag_u = MPT_BWD_2WU + tm->reg;
-  for (int e = lane; e < MPT_UPPER + MPT_NJ * MPT_NJ + MPT_NJ * MPT_NX; e += MPT_LANES) {
-    int r, c;
-    if (e < MPT_UPPER) {
-      mpt_upper(e, &r, &c);
-    } else if (e < MPT_UPPER + MPT_NJ * MPT_NJ) {
-      const int f = e - MPT_UPPER;
-      r = MPT_NX + f / MPT_NJ;
-      c = MPT_NX + f % MPT_NJ;
-    } else {
-      const int f = e - MPT_UPPER - MPT_NJ * MPT_NJ;
-      r = MPT_NX + f / MPT_NX;
-      c = f % MPT_NX;
-    }
-    float s = tm->ab[r] * tm->VAB[c];
-#pragma unroll
-    for (int l = 1; l < MPT_NX; ++l) s = s + tm->ab[l * MPT_M + r] * tm->VAB[l * MPT_M + c];
-    if (e < MPT_UPPER) {
-      if (r == c) s = s + MPT_BWD_2WX[r];
-      tm->Qxx[r * MPT_NX + c] = s;
-    } else if (r >= MPT_NX && c >= MPT_NX) {
-      if (r == c) s = s + diag_u;
-      tm->Quu[(r - MPT_NX) * MPT_NJ + (c - MPT_NX)] = s;
-    } else {
-      tm->Qux[(r - MPT_NX) * MPT_NX + c] = s;
-    }
-  }
-}
-
-// Phase 4, column j of the Cholesky factor of Quu (`_chol_solve_cols`):
-// every lane i >= j forms the pivot d = sqrt(Quu_jj - sum_k L_jk^2) and 1/d
-// (the same operations, so the same bits), lane j stores them and each
-// lane i > j its L_ij.
-static __device__ __forceinline__ void bwd_cholesky_column(int lane, mpt_bwd_team* tm, int j) {
+// Phase B: the Cholesky factor of Quu (`_chol_solve_cols`, in place over
+// Quu's lower triangle) by every lane that solves, then lane c's column:
+// Quu z = rhs_c (rhs_0 = Qu, rhs_{1+i} = Qux[:, i]), forward then back
+// substitution, -z stored as column c of the gains, in kK[t] and in shared
+// memory (k, or column c-1 of K). Past 15 joints a step has more gain
+// columns (1 + nx) than a warp has lanes: lane c also takes column c + 32.
+#ifdef MPT_BWD_SHARED_FACTOR
+// Column j of the factor in shared memory: every lane i >= j forms the pivot
+// d = sqrt(Quu_jj - sum_k L_jk^2) and 1/d (the same operations, so the same
+// bits), lane j stores 1/d and each lane i > j its L_ij.
+static __device__ __forceinline__ void bwd_factor_column(int lane, mpt_bwd_team* tm, int j) {
   if (lane >= j && lane < MPT_NJ) {
-    float* L = tm->s.L;
-    float s = tm->Quu[j * MPT_NJ + j];
-    for (int k = 0; k < j; ++k) s = s - L[j * MPT_NJ + k] * L[j * MPT_NJ + k];
-    const float d = sqrtf(s);
-    const float inv = 1.0f / d;
+    const float* L = tm->L;
+    float s = tm->Quu[j * MPT_NS + j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) s = s - L[j * MPT_NS + k] * L[j * MPT_NS + k];
+    const float inv = 1.0f / sqrtf(s);
     if (lane == j) {
-      L[j * MPT_NJ + j] = d;
-      tm->s.inv_d[j] = inv;
+      tm->inv_d[j] = inv;
     } else {
-      float si = tm->Quu[lane * MPT_NJ + j];
-      for (int k = 0; k < j; ++k) si = si - L[lane * MPT_NJ + k] * L[j * MPT_NJ + k];
-      L[lane * MPT_NJ + j] = si * inv;
+      float si = tm->Quu[lane * MPT_NS + j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) si = si - L[lane * MPT_NS + k] * L[j * MPT_NS + k];
+      tm->L[lane * MPT_NS + j] = si * inv;
     }
   }
 }
+#define MPT_L(i, k) tm->L[(i) * MPT_NS + (k)]
+#define MPT_INV_D(i) tm->inv_d[i]
+#else
+#define MPT_L(i, k) L[i][k]
+#define MPT_INV_D(i) inv_d[i]
+#endif
 
-// Phase 5: lane c solves Quu z = rhs_c (rhs_0 = Qu, rhs_{1+i} = Qux[:, i]),
-// forward then back substitution, and stores -z as column c of the gains,
-// in shared memory and in kK[t].
-static __device__ __forceinline__ void bwd_solve_column(
-    int c, mpt_bwd_team* tm, float* __restrict__ kK, int B, int b, int t) {
-  const float* L = tm->s.L;
-  const float* inv_d = tm->s.inv_d;
-  float y[MPT_NJ], z[MPT_NJ];
-#pragma unroll
-  for (int i = 0; i < MPT_NJ; ++i) {
-    float s = c == 0 ? tm->Qu[i] : tm->Qux[i * MPT_NX + (c - 1)];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s = s - L[i * MPT_NJ + k] * y[k];
-    y[i] = s * inv_d[i];
-  }
-#pragma unroll
-  for (int i = MPT_NJ - 1; i >= 0; --i) {
-    float s = y[i];
-#pragma unroll
-    for (int k = i + 1; k < MPT_NJ; ++k) s = s - L[k * MPT_NJ + i] * z[k];
-    z[i] = s * inv_d[i];
-  }
-  const size_t row = (size_t)t * MPT_KKN;
-#pragma unroll
-  for (int j = 0; j < MPT_NJ; ++j) {
-    const float v = -z[j];
-    tm->s.kk[j * MPT_KK + c] = v;
-    MPT_AT(kK, row + j * MPT_KK + c, b, B) = v;
-  }
-}
-
-// Past 15 joints a step has more gain columns (1 + nx) than a warp has
-// lanes: lane c also takes column c + 32.
 static __device__ __forceinline__ void bwd_solve(
     int lane, mpt_bwd_team* tm, float* __restrict__ kK, int B, int b, int t) {
-  if (lane < MPT_KK) bwd_solve_column(lane, tm, kK, B, b, t);
-#if MPT_KK > MPT_LANES
-  if (lane + MPT_LANES < MPT_KK) bwd_solve_column(lane + MPT_LANES, tm, kK, B, b, t);
+  if (lane >= MPT_KK) return;
+#ifndef MPT_BWD_SHARED_FACTOR
+  float L[MPT_NJ][MPT_NJ], inv_d[MPT_NJ];
+#pragma unroll
+  for (int i = 0; i < MPT_NJ; ++i) {
+    float row[MPT_NS];
+    mpt_row<MPT_NS>(row, tm->Quu + i * MPT_NS);
+#pragma unroll
+    for (int j = 0; j <= i; ++j) L[i][j] = row[j];
+  }
+#pragma unroll
+  for (int j = 0; j < MPT_NJ; ++j) {
+    float s = L[j][j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) s = s - L[j][k] * L[j][k];
+    inv_d[j] = 1.0f / sqrtf(s);
+#pragma unroll
+    for (int i = j + 1; i < MPT_NJ; ++i) {
+      float si = L[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) si = si - L[i][k] * L[j][k];
+      L[i][j] = si * inv_d[j];
+    }
+  }
 #endif
+  const size_t row = (size_t)t * MPT_KKN;
+#pragma unroll
+  for (int p = 0; p < MPT_ROUNDS(MPT_KK); ++p) {
+    const int c = lane + p * MPT_LANES;
+    if (c >= MPT_KK) break;
+    float y[MPT_NJ], z[MPT_NJ];
+#pragma unroll
+    for (int i = 0; i < MPT_NJ; ++i) {
+      float s = c == 0 ? tm->Qu[i] : tm->q.Qux[i * MPT_NXS + (c - 1)];
+#pragma unroll
+      for (int k = 0; k < i; ++k) s = s - MPT_L(i, k) * y[k];
+      y[i] = s * MPT_INV_D(i);
+    }
+#pragma unroll
+    for (int i = MPT_NJ - 1; i >= 0; --i) {
+      float s = y[i];
+#pragma unroll
+      for (int k = i + 1; k < MPT_NJ; ++k) s = s - MPT_L(k, i) * z[k];
+      z[i] = s * MPT_INV_D(i);
+    }
+#pragma unroll
+    for (int j = 0; j < MPT_NJ; ++j) {
+      const float v = -z[j];
+      if (b < B) MPT_AT(kK, row + j * MPT_KK + c, b, B) = v;
+      if (c == 0) tm->k[j] = v;
+      else tm->K[j * MPT_NXS + (c - 1)] = v;
+    }
+  }
 }
 
-// Phase 6: Quu k, then K^T Quu.
+// Phase C: row i = lane of K^T Quu (lanes below nx), and Quu k (the lanes
+// past nx, then lanes 0, 1, ... where nx + n passes 32).
 static __device__ __forceinline__ void bwd_gain_products(int lane, mpt_bwd_team* tm) {
-  const float* kk = tm->s.kk;
-  for (int e = lane; e < MPT_NJ + MPT_NX * MPT_NJ; e += MPT_LANES) {
-    if (e < MPT_NJ) {
-      float s = tm->Quu[e * MPT_NJ] * kk[0];
+  float q[MPT_NS];
+  if (lane < MPT_NX) {
+    float acc[MPT_NJ];
 #pragma unroll
-      for (int j2 = 1; j2 < MPT_NJ; ++j2) s = s + tm->Quu[e * MPT_NJ + j2] * kk[j2 * MPT_KK];
-      tm->s.Quu_k[e] = s;
-    } else {
-      const int f = e - MPT_NJ, i = f / MPT_NJ, j2 = f % MPT_NJ;
-      float s = kk[1 + i] * tm->Quu[j2];
+    for (int j = 0; j < MPT_NJ; ++j) {
+      const float kji = tm->K[j * MPT_NXS + lane];
+      mpt_row<MPT_NS>(q, tm->Quu + j * MPT_NS);
 #pragma unroll
-      for (int j = 1; j < MPT_NJ; ++j) s = s + kk[j * MPT_KK + 1 + i] * tm->Quu[j * MPT_NJ + j2];
-      tm->s.KtQuu[i * MPT_NJ + j2] = s;
+      for (int j2 = 0; j2 < MPT_NJ; ++j2) acc[j2] = j == 0 ? kji * q[j2] : acc[j2] + kji * q[j2];
     }
+#pragma unroll
+    for (int j2 = 0; j2 < MPT_NJ; ++j2) tm->KtQuu[j2 * MPT_NXS + lane] = acc[j2];
+  }
+  const int e = (lane + MPT_LANES - MPT_NX) % MPT_LANES;
+  if (e < MPT_NJ) {
+    float kv[MPT_NS];
+    mpt_row<MPT_NS>(q, tm->Quu + e * MPT_NS);
+    mpt_row<MPT_NS>(kv, tm->k);
+    float s = q[0] * kv[0];
+#pragma unroll
+    for (int j2 = 1; j2 < MPT_NJ; ++j2) s = s + q[j2] * kv[j2];
+    tm->Quu_k[e] = s;
   }
 }
 
-// Phase 7: Vx' = (Qx + K^T (Quu k + Qu)) + Qux^T k, and the upper triangle of
-// Vxx' = ((Qxx + K^T Quu K) + K^T Qux) + Qux^T K, mirrored, into V.
-static __device__ __forceinline__ void bwd_value_update(int lane, mpt_bwd_team* tm) {
-  const float* kk = tm->s.kk;  // K[j][i] = kk[j * MPT_KK + 1 + i], k_j = kk[j * MPT_KK]
-  for (int e = lane; e < MPT_NX + MPT_UPPER; e += MPT_LANES) {
-    if (e < MPT_NX) {
-      float s = kk[1 + e] * (tm->s.Quu_k[0] + tm->Qu[0]);
+// Phase D: Vx' = (Qx + K^T (Quu k + Qu)) + Qux^T k, then each of the lane's
+// tiles of Vxx' = ((Qxx + K^T Quu K) + K^T Qux) + Qux^T K, its entries on or
+// above the diagonal mirrored into V.
+static __device__ __forceinline__ void bwd_value_update(int lane, const mpt_bwd_lane* me, mpt_bwd_team* tm) {
+  const float* K = tm->K;
+  const float* Qux = tm->q.Qux;
+  if (lane < MPT_NX) {
+    float s = K[lane] * (tm->Quu_k[0] + tm->Qu[0]);
 #pragma unroll
-      for (int j = 1; j < MPT_NJ; ++j) s = s + kk[j * MPT_KK + 1 + e] * (tm->s.Quu_k[j] + tm->Qu[j]);
-      float s2 = tm->Qux[e] * kk[0];
+    for (int j = 1; j < MPT_NJ; ++j) s = s + K[j * MPT_NXS + lane] * (tm->Quu_k[j] + tm->Qu[j]);
+    float s2 = Qux[lane] * tm->k[0];
 #pragma unroll
-      for (int j = 1; j < MPT_NJ; ++j) s2 = s2 + tm->Qux[j * MPT_NX + e] * kk[j * MPT_KK];
-      tm->V[MPT_NX * MPT_NX + e] = (tm->Qx[e] + s) + s2;
-    } else {
-      int i, k;
-      mpt_upper(e - MPT_NX, &i, &k);
-      float a = tm->s.KtQuu[i * MPT_NJ] * kk[1 + k];
+    for (int j = 1; j < MPT_NJ; ++j) s2 = s2 + Qux[j * MPT_NXS + lane] * tm->k[j];
+    tm->V[MPT_NX * MPT_NXS + lane] = (tm->Qx[lane] + s) + s2;
+  }
 #pragma unroll
-      for (int j = 1; j < MPT_NJ; ++j) a = a + tm->s.KtQuu[i * MPT_NJ + j] * kk[j * MPT_KK + 1 + k];
-      float c1 = kk[1 + i] * tm->Qux[k];
+  for (int p = 0; p < MPT_ROUNDS(MPT_TILES); ++p) {
+    const int tile = me->tile[p];
+    if (tile < 0) break;
+    const int i0 = 2 * (tile >> 8), k0 = 2 * (tile & 255);
+    float a[2][2], c1[2][2], c2[2][2];
 #pragma unroll
-      for (int j = 1; j < MPT_NJ; ++j) c1 = c1 + kk[j * MPT_KK + 1 + i] * tm->Qux[j * MPT_NX + k];
-      float c2 = tm->Qux[i] * kk[1 + k];
+    for (int j = 0; j < MPT_NJ; ++j) {
+      float kq[2], ki[2], kk[2], xi[2], xk[2];
+      mpt_pair(kq, tm->KtQuu + j * MPT_NXS + i0);  // (K^T Quu)[i][j]
+      mpt_pair(ki, K + j * MPT_NXS + i0);
+      mpt_pair(kk, K + j * MPT_NXS + k0);
+      mpt_pair(xi, Qux + j * MPT_NXS + i0);
+      mpt_pair(xk, Qux + j * MPT_NXS + k0);
 #pragma unroll
-      for (int j = 1; j < MPT_NJ; ++j) c2 = c2 + tm->Qux[j * MPT_NX + i] * kk[j * MPT_KK + 1 + k];
-      const float v = ((tm->Qxx[i * MPT_NX + k] + a) + c1) + c2;
-      tm->V[i * MPT_NX + k] = v;
-      tm->V[k * MPT_NX + i] = v;
+      for (int di = 0; di < 2; ++di)
+#pragma unroll
+        for (int dk = 0; dk < 2; ++dk) {
+          const float ta = kq[di] * kk[dk], t1 = ki[di] * xk[dk], t2 = xi[di] * kk[dk];
+          a[di][dk] = j == 0 ? ta : a[di][dk] + ta;
+          c1[di][dk] = j == 0 ? t1 : c1[di][dk] + t1;
+          c2[di][dk] = j == 0 ? t2 : c2[di][dk] + t2;
+        }
     }
+#pragma unroll
+    for (int di = 0; di < 2; ++di)
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        const int i = i0 + di, k = k0 + dk;
+        if (k < i) continue;  // below the diagonal of a diagonal tile
+        const float v = ((tm->q.Qxx[i * MPT_NXS + k] + a[di][dk]) + c1[di][dk]) + c2[di][dk];
+        tm->V[i * MPT_NXS + k] = v;
+        tm->V[k * MPT_NXS + i] = v;
+      }
   }
 }
 
-// A phase: on the card the calling lane runs it and the warp meets at
-// __syncwarp(); in the host harness (MPT_HOST_TEAM) lanes 0..31 run it one
-// after the other before the next phase, each with its own registers.
+// A phase: on the card the calling thread runs it and the warp meets at
+// __syncwarp(), or the block at __syncthreads() at a step's end, where the
+// block's copies of the next step's inputs are complete; in the host
+// harness (MPT_HOST_TEAM) the block's threads run it one after the other
+// before the next phase, each with its own registers. Either way a phase
+// sees, for thread tid: its lane, its warp's storage tm, scenario b and its
+// lane's registers me.
 #if defined(MPT_HOST_TEAM)
-#define MPT_PHASE(call)                                        \
-  do {                                                         \
-    for (int lane = 0; lane < MPT_LANES; ++lane) { call; }     \
+#define MPT_PHASE(call)                                                     \
+  do {                                                                      \
+    for (int tid = 0; tid < MPT_BWD_WARPS * MPT_LANES; ++tid) {             \
+      const int lane = tid % MPT_LANES;                                     \
+      mpt_bwd_team* tm = teams + tid / MPT_LANES;                           \
+      const int b = b0 + tid / MPT_LANES;                                   \
+      mpt_bwd_lane* me = lanes + tid;                                       \
+      (void)lane, (void)tm, (void)b, (void)me;                              \
+      call;                                                                 \
+    }                                                                       \
   } while (0)
-#define MPT_PRE_OF(lane) pre[lane]
-#define MPT_PRE_DECL float pre[MPT_LANES][MPT_PRE]
+#define MPT_STEP_END(call) MPT_PHASE(call)
 #else
-#define MPT_PHASE(call)         \
-  do {                          \
-    const int lane = my_lane;   \
-    call;                       \
-    __syncwarp();               \
+#define MPT_PHASE(call) \
+  do {                  \
+    call;               \
+    __syncwarp();       \
   } while (0)
-#define MPT_PRE_OF(lane) pre
-#define MPT_PRE_DECL float pre[MPT_PRE]
+#define MPT_STEP_END(call) \
+  do {                     \
+    call;                  \
+    bwd_wait();            \
+    __syncthreads();       \
+  } while (0)
 #endif
 
-// Scenario b's whole sweep, t = H-1 ... 0, by the warp whose lane this is.
+// Scenarios b0 .. b0 + MPT_BWD_WARPS - 1, each its whole sweep, t = H-1
+// ... 0, by the block (thread my_tid on the card; every thread in the host
+// harness). Warps past the last scenario run the steps on storage nobody
+// filled and store nothing: they keep the block's barriers.
 static __device__ __forceinline__ void bwd_sweep(
-    int my_lane, mpt_bwd_team* tm, const float* __restrict__ AB,
+    int my_tid, mpt_bwd_team* teams, const float* __restrict__ AB,
     const float* __restrict__ xs, const float* __restrict__ us,
     const float* __restrict__ x_last, const float* __restrict__ goal,
-    const float* __restrict__ reg, float* __restrict__ kK, int B, int H, int b) {
-  MPT_PRE_DECL;
-  (void)my_lane;
-  MPT_PHASE(bwd_load_ends(lane, tm, x_last, goal, reg, B, b));
-  MPT_PHASE(if (lane == 0) riccati_terminal(tm->x, tm->g, tm->V));
-  MPT_PHASE(bwd_prefetch(lane, MPT_PRE_OF(lane), AB, xs, us, B, b, H - 1));
-  MPT_PHASE(bwd_commit(lane, tm, MPT_PRE_OF(lane)));
+    const float* __restrict__ reg, float* __restrict__ kK, int B, int H, int b0) {
+#if defined(MPT_HOST_TEAM)
+  mpt_bwd_lane lanes[MPT_BWD_WARPS * MPT_LANES];
+  (void)my_tid;
+#else
+  const int tid = my_tid, lane = tid % MPT_LANES;
+  mpt_bwd_team* tm = teams + tid / MPT_LANES;
+  const int b = b0 + tid / MPT_LANES;
+  mpt_bwd_lane lane_regs;
+  mpt_bwd_lane* me = &lane_regs;
+#endif
+  MPT_PHASE(bwd_lane_setup(lane, me); bwd_load_ends(lane, tm, x_last, goal, reg, B, b);
+            bwd_stage(tid, teams, AB, xs, us, B, b0, H - 1));
+  MPT_PHASE(if (lane == 0) riccati_terminal(tm->Qx, tm->g, tm->Vt));
+  MPT_STEP_END(bwd_terminal_copy(lane, tm));
   for (int t = H - 1; t >= 0; --t) {
-    if (t > 0) MPT_PHASE(bwd_prefetch(lane, MPT_PRE_OF(lane), AB, xs, us, B, b, t - 1));
-    MPT_PHASE(bwd_gradients(lane, tm));
-    MPT_PHASE(bwd_value_products(lane, tm));
-    MPT_PHASE(bwd_q_blocks(lane, tm));
+    MPT_PHASE(if (t > 0) bwd_stage(tid, teams, AB, xs, us, B, b0, t - 1);
+              bwd_columns(lane, me, tm, t));
+#ifdef MPT_BWD_SHARED_FACTOR
 #pragma unroll
-    for (int j = 0; j < MPT_NJ; ++j) MPT_PHASE(bwd_cholesky_column(lane, tm, j));
+    for (int j = 0; j < MPT_NJ; ++j) MPT_PHASE(bwd_factor_column(lane, tm, j));
+#endif
     MPT_PHASE(bwd_solve(lane, tm, kK, B, b, t));
     MPT_PHASE(bwd_gain_products(lane, tm));
-    MPT_PHASE(bwd_value_update(lane, tm));
-    if (t > 0) MPT_PHASE(bwd_commit(lane, tm, MPT_PRE_OF(lane)));
+    MPT_STEP_END(bwd_value_update(lane, me, tm));
   }
 }
 
-// The warps' storage, dynamic shared memory: past 11 joints it exceeds the
+// The warps' storage, dynamic shared memory: past ten joints it exceeds the
 // 48 KB a block may declare statically.
 #define MPT_BWD_SMEM (MPT_BWD_WARPS * sizeof(mpt_bwd_team))
 extern "C" long long mpt_layout_backward(void) { return (long long)MPT_BWD_SMEM; }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(MPT_BWD_WARPS * MPT_LANES) mpt_bwd_warp_kernel(
+__global__ void __launch_bounds__(MPT_BWD_WARPS * MPT_LANES, MPT_BWD_MIN_BLOCKS) mpt_bwd_warp_kernel(
     const float* __restrict__ AB, const float* __restrict__ xs,
     const float* __restrict__ us, const float* __restrict__ x_last,
     const float* __restrict__ goal, const float* __restrict__ reg,
     float* __restrict__ kK, int B, int H) {
-  extern __shared__ float mpt_bwd_smem[];
-  mpt_bwd_team* teams = (mpt_bwd_team*)mpt_bwd_smem;
-  const int w = (int)threadIdx.x / MPT_LANES;
-  const int b = (int)blockIdx.x * MPT_BWD_WARPS + w;
-  if (b >= B) return;  // the whole warp: its lanes meet no one else
-  bwd_sweep((int)threadIdx.x % MPT_LANES, &teams[w], AB, xs, us, x_last, goal, reg, kK, B, H, b);
+  extern __shared__ float4 mpt_bwd_smem[];
+  mpt_bwd_team* teams = reinterpret_cast<mpt_bwd_team*>(mpt_bwd_smem);
+  bwd_sweep((int)threadIdx.x, teams, AB, xs, us, x_last, goal, reg, kK, B, H,
+            (int)blockIdx.x * MPT_BWD_WARPS);
 }
 
 // AB (H, nx, m, B), xs (H, nx, B), us (H, n, B), x_last (nx, B),
@@ -610,6 +827,7 @@ extern "C" int launch_backward(const float* AB, const float* xs,
                                int B, int H, void* stream) {
   static bool raised[64];
   if (B <= 0 || H <= 0) return 0;
+  if ((long long)MPT_AB * B > 0xffffffffLL) return (int)cudaErrorInvalidValue;  // bwd_stage's 32-bit index
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -626,6 +844,16 @@ extern "C" int launch_backward(const float* AB, const float* xs,
   return (int)cudaGetLastError();
 }
 MPT_ATTRIBUTES(attributes_backward, mpt_bwd_warp_kernel)
+
+// The blocks of MPT_BWD_WARPS warps an SM holds, with their shared storage
+// (the limit raised first, as launch_backward does).
+extern "C" int occupancy_backward(int* blocks) {
+  const cudaError_t err = cudaFuncSetAttribute(mpt_bwd_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)MPT_BWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mpt_bwd_warp_kernel, MPT_BWD_WARPS * MPT_LANES,
+                                                            MPT_BWD_SMEM);
+}
 #endif
 #endif  // MPT_UNIT_BWD
 

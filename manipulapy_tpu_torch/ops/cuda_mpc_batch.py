@@ -709,6 +709,18 @@ class BatchMPCKernels(MPCKernelSet):
             raise RuntimeError(f"K2's occupancy failed with CUDA error {err}")
         return blocks.value
 
+    def bwd_blocks_per_sm(self) -> int:
+        """The blocks of K3's kernel (``MPT_BWD_WARPS`` scenarios each, with
+        their shared storage) an SM holds on the current device
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+        fn = self._lib("backward").occupancy_backward
+        fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        blocks = ctypes.c_int()
+        err = fn(ctypes.byref(blocks))
+        if err:
+            raise RuntimeError(f"K3's occupancy failed with CUDA error {err}")
+        return blocks.value
+
     def fwd_blocks_per_sm(self) -> Dict[str, int]:
         """The blocks of K4's and K5's kernels an SM holds on the current
         device, per stage (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;

@@ -505,14 +505,14 @@ def test_public_solve_launches_the_routes_k45_form(cuda_device):
 
 @pytest.fixture(scope="module")
 def panda_bwd_nominal():
-    """K3's inputs at Panda B=1024, H=50 from the solver's own controls (50
+    """K3's inputs at Panda B=16384, H=50 from the solver's own controls (50
     open-loop steps of random torques leave some scenarios non-finite), the
     Levenberg term cycling through 1e-6, 1e-3 and 10 over the scenarios."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc); this host has none")
     dev = torch.device("cuda")
     model = catalog.panda(device=dev)
-    B, H, n = 1024, 50, 7
+    B, H, n = 16384, 50, 7
     x0, goals, _ = _mpc_problem(model, B, H, dev, seed=5)
     mpc = build_batch_tracking_mpc(model, goals, B, H, 0.01, iterations=2)
     us = mpc.solve(x0, torch.zeros((B, H, n), device=dev))[0].permute(1, 2, 0).contiguous()
@@ -533,11 +533,12 @@ def _bwd_args(nominal, B, H):
 
 
 @pytest.mark.parametrize("H", [1, 50])
-@pytest.mark.parametrize("B", [1, 3, 257, 1024])
+@pytest.mark.parametrize("B", [1, 3, 257, 1024, 16384])
 def test_backward_kernel_matches_plain_version(cuda_device, panda_bwd_nominal, B, H):
-    """K3, one warp per scenario, against its plain version: the same
-    operations in the same order, so max |d| = 0 is expected; the gate is
-    1e-5 of the largest |plain|. One launch per call."""
+    """K3, one warp per scenario and a block's inputs staged together,
+    against its plain version: the same operations in the same order, so
+    max |d| = 0 is expected; the gate is 1e-5 of the largest |plain|. One
+    launch per call."""
     K, nominal = panda_bwd_nominal
     args = _bwd_args(nominal, B, H)
     before = BatchMPCKernels.launch_count["backward"]
@@ -551,9 +552,10 @@ def test_backward_kernel_matches_plain_version(cuda_device, panda_bwd_nominal, B
 
 def test_backward_kernel_keeps_a_nan_scenario_to_itself(cuda_device, panda_bwd_nominal):
     """Scenario 5's Jacobians all NaN: its gains go NaN, the other 256 stay
-    bit for bit those of the clean run (warps share a block, not a storage
-    region). K3 keeps its state in dynamic shared memory: no local (stack)
-    bytes, no static shared bytes."""
+    bit for bit those of the clean run (warps share a block and its copies
+    of the inputs, not a storage region). K3 keeps its state in dynamic
+    shared memory and registers: no local (stack) bytes, no static shared
+    bytes."""
     K, nominal = panda_bwd_nominal
     args = _bwd_args(nominal, 257, 8)
     clean = K.backward(*args)
@@ -566,7 +568,22 @@ def test_backward_kernel_keeps_a_nan_scenario_to_itself(cuda_device, panda_bwd_n
     assert torch.equal(dirty[..., others].view(torch.int32), clean[..., others].view(torch.int32))
     attrs = K.kernel_attributes()["backward"]
     assert attrs["local_bytes"] == 0 and 0 < attrs["num_regs"] <= 255 and attrs["smem_bytes"] == 0
-    assert K.layout_bytes()["backward"] == 19056  # 4 warps' storage for Panda
+    assert K.layout_bytes()["backward"] == 28736  # 4 warps' storage for Panda, two steps' inputs each
+
+
+@pytest.mark.parametrize("n", range(1, 17))
+def test_backward_kernel_keeps_no_local_bytes_and_its_occupancy(cuda_device, n):
+    """K3 for a chain of n joints, for every n a chain may have up to 16: its
+    state in registers and dynamic shared memory, no local (stack) bytes and
+    no static shared bytes; an SM holds at least four blocks up to seven
+    joints (the Panda's), two up to ten and one past them; a block is its
+    four warps."""
+    model = catalog.serial_chain(n, device=cuda_device)
+    K = type("Bwd", (BatchMPCKernels,), {"UNITS": {"bwd": ("backward",)}})(model, 0.01, u_lim=[10.0] * n)
+    attrs = K.kernel_attributes()["backward"]
+    assert attrs["local_bytes"] == 0 and attrs["smem_bytes"] == 0, attrs
+    assert attrs["max_threads"] == 128
+    assert K.bwd_blocks_per_sm() >= (4 if n <= 7 else 2 if n <= 10 else 1)
 
 
 def test_mpc_solve_runs_on_the_kernels(cuda_device):

@@ -62,6 +62,9 @@ def _port_model(jax_model, dtype=torch.float32):
 # revolute finger joint (3 tangent seeds, most of K3's lanes idle) and the
 # Kinova Jaco's 8-joint chain (the widest calibrated chain of the fleet).
 CALIBRATED = {"robotiq_2f_85": "robotiq_2f_85", "jaco_7dof_chain": "jaco_7dof"}
+# The fully actuated Jaco (10 joints, its fingers on the chain): K3's widest
+# case with one column of [A | B] a lane (m = 30).
+CALIBRATED_FULL = {"jaco_7dof_10": "jaco_7dof"}
 
 
 def _model(robot, dtype=torch.float32):
@@ -69,6 +72,8 @@ def _model(robot, dtype=torch.float32):
     ``CALIBRATED``, else the programmatic catalog arm."""
     if robot in CALIBRATED:
         return robot_data.load_robot(CALIBRATED[robot], dtype=dtype, chain_joints_only=True, device="cpu")
+    if robot in CALIBRATED_FULL:
+        return robot_data.load_robot(CALIBRATED_FULL[robot], dtype=dtype, device="cpu")
     return port_catalog.get_robot(robot, source="programmatic", dtype=dtype, device="cpu")
 
 
@@ -426,10 +431,14 @@ extern "C" void run(const float** in, float** out, int B, int H, int A) {{
   for (int t = 0; t < H; ++t) for (int g = 0; g < MPT_LIN_GROUPS; ++g) for (int b = 0; b < B; ++b)
     lin_thread(in[0], in[1], out[0], B, b, g, t);
 #elif defined(MPT_UNIT_BWD)
-  // K3: one warp's storage, a host array; under MPT_HOST_TEAM each phase of
-  // the sweep runs lanes 0..31 in turn before the next phase begins.
-  mpt_bwd_team team;
-  for (int b = 0; b < B; ++b) bwd_sweep(0, &team, in[0], in[1], in[2], in[3], in[4], in[5], out[0], B, H, b);
+  // K3: one block's storage, a host array, NaN before each block; under
+  // MPT_HOST_TEAM each phase of the sweep runs the block's threads in turn
+  // before the next phase begins.
+  mpt_bwd_team teams[MPT_BWD_WARPS];
+  for (int b0 = 0; b0 < B; b0 += MPT_BWD_WARPS) {{
+    for (size_t i = 0; i < sizeof teams / sizeof(float); ++i) ((float*)teams)[i] = __builtin_nanf("");
+    bwd_sweep(0, teams, in[0], in[1], in[2], in[3], in[4], in[5], out[0], B, H, b0);
+  }}
 #else
   for (int a = 0; a < A; ++a) for (int b = 0; b < B; ++b)
     cost_thread(in[0], in[1], in[2], in[3], in[4], in[5], out[0], B, H, b, a);
@@ -529,7 +538,9 @@ extern "C" void run_ref(const float** in, float** out, int B, int H, int A) {{
 }}
 """
 _TORCH_SQRT = 'extern "C" { float (*mpt_host_fn[3])(float); }\n#define sqrtf(v) mpt_host_fn[2](v)\n'
-TEAM_ROBOTS = ("two_link_planar", "ur5", "panda")  # n = 2 leaves most lanes idle; n = 1 in test_torch_mpc_calibrated
+# n = 2 leaves most lanes idle; n = 10 gives every lane a column of [A | B];
+# n = 1 and 8 in test_torch_mpc_calibrated
+TEAM_ROBOTS = ("two_link_planar", "ur5", "panda", "jaco_7dof_10")
 TEAM_B, TEAM_H = 5, 8
 TEAM_SHAPES = [(3, 1), (3, 8), (5, 1), (5, 8)]  # (B, H): never a whole block of 4 warps
 TEAM_REGS = [1e-6, 1e-3, 10.0]
@@ -550,6 +561,7 @@ def team_units(tmp_path_factory):
         if robot not in units:
             model = _model(robot)
             n = model.num_joints
+            calibrated = robot in CALIBRATED or robot in CALIBRATED_FULL
             k = BatchMPCKernels(model, 0.01, u_lim=[10.0] * n)
             tmp = tmp_path_factory.mktemp(robot)
             cpp, so = tmp / "bwd.cpp", tmp / "bwd.so"
@@ -558,12 +570,12 @@ def team_units(tmp_path_factory):
             # as the plain version's is (the host's libm and PyTorch's CPU
             # sqrt differ in the last bit for some inputs; on the card they
             # are one function).
-            src = (_TORCH_SQRT if robot in CALIBRATED else "") + k.sources["bwd"]
+            src = (_TORCH_SQRT if calibrated else "") + k.sources["bwd"]
             cpp.write_text(_HARNESS.format(src=src) + _BWD_REFERENCE.format(step=k.riccati_step_source))
             subprocess.run(["g++", "-O0", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(so), str(cpp)],
                            check=True, timeout=300)
             lib = ctypes.CDLL(str(so))
-            if robot in CALIBRATED:
+            if calibrated:
                 (ctypes.c_void_p * 3).in_dll(lib, "mpt_host_fn")[2] = ctypes.cast(_TORCH_FNS[2], ctypes.c_void_p)
             for fn in (lib.run, lib.run_ref):
                 fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_int] * 3
@@ -573,8 +585,10 @@ def team_units(tmp_path_factory):
             q0 = (lo + hi) / 2 + rng.uniform(-0.5, 0.5, (TEAM_B, n)) * (hi - lo) / 2
             x0 = torch.from_numpy(np.concatenate([q0, np.zeros_like(q0)], 1).T.astype(np.float32)).contiguous()
             us = torch.from_numpy(rng.uniform(-3.0, 3.0, (TEAM_H, n, TEAM_B)).astype(np.float32))
-            if robot in CALIBRATED:  # under +-3 N m the Jaco's finger (grams) leaves f32 within 8 steps
+            if calibrated:  # under +-3 N m the Jaco's finger (grams) leaves f32 within 8 steps
                 us = us * 0.1
+            if robot in CALIBRATED_FULL:  # and its three fingers (joints 7-9) under +-0.3 N m
+                us[:, 7:] *= 0.1
             goal = torch.from_numpy(rng.uniform(-1.0, 1.0, (n, TEAM_B)).astype(np.float32))
             xs, _, _ = k.replay(x0, torch.zeros(TEAM_H, 2 * n, TEAM_B), us, torch.zeros(TEAM_H, n, 1 + 2 * n, TEAM_B),
                                 goal, torch.zeros(TEAM_B))
@@ -1411,8 +1425,11 @@ def test_bwd_team_solves_more_gain_columns_than_lanes(tmp_path):
     k = type("Bwd", (BatchMPCKernels,), {"UNITS": {"bwd": ("backward",)}})(model, 0.01, u_lim=[10.0] * n)
     lib = compile_team_unit(k.sources["bwd"] + """
 extern "C" void run_bwd(const float** in, float** out, int B, int H) {
-  mpt_bwd_team team;
-  for (int b = 0; b < B; ++b) bwd_sweep(0, &team, in[0], in[1], in[2], in[3], in[4], in[5], out[0], B, H, b);
+  mpt_bwd_team teams[MPT_BWD_WARPS];
+  for (int b0 = 0; b0 < B; b0 += MPT_BWD_WARPS) {
+    for (size_t i = 0; i < sizeof teams / sizeof(float); ++i) ((float*)teams)[i] = __builtin_nanf("");
+    bwd_sweep(0, teams, in[0], in[1], in[2], in[3], in[4], in[5], out[0], B, H, b0);
+  }
 }
 """, tmp_path, "bwd", ("run_bwd",))
     rng = np.random.default_rng(16)
@@ -1496,4 +1513,4 @@ def test_shared_bytes_fit_a_block_for_every_joint_count(n, tmp_path):
     assert k6 == 4 * lanes * lane_floats and lanes in (1, 2, 4, 8, 16, 32)
     assert lanes == 32 or 2 * k6 > SMEM_DYNAMIC_MAX  # halved only as far as it must
     assert k1 == 5 * cuda_rollout.BLOCK * ((3 * n) | 1) * 4
-    assert (k3 > 48 * 1024) == (n >= 12)  # past the 48 KB a block may declare statically
+    assert (k3 > 48 * 1024) == (n >= 11)  # past the 48 KB a block may declare statically
